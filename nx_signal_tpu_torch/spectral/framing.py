@@ -1,0 +1,155 @@
+"""Signal framing and overlap-add (counterpart of
+nx_signal_tpu/spectral/framing.py).
+
+* `as_windowed` is a strided view (`Tensor.unfold`), not a gather.
+* `overlap_and_add` is not a scatter-add: `_ola_fold` is a left fold of the
+  C = ceil(frame/stride) shifted (M, stride) blocks, so every output sample
+  adds its contributing frames in strictly increasing frame order — the
+  same association as the JAX fold, hence bitwise equal to it.
+  `index_add_`, `scatter_add_` and atomics would lose that order.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+
+__all__ = ["as_windowed", "overlap_and_add", "pad_for_windowing"]
+
+
+def _frame_block_widths(window_length: int, stride: int):
+    """Column widths of the C slice/reshape blocks."""
+    num_blocks = -(-window_length // stride)  # ceil
+    return [min(stride, window_length - r * stride) for r in range(num_blocks)]
+
+
+def _padding_config(window_length: int, padding):
+    """Resolve a padding spec to (lo, hi) zeros over the signal axis."""
+    if padding == "valid":
+        return (0, 0)
+    if padding == "same":
+        total = window_length - 1
+        return (total // 2, total - total // 2)
+    if isinstance(padding, (tuple, list)):
+        if len(padding) == 1 and isinstance(padding[0], (tuple, list)):
+            padding = padding[0]
+        lo, hi = padding
+        return (int(lo), int(hi))
+    raise ValueError(
+        "invalid padding mode specified, padding must be one of 'valid', 'same', "
+        f"'reflect', or a (lo, hi) padding configuration, got: {padding}"
+    )
+
+
+def pad_for_windowing(x, window_length: int, padding):
+    """Apply an `as_windowed` padding mode to the signal axis without
+    framing it. 'reflect' follows numpy's mode (no edge duplication, and
+    repeated reflection when the pad exceeds the signal).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.spectral.framing import pad_for_windowing
+    >>> pad_for_windowing(torch.arange(6.0), window_length=4, padding='reflect')
+    tensor([2., 1., 0., 1., 2., 3., 4., 5., 4., 3.])
+    """
+    x = torch.as_tensor(x)
+    if padding == "reflect":
+        half = window_length // 2
+        idx = np.pad(np.arange(x.shape[-1]), (half, half), mode="reflect")
+        return x.index_select(-1, torch.as_tensor(idx, device=x.device))
+    lo, hi = _padding_config(window_length, padding)
+    if lo < 0 or hi < 0:
+        raise ValueError(f"padding must be non-negative, got: ({lo}, {hi})")
+    if lo or hi:
+        return F.pad(x, (lo, hi))
+    return x
+
+
+def as_windowed(x, *, window_length: int, stride: int = 1, padding="valid"):
+    """Frame a signal into overlapping windows: (..., L) -> (..., M, window_length),
+    M = (L_padded - window_length)//stride + 1. Padding modes as in
+    `pad_for_windowing`: 'valid', 'same', (lo, hi) or 'reflect'. Returns a
+    strided view of the (padded) signal.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.spectral.framing import as_windowed
+    >>> as_windowed(torch.arange(8), window_length=4, stride=2)
+    tensor([[0, 1, 2, 3],
+            [2, 3, 4, 5],
+            [4, 5, 6, 7]])
+    """
+    if stride < 1:
+        raise ValueError(f"expected an integer >= 1 for stride, got: {stride}")
+    x = pad_for_windowing(x, window_length, padding)
+    if x.shape[-1] < window_length:
+        raise ValueError(
+            f"window length {window_length} exceeds padded signal length {x.shape[-1]}"
+        )
+    return x.unfold(-1, window_length, stride)
+
+
+def _ola_fold_torch(frames, stride: int, out_length: int):
+    """Plain deterministic overlap-add: a left fold of the C shifted blocks,
+    j descending, so sample p = q*stride + s receives frames[q - j,
+    s + j*stride] in increasing frame order. Each block is added in place
+    into its row range of the (rows, stride) accumulator grid; the JAX fold
+    adds +0.0 outside that range instead, which leaves every sum unchanged
+    (the accumulator starts at +0.0 and can never become -0.0)."""
+    *batch, num_frames, window_length = frames.shape
+    widths = _frame_block_widths(window_length, stride)
+    num_rows = -(-out_length // stride)
+    acc = torch.zeros((*batch, num_rows, stride), dtype=frames.dtype,
+                      device=frames.device)
+    for j in range(len(widths) - 1, -1, -1):
+        rows = min(num_frames, num_rows - j)
+        if rows <= 0:
+            continue
+        w = widths[j]
+        acc[..., j:j + rows, :w] += frames[..., :rows, j * stride:j * stride + w]
+    return acc.reshape(*batch, num_rows * stride)[..., :out_length]
+
+
+def _ola_fold(frames, stride: int, out_length: int):
+    """Deterministic overlap-add of (..., M, N) frames into (..., out_length).
+
+    float32 frames go through `kernels.cuda_dft.overlap_add_cuda` (the
+    hand-written kernel on a CUDA tensor, its plain version on a CPU one);
+    other dtypes take the plain fold."""
+    if frames.dtype == DEFAULT_FLOAT:
+        from nx_signal_tpu_torch.kernels.cuda_dft import overlap_add_cuda
+
+        return overlap_add_cuda(frames, stride=stride, out_length=out_length)
+    return _ola_fold_torch(frames, stride, out_length)
+
+
+def overlap_and_add(frames, *, overlap_length: int, dtype=None):
+    """Overlap-add an (..., M, N) stack of frames into an
+    (..., M*stride + overlap_length) signal, stride = N - overlap_length,
+    accumulating each output sample in increasing frame order.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.spectral.framing import overlap_and_add
+    >>> frames = torch.tensor([[1, 1, 1, 1], [10, 10, 10, 10], [100, 100, 100, 100]])
+    >>> overlap_and_add(frames, overlap_length=2)
+    tensor([  1,   1,  11,  11, 110, 110, 100, 100])
+    """
+    frames = torch.as_tensor(frames)
+    if frames.ndim < 2:
+        raise ValueError(f"expected a tensor of rank >= 2, got rank {frames.ndim}")
+    num_frames, window_length = frames.shape[-2], frames.shape[-1]
+    if overlap_length >= window_length:
+        raise ValueError(
+            "overlap_length must be a number less than the window size "
+            f"{window_length}, got: {overlap_length}"
+        )
+    stride = window_length - overlap_length
+    out = _ola_fold(frames, stride, num_frames * stride + overlap_length)
+    if dtype is not None:
+        out = out.to(dtype)
+    return out

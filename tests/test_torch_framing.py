@@ -1,0 +1,128 @@
+"""Parity of the PyTorch port's framing and overlap-add with the JAX package.
+
+Tolerance: bitwise everywhere. Padding and framing are pure data movement,
+and the overlap-add fold adds the same f32 values in the same order
+(increasing frame order per output sample) in both packages and in the
+Pallas kernel.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nx_signal_tpu.kernels.pallas_dft import overlap_add_pallas
+from nx_signal_tpu.spectral import framing as jf
+from nx_signal_tpu_torch.kernels import cuda_dft
+from nx_signal_tpu_torch.spectral import framing as tf
+
+
+def assert_bitwise(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype
+    assert np.ascontiguousarray(got).tobytes() == np.ascontiguousarray(want).tobytes()
+
+
+@pytest.mark.parametrize("window,stride", [(512, 128), (400, 150), (7, 3), (5, 5), (3, 8)])
+def test_frame_block_widths(window, stride):
+    assert tf._frame_block_widths(window, stride) == jf._frame_block_widths(window, stride)
+
+
+PADDINGS = ["valid", "same", "reflect", (3, 5), [(2, 0)]]
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("shape", [(37,), (2, 3, 37)])
+@pytest.mark.parametrize("window_length", [8, 9])
+def test_pad_for_windowing_bitwise(padding, shape, window_length, rng):
+    x = rng.normal(size=shape).astype(np.float32)
+    want = jf.pad_for_windowing(jnp.asarray(x), window_length, padding)
+    got = tf.pad_for_windowing(torch.from_numpy(x), window_length, padding)
+    assert_bitwise(got, want)
+
+
+def test_pad_for_windowing_reflect_wider_than_signal(rng):
+    # numpy 'reflect' repeats the reflection when the pad exceeds the signal
+    x = rng.normal(size=(2, 5)).astype(np.float32)
+    want = jf.pad_for_windowing(jnp.asarray(x), 16, "reflect")
+    assert_bitwise(tf.pad_for_windowing(torch.from_numpy(x), 16, "reflect"), want)
+
+
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("stride", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_as_windowed_bitwise(padding, stride, dtype, rng):
+    x = (rng.normal(size=(2, 37)) * 100).astype(dtype)
+    want = jf.as_windowed(jnp.asarray(x), window_length=8, stride=stride, padding=padding)
+    got = tf.as_windowed(torch.from_numpy(x), window_length=8, stride=stride, padding=padding)
+    assert_bitwise(got, want)
+
+
+def test_as_windowed_errors():
+    with pytest.raises(ValueError, match="stride"):
+        tf.as_windowed(torch.zeros(10), window_length=4, stride=0)
+    with pytest.raises(ValueError, match="exceeds"):
+        tf.as_windowed(torch.zeros(3), window_length=4)
+    with pytest.raises(ValueError, match="padding"):
+        tf.as_windowed(torch.zeros(10), window_length=4, padding="circular")
+
+
+OLA_GEOMETRIES = [  # frames, frame length, hop, extra output samples
+    (12, 512, 128, 0),
+    (9, 400, 150, 0),     # ragged last block
+    (7, 7, 3, 0),
+    (5, 8, 8, 0),         # no overlap
+    (4, 5, 8, 0),         # gaps between frames
+    (6, 16, 4, -5),       # output cut short
+    (3, 10, 4, 9),        # output longer than the frames reach
+]
+
+
+@pytest.mark.parametrize("m,n,stride,extra", OLA_GEOMETRIES)
+@pytest.mark.parametrize("batch", [(), (2, 3)])
+def test_ola_fold_bitwise(m, n, stride, extra, batch, rng):
+    frames = rng.normal(size=(*batch, m, n)).astype(np.float32)
+    out_length = m * stride + max(n - stride, 0) + extra
+    want = jf._ola_fold(jnp.asarray(frames), stride, out_length)
+    assert_bitwise(tf._ola_fold_torch(torch.from_numpy(frames), stride, out_length), want)
+    # the kernel wrapper on a CPU tensor is the plain fold, and launches nothing
+    before = cuda_dft.overlap_add_cuda.launches
+    got = cuda_dft.overlap_add_cuda(torch.from_numpy(frames), stride=stride,
+                                    out_length=out_length)
+    assert cuda_dft.overlap_add_cuda.launches == before
+    assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("shape,overlap", [((2, 6, 512), 384), ((5, 256), 128)])
+def test_overlap_and_add_matches_pallas_interpret(shape, overlap, rng):
+    frames = rng.normal(size=shape).astype(np.float32)
+    want = overlap_add_pallas(jnp.asarray(frames), overlap_length=overlap, interpret=True)
+    assert_bitwise(tf.overlap_and_add(torch.from_numpy(frames), overlap_length=overlap),
+                   want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int64])
+def test_overlap_and_add_bitwise(dtype, rng):
+    frames = (rng.normal(size=(3, 9, 12)) * 50).astype(dtype)
+    want = jf.overlap_and_add(jnp.asarray(frames), overlap_length=5)
+    assert_bitwise(tf.overlap_and_add(torch.from_numpy(frames), overlap_length=5), want)
+
+
+def test_overlap_and_add_cast_and_errors():
+    frames = torch.tensor([[1, 1, 1, 1], [10, 10, 10, 10], [100, 100, 100, 100]])
+    out = tf.overlap_and_add(frames, overlap_length=2, dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert out.tolist() == [1, 1, 11, 11, 110, 110, 100, 100]
+    with pytest.raises(ValueError, match="less than the window size"):
+        tf.overlap_and_add(frames, overlap_length=4)
+    with pytest.raises(ValueError, match="rank"):
+        tf.overlap_and_add(torch.zeros(4), overlap_length=1)
+
+
+def test_overlap_add_cuda_contract():
+    with pytest.raises(ValueError, match="float32"):
+        cuda_dft.overlap_add_cuda(torch.zeros(2, 4, dtype=torch.float64), stride=2,
+                                  out_length=6)
+    with pytest.raises(ValueError, match="rank"):
+        cuda_dft.overlap_add_cuda(torch.zeros(4), stride=2, out_length=6)
