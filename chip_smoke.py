@@ -12,13 +12,16 @@ Phases (any failure raises, and the exit code is not 0):
   2. each kernel against its plain version on the same device tensors:
      A (fused FIR + framed DFT + power) at 768 x 480000 with the bench chain
      (firwin 255 taps @ 48 kHz, hann 512, hop 128, n_fft 512) and B (framed
-     DFT) at 64 x 480000, within 1e-4 x max|plain|; C (overlap-add) on the
-     (64, 3747, 512) frames of framed_idft, bitwise; then two ragged
-     geometries (even taps, hop not dividing the frame, length not a
-     multiple of the hop, a hop whose window needs the small frame tile).
+     DFT) at 64 x 480000, each bin within 1e-4 x that bin's max|plain| (a
+     per-bin gate, so the low-pass chain's small stopband bins are held as
+     tightly as its passband); C (overlap-add) on the (64, 3747, 512) frames
+     of framed_idft, bitwise; then two ragged geometries (even taps, hop not
+     dividing the frame, length not a multiple of the hop, a hop whose
+     window needs the small frame tile), and stft_fir_chain with
+     frame_chunks=4, which must launch kernel A once.
   3. the main path, models.pipeline.stft_fir_chain(return_filtered=False,
      precision='high') on 768 x 480000, held on two channels against an
-     f64 numpy reference (convolve, frame, window, rfft, |.|^2).
+     f64 numpy reference (convolve, frame, window, rfft, |.|^2), per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions; interior reconstruction error <= 1e-5 x max|x|.
      The kernels' launch counters are zeroed just before phase 3 and read
@@ -46,16 +49,27 @@ def _max_err(a, b) -> float:
 
 
 def _check_close(name, got, want, rel=1e-4) -> float:
-    err = _max_err(got, want)
-    scale = float(want.abs().max())
-    print(f"  {name}: max|d| = {err:.6g}, max|plain| = {scale:.6g}, "
-          f"rel = {err / scale:.3g} (gate {rel:g})", flush=True)
-    if not err <= rel * scale:
-        raise AssertionError(f"{name}: max|d| {err} > {rel} x {scale}")
+    """Gate each bin (last axis) at rel x that bin's own max|want|; returns
+    the max abs error over all bins."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    dims = tuple(range(want.ndim - 1))
+    err_bin = (got - want).abs().amax(dim=dims)
+    scale_bin = want.abs().amax(dim=dims)
+    rel_bin = err_bin / scale_bin
+    worst = int(rel_bin.argmax())
+    err, worst_rel = float(err_bin.max()), float(rel_bin[worst])
+    print(f"  {name}: max|d| = {err:.6g}, max|plain| = {float(scale_bin.max()):.6g}, "
+          f"largest per-bin rel = {worst_rel:.3g} at bin {worst} of {want.shape[-1]} "
+          f"(gate {rel:g})", flush=True)
+    if not worst_rel <= rel:
+        raise AssertionError(f"{name}: bin {worst} max|d| {float(err_bin[worst])} > "
+                             f"{rel} x {float(scale_bin[worst])}")
     return err
 
 
-def _check_bitwise(name, got, want):
+def _check_bitwise(name, got, want) -> float:
+    """Fail unless got and want are bitwise equal; returns max|d| (0.0)."""
     import torch
 
     same = got.shape == want.shape and torch.equal(got.view(torch.int32),
@@ -64,6 +78,7 @@ def _check_bitwise(name, got, want):
     if not same:
         raise AssertionError(f"{name}: not bitwise equal to the plain fold "
                              f"(max|d| = {_max_err(got, want)})")
+    return _max_err(got, want)
 
 
 def _time_ms(fn) -> float:
@@ -96,7 +111,8 @@ def main() -> int:
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.kernels._build import library_path, load_library
     from nx_signal_tpu_torch.kernels.dft import (
-        _dft_weights, _framed_matmul_torch, fir_dft_fold_weights, framed_idft)
+        _dft_weights, _framed_matmul_torch, fir_dft_fold_weights, fir_framed_dft,
+        framed_idft)
     from nx_signal_tpu_torch.models.pipeline import stft_fir_chain
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
@@ -145,8 +161,9 @@ def main() -> int:
 
     frames = framed_idft(z_plain, window, n_fft=n_fft, onesided=True)
     out_length = num_frames * hop + (frame - hop)
-    _check_bitwise(f"C {tuple(frames.shape)}", C(frames, stride=hop, out_length=out_length),
-                   _ola_fold_torch(frames, hop, out_length))
+    err_c = _check_bitwise(f"C {tuple(frames.shape)}",
+                           C(frames, stride=hop, out_length=out_length),
+                           _ola_fold_torch(frames, hop, out_length))
     del z_plain
 
     ragged = [  # channels, length, taps, frame, hop, n_fft, B onesided
@@ -175,6 +192,20 @@ def main() -> int:
         ol = m * hp + (fl - hp)
         _check_bitwise(f"C {tuple(fr.shape)} hop={hp}", C(fr, stride=hp, out_length=ol),
                        _ola_fold_torch(fr, hp, ol))
+
+    # frame_chunks shapes only the plain path: the chain still runs kernel A
+    chain_args = dict(fft_length=n_fft, overlap_length=frame - hop, sampling_rate=rate,
+                      onesided=True, return_filtered=False, precision="high",
+                      frame_chunks=4)
+    xs = x[:4, :48000]
+    before = A.launches
+    got = stft_fir_chain(xs, taps, window, **chain_args)
+    if A.launches != before + 1:
+        raise AssertionError(f"stft_fir_chain(frame_chunks=4) launched kernel A "
+                             f"{A.launches - before} times, not once")
+    want = fir_framed_dft(xs, taps, window, stride=hop, n_fft=n_fft, onesided=True,
+                          output="power", frame_chunks=4, kernel="torch")
+    _check_close("A via stft_fir_chain(frame_chunks=4) vs chunked plain", got, want)
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
@@ -253,7 +284,7 @@ def main() -> int:
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
         (B, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:127", err_b, "B"),
-        (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", 0.0, "C"),
+        (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", err_c, "C"),
     ]
     print(json.dumps({"kernels": [
         {"name": k.__name__, "route": "cuda",

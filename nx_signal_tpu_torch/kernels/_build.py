@@ -27,11 +27,11 @@ _I = ctypes.c_int64
 # C entry points: name -> argument types; each returns its cudaError_t
 _SIGNATURES = {
     # x, w, out, channels, length, stride, krows, pad_left, num_frames, bins,
-    # power, device, stream
-    "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # power, stream (all on the current device)
+    "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # frames, out, channels, num_frames, frame_length, stride, out_length,
-    # device, stream
-    "nx_overlap_add_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # stream (all on the current device)
+    "nx_overlap_add_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -222,22 +222,23 @@ extern "C" const char* nx_error_string(int err) {
 }
 
 // x (channels, length) f32, w (krows, 2*bins) f32, out (channels, num_frames,
-// bins if power else 2*bins) f32, all contiguous on `device`. Launches on
-// `stream` without synchronising; returns the launch's cudaError_t.
+// bins if power else 2*bins) f32, all contiguous on the current device.
+// Launches on `stream` (of that device) without synchronising; returns the
+// launch's cudaError_t.
 extern "C" int nx_framed_dft_f32(const void* x, const void* w, void* out, int64_t channels,
                                  int64_t length, int64_t stride, int64_t krows,
                                  int64_t pad_left, int64_t num_frames, int64_t bins,
-                                 int64_t power, int64_t device, void* stream) {
+                                 int64_t power, void* stream) {
   const int64_t kIntMax = 0x7fffffff;
   if (channels < 1 || length < 1 || stride < 1 || krows < 1 || num_frames < 1 || bins < 1 ||
       stride > kIntMax || krows > kIntMax || num_frames > kIntMax || 2 * bins > kIntMax) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice((int)device);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               (int)device);
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);

@@ -46,18 +46,16 @@ overlap_add_kernel(const float* __restrict__ frames, float* __restrict__ out, in
 }  // namespace
 
 // frames (channels, num_frames, frame_length) f32 and out (channels,
-// out_length) f32, contiguous on `device`. Launches on `stream` without
-// synchronising; returns the launch's cudaError_t.
+// out_length) f32, contiguous on the current device. Launches on `stream`
+// (of that device) without synchronising; returns the launch's cudaError_t.
 extern "C" int nx_overlap_add_f32(const void* frames, void* out, int64_t channels,
                                   int64_t num_frames, int64_t frame_length, int64_t stride,
-                                  int64_t out_length, int64_t device, void* stream) {
+                                  int64_t out_length, void* stream) {
   const int64_t kIntMax = 0x7fffffff;
   if (channels < 1 || num_frames < 1 || frame_length < 1 || stride < 1 || out_length < 1 ||
       num_frames > kIntMax || frame_length > kIntMax || stride > kIntMax) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice((int)device);
-  if (err != cudaSuccess) return (int)err;
   const int c_blocks = (int)((frame_length + stride - 1) / stride);
   const float* fr = static_cast<const float*>(frames);
   float* o = static_cast<float*>(out);
@@ -69,7 +67,7 @@ extern "C" int nx_overlap_add_f32(const void* frames, void* out, int64_t channel
                                                  o + c0 * out_length, (int)num_frames,
                                                  (int)frame_length, (int)stride, c_blocks,
                                                  out_length);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

@@ -61,10 +61,11 @@ def _launch_framed(x, weights, *, stride, pad_left, num_frames, bins, power):
     cols = bins if power else 2 * bins
     out = torch.empty((xf.shape[0], num_frames, cols), dtype=DEFAULT_FLOAT, device=x.device)
     lib = load_library()
-    err = lib.nx_framed_dft_f32(
-        xf.data_ptr(), w.data_ptr(), out.data_ptr(), xf.shape[0], length, stride,
-        w.shape[0], pad_left, num_frames, bins, int(power), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the kernel launches on the current device
+        err = lib.nx_framed_dft_f32(
+            xf.data_ptr(), w.data_ptr(), out.data_ptr(), xf.shape[0], length, stride,
+            w.shape[0], pad_left, num_frames, bins, int(power),
+            torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "framed_dft kernel")
     return out.reshape(*batch, num_frames, cols)
 
@@ -137,9 +138,10 @@ def overlap_add_cuda(frames, *, stride: int, out_length: int):
     f = frames.reshape(-1, num_frames, frame_length).contiguous()
     out = torch.empty((f.shape[0], out_length), dtype=DEFAULT_FLOAT, device=frames.device)
     lib = load_library()
-    err = lib.nx_overlap_add_f32(
-        f.data_ptr(), out.data_ptr(), f.shape[0], num_frames, frame_length, stride,
-        out_length, frames.device.index, torch.cuda.current_stream(frames.device).cuda_stream)
+    with torch.cuda.device(frames.device):
+        err = lib.nx_overlap_add_f32(
+            f.data_ptr(), out.data_ptr(), f.shape[0], num_frames, frame_length, stride,
+            out_length, torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "overlap_add kernel")
     overlap_add_cuda.launches += 1
     return out.reshape(*batch, out_length)

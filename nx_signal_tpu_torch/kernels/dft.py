@@ -322,26 +322,6 @@ def _same_pad_left(num_taps: int) -> int:
     return (num_taps - 1) - (num_taps - 1) // 2
 
 
-def _auto_frame_chunks(x, num_frames: int, cols: int) -> int:
-    """Chunk count that keeps the plain path's (..., frames, cols)
-    intermediate inside 80% of the free device memory; 1 on the CPU.
-    Modeled f32 bytes: input + padded copy + power output + 1.15x the
-    intermediate (dense), or that intermediate divided by the chunk count
-    plus a second output-sized buffer (chunked). The 80% and the model were
-    not measured on a GPU."""
-    if x.device.type != "cuda":
-        return 1
-    budget = 0.8 * torch.cuda.mem_get_info(x.device)[0]
-    batch = x.numel() // x.shape[-1]
-    in_b = 4 * x.numel()
-    out_b = 4 * batch * num_frames * (cols // 2)
-    inter = 4 * batch * num_frames * cols
-    if 2 * in_b + out_b + 1.15 * inter <= budget:
-        return 1
-    avail = max(budget - (2 * in_b + 2 * out_b), 0.05 * budget)
-    return min(num_frames, max(1, int(-(-inter // avail))))
-
-
 def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                    onesided: bool = False, precision="highest",
                    output: str = "complex", frame_chunks=1, edge: str = "pad",
@@ -353,14 +333,14 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
 
     `kernel`: 'auto' runs `kernels.cuda_dft.fir_framed_dft_power_cuda` when
     the call is inside its contract (output='power', onesided=True, real
-    input, edge='pad', frame_chunks in (1, 'auto')): the hand-written kernel
-    on a CUDA tensor, its plain version on a CPU one. Outside it, and with
-    'torch', the plain conv1d path runs. 'cuda' raises outside the contract.
+    input, edge='pad'): the hand-written kernel on a CUDA tensor, its plain
+    version on a CPU one. Outside it, and with 'torch', the plain conv1d
+    path runs. 'cuda' raises outside the contract.
 
-    `frame_chunks > 1` (plain path, power output) splits the frame axis into
-    that many sequential chunks so the (..., frames, 2*bins) intermediate
-    exists one chunk at a time; 'auto' picks the count from the free device
-    memory (1 on the CPU). The kernel keeps no intermediate at all.
+    `frame_chunks` only shapes the plain power path (`kernel='torch'`): an
+    integer k > 1 splits the frame axis into k sequential chunks so the
+    (..., frames, 2*bins) intermediate exists one chunk at a time; 'auto'
+    is 1. The kernel keeps no intermediate, so it ignores the setting.
     `edge='conv'` is not ported yet.
 
     Examples:
@@ -392,12 +372,15 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
         raise ValueError(f"window length {frame_length} exceeds signal length {length}")
     num_frames = (length - frame_length) // stride + 1
     bins = n_fft // 2 + 1 if onesided else n_fft
-    eligible = (output == "power" and onesided and not x.is_complex()
-                and frame_chunks in (1, "auto"))
+    if frame_chunks == "auto":
+        frame_chunks = 1
+    if not isinstance(frame_chunks, (int, np.integer)) or frame_chunks < 1:
+        raise ValueError(
+            f"frame_chunks must be 'auto' or an integer >= 1, got {frame_chunks!r}")
+    eligible = output == "power" and onesided and not x.is_complex()
     if kernel == "cuda" and not eligible:
         raise ValueError(
-            "kernel='cuda' requires output='power', onesided=True, real input "
-            "and frame_chunks in (1, 'auto')")
+            "kernel='cuda' requires output='power', onesided=True and real input")
     weights = fir_dft_fold_weights(taps, window, n_fft, onesided, device=x.device)
     pad_left = _same_pad_left(k)
     if eligible and kernel != "torch":
@@ -407,9 +390,7 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                                          num_frames=num_frames, bins=bins)
 
     power = output == "power"
-    if power and frame_chunks == "auto":
-        frame_chunks = _auto_frame_chunks(x, num_frames, 2 * bins)
-    if not power or frame_chunks in (1, "auto"):
+    if not power or frame_chunks == 1:
         acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=pad_left,
                                    num_frames=num_frames, bins=bins, power=power)
         return acc if power else torch.complex(acc[..., :bins], acc[..., bins:])

@@ -197,9 +197,12 @@ def test_fir_framed_dft_kernel_routes(rng):
     kw = dict(stride=128, n_fft=256, onesided=True, output="power")
     plain = td.fir_framed_dft(x, taps, window, kernel="torch", **kw)
     # 'auto' and 'cuda' go through the kernel wrapper, which on a CPU tensor
-    # is the plain version itself
+    # is the plain version itself; frame_chunks never takes a call off it
     assert torch.equal(td.fir_framed_dft(x, taps, window, kernel="auto", **kw), plain)
     assert torch.equal(td.fir_framed_dft(x, taps, window, kernel="cuda", **kw), plain)
+    assert torch.equal(td.fir_framed_dft(x, taps, window, frame_chunks=3, **kw), plain)
+    assert torch.equal(td.fir_framed_dft(x, taps, window, kernel="cuda", frame_chunks=3,
+                                         **kw), plain)
 
 
 def test_fir_framed_dft_errors(rng):
@@ -216,6 +219,9 @@ def test_fir_framed_dft_errors(rng):
         td.fir_framed_dft(torch.zeros(100), taps, window, output="power", **kw)
     with pytest.raises(ValueError, match="precision"):
         td.fir_framed_dft(x, taps, window, output="power", precision="fast", **kw)
+    for bad in (0, 2.5, "many"):
+        with pytest.raises(ValueError, match="frame_chunks"):
+            td.fir_framed_dft(x, taps, window, output="power", frame_chunks=bad, **kw)
 
 
 def test_framed_dft_errors():
@@ -231,6 +237,22 @@ def test_framed_dft_errors():
 @pytest.mark.parametrize("n_fft", [64, 512, 1024, 1025, 4096])
 def test_good_matmul_fft_length(n_fft):
     assert td.good_matmul_fft_length(n_fft) == jd.good_matmul_fft_length(n_fft)
+
+
+@pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_overlap_add_f32"])
+def test_ctypes_signatures_match_the_sources(name):
+    """The argtypes declared for each C entry point match its prototype in
+    kernels/csrc (ctypes cannot check this, and the card is not here)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from nx_signal_tpu_torch.kernels import _build
+
+    src = "".join(Path(_build._CSRC, f).read_text() for f in _build._SOURCES)
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64 for p in params]
+    assert list(_build._SIGNATURES[name]) == kinds
 
 
 @pytest.mark.cuda

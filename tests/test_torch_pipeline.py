@@ -136,6 +136,27 @@ def test_stft_fir_chain_module(k, frame, hop, n_fft, rng):
     assert_close_to_max(chain.to("cpu")(torch.from_numpy(x)), want.astype(np.float32))
 
 
+@pytest.mark.cuda
+def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
+    """frame_chunks only shapes the plain path: on the card the chain still
+    launches kernel A, once, and agrees with the chunked plain path at
+    1e-4 x max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from nx_signal_tpu_torch.kernels import cuda_dft
+    from nx_signal_tpu_torch.kernels.dft import fir_framed_dft
+
+    x = torch.from_numpy(rng.normal(size=(2, 8192)).astype(np.float32)).cuda()
+    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    got = stft_fir_chain(x, taps, window, fft_length=512, overlap_length=384,
+                         return_filtered=False, frame_chunks=4)
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
+    want = fir_framed_dft(x, taps, window, stride=128, n_fft=512, onesided=True,
+                          output="power", frame_chunks=4, kernel="torch")
+    assert_close_to_max(got.cpu(), want.cpu())
+
+
 def test_stft_fir_chain_unported_paths():
     x, taps, window = torch.zeros(2, 4096), np.ones(5) / 5, tw.hann(256)
     with pytest.raises(NotImplementedError, match="convolution"):
