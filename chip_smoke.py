@@ -8,7 +8,8 @@ times the kernels.
 
 Phases (any failure raises, and the exit code is not 0):
   0. the card's name and power limit (nvidia-smi); no CUDA device is a failure.
-  1. build the kernels of nx_signal_tpu_torch/kernels/csrc with nvcc (sm_90a).
+  1. build the kernels of nx_signal_tpu_torch/kernels/csrc with nvcc (sm_90a),
+     one nvcc process per source, all at once.
   2. each kernel against its plain version on the same device tensors:
      A (fused FIR + framed DFT + power) at 768 x 480000 with the bench chain
      (firwin 255 taps @ 48 kHz, hann 512, hop 128, n_fft 512) and B (framed
@@ -18,16 +19,38 @@ Phases (any failure raises, and the exit code is not 0):
      of framed_idft, bitwise; then two ragged geometries (even taps, hop not
      dividing the frame, length not a multiple of the hop, a hop whose
      window needs the small frame tile), and stft_fir_chain with
-     frame_chunks=4, which must launch kernel A once.
-  3. the main path, models.pipeline.stft_fir_chain(return_filtered=False,
+     frame_chunks=4, which must launch kernel A once. D (the shared
+     hop-block chain) at 768 x 480000 with the bench chain against its
+     plain version and against A given the window D applies (the periodic
+     hann in f64), per bin at 1e-4; then D on the geometries of the JAX
+     package's shared-kernel tests (Blackman with 63 taps on a (3, 2)
+     batch, Hamming with hop 256 and no taps, n_fft 1024 with 129 taps)
+     and on a length that is not a multiple of the hop with even taps, a
+     hop of 50, and a hop of 1000 (whose window needs the 16-block tile),
+     with random taps as those tests use.
+  3. the fused chain, models.pipeline.stft_fir_chain(return_filtered=False,
      precision='high') on 768 x 480000, held on two channels against an
      f64 numpy reference (convolve, frame, window, rfft, |.|^2), per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions; interior reconstruction error <= 1e-5 x max|x|.
-     The kernels' launch counters are zeroed just before phase 3 and read
-     after phase 4: each kernel must have run on the main path.
-  5. median of 5 CUDA-event timings of each kernel and its plain version,
-     taken in turns, at the phase-2 shapes.
+  5. the shared path: fir_framed_dft(kernel='cuda_shared') and
+     fir_framed_dft_shared(output='power', onesided=True) on 768 x 480000,
+     each held on two channels against the f64 numpy reference with the
+     periodic f64 hann, per bin.
+  6. the filtered chain: stft_fir_chain(return_filtered=True) on 768 x
+     480000, on two channels: the filtered signal against np.convolve
+     'same', the power against the f64 DFT of that filtered signal and end
+     to end against the f64 numpy reference, each within 1e-4 x max and
+     per bin within 5e-3 of the bin's max (an f32 filtered signal has no
+     digits for a per-bin 1e-4 at its deepest stopband bins); then
+     FIRFilterChain on the same signal against np.convolve 'same' (within
+     1e-4 x max).
+     Phases 3-6 drive the main paths through their public entry points:
+     the launch counters are zeroed just before each and read just after,
+     and each must have launched the kernels of its path.
+  7. median of 5 CUDA-event timings of each kernel and its plain version,
+     taken in turns, at the phase-2 shapes; then of the filtered chain's
+     two stages (the direct FIR and kernel B) at 768 x 480000.
 The line before the last is one JSON object describing the kernels; the last
 is the device line {"ok": true, "device": {...}}.
 """
@@ -94,6 +117,36 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def _run_path(name, kernels, expect, fn):
+    """Zero every launch counter, run one main path, and fail unless each
+    kernel of `expect` was launched on it; returns the counts."""
+    for kernel in kernels:
+        kernel.launches = 0
+    fn()
+    counts = {k.__name__: k.launches for k in kernels}
+    print(f"  launches on {name}: {counts}", flush=True)
+    for kernel in expect:
+        if counts[kernel.__name__] < 1:
+            raise AssertionError(f"{kernel.__name__} was not launched on {name}")
+    return counts
+
+
+def _numpy_filter(x2, taps):
+    """f64 numpy 'same' convolution of each row with the taps."""
+    import numpy as np
+
+    k, length = taps.shape[0], x2.shape[-1]
+    return np.stack([np.convolve(c, taps)[(k - 1) // 2:][:length] for c in x2])
+
+
+def _numpy_power(y2, window, *, hop, num_frames, n_fft):
+    """f64 numpy framing, window, rfft and |.|^2 of each row."""
+    import numpy as np
+
+    fr = np.lib.stride_tricks.sliding_window_view(y2, window.shape[0], axis=-1)
+    return np.abs(np.fft.rfft(fr[:, ::hop][:, :num_frames] * window, n=n_fft)) ** 2
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -111,9 +164,11 @@ def main() -> int:
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.kernels._build import library_path, load_library
     from nx_signal_tpu_torch.kernels.dft import (
-        _dft_weights, _framed_matmul_torch, fir_dft_fold_weights, fir_framed_dft,
-        framed_idft)
-    from nx_signal_tpu_torch.models.pipeline import stft_fir_chain
+        _dft_weights, _framed_matmul_torch, _same_pad_left, _shared_power_torch,
+        fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared, framed_idft,
+        recognize_cosine_window, shared_fold_weights, shared_twiddles)
+    from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, stft_fir_chain
+    from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
     from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
@@ -122,6 +177,8 @@ def main() -> int:
     A = cuda_dft.fir_framed_dft_power_cuda
     B = cuda_dft.framed_dft_cuda
     C = cuda_dft.overlap_add_cuda
+    D = cuda_dft.fir_framed_dft_power_shared_cuda
+    kernels = (A, B, C, D)
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -206,42 +263,89 @@ def main() -> int:
     want = fir_framed_dft(xs, taps, window, stride=hop, n_fft=n_fft, onesided=True,
                           output="power", frame_chunks=4, kernel="torch")
     _check_close("A via stft_fir_chain(frame_chunks=4) vs chunked plain", got, want)
+    del got, want
+
+    # D applies the window as its exact cosine sum: A is given the same
+    # window, the periodic hann in f64 (the f32 samples of hann(512) differ
+    # from it by up to 6e-8, which the low-pass chain's stopband bins see)
+    window64 = hann(frame, dtype=torch.float64).numpy()
+    coeffs = recognize_cosine_window(window64, n_fft)
+    w_shared = shared_fold_weights(taps, hop, n_fft, device=dev)
+    tw_shared = shared_twiddles(hop, n_fft, device=dev)
+    args_d = dict(stride=hop, pad_left=pad_left, num_frames=num_frames, bins=bins)
+    got_d = D(x, w_shared, tw_shared, coeffs, **args_d)
+    err_d = _check_close(f"D {channels}x{length}", got_d,
+                         _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d))
+    w_fold64 = fir_dft_fold_weights(taps, window64, n_fft, True, device=dev)
+    _check_close(f"D vs A {channels}x{length}", got_d, A(x, w_fold64, **args_a))
+    del got_d
+
+    rng = np.random.default_rng(0)
+    shared_ragged = [  # batch, length, taps (None: no FIR), hop, n_fft, window
+        ((3, 2), 9000, 63, 128, 512, "blackman"),
+        ((1,), 40000, None, 256, 512, "hamming"),
+        ((2,), 20000, 129, 128, 1024, "hann"),
+        ((2,), 48037, 100, 128, 512, "hann"),
+        ((1,), 30001, 32, 50, 400, "blackman"),
+        ((1,), 50001, 64, 1000, 2000, "hann"),   # the 16-block tile
+    ]
+    for batch, n, k, hp, nf, wname in shared_ragged:
+        xr = torch.randn((*batch, n), generator=gen, device=dev)
+        tr = None if k is None else rng.normal(size=k)
+        wr = getattr(windows, wname)(nf, dtype=torch.float64).numpy()
+        cr = recognize_cosine_window(wr, nf)
+        args = dict(stride=hp, pad_left=0 if k is None else _same_pad_left(k),
+                    num_frames=(n - nf) // hp + 1, bins=nf // 2 + 1)
+        ws, tws = shared_fold_weights(tr, hp, nf, device=dev), shared_twiddles(hp, nf, device=dev)
+        tag = f"{batch}x{n} K={k} hop={hp} n_fft={nf} {wname}"
+        got = D(xr, ws, tws, cr, **args)
+        _check_close(f"D {tag}", got, _shared_power_torch(xr, ws, tws, cr, **args))
+        wa = fir_dft_fold_weights(np.ones(1) if k is None else tr, wr, nf, True, device=dev)
+        _check_close(f"D vs A {tag}", got, A(xr, wa, **args))
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
-    for kernel in (A, B, C):
-        kernel.launches = 0
     print("phase 3: stft_fir_chain(return_filtered=False, precision='high')", flush=True)
-    t0 = time.perf_counter()
-    power = stft_fir_chain(x, torch.as_tensor(taps), torch.as_tensor(window),
-                           fft_length=n_fft, overlap_length=frame - hop,
-                           sampling_rate=rate, onesided=True, return_filtered=False,
-                           precision="high")
-    torch.cuda.synchronize()
-    print(f"  {tuple(power.shape)} in {time.perf_counter() - t0:.3f} s (first call)",
-          flush=True)
+    out = {}
+
+    def fused_chain():
+        t0 = time.perf_counter()
+        out["power"] = stft_fir_chain(x, torch.as_tensor(taps), torch.as_tensor(window),
+                                      fft_length=n_fft, overlap_length=frame - hop,
+                                      sampling_rate=rate, onesided=True,
+                                      return_filtered=False, precision="high")
+        torch.cuda.synchronize()
+        print(f"  {tuple(out['power'].shape)} in {time.perf_counter() - t0:.3f} s "
+              "(first call)", flush=True)
+
+    launches = _run_path("the fused chain", kernels, (A,), fused_chain)
+    power = out.pop("power")
     if tuple(power.shape) != (channels, num_frames, bins):
         raise AssertionError(f"chain output shape {tuple(power.shape)}")
     if not bool(torch.isfinite(power).all()):
         raise AssertionError("chain output is not finite")
     xh = x[:2].double().cpu().numpy()
-    taps64, win64 = taps.astype(np.float64), window.astype(np.float64)
-    ref = []
-    for c in xh:
-        y = np.convolve(c, taps64)[(num_taps - 1) // 2:][:length]
-        fr = np.lib.stride_tricks.sliding_window_view(y, frame)[::hop][:num_frames]
-        ref.append(np.abs(np.fft.rfft(fr * win64, n=n_fft)) ** 2)
-    _check_close("chain vs f64 numpy reference (2 channels)",
-                 power[:2].double().cpu(), torch.as_tensor(np.stack(ref)))
+    taps64 = taps.astype(np.float64)
+    ref_kw = dict(hop=hop, num_frames=num_frames, n_fft=n_fft)
+    ref_y = _numpy_filter(xh, taps64)
+    ref = torch.as_tensor(_numpy_power(ref_y, window.astype(np.float64), **ref_kw))
+    ref_y = torch.as_tensor(ref_y)
+    _check_close("chain vs f64 numpy reference (2 channels)", power[:2].double().cpu(), ref)
     del power
 
     print("phase 4: stft -> istft round trip, 64 x 480000", flush=True)
     win_t = hann(frame, device=dev)
-    z = stft(x64, win_t, sampling_rate=rate, fft_length=n_fft, overlap_length=frame - hop,
-             onesided=True).z
-    y = istft(z, win_t, fft_length=n_fft, overlap_length=frame - hop, onesided=True,
-              sampling_rate=rate)
-    torch.cuda.synchronize()
+
+    def round_trip():
+        z = stft(x64, win_t, sampling_rate=rate, fft_length=n_fft,
+                 overlap_length=frame - hop, onesided=True).z
+        out["y"] = istft(z, win_t, fft_length=n_fft, overlap_length=frame - hop,
+                         onesided=True, sampling_rate=rate)
+        torch.cuda.synchronize()
+
+    counts = _run_path("the round trip", kernels, (B, C), round_trip)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    y = out.pop("y")
     if tuple(y.shape) != (64, out_length) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"istft output {tuple(y.shape)} not finite or wrong shape")
     err = _max_err(y[:, frame:-frame], x64[:, frame:out_length - frame])
@@ -250,15 +354,84 @@ def main() -> int:
           flush=True)
     if not err <= 1e-5 * scale:
         raise AssertionError(f"round trip error {err} > 1e-5 x {scale}")
-    del z, y
-    launches = {k.__name__: k.launches for k in (A, B, C)}
-    print(f"  launches on the main path: {launches}", flush=True)
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
+    del y
 
     # ---------------------------------------------------------------- 5
-    print("phase 5: median of 5 CUDA-event timings, kernel vs plain", flush=True)
+    print("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
+          "fir_framed_dft_shared", flush=True)
+    ref_exact = torch.as_tensor(_numpy_power(ref_y.numpy(), window64, **ref_kw))
+
+    def shared_path():
+        out["shared"] = fir_framed_dft(x, taps, window, stride=hop, n_fft=n_fft,
+                                       onesided=True, output="power", kernel="cuda_shared")
+        out["shared_direct"] = fir_framed_dft_shared(
+            x, taps, stride=hop, n_fft=n_fft, window_coeffs=coeffs, onesided=True,
+            output="power")
+        torch.cuda.synchronize()
+
+    counts = _run_path("the shared path", kernels, (D,), shared_path)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    for name in ("shared", "shared_direct"):
+        got = out.pop(name)
+        if tuple(got.shape) != (channels, num_frames, bins) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"{name} output {tuple(got.shape)} not finite or wrong shape")
+        _check_close(f"{name} vs f64 numpy reference, periodic f64 hann (2 channels)",
+                     got[:2].double().cpu(), ref_exact)
+        del got
+
+    # ---------------------------------------------------------------- 6
+    print("phase 6: the filtered chain, stft_fir_chain(return_filtered=True), and "
+          "FIRFilterChain", flush=True)
+    fir_chain = FIRFilterChain()
+
+    def filtered_chain():
+        t0 = time.perf_counter()
+        out["y"], out["power"] = stft_fir_chain(
+            x, taps, window, fft_length=n_fft, overlap_length=frame - hop,
+            sampling_rate=rate, onesided=True, return_filtered=True)
+        torch.cuda.synchronize()
+        print(f"  filtered {tuple(out['y'].shape)}, power {tuple(out['power'].shape)} in "
+              f"{time.perf_counter() - t0:.3f} s (first call)", flush=True)
+        out["fir"] = fir_chain(x)
+        torch.cuda.synchronize()
+
+    counts = _run_path("the filtered chain", kernels, (B, C), filtered_chain)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    y, power, fir = out.pop("y"), out.pop("power"), out.pop("fir")
+    for name, got, shape in (("filtered", y, (channels, length)),
+                             ("power", power, (channels, num_frames, bins)),
+                             ("FIRFilterChain", fir, (channels, length))):
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} output {tuple(got.shape)} not finite or wrong shape")
+    # one 'bin' over all samples: the filtered signal within 1e-4 x max
+    _check_close("filtered vs np.convolve 'same' (2 channels)",
+                 y[:2].double().cpu().reshape(-1, 1), ref_y.reshape(-1, 1))
+    # Held within 1e-4 x the global max, and per bin within 5e-3 of each
+    # bin's own max. The filtered signal is f32, with passband and deepest
+    # stopband 81 dB apart: its rounding and the f32 sums of the FIR and of
+    # any DFT of it leave up to ~1e-3 of those bins' own max (the fused
+    # chain folds the FIR into the weights in f64, so its stopband weights
+    # are small and phase 3 holds it per bin at 1e-4; kernel B is held per
+    # bin at 1e-4 against its plain version in phase 2). The per-bin gate
+    # still fails a bin tile that is wrong or missing.
+    y2 = y[:2].double().cpu().numpy()
+    ref_b = torch.as_tensor(_numpy_power(y2, window.astype(np.float64), **ref_kw))
+    for tag, want in (("f64 DFT of its filtered signal", ref_b),
+                      ("f64 numpy reference", ref)):
+        name = f"filtered chain power vs {tag} (2 channels)"
+        got = power[:2].double().cpu()
+        _check_close(f"{name}, all bins", got.reshape(-1, 1), want.reshape(-1, 1))
+        _check_close(name, got, want, rel=5e-3)
+    fir_taps = fir_chain.taps.double().numpy()
+    fir_ref = np.stack([np.convolve(c, fir_taps)[(fir_taps.size - 1) // 2:][:length]
+                        for c in xh])
+    _check_close("FIRFilterChain vs np.convolve 'same' (2 channels)",
+                 fir[:2].double().cpu().reshape(-1, 1), torch.as_tensor(fir_ref).reshape(-1, 1))
+    del y, power, fir
+
+    # ---------------------------------------------------------------- 7
+    print("phase 7: median of 5 CUDA-event timings, kernel vs plain", flush=True)
     cases = [
         ("A", channels * length, lambda: A(x, w_fold, **args_a),
          lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a)),
@@ -267,6 +440,8 @@ def main() -> int:
              x64, w_dft, pad_left=0, power=False, **args_b).split(bins, dim=-1))),
         ("C", 64 * out_length, lambda: C(frames, stride=hop, out_length=out_length),
          lambda: _ola_fold_torch(frames, hop, out_length)),
+        ("D", channels * length, lambda: D(x, w_shared, tw_shared, coeffs, **args_d),
+         lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d)),
     ]
     timings = {}
     for name, samples, kernel_fn, plain_fn in cases:
@@ -281,10 +456,28 @@ def main() -> int:
         print(f"  {name}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
               f"plain {p_ms:.3f} ms ({samples / p_ms / 1e3:.1f} Msamples/s)", flush=True)
 
+    # where the filtered chain's time goes: the direct FIR, then kernel B
+    from nx_signal_tpu_torch.kernels.dft import framed_dft
+    from nx_signal_tpu_torch.ops.convolution import convolve
+
+    taps_t = torch.as_tensor(taps, device=dev).reshape(1, -1)
+    y = convolve(x, taps_t, mode="same")
+    stages = [("FIR (convolve 'same', cuDNN conv1d)", lambda: convolve(x, taps_t, mode="same")),
+              ("framed_dft power (kernel B)",
+               lambda: framed_dft(y, window, stride=hop, n_fft=n_fft, onesided=True,
+                                  output="power"))]
+    for name, fn in stages:
+        fn()
+        torch.cuda.synchronize()
+        print(f"  filtered chain at {channels}x{length}, {name}: "
+              f"{sorted(_time_ms(fn) for _ in range(5))[2]:.3f} ms", flush=True)
+    del y
+
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
         (B, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:127", err_b, "B"),
         (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", err_c, "C"),
+        (D, "shared_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:687", err_d, "D"),
     ]
     print(json.dumps({"kernels": [
         {"name": k.__name__, "route": "cuda",

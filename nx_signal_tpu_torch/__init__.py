@@ -6,32 +6,74 @@ its layouts at the public functions: (..., L) signals and (..., frames, bins)
 spectra. It imports torch and numpy only, never jax.
 
 Layering:
-  ops/       windows, waveforms (sinc), filters (firwin)
-  spectral/  framing (as_windowed / overlap_and_add), stft / istft
+  ops/       windows, waveforms (sinc), filters (firwin), convolution
+             (convolve, correlate, fftconvolve, oaconvolve, convolve2d, ...),
+             transforms (the N-D FFT helpers)
+  spectral/  framing (as_windowed / overlap_and_add), stft / istft,
+             check_cola / check_nola, mel (mel_filters, stft_to_mel)
   kernels/   host weight functions and plain paths (dft.py), hand-written
              CUDA kernels for Hopper (csrc/, bound in cuda_dft.py)
-  models/    the STFT+FIR chain (stft_fir_chain, StftFirChain)
+  models/    the pipelines (stft_fir_chain, StftFirChain, FIRFilterChain,
+             SpectrogramPipeline, LogMelFrontend)
 
 On a CPU tensor every kernel wrapper runs its plain PyTorch version; on a
 CUDA tensor inside a kernel's contract the kernel runs, or the call raises.
 """
 
-from nx_signal_tpu_torch.models.pipeline import StftFirChain, stft_fir_chain
+from nx_signal_tpu_torch.kernels.dft import fir_framed_dft, fir_framed_dft_shared
+from nx_signal_tpu_torch.models.pipeline import (
+    FIRFilterChain,
+    LogMelFrontend,
+    SpectrogramPipeline,
+    StftFirChain,
+    stft_fir_chain,
+)
+from nx_signal_tpu_torch.ops.convolution import (
+    convolve,
+    convolve2d,
+    correlate,
+    correlate2d,
+    fftconvolve,
+    oaconvolve,
+)
 from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.windows import get_window, hamming, hann
 from nx_signal_tpu_torch.spectral.framing import as_windowed, overlap_and_add
-from nx_signal_tpu_torch.spectral.stft import STFTResult, fft_frequencies, istft, stft
+from nx_signal_tpu_torch.spectral.mel import mel_filters, stft_to_mel
+from nx_signal_tpu_torch.spectral.stft import (
+    STFTResult,
+    check_cola,
+    check_nola,
+    fft_frequencies,
+    istft,
+    stft,
+)
 
 __all__ = [
+    "fir_framed_dft",
+    "fir_framed_dft_shared",
+    "FIRFilterChain",
+    "LogMelFrontend",
+    "SpectrogramPipeline",
     "StftFirChain",
     "stft_fir_chain",
+    "convolve",
+    "convolve2d",
+    "correlate",
+    "correlate2d",
+    "fftconvolve",
+    "oaconvolve",
     "firwin",
     "get_window",
     "hamming",
     "hann",
     "as_windowed",
     "overlap_and_add",
+    "mel_filters",
+    "stft_to_mel",
     "STFTResult",
+    "check_cola",
+    "check_nola",
     "fft_frequencies",
     "istft",
     "stft",

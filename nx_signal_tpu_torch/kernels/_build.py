@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels of `kernels/csrc/`.
 
 At first use in a process, the sources are compiled with nvcc for Hopper
-(sm_90a) into one shared library with a plain C interface, which ctypes
-loads. The library lands in `kernels/_build/`, named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-loaded as it is. No PyTorch header is compiled, which keeps a build to
-seconds.
+(sm_90a), one nvcc process per source, all started together, and linked
+into one shared library with a plain C interface, which ctypes loads. The
+library lands in `kernels/_build/`, named by a hash of the sources and
+flags, so a changed source rebuilds and an unchanged one is loaded as it
+is. No PyTorch header is compiled, which keeps a build to seconds.
 """
 
 import ctypes
@@ -18,9 +18,9 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD_DIR = Path(__file__).with_name("_build")
-_SOURCES = ("framed_dft.cu", "overlap_add.cu")
+_SOURCES = ("framed_dft.cu", "overlap_add.cu", "shared_dft.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -32,6 +32,9 @@ _SIGNATURES = {
     # frames, out, channels, num_frames, frame_length, stride, out_length,
     # stream (all on the current device)
     "nx_overlap_add_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, e, tw, wc, out, channels, length, stride, krows, pad_left,
+    # num_frames, bins, j_taps, ncoef, stream (all on the current device)
+    "nx_shared_dft_power_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -53,24 +56,29 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path. The library is written under a temporary name and renamed, so
-    concurrent builds never load a half-written file."""
+    path. The library is built in a temporary directory and renamed into
+    place, so concurrent builds never load a half-written file."""
     path = library_path()
     if path.exists():
         return path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, f"{Path(name).stem}.o") for name in _SOURCES]
+        compiles = [[nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)]
+                    for name, obj in zip(_SOURCES, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]  # wait for every compile
+        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objects]
+        for cmd, proc, log in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        os.replace(os.path.join(tmp, "lib.so"), path)
     return path
 
 

@@ -1,34 +1,42 @@
 """Hand-written CUDA kernels for Hopper and their wrappers (counterpart of
 nx_signal_tpu/kernels/pallas_dft.py).
 
-=========================== ================================ ===========================
-wrapper                     kernel (kernels/csrc/)           replaces (pallas_dft.py)
-=========================== ================================ ===========================
-fir_framed_dft_power_cuda   framed_dft.cu, POWER, FIR fold   fir_framed_dft_power_pallas
-framed_dft_cuda             framed_dft.cu, no fold           framed_dft_pallas
-overlap_add_cuda            overlap_add.cu                   overlap_add_pallas
-=========================== ================================ ===========================
+== ================================== ================================ ==================================
+   wrapper                            kernel (kernels/csrc/)           replaces (pallas_dft.py)
+== ================================== ================================ ==================================
+A  fir_framed_dft_power_cuda          framed_dft.cu, POWER, FIR fold   fir_framed_dft_power_pallas
+B  framed_dft_cuda                    framed_dft.cu, no fold           framed_dft_pallas
+C  overlap_add_cuda                   overlap_add.cu                   overlap_add_pallas
+D  fir_framed_dft_power_shared_cuda   shared_dft.cu                    fir_framed_dft_power_shared_pallas
+== ================================== ================================ ==================================
 
 Each wrapper takes the tensor's device as its dispatch rule: on a CPU
-tensor it returns its plain PyTorch version (`_framed_matmul_torch` in
-kernels/dft.py, `_ola_fold_torch` in spectral/framing.py); on a CUDA tensor
-it launches its kernel, built at first use (kernels/_build.py), or raises.
-Nothing falls back. Each wrapper counts its launches in its `launches`
-attribute, a plain integer that callers may reset.
+tensor it returns its plain PyTorch version (`_framed_matmul_torch` and
+`_shared_power_torch` in kernels/dft.py, `_ola_fold_torch` in
+spectral/framing.py); on a CUDA tensor it launches its kernel, built at
+first use (kernels/_build.py), or raises. Nothing falls back. Each wrapper
+counts its launches in its `launches` attribute, a plain integer that
+callers may reset.
 
-Kernels A and B run exact f32 FMA for every `precision` of their callers,
-at least as accurate as the JAX package's modes. Kernel C is bitwise equal
-to the plain fold.
+Kernels A, B and D run exact f32 FMA for every `precision` of their
+callers, at least as accurate as the JAX package's modes (whose 'high' is a
+bf16x3 split on the TPU). Kernel C is bitwise equal to the plain fold.
 """
 
 import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
-from nx_signal_tpu_torch.kernels.dft import _framed_matmul_torch
+from nx_signal_tpu_torch.kernels.dft import _framed_matmul_torch, _shared_power_torch
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
-__all__ = ["fir_framed_dft_power_cuda", "framed_dft_cuda", "overlap_add_cuda"]
+__all__ = ["fir_framed_dft_power_cuda", "framed_dft_cuda", "overlap_add_cuda",
+           "fir_framed_dft_power_shared_cuda"]
+
+# Kernel D's limits: window coefficients (so at most 7 neighbour bins each
+# side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks)
+_SHARED_MAX_COEFFS = 8
+_SHARED_MAX_BLOCKS = 64
 
 
 def _on_card(t) -> bool:
@@ -148,3 +156,63 @@ def overlap_add_cuda(frames, *, stride: int, out_length: int):
 
 
 overlap_add_cuda.launches = 0
+
+
+def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, stride: int,
+                                     pad_left: int, num_frames: int, bins: int):
+    """Kernel D: the one-sided power spectrum of the FIR-filtered, framed,
+    windowed signal through shared hop-block partial DFTs. `weights` are
+    the (stride + K - 1, 2*bins) folded partial-DFT rows of
+    `kernels.dft.shared_fold_weights`, `twiddles` the (2, J, bins) table of
+    `kernels.dft.shared_twiddles`, `window_coeffs` the cosine-sum
+    coefficients (b_0, b_1, ...) of the window. Hop block b covers
+    x[b*stride - pad_left : ...], zeros outside the signal; frame m
+    combines blocks m .. m + J - 1. Returns (..., num_frames, bins) f32.
+
+    Runs exact f32 whatever precision the caller asked for. On a CPU
+    tensor it returns the plain version (a conv1d with f64 sums, then the
+    combine and the spectral window as torch ops). On a CUDA tensor it
+    needs at most 8 coefficients, fewer than bins - 1, and J <= 64."""
+    x = torch.as_tensor(x)
+    coeffs = tuple(float(b) for b in window_coeffs)
+    if not _on_card(x):
+        return _shared_power_torch(x, weights, twiddles, coeffs, stride=stride,
+                                   pad_left=pad_left, num_frames=num_frames, bins=bins)
+    j_taps = twiddles.shape[1]
+    if not 1 <= len(coeffs) <= min(_SHARED_MAX_COEFFS, bins - 1):
+        raise ValueError(f"kernel D takes 1..{min(_SHARED_MAX_COEFFS, bins - 1)} window "
+                         f"coefficients, got {len(coeffs)}")
+    if j_taps > _SHARED_MAX_BLOCKS:
+        raise ValueError(f"kernel D takes at most {_SHARED_MAX_BLOCKS} hop blocks per frame "
+                         f"(n_fft / stride), got {j_taps}")
+    for name, t in (("weights", weights), ("twiddles", twiddles)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, signal on {x.device}")
+    if weights.ndim != 2 or weights.shape[1] != 2 * bins:
+        raise ValueError(f"weights must be (rows, {2 * bins}), got {tuple(weights.shape)}")
+    if twiddles.shape != (2, j_taps, bins):
+        raise ValueError(f"twiddles must be (2, J, {bins}), got {tuple(twiddles.shape)}")
+    if stride < 1 or num_frames < 1 or x.numel() == 0:
+        raise ValueError(f"bad geometry: stride={stride}, num_frames={num_frames}, "
+                         f"shape={tuple(x.shape)}")
+    batch, length = x.shape[:-1], x.shape[-1]
+    xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
+    w = weights.to(DEFAULT_FLOAT).contiguous()
+    tw = twiddles.to(DEFAULT_FLOAT).contiguous()
+    # the kernel's epilogue multiplies by b_0, then b_c / 2 (rounded to f32
+    # as the plain version's python-float scalars are)
+    wc = torch.tensor([coeffs[0]] + [b / 2.0 for b in coeffs[1:]], dtype=DEFAULT_FLOAT,
+                      device=x.device)
+    out = torch.empty((xf.shape[0], num_frames, bins), dtype=DEFAULT_FLOAT, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.nx_shared_dft_power_f32(
+            xf.data_ptr(), w.data_ptr(), tw.data_ptr(), wc.data_ptr(), out.data_ptr(),
+            xf.shape[0], length, stride, w.shape[0], pad_left, num_frames, bins, j_taps,
+            len(coeffs), torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "shared_dft kernel")
+    fir_framed_dft_power_shared_cuda.launches += 1
+    return out.reshape(*batch, num_frames, bins)
+
+
+fir_framed_dft_power_shared_cuda.launches = 0

@@ -15,10 +15,17 @@ The contraction runs as
 
 * the hand-written CUDA kernel of `kernels/cuda_dft.py` on a CUDA tensor
   inside the kernel's contract (real input; the fused chain additionally
-  needs output='power', onesided=True, edge='pad');
+  needs output='power', onesided=True);
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
+
+`fir_framed_dft_shared` computes the same chain through shared hop-block
+partial DFTs (half the contraction FLOPs for cosine-sum windows with
+frame_length == n_fft and stride | n_fft): a per-block contraction, a
+twiddle combine across the J = n_fft/stride blocks of a frame, and the
+window as a sparse spectral convolution. Its power output is kernel D
+(`kernels/cuda_dft.py:fir_framed_dft_power_shared_cuda`) on a CUDA tensor.
 
 Every `precision` ('highest' | 'high' | 'default') runs exact f32 here.
 """
@@ -33,7 +40,9 @@ from nx_signal_tpu_torch.spectral.framing import _frame_block_widths
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights",
-           "good_matmul_fft_length", "blocked_frame_matmul", "toeplitz_band"]
+           "good_matmul_fft_length", "blocked_frame_matmul", "toeplitz_band",
+           "fir_framed_dft_shared", "recognize_cosine_window", "shared_fold_weights",
+           "shared_twiddles"]
 
 _MAX_MATMUL_FFT = 1024
 _PRECISIONS = ("highest", "high", "default")
@@ -167,17 +176,20 @@ def _dft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):
 
 
 def _framed_matmul_torch(x, weights, *, stride: int, pad_left: int, num_frames: int,
-                         bins: int, power: bool):
+                         bins: int, power: bool, accumulate=DEFAULT_FLOAT):
     """Plain version of the framed-DFT kernels (`kernels/cuda_dft.py`):
     extended frame m covers x[m*stride - pad_left : ... + weights rows],
     with zeros outside the signal. Returns the stacked (..., M, 2*bins)
-    [Re | Im] or, with `power`, re^2 + im^2 (..., M, bins)."""
-    x = x.to(DEFAULT_FLOAT)
+    [Re | Im] or, with `power`, re^2 + im^2 (..., M, bins). The f32
+    signal and weights are contracted in `accumulate` (float64: exact
+    products, f64 sums) and the result rounded to f32."""
+    x = x.to(DEFAULT_FLOAT).to(accumulate)
     c_blocks = -(-weights.shape[0] // stride)
     needed = (num_frames + c_blocks - 1) * stride
     xp = F.pad(x, (pad_left, max(0, needed - pad_left - x.shape[-1])))
-    acc = blocked_frame_matmul(xp, weights, window_length=weights.shape[0],
-                               stride=stride, num_frames=num_frames)
+    acc = blocked_frame_matmul(xp, weights.to(DEFAULT_FLOAT).to(accumulate),
+                               window_length=weights.shape[0], stride=stride,
+                               num_frames=num_frames).to(DEFAULT_FLOAT)
     if power:
         return acc[..., :bins] ** 2 + acc[..., bins:] ** 2
     return acc
@@ -322,6 +334,36 @@ def _same_pad_left(num_taps: int) -> int:
     return (num_taps - 1) - (num_taps - 1) // 2
 
 
+def _fir_framed_dft_power_nopad(x, weights, *, stride: int, pad_left: int,
+                                num_frames: int, bins: int):
+    """The power chain with both 'same' edges as whole zero hop blocks of
+    the conv's input instead of a padded copy of the signal: the folded
+    weight rows shift down by s = (-pad_left) % stride so the left context
+    starts on a block boundary. Needs the signal length to be a multiple of
+    the hop and the shifted weights to keep their block count; returns None
+    where the geometry does not apply (the caller takes the padded path).
+    The extra all-zero weight rows add exact +0.0 terms."""
+    ext, cols = weights.shape
+    length = x.shape[-1]
+    s = (-pad_left) % stride
+    c_blocks = -(-ext // stride)
+    if length % stride or s + ext > c_blocks * stride or c_blocks <= 1:
+        return None
+    batch = x.shape[:-1]
+    w = F.pad(weights, (0, 0, s, c_blocks * stride - ext - s))
+    kernel = w.reshape(c_blocks, stride, cols).permute(2, 1, 0).contiguous()  # (O, I, C)
+    left_blocks = (pad_left + s) // stride
+    n_in_blocks = length // stride
+    # output position m contracts padded blocks [m, m + c_blocks); block j
+    # of the padded sequence is input block j - left_blocks
+    right_blocks = max(0, num_frames + c_blocks - 1 - (left_blocks + n_in_blocks))
+    blocks = x.to(DEFAULT_FLOAT).reshape(-1, n_in_blocks, stride).transpose(1, 2)
+    with _exact_f32():
+        acc = F.conv1d(F.pad(blocks, (left_blocks, right_blocks)), kernel)
+    acc = acc[..., :num_frames].transpose(1, 2).reshape(*batch, num_frames, cols)
+    return acc[..., :bins] ** 2 + acc[..., bins:] ** 2
+
+
 def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                    onesided: bool = False, precision="highest",
                    output: str = "complex", frame_chunks=1, edge: str = "pad",
@@ -331,17 +373,29 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     the folded weights T @ diag(w) @ F (`fir_dft_fold_weights`); the
     filtered signal is never built.
 
-    `kernel`: 'auto' runs `kernels.cuda_dft.fir_framed_dft_power_cuda` when
-    the call is inside its contract (output='power', onesided=True, real
-    input, edge='pad'): the hand-written kernel on a CUDA tensor, its plain
-    version on a CPU one. Outside it, and with 'torch', the plain conv1d
-    path runs. 'cuda' raises outside the contract.
+    `kernel`:
+    * 'auto' runs `kernels.cuda_dft.fir_framed_dft_power_cuda` (kernel A)
+      when the call is inside its contract (output='power', onesided=True,
+      real input): the hand-written kernel on a CUDA tensor, its plain
+      version on a CPU one. Outside it, and with 'torch', the plain conv1d
+      path runs. 'cuda' raises outside the contract.
+    * 'cuda_shared' runs `fir_framed_dft_shared` (kernel D on a CUDA
+      tensor, its plain version on a CPU one), the half-FLOP shared
+      hop-block form. It raises unless output='power', onesided=True, the
+      input is real, edge='pad', frame_length == n_fft, stride | n_fft,
+      n_fft is even and the window is a recognized cosine-sum window
+      (`recognize_cosine_window`). Any hop is taken.
 
     `frame_chunks` only shapes the plain power path (`kernel='torch'`): an
     integer k > 1 splits the frame axis into k sequential chunks so the
     (..., frames, 2*bins) intermediate exists one chunk at a time; 'auto'
-    is 1. The kernel keeps no intermediate, so it ignores the setting.
-    `edge='conv'` is not ported yet.
+    is 1. The kernels keep no intermediate, so they ignore the setting.
+
+    `edge='conv'` (power output, unchunked, `kernel='torch'`) contracts
+    the signal without a padded copy (`_fir_framed_dft_power_nopad`) where
+    the hop divides the signal length, and falls back to `edge='pad'`
+    elsewhere. Kernel A never copies the signal, so under 'auto' and
+    'cuda' both edges run A.
 
     Examples:
 
@@ -355,13 +409,13 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     torch.Size([13, 129])
     """
     _check_precision(precision)
-    if kernel not in ("auto", "torch", "cuda"):
-        raise ValueError(f"kernel must be 'auto', 'torch' or 'cuda', got {kernel!r}")
+    if kernel not in ("auto", "torch", "cuda", "cuda_shared"):
+        raise ValueError("kernel must be 'auto', 'torch', 'cuda' or 'cuda_shared', "
+                         f"got {kernel!r}")
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
-    if edge != "pad":
-        raise NotImplementedError(
-            "edge='conv' is not ported yet (ROADMAP queue 1 item 2); use edge='pad'")
+    if edge not in ("pad", "conv"):
+        raise ValueError(f"edge must be 'pad' or 'conv', got {edge!r}")
     x = torch.as_tensor(x)
     taps = _host_f64(taps).reshape(-1)
     window = _host_f64(window)
@@ -381,6 +435,21 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     if kernel == "cuda" and not eligible:
         raise ValueError(
             "kernel='cuda' requires output='power', onesided=True and real input")
+    if kernel == "cuda_shared":
+        if not (eligible and edge == "pad"):
+            raise ValueError("kernel='cuda_shared' requires output='power', "
+                             "onesided=True, real input and edge='pad'")
+        coeffs = (recognize_cosine_window(window, n_fft)
+                  if frame_length == n_fft and n_fft % stride == 0 and n_fft % 2 == 0
+                  else None)
+        if coeffs is None:
+            raise ValueError(
+                "kernel='cuda_shared' additionally requires frame_length == n_fft, "
+                "stride | n_fft, even n_fft and a recognized cosine-sum window "
+                "(see recognize_cosine_window)")
+        return fir_framed_dft_shared(x, taps, stride=stride, n_fft=n_fft,
+                                     window_coeffs=coeffs, onesided=True,
+                                     precision=precision, output="power")
     weights = fir_dft_fold_weights(taps, window, n_fft, onesided, device=x.device)
     pad_left = _same_pad_left(k)
     if eligible and kernel != "torch":
@@ -390,6 +459,11 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                                          num_frames=num_frames, bins=bins)
 
     power = output == "power"
+    if edge == "conv" and power and frame_chunks == 1:
+        out = _fir_framed_dft_power_nopad(x, weights, stride=stride, pad_left=pad_left,
+                                          num_frames=num_frames, bins=bins)
+        if out is not None:
+            return out
     if not power or frame_chunks == 1:
         acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=pad_left,
                                    num_frames=num_frames, bins=bins, power=power)
@@ -407,3 +481,240 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
             xp[..., f0 * stride:(f1 + c_blocks - 1) * stride], weights, stride=stride,
             pad_left=0, num_frames=f1 - f0, bins=bins, power=True)
     return out
+
+
+# --------------------------------------------------- shared-block strategy
+
+#: signed cosine-sum coefficients of the standard periodic windows:
+#: w[t] = sum_c b_c * cos(2*pi*c*t / N)
+_COSINE_WINDOW_COEFFS = {
+    "rectangular": (1.0,),
+    "hann": (0.5, -0.5),
+    "hamming": (0.54, -0.46),
+    "blackman": (0.42, -0.5, 0.08),
+}
+
+
+def recognize_cosine_window(window, n_fft: int):
+    """Signed cosine-sum coefficients (b_0, b_1, ...) of the PERIODIC
+    window sampled in `window` when it matches one of the standard
+    cosine-sum families over period `n_fft` to 1e-6, else None. Gate of
+    the shared-block path (`fir_framed_dft_shared`), which applies the
+    window as a sparse convolution in the frequency domain and so needs
+    the window's exact spectral support.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import recognize_cosine_window
+    >>> from nx_signal_tpu_torch.ops.windows import hann
+    >>> recognize_cosine_window(hann(256), 256)
+    (0.5, -0.5)
+    >>> recognize_cosine_window(hann(256, periodic=False), 256) is None
+    True
+    """
+    w = _host_f64(window)
+    if w.ndim != 1 or w.shape[0] != n_fft:
+        return None
+    t = np.arange(n_fft)
+    for coeffs in _COSINE_WINDOW_COEFFS.values():
+        model = sum(b * np.cos(2.0 * np.pi * c * t / n_fft) for c, b in enumerate(coeffs))
+        if np.allclose(w, model, atol=1e-6):
+            return tuple(coeffs)
+    return None
+
+
+def shared_fold_weights(taps, stride: int, n_fft: int, onesided: bool = True, *,
+                        device=None):
+    """The per-hop-block partial-DFT weights of the shared-block chain with
+    the FIR folded in: toeplitz_band(taps, stride) @ E, E the (stride,
+    2*bins) [Re | Im] DFT rows of one hop block (no window), folded on the
+    host in f64 and cast to f32; shape (stride + K - 1, 2*bins). `taps=None`
+    gives E itself. Bitwise equal to the JAX package's weights.
+
+    Examples:
+
+    >>> import numpy as np
+    >>> from nx_signal_tpu_torch.kernels.dft import shared_fold_weights
+    >>> shared_fold_weights(np.array([0.25, 0.5, 0.25]), 128, 512).shape
+    torch.Size([130, 514])
+    """
+    e_mat = _dft_weights(np.ones(stride), stride, n_fft, onesided, np.float64)
+    if taps is not None:
+        e_mat = toeplitz_band(_host_f64(taps).reshape(-1), stride) @ e_mat
+    return torch.as_tensor(e_mat.astype(np.float32), device=device)
+
+
+def shared_twiddles(stride: int, n_fft: int, onesided: bool = True, *, device=None):
+    """The (2, J, bins) f32 twiddles of the shared-block combine, cos then
+    sin of -2 pi ((j * k * stride) % n_fft) / n_fft for the J = n_fft /
+    stride blocks of a frame: the phase is reduced in integers before the
+    f64 cos/sin, so no angle grows with j * k.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import shared_twiddles
+    >>> shared_twiddles(128, 512).shape
+    torch.Size([2, 4, 257])
+    """
+    bins = n_fft // 2 + 1 if onesided else n_fft
+    jk = (np.arange(n_fft // stride)[:, None] * np.arange(bins)[None, :] * stride) % n_fft
+    ang = -2.0 * np.pi * jk / n_fft
+    return torch.as_tensor(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32),
+                           device=device)
+
+
+def _conj_shift_minus(xr, xi, c: int, bins: int):
+    """X[k - c] of a one-sided spectrum of a real signal: k < c reflects
+    through DC with a conjugate (X[-q] = conj X[q])."""
+    left_r = xr[..., 1:c + 1].flip(-1)
+    left_i = -xi[..., 1:c + 1].flip(-1)
+    return (torch.cat([left_r, xr[..., :bins - c]], dim=-1),
+            torch.cat([left_i, xi[..., :bins - c]], dim=-1))
+
+
+def _conj_shift_plus(xr, xi, c: int, bins: int):
+    """X[k + c] of a one-sided spectrum of a real signal (even n_fft): past
+    Nyquist reflects with a conjugate (X[n_fft - q] = conj X[q])."""
+    right_r = xr[..., bins - 1 - c:bins - 1].flip(-1)
+    right_i = -xi[..., bins - 1 - c:bins - 1].flip(-1)
+    return (torch.cat([xr[..., c:], right_r], dim=-1),
+            torch.cat([xi[..., c:], right_i], dim=-1))
+
+
+def _shared_epilogue_torch(p, twiddles, window_coeffs, *, num_frames: int, bins: int,
+                           onesided: bool):
+    """Stages B and C of the shared-block chain on the stacked (..., blocks,
+    2*bins) partial DFTs P: the twiddle combine X[m] = sum_j tw[j] P[m + j]
+    and the cosine-sum window as its sparse spectral convolution. Returns
+    (Re, Im) of the windowed (..., num_frames, bins) spectrum."""
+    p_re, p_im = p[..., :bins], p[..., bins:]
+    twr, twi = twiddles[0], twiddles[1]
+    x_re = torch.zeros((*p.shape[:-2], num_frames, bins), dtype=DEFAULT_FLOAT,
+                       device=p.device)
+    x_im = torch.zeros_like(x_re)
+    for j in range(twr.shape[0]):
+        pr = p_re[..., j:j + num_frames, :]
+        pi = p_im[..., j:j + num_frames, :]
+        x_re = x_re + twr[j] * pr - twi[j] * pi
+        x_im = x_im + twr[j] * pi + twi[j] * pr
+    out_r = window_coeffs[0] * x_re
+    out_i = window_coeffs[0] * x_im
+    for c, b in enumerate(window_coeffs[1:], start=1):
+        if b == 0.0:
+            continue
+        if onesided:
+            mr, mi = _conj_shift_minus(x_re, x_im, c, bins)
+            pr_, pi_ = _conj_shift_plus(x_re, x_im, c, bins)
+        else:
+            mr, mi = x_re.roll(c, -1), x_im.roll(c, -1)
+            pr_, pi_ = x_re.roll(-c, -1), x_im.roll(-c, -1)
+        out_r = out_r + (b / 2.0) * (mr + pr_)
+        out_i = out_i + (b / 2.0) * (mi + pi_)
+    return out_r, out_i
+
+
+def _shared_partial_dfts(x, weights, *, stride: int, pad_left: int, num_blocks: int,
+                         bins: int):
+    """Stage A of the shared-block chain: the stacked (..., num_blocks,
+    2*bins) partial DFTs P of the hop blocks, one conv1d contraction of the
+    f32 signal and weights with f64 sums, rounded to f32 once.
+
+    Stage C subtracts nearly equal neighbours: at the stopband bins of a
+    low-pass chain the window's spectral convolution cancels the hop
+    block's leakage, about 660x at the 255-tap / hann-512 / hop-128
+    bench chain. P's rounding error grows by that factor there; an f32 sum
+    (cuDNN's) left ~1e-4 of such a bin's maximum in the power, a correctly
+    rounded P ~1e-5."""
+    return _framed_matmul_torch(x, weights, stride=stride, pad_left=pad_left,
+                                num_frames=num_blocks, bins=bins, power=False,
+                                accumulate=torch.float64)
+
+
+def _shared_power_torch(x, weights, twiddles, window_coeffs, *, stride: int,
+                        pad_left: int, num_frames: int, bins: int):
+    """Plain version of kernel D (`kernels/cuda_dft.py`): the one-sided
+    power of the shared-block chain. Stage A is `_shared_partial_dfts`;
+    stages B and C are elementwise f32 torch ops in the reference's
+    order."""
+    p = _shared_partial_dfts(x, weights, stride=stride, pad_left=pad_left,
+                             num_blocks=num_frames + twiddles.shape[1] - 1, bins=bins)
+    out_r, out_i = _shared_epilogue_torch(p, twiddles, window_coeffs,
+                                          num_frames=num_frames, bins=bins, onesided=True)
+    return out_r ** 2 + out_i ** 2
+
+
+def fir_framed_dft_shared(x, taps, *, stride: int, n_fft: int, window_coeffs,
+                          onesided: bool = False, precision="highest",
+                          output: str = "complex"):
+    """FIR + windowed framed DFT through SHARED hop-block partial DFTs: the
+    half-FLOP form of `fir_framed_dft` for cosine-sum windows with
+    frame_length == n_fft and stride | n_fft. Each hop block's partial DFT
+    P[b] = x_block[b] @ E (the FIR folded into E, `shared_fold_weights`) is
+    computed once and reused by the J = n_fft/stride frames that overlap it:
+
+        X[m, k]  = sum_j tw[j, k] * P[m + j, k]                  (combine)
+        Xw[m, k] = b_0 X[m, k] + sum_c (b_c / 2) (X[m, k-c] + X[m, k+c])
+
+    the second line being the window w[t] = sum_c b_c cos(2 pi c t / n_fft)
+    as its exact sparse spectral convolution (one-sided spectra reflect
+    through DC and Nyquist with a conjugate). Per input sample the
+    contraction costs 2*(stride + K - 1)*(2*bins)/stride FLOP instead of
+    2*(n_fft + K - 1)*(2*bins)/stride. Equal to `fir_framed_dft` up to f32
+    association (not bitwise: another summation order).
+
+    `taps=None` skips the FIR. Needs n_fft % stride == 0, even n_fft for
+    onesided=True, and the window as signed cosine coefficients
+    (`recognize_cosine_window`). With output='power', onesided=True and a
+    real signal this is `kernels.cuda_dft.fir_framed_dft_power_shared_cuda`
+    (kernel D on a CUDA tensor, its plain version on a CPU one); otherwise
+    the plain torch stages run. Every `precision` runs the same arithmetic:
+    f32 operands, the contraction summed in f64 on the plain path
+    (`_shared_partial_dfts`) and in two levels of f32 in kernel D.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.ops.windows import hann
+    >>> from nx_signal_tpu_torch.kernels.dft import fir_framed_dft, fir_framed_dft_shared
+    >>> x = torch.sin(0.1 * torch.arange(1024.0))
+    >>> taps = [0.25, 0.5, 0.25]
+    >>> p = fir_framed_dft(x, taps, hann(256), stride=64, n_fft=256, onesided=True,
+    ...                    output='power')
+    >>> ps = fir_framed_dft_shared(x, taps, stride=64, n_fft=256, window_coeffs=(0.5, -0.5),
+    ...                            onesided=True, output='power')
+    >>> bool((ps - p).abs().max() < 1e-4 * p.max())
+    True
+    """
+    _check_precision(precision)
+    if output not in ("complex", "power"):
+        raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
+    if n_fft % stride != 0:
+        raise ValueError(f"shared-block strategy needs stride | n_fft, got {stride}, {n_fft}")
+    if onesided and n_fft % 2 != 0:
+        raise ValueError("onesided shared-block strategy needs even n_fft")
+    window_coeffs = tuple(float(b) for b in window_coeffs)
+    if len(window_coeffs) < 1 or len(window_coeffs) > stride:
+        raise ValueError("window_coeffs must have 1..stride terms")
+    x = torch.as_tensor(x)
+    length = x.shape[-1]
+    if length < n_fft:
+        raise ValueError(f"window length {n_fft} exceeds signal length {length}")
+    num_frames = (length - n_fft) // stride + 1
+    bins = n_fft // 2 + 1 if onesided else n_fft
+    pad_left = 0 if taps is None else _same_pad_left(_host_f64(taps).size)
+    weights = shared_fold_weights(taps, stride, n_fft, onesided, device=x.device)
+    twiddles = shared_twiddles(stride, n_fft, onesided, device=x.device)
+    if output == "power" and onesided and not x.is_complex():
+        from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_shared_cuda
+
+        return fir_framed_dft_power_shared_cuda(
+            x, weights, twiddles, window_coeffs, stride=stride, pad_left=pad_left,
+            num_frames=num_frames, bins=bins)
+    p = _shared_partial_dfts(x, weights, stride=stride, pad_left=pad_left,
+                             num_blocks=num_frames + n_fft // stride - 1, bins=bins)
+    out_r, out_i = _shared_epilogue_torch(p, twiddles, window_coeffs,
+                                          num_frames=num_frames, bins=bins,
+                                          onesided=onesided)
+    if output == "power":
+        return out_r ** 2 + out_i ** 2
+    return torch.complex(out_r, out_i)

@@ -1,9 +1,24 @@
-"""The STFT+FIR chain (counterpart of nx_signal_tpu/models/pipeline.py):
-a FIR low-pass followed by a windowed STFT power spectrogram, fused into one
-frame contraction against weights that fold the filter's 'same' Toeplitz
-matrix into the window-scaled DFT (kernels/dft.py:fir_framed_dft). On a
-CUDA tensor the contraction is the hand-written kernel A
-(kernels/cuda_dft.py:fir_framed_dft_power_cuda)."""
+"""The DSP pipelines (counterpart of nx_signal_tpu/models/pipeline.py):
+FIR chains, spectrograms and a log-mel front end, composed from the ops
+and spectral layers.
+
+* `stft_fir_chain`: a FIR low-pass then a windowed STFT power spectrogram.
+  Its power alone (`return_filtered=False`, real input) is fused into one
+  frame contraction against weights that fold the filter's 'same' Toeplitz
+  matrix into the window-scaled DFT (kernels/dft.py:fir_framed_dft): kernel
+  A (kernels/cuda_dft.py:fir_framed_dft_power_cuda) on a CUDA tensor. The
+  filtered path (`return_filtered=True`, the default) builds the filtered
+  signal with ops/convolution.py (the direct Toeplitz conv1d, the FFT, or
+  overlap-add through kernel C) and frames it with kernel B
+  (kernels/dft.py:framed_dft), or with torch.fft through spectral/stft.py
+  for complex input or n_fft > 1024.
+* `StftFirChain`: the fused power chain as an nn.Module (kernel A).
+* `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
+* `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B), then dBFS or
+  Whisper's log-mel normalization.
+"""
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -14,10 +29,109 @@ from nx_signal_tpu_torch.kernels.dft import (
     _same_pad_left,
     fir_dft_fold_weights,
     fir_framed_dft,
+    framed_dft,
     good_matmul_fft_length,
 )
+from nx_signal_tpu_torch.ops.convolution import convolve, oaconvolve
+from nx_signal_tpu_torch.ops.filters import firwin
+from nx_signal_tpu_torch.ops.windows import hann
+from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
+from nx_signal_tpu_torch.spectral.stft import stft
+from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
-__all__ = ["StftFirChain", "stft_fir_chain"]
+__all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
+           "LogMelFrontend"]
+
+
+@dataclass(frozen=True)
+class SpectrogramPipeline:
+    """Hann-window STFT -> dBFS spectrogram, 20 log10(|S| / max|S|), with
+    the spectrum scaling; returns (dB, times, frequencies).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.models.pipeline import SpectrogramPipeline
+    >>> db, times, freqs = SpectrogramPipeline(frame_length=256, fft_length=256)(
+    ...     torch.sin(0.2 * torch.arange(4096.0)))
+    >>> db.shape, float(db.max())
+    (torch.Size([31, 256]), 0.0)
+    """
+
+    frame_length: int = 1024
+    overlap_length: int = None
+    fft_length: int = 1024
+    sampling_rate: float = 16000.0
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        z, times, freqs = stft(x, hann(self.frame_length, device=x.device),
+                               sampling_rate=self.sampling_rate, fft_length=self.fft_length,
+                               overlap_length=self.overlap_length, scaling="spectrum")
+        mag = z.abs()
+        db = 20.0 * torch.log10(mag / mag.max() + 1e-12)
+        return db, times, freqs
+
+
+@dataclass(frozen=True)
+class LogMelFrontend:
+    """Whisper-style log-mel front end: STFT (reflect padding) -> |z|^2 ->
+    one mel matmul -> log10 with the dynamic-range floor.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.models.pipeline import LogMelFrontend
+    >>> LogMelFrontend()(torch.sin(0.2 * torch.arange(16000.0))).shape
+    torch.Size([101, 80])
+    """
+
+    frame_length: int = 400
+    hop_length: int = 160
+    fft_length: int = 512
+    mel_bins: int = 80
+    sampling_rate: float = 16000.0
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        z = stft(x, hann(self.frame_length, device=x.device), sampling_rate=self.sampling_rate,
+                 fft_length=self.fft_length,
+                 overlap_length=self.frame_length - self.hop_length,
+                 window_padding="reflect").z
+        filters = mel_filters(self.fft_length, self.mel_bins, self.sampling_rate,
+                              device=x.device)
+        return _log_mel(z.abs().to(DEFAULT_FLOAT) ** 2, filters, self.fft_length // 2)
+
+
+@dataclass(frozen=True)
+class FIRFilterChain:
+    """firwin design + overlap-add application ('same' mode; the overlap-add
+    is kernel C on a CUDA tensor).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.models.pipeline import FIRFilterChain
+    >>> FIRFilterChain(num_taps=31)(torch.ones(2, 1000)).shape
+    torch.Size([2, 1000])
+    """
+
+    num_taps: int = 255
+    cutoff: tuple = (2000.0,)
+    sampling_rate: float = 48000.0
+    window: str = "hann"
+
+    @property
+    def taps(self):
+        return firwin(self.num_taps, list(self.cutoff), window=self.window,
+                      sampling_rate=self.sampling_rate)
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        taps = self.taps.to(x.device)
+        if x.ndim > 1:
+            taps = taps.reshape((1,) * (x.ndim - 1) + (-1,))
+        return oaconvolve(x, taps, mode="same")
 
 
 def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
@@ -25,16 +139,19 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
                    onesided: bool = True, return_filtered: bool = True,
                    precision: str = "highest", frame_chunks=1):
     """FIR filter then windowed STFT power spectrogram of the (..., L)
-    signal: returns the (..., frames, bins) power of the 'same'-filtered
-    signal with 'valid' framing at hop frame_length - overlap_length.
+    signal: returns (filtered, power), the 'same'-filtered signal and the
+    (..., frames, bins) power of its 'valid' framing at hop frame_length -
+    overlap_length, or the power alone with `return_filtered=False`.
 
-    Only the fused path is ported: `return_filtered=False` with real input
-    and frame_length <= fft_length <= 1024, which runs
-    `kernels.dft.fir_framed_dft(output='power')` and never builds the
-    filtered signal. The filtered signal itself (`return_filtered=True`) and
-    the other paths need ops/convolution.py, which is not ported yet, and
-    raise NotImplementedError. `fir_method` and `sampling_rate` only matter
-    on those paths.
+    * `return_filtered=False` with real input and frame_length <= fft_length
+      <= 1024 runs `kernels.dft.fir_framed_dft(output='power')`, which never
+      builds the filtered signal (kernel A on a CUDA tensor; `frame_chunks`
+      shapes only its plain path).
+    * Otherwise the filtered signal comes from `ops.convolution`:
+      `fir_method` 'direct' (the Toeplitz conv1d), 'fft', or 'oa'
+      (overlap-add, kernel C). Its power is `kernels.dft.framed_dft` (kernel
+      B) for real input with frame_length <= fft_length <= 1024, and
+      |stft|^2 (torch.fft) otherwise.
 
     Examples:
 
@@ -43,25 +160,45 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
     >>> from nx_signal_tpu_torch.ops.filters import firwin
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> x = torch.randn(2, 4096, generator=torch.Generator().manual_seed(0))
-    >>> p = stft_fir_chain(x, firwin(31, [2000.0], sampling_rate=16000.0), hann(256),
-    ...                    fft_length=256, overlap_length=192, return_filtered=False)
+    >>> taps = firwin(31, [2000.0], sampling_rate=16000.0)
+    >>> p = stft_fir_chain(x, taps, hann(256), fft_length=256, overlap_length=192,
+    ...                    return_filtered=False)
     >>> p.shape
     torch.Size([2, 61, 129])
+    >>> y, p = stft_fir_chain(x, taps, hann(256), fft_length=256, overlap_length=192)
+    >>> y.shape, p.shape
+    (torch.Size([2, 4096]), torch.Size([2, 61, 129]))
     """
     x = torch.as_tensor(x)
+    taps = torch.as_tensor(taps, device=x.device)
+    window = torch.as_tensor(window, device=x.device)
     n_fft = fft_length
-    frame_length = np.shape(window)[-1]
+    frame_length = window.shape[-1]
     stride = frame_length - overlap_length
     matmul_ok = (not x.is_complex() and good_matmul_fft_length(n_fft)
                  and n_fft >= frame_length)
-    if return_filtered or not matmul_ok:
-        raise NotImplementedError(
-            "stft_fir_chain: only return_filtered=False with real input and "
-            "frame_length <= fft_length <= 1024 is ported; the other paths need "
-            "ops/convolution.py (ROADMAP queue 1 item 6)")
-    return fir_framed_dft(x, taps, window, stride=stride, n_fft=n_fft,
-                          onesided=onesided, precision=precision, output="power",
-                          frame_chunks=frame_chunks)
+    if not return_filtered and matmul_ok:
+        return fir_framed_dft(x, taps.reshape(-1), window, stride=stride, n_fft=n_fft,
+                              onesided=onesided, precision=precision, output="power",
+                              frame_chunks=frame_chunks)
+
+    taps_b = taps.reshape((1,) * (x.ndim - 1) + (-1,)) if x.ndim > 1 else taps
+    if fir_method == "oa":
+        y = oaconvolve(x, taps_b, mode="same")
+    else:
+        y = convolve(x, taps_b, mode="same", method=fir_method)
+    if matmul_ok:
+        # power straight from the [Re | Im] contraction ('valid' framing,
+        # the stft default)
+        power = framed_dft(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                           precision=precision, output="power")
+    else:
+        z = stft(y, window, sampling_rate=sampling_rate, fft_length=fft_length,
+                 overlap_length=overlap_length, onesided=onesided, precision=precision).z
+        power = z.abs() ** 2
+    if not return_filtered:
+        return power
+    return y, power
 
 
 class StftFirChain(nn.Module):

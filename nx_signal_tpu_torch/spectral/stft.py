@@ -14,6 +14,7 @@ everywhere.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul_fft_length
@@ -21,7 +22,8 @@ from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.shapes import next_power_of_two
 
-__all__ = ["stft", "istft", "fft_frequencies", "STFTResult"]
+__all__ = ["stft", "istft", "fft_frequencies", "STFTResult", "check_cola", "check_nola",
+           "check_COLA", "check_NOLA"]
 
 
 class STFTResult(NamedTuple):
@@ -45,9 +47,18 @@ def fft_frequencies(sampling_rate, *, fft_length: int, dtype=DEFAULT_FLOAT,
     tensor([0., 2., 4., 6., 8.])
     """
     if endpoint:
-        return torch.linspace(0.0, sampling_rate, fft_length, dtype=dtype, device=device)
-    return torch.linspace(0.0, sampling_rate, fft_length + 1, dtype=dtype,
-                          device=device)[:-1]
+        return _linspace(0.0, sampling_rate, fft_length, dtype=dtype, device=device)
+    return _linspace(0.0, sampling_rate, fft_length + 1, dtype=dtype, device=device)[:-1]
+
+
+def _linspace(start, stop, num: int, *, dtype=DEFAULT_FLOAT, device=None):
+    """`num` evenly spaced values from start to stop, each formed as start +
+    i * step in `dtype` (jax.numpy.linspace's rounding; torch.linspace
+    rounds some points differently)."""
+    if num == 1:
+        return torch.full((1,), start, dtype=dtype, device=device)
+    step = (stop - start) / (num - 1)
+    return start + torch.arange(num, dtype=dtype, device=device) * step
 
 
 def _resolve_fft_length(frame_length: int, fft_length) -> int:
@@ -227,3 +238,75 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     norm = _ola_fold(envelope, stride, out_length)
     norm = torch.where(norm > 1e-10, norm, torch.ones((), dtype=norm.dtype, device=norm.device))
     return result / norm
+
+
+def _check_window_arg(window, nperseg: int):
+    """The window as a host f64 array. A name (or a ('general_cosine',
+    coefs) tuple) resolves, as scipy's get_window does by default, to the
+    PERIODIC window in f64: the f32 hann's COLA deviation (~6e-8) would
+    fail the 1e-10 default tolerance."""
+    if isinstance(window, (str, tuple)):
+        from nx_signal_tpu_torch.ops.windows import get_window
+
+        w = get_window(window, nperseg, periodic=True, dtype=torch.float64).numpy()
+    else:
+        if isinstance(window, torch.Tensor):
+            window = window.detach().cpu().numpy()
+        w = np.asarray(window, dtype=np.float64)
+    if w.ndim != 1:
+        raise ValueError("window must be 1-D")
+    if w.shape[0] != nperseg:
+        raise ValueError("window must have length of nperseg")
+    return w
+
+
+def check_cola(window, nperseg: int, noverlap: int, tol: float = 1e-10):
+    """Whether the window and hop satisfy the Constant OverLap-Add
+    constraint, scipy.signal.check_COLA's contract: the strided sums
+    sum_j w[k + j*step] are equal (within `tol`) for every k of one hop.
+    Host-side f64; `window` is an array or a window name.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.spectral.stft import check_cola
+    >>> check_cola("hann", 8, 4), check_cola("hann", 8, 3)
+    (True, False)
+    """
+    w = _check_window_arg(window, nperseg)
+    if not 0 <= noverlap < nperseg:
+        raise ValueError("noverlap must be less than nperseg.")
+    step = nperseg - noverlap
+    binsums = np.sum([w[i * step:(i + 1) * step] for i in range(nperseg // step)], axis=0)
+    if nperseg % step != 0:
+        binsums[:nperseg % step] += w[-(nperseg % step):]
+    deviation = binsums - np.median(binsums)
+    return bool(np.max(np.abs(deviation)) < tol)
+
+
+def check_nola(window, nperseg: int, noverlap: int, tol: float = 1e-10):
+    """Whether the window and hop satisfy the NOnzero OverLap-Add
+    constraint, scipy.signal.check_NOLA's contract: min_k sum_j
+    |w[k + j*step]|^2 > tol, the guard `istft` applies per sample.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.spectral.stft import check_nola
+    >>> check_nola("hann", 8, 4), check_nola("hann", 8, 0)
+    (True, False)
+    """
+    w = _check_window_arg(window, nperseg)
+    if not 0 <= noverlap < nperseg:
+        raise ValueError("noverlap must be less than nperseg")
+    if tol <= 0:
+        raise ValueError("tol must be positive")
+    step = nperseg - noverlap
+    binsums = np.sum([w[i * step:(i + 1) * step] ** 2 for i in range(nperseg // step)],
+                     axis=0)
+    if nperseg % step != 0:
+        binsums[:nperseg % step] += w[-(nperseg % step):] ** 2
+    return bool(np.min(binsums) > tol)
+
+
+# scipy.signal spells these with upper-case acronyms
+check_COLA = check_cola
+check_NOLA = check_nola

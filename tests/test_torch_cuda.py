@@ -1,0 +1,201 @@
+"""The hand-written kernels on the card, against their plain versions.
+
+Every test here is marked `cuda` and skips where there is no CUDA device.
+The file imports neither JAX nor the JAX package, so on a machine with an
+NVIDIA GPU (and nvcc, but no JAX) it runs on its own, from the repository
+root:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the contraction kernels (A, B, D) against their plain versions
+per bin at 1e-4 of the bin's max, or at 1e-4 x max where the plain version
+sums in f32 too (the gate of chip_smoke.py); the overlap-add (C) bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nx_signal_tpu_torch.kernels import cuda_dft
+from nx_signal_tpu_torch.kernels import dft as td
+from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, stft_fir_chain
+from nx_signal_tpu_torch.ops import filters as tfilt
+from nx_signal_tpu_torch.ops import windows as tw
+from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def assert_close_to_max(got, want, rel=1e-4):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * np.abs(want).max())
+
+
+def hann_np(n):
+    return tw.hann(n, dtype=torch.float64).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [True, False])
+def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
+    """Kernels A and B against their plain versions at 1e-4 x max
+    (chip_smoke.py is the check that runs them at the main path's
+    shapes)."""
+    need_cuda()
+    x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32)).cuda()
+    taps, window = rng.normal(size=100), hann_np(400)
+    kw = dict(stride=150, n_fft=512, onesided=True, output="power")
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    got = td.fir_framed_dft(x, taps, window, **kw)
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
+    assert_close_to_max(got.cpu(), td.fir_framed_dft(x, taps, window, kernel="torch",
+                                                     **kw).cpu())
+    output = "power" if power else "complex"
+    kw = dict(stride=150, n_fft=512, onesided=True, output=output)
+    before = cuda_dft.framed_dft_cuda.launches
+    got = td.framed_dft(x, window, **kw)
+    assert cuda_dft.framed_dft_cuda.launches == before + 1
+    assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
+
+
+@pytest.mark.cuda
+def test_overlap_add_kernel_bitwise_on_cuda(rng):
+    need_cuda()
+    frames = torch.from_numpy(rng.normal(size=(2, 40, 400)).astype(np.float32)).cuda()
+    got = cuda_dft.overlap_add_cuda(frames, stride=150, out_length=40 * 150 + 250)
+    want = _ola_fold_torch(frames, 150, 40 * 150 + 250).cpu()
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
+    """frame_chunks only shapes the plain path: on the card the chain still
+    launches kernel A, once, and agrees with the chunked plain path at
+    1e-4 x max."""
+    need_cuda()
+    x = torch.from_numpy(rng.normal(size=(2, 8192)).astype(np.float32)).cuda()
+    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    got = stft_fir_chain(x, taps, window, fft_length=512, overlap_length=384,
+                         return_filtered=False, frame_chunks=4)
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
+    want = td.fir_framed_dft(x, taps, window, stride=128, n_fft=512, onesided=True,
+                             output="power", frame_chunks=4, kernel="torch")
+    assert_close_to_max(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_filtered_chain_runs_kernels_b_and_c_on_cuda(rng):
+    """On the card the filtered chain frames with kernel B and FIRFilterChain
+    overlap-adds with kernel C; both agree with the CPU at 1e-4 x max."""
+    need_cuda()
+    x = rng.normal(size=(2, 8192)).astype(np.float32)
+    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
+    before_b, before_c = cuda_dft.framed_dft_cuda.launches, cuda_dft.overlap_add_cuda.launches
+    y, p = stft_fir_chain(torch.from_numpy(x).cuda(), taps, window, fft_length=512,
+                          overlap_length=384)
+    filtered = FIRFilterChain()(torch.from_numpy(x).cuda())
+    assert cuda_dft.framed_dft_cuda.launches == before_b + 1
+    assert cuda_dft.overlap_add_cuda.launches == before_c + 1
+    want_y, want_p = stft_fir_chain(torch.from_numpy(x), taps, window, fft_length=512,
+                                    overlap_length=384)
+    assert_close_to_max(y.cpu(), want_y)
+    assert_close_to_max(p.cpu(), want_p)
+    assert_close_to_max(filtered.cpu(), FIRFilterChain()(torch.from_numpy(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [  # batch, length, taps, stride, n_fft, window
+    ((2,), 5000, 255, 128, 512, "hann"),
+    ((3, 2), 9000, 63, 128, 512, "blackman"),
+    ((1,), 4000, 1, 256, 512, "hamming"),
+    ((2,), 20000, 129, 128, 1024, "hann"),
+    ((1,), 50001, 64, 1000, 2000, "hann"),   # the 16-block tile
+])
+def test_shared_kernel_matches_plain_on_cuda(geometry, rng):
+    """Kernel D against its plain version, per bin at 1e-4 of the bin's
+    max, on the geometries of the JAX package's shared-kernel tests and a
+    hop of 1000 (the 16-block tile); and edge='conv' / edge='pad' both run
+    kernel A, with equal results."""
+    need_cuda()
+    batch, length, k, stride, n_fft, wname = geometry
+    x = rng.normal(size=(*batch, length)).astype(np.float32)
+    taps = rng.normal(size=k).astype(np.float32)
+    window = getattr(tw, wname)(n_fft, dtype=torch.float64).numpy()
+    coeffs = td.recognize_cosine_window(window, n_fft)
+    xc = torch.from_numpy(x).cuda()
+    before = cuda_dft.fir_framed_dft_power_shared_cuda.launches
+    got = td.fir_framed_dft_shared(xc, taps, stride=stride, n_fft=n_fft, window_coeffs=coeffs,
+                                   onesided=True, output="power").cpu()
+    assert cuda_dft.fir_framed_dft_power_shared_cuda.launches == before + 1
+    want = td.fir_framed_dft_shared(torch.from_numpy(x), taps, stride=stride, n_fft=n_fft,
+                                    window_coeffs=coeffs, onesided=True, output="power")
+    per_bin = ((got - want).abs().reshape(-1, want.shape[-1]).amax(0)
+               / want.abs().reshape(-1, want.shape[-1]).amax(0))
+    assert float(per_bin.max()) <= 1e-4
+    kw = dict(stride=stride, n_fft=n_fft, onesided=True, output="power")
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    conv = td.fir_framed_dft(xc, taps, window, edge="conv", **kw)
+    assert torch.equal(conv, td.fir_framed_dft(xc, taps, window, edge="pad", **kw))
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_public_functions_run_on_cuda(rng):
+    """Every ported public function of ops/convolution.py, spectral/mel.py
+    and models/pipeline.py takes CUDA tensors, keeps them on the card and
+    agrees with its CPU result at 1e-4 x max (f32 sums in other orders)."""
+    need_cuda()
+    from nx_signal_tpu_torch.models.pipeline import LogMelFrontend, SpectrogramPipeline
+    from nx_signal_tpu_torch.ops import convolution as tc
+    from nx_signal_tpu_torch.spectral import mel as tm
+    from nx_signal_tpu_torch.spectral.stft import stft
+
+    def arr(*shape, complex_=False):
+        a = rng.normal(size=shape)
+        if complex_:
+            a = a + 1j * rng.normal(size=shape)
+        return torch.from_numpy(a.astype(np.complex64 if complex_ else np.float32))
+
+    sig, ker = arr(3, 700), arr(1, 31)
+    csig, cker = arr(500, complex_=True), arr(12, complex_=True)
+    img, kimg = arr(20, 24), arr(5, 4)
+    cases = [
+        (tc.convolve, (sig, ker), dict(mode="same")),
+        (tc.convolve, (sig, ker), dict(mode="valid", method="fft")),
+        (tc.convolve, (csig, cker), dict(mode="full")),
+        (tc.convolve, (img, kimg), dict(mode="same")),
+        (tc.correlate, (csig, cker), dict(mode="same")),
+        (tc.fftconvolve, (img, kimg), dict(mode="full")),
+        (tc.oaconvolve, (sig, ker), dict(mode="same")),
+        (tc.oaconvolve, (csig, cker), dict(mode="full")),
+        (tc.fir_convolve_1d, (sig, ker[0]), dict(mode="full", origin=37)),
+        (tc.convolve2d, (img, kimg), dict(mode="same", boundary="symm")),
+        (tc.convolve2d, (img, kimg), dict(mode="full", boundary="wrap")),
+        (tc.correlate2d, (img, kimg), dict(mode="valid", boundary="fill", fillvalue=0.5)),
+        (lambda a, b: tc.deconvolve(a, b)[0], (torch.tensor([1.0, 3.0, 3.0, 1.0]),
+                                              torch.tensor([1.0, 1.0])), {}),
+        (lambda z: tm.stft_to_mel(z, 8000.0, fft_length=256, mel_bins=40),
+         (stft(arr(2, 4000), tw.hann(256), fft_length=256, overlap_length=128,
+               onesided=True).z,), {}),
+        (lambda x: SpectrogramPipeline(frame_length=256, fft_length=256)(x)[0],
+         (arr(4096),), {}),
+        (LogMelFrontend(), (arr(2, 16000),), {}),
+    ]
+    for fn, args, kw in cases:
+        want = fn(*args, **kw)
+        got = fn(*(a.cuda() for a in args), **kw)
+        assert got.device.type == "cuda" and got.dtype == want.dtype, fn
+        assert_close_to_max(got.cpu(), want)
+    fb = tm.mel_filters(512, 80, 16000.0, device="cuda")
+    assert fb.device.type == "cuda"
+    assert_close_to_max(fb.cpu(), tm.mel_filters(512, 80, 16000.0), rel=1e-5)

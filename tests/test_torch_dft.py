@@ -213,8 +213,8 @@ def test_fir_framed_dft_errors(rng):
         td.fir_framed_dft(x, taps, window, output="power", kernel="pallas", **kw)
     with pytest.raises(ValueError, match="kernel='cuda' requires"):
         td.fir_framed_dft(x, taps, window, output="complex", kernel="cuda", **kw)
-    with pytest.raises(NotImplementedError, match="edge='conv'"):
-        td.fir_framed_dft(x, taps, window, output="power", edge="conv", **kw)
+    with pytest.raises(ValueError, match="edge must be 'pad' or 'conv'"):
+        td.fir_framed_dft(x, taps, window, output="power", edge="wrap", **kw)
     with pytest.raises(ValueError, match="exceeds signal length"):
         td.fir_framed_dft(torch.zeros(100), taps, window, output="power", **kw)
     with pytest.raises(ValueError, match="precision"):
@@ -239,7 +239,8 @@ def test_good_matmul_fft_length(n_fft):
     assert td.good_matmul_fft_length(n_fft) == jd.good_matmul_fft_length(n_fft)
 
 
-@pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_overlap_add_f32"])
+@pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_overlap_add_f32",
+                                  "nx_shared_dft_power_f32"])
 def test_ctypes_signatures_match_the_sources(name):
     """The argtypes declared for each C entry point match its prototype in
     kernels/csrc (ctypes cannot check this, and the card is not here)."""
@@ -253,38 +254,3 @@ def test_ctypes_signatures_match_the_sources(name):
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64 for p in params]
     assert list(_build._SIGNATURES[name]) == kinds
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("power", [True, False])
-def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
-    """The hand-written kernels against their plain versions on the card, at
-    1e-4 x max; skipped without a CUDA device (chip_smoke.py is the check
-    that runs them at the main path's shapes)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32)).cuda()
-    taps, window = rng.normal(size=100), hann_np(400)
-    kw = dict(stride=150, n_fft=512, onesided=True, output="power")
-    before = cuda_dft.fir_framed_dft_power_cuda.launches
-    got = td.fir_framed_dft(x, taps, window, **kw)
-    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
-    assert_close_to_max(got.cpu(), td.fir_framed_dft(x, taps, window, kernel="torch",
-                                                     **kw).cpu())
-    output = "power" if power else "complex"
-    kw = dict(stride=150, n_fft=512, onesided=True, output=output)
-    before = cuda_dft.framed_dft_cuda.launches
-    got = td.framed_dft(x, window, **kw)
-    assert cuda_dft.framed_dft_cuda.launches == before + 1
-    assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-
-
-@pytest.mark.cuda
-def test_overlap_add_kernel_bitwise_on_cuda(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
-
-    frames = torch.from_numpy(rng.normal(size=(2, 40, 400)).astype(np.float32)).cuda()
-    got = cuda_dft.overlap_add_cuda(frames, stride=150, out_length=40 * 150 + 250)
-    assert_bitwise(got.cpu(), _ola_fold_torch(frames, 150, 40 * 150 + 250).cpu())

@@ -5,8 +5,12 @@ Tolerances:
 * windows, sinc, firwin: 1e-6 absolute — the same f32 formulas; the two
   libraries' cos/sin and dot products may differ in the last ulp.
 * stft_fir_chain / StftFirChain: 1e-4 x max|power| against the JAX
-  stft_fir_chain(return_filtered=False), the JAX package's gate for f32
-  contractions summed in different orders.
+  stft_fir_chain, the JAX package's gate for f32 contractions summed in
+  different orders; the filtered signal of return_filtered=True and
+  FIRFilterChain at 1e-5 x max|y| (f32 convolutions in other orders).
+* SpectrogramPipeline: the dB values as amplitudes relative to the peak,
+  10^(dB/20), at 1e-5 absolute (f32 DFT sums; in dB a weak bin's rounding
+  is magnified, 3e-3 dB at -70 dB).
 * the folded weights held by StftFirChain: bitwise (the same numpy f64 fold).
 """
 
@@ -21,11 +25,18 @@ import pytest
 import torch
 
 from nx_signal_tpu.kernels.dft import fir_dft_fold_weights as jax_fold
+from nx_signal_tpu.models.pipeline import FIRFilterChain as JaxFIRChain
+from nx_signal_tpu.models.pipeline import SpectrogramPipeline as JaxSpectrogram
 from nx_signal_tpu.models.pipeline import stft_fir_chain as jax_chain
 from nx_signal_tpu.ops import filters as jfilt
 from nx_signal_tpu.ops import waveforms as jwave
 from nx_signal_tpu.ops import windows as jw
-from nx_signal_tpu_torch.models.pipeline import StftFirChain, stft_fir_chain
+from nx_signal_tpu_torch.models.pipeline import (
+    FIRFilterChain,
+    SpectrogramPipeline,
+    StftFirChain,
+    stft_fir_chain,
+)
 from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import waveforms as twave
 from nx_signal_tpu_torch.ops import windows as tw
@@ -136,36 +147,92 @@ def test_stft_fir_chain_module(k, frame, hop, n_fft, rng):
     assert_close_to_max(chain.to("cpu")(torch.from_numpy(x)), want.astype(np.float32))
 
 
-@pytest.mark.cuda
-def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
-    """frame_chunks only shapes the plain path: on the card the chain still
-    launches kernel A, once, and agrees with the chunked plain path at
-    1e-4 x max."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    from nx_signal_tpu_torch.kernels import cuda_dft
-    from nx_signal_tpu_torch.kernels.dft import fir_framed_dft
-
-    x = torch.from_numpy(rng.normal(size=(2, 8192)).astype(np.float32)).cuda()
-    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
-    before = cuda_dft.fir_framed_dft_power_cuda.launches
-    got = stft_fir_chain(x, taps, window, fft_length=512, overlap_length=384,
-                         return_filtered=False, frame_chunks=4)
-    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
-    want = fir_framed_dft(x, taps, window, stride=128, n_fft=512, onesided=True,
-                          output="power", frame_chunks=4, kernel="torch")
-    assert_close_to_max(got.cpu(), want.cpu())
-
-
 def test_stft_fir_chain_unported_paths():
+    """Every path of stft_fir_chain is ported; what still raises is what the
+    JAX package rejects too."""
     x, taps, window = torch.zeros(2, 4096), np.ones(5) / 5, tw.hann(256)
-    with pytest.raises(NotImplementedError, match="convolution"):
-        stft_fir_chain(x, taps, window, fft_length=256, overlap_length=128)
-    with pytest.raises(NotImplementedError, match="convolution"):
-        stft_fir_chain(x, taps, tw.hann(2048), fft_length=2048, overlap_length=1024,
-                       return_filtered=False)
+    kw = dict(fft_length=256, overlap_length=128, fir_method="winograd")
+    with pytest.raises(ValueError, match="method"):
+        stft_fir_chain(x, taps, window, **kw)
+    with pytest.raises(ValueError, match="method"):
+        jax_chain(jnp.zeros((2, 4096)), taps, np.asarray(window), **kw)
     with pytest.raises(ValueError, match="shorter than the window"):
         StftFirChain.from_numpy(taps, window.numpy(), stride=64, n_fft=128)
+
+
+FILTERED_GEOMETRIES = [  # channels, length, taps, frame, overlap, n_fft
+    (2, 8192, 255, 512, 384, 512),   # the bench chain, cut to size
+    (3, 5000, 100, 400, 240, 512),   # even taps
+]
+
+
+@pytest.mark.parametrize("geometry", FILTERED_GEOMETRIES)
+@pytest.mark.parametrize("fir_method", ["direct", "fft", "oa"])
+def test_stft_fir_chain_filtered_matches_jax(geometry, fir_method, rng):
+    channels, length, k, frame, overlap, n_fft = geometry
+    x = rng.normal(size=(channels, length)).astype(np.float32)
+    taps = np.array(jfilt.firwin(k, [2000.0], sampling_rate=48000.0))
+    window = np.array(jw.hann(frame))
+    kw = dict(fft_length=n_fft, overlap_length=overlap, sampling_rate=48000.0,
+              fir_method=fir_method)
+    want_y, want_p = jax_chain(jnp.asarray(x), taps, window, **kw)
+    got_y, got_p = stft_fir_chain(torch.from_numpy(x), taps, torch.from_numpy(window), **kw)
+    assert got_y.dtype == torch.float32 and got_p.dtype == torch.float32
+    assert_close_to_max(got_y, np.asarray(want_y), rel=1e-5)
+    assert_close_to_max(got_p, np.asarray(want_p).astype(np.float32))
+    # the power alone through the same branch agrees with the fused path
+    fused = stft_fir_chain(torch.from_numpy(x), taps, window, return_filtered=False, **kw)
+    assert_close_to_max(got_p, fused.numpy())
+
+
+@pytest.mark.parametrize("case", ["complex_input", "long_fft"])
+@pytest.mark.parametrize("return_filtered", [True, False])
+def test_stft_fir_chain_stft_branch_matches_jax(case, return_filtered, rng):
+    """Complex input or n_fft > 1024 takes the stft (torch.fft) branch."""
+    if case == "complex_input":
+        x = (rng.normal(size=(2, 6000)) + 1j * rng.normal(size=(2, 6000))).astype(np.complex64)
+        frame, overlap, n_fft = 256, 128, 256
+    else:
+        x = rng.normal(size=(2, 12000)).astype(np.float32)
+        frame, overlap, n_fft = 2048, 1024, 2048
+    taps = np.array(jfilt.firwin(63, [3000.0], sampling_rate=48000.0))
+    window = np.array(jw.hann(frame))
+    kw = dict(fft_length=n_fft, overlap_length=overlap, sampling_rate=48000.0,
+              return_filtered=return_filtered, onesided=case != "complex_input")
+    want = jax_chain(jnp.asarray(x), taps, window, **kw)
+    got = stft_fir_chain(torch.from_numpy(x), taps, window, **kw)
+    if return_filtered:
+        assert_close_to_max(got[0], np.asarray(want[0]), rel=1e-5)
+        got, want = got[1], want[1]
+    assert_close_to_max(got, np.asarray(want).astype(np.float32))
+
+
+@pytest.mark.parametrize("params", [dict(), dict(num_taps=65, cutoff=(1000.0, 4000.0),
+                                                 sampling_rate=16000.0, window="hamming")])
+@pytest.mark.parametrize("shape", [(3000,), (2, 4000)])
+def test_fir_filter_chain_matches_jax(params, shape, rng):
+    x = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(JaxFIRChain(**params)(jnp.asarray(x)))
+    chain = FIRFilterChain(**params)
+    np.testing.assert_allclose(chain.taps.numpy(), np.asarray(JaxFIRChain(**params).taps),
+                               rtol=0, atol=1e-6)
+    assert_close_to_max(chain(torch.from_numpy(x)), want, rel=1e-5)
+
+
+@pytest.mark.parametrize("params", [dict(frame_length=256, fft_length=256),
+                                    dict(frame_length=400, overlap_length=300,
+                                         fft_length=512, sampling_rate=8000.0)])
+def test_spectrogram_pipeline_matches_jax(params, rng):
+    t = np.arange(16000) / 16000.0
+    x = (np.sin(2 * np.pi * 440.0 * t) + 0.1 * rng.normal(size=t.size)).astype(np.float32)
+    want_db, want_t, want_f = JaxSpectrogram(**params)(jnp.asarray(x))
+    got_db, got_t, got_f = SpectrogramPipeline(**params)(torch.from_numpy(x))
+    want_db = np.asarray(want_db)
+    assert got_db.shape == want_db.shape and float(got_db.max()) == 0.0
+    np.testing.assert_allclose(10.0 ** (got_db.numpy() / 20.0), 10.0 ** (want_db / 20.0),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-6)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=1e-6)
 
 
 def _run(args, cwd, env_extra=None):
@@ -186,6 +253,12 @@ def test_port_imports_and_runs_without_jax():
         "x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4096)).astype('f4'))\n"
         "p = nt.stft_fir_chain(x, nt.firwin(63, [0.2]), nt.hann(256), fft_length=256,\n"
         "                      overlap_length=192, return_filtered=False)\n"
+        "yf, pf = nt.stft_fir_chain(x, nt.firwin(63, [0.2]), nt.hann(256), fft_length=256,\n"
+        "                           overlap_length=192, fir_method='oa')\n"
+        "ps = nt.fir_framed_dft(x, nt.firwin(63, [0.2]), nt.hann(256), stride=64,\n"
+        "                       n_fft=256, onesided=True, output='power',\n"
+        "                       kernel='cuda_shared')\n"
+        "assert pf.shape == ps.shape == p.shape and yf.shape == x.shape\n"
         "y = nt.istft(nt.stft(x, nt.hann(256), overlap_length=192, onesided=True).z,\n"
         "             nt.hann(256), overlap_length=192, onesided=True)\n"
         "assert p.shape == (2, 61, 129) and bool(torch.isfinite(p).all()), p.shape\n"

@@ -135,3 +135,49 @@ def test_stft_istft_errors():
     with pytest.raises(ValueError, match="less than the window size"):
         ts.istft(torch.zeros(3, 33, dtype=torch.complex64), w, onesided=True,
                  overlap_length=64)
+
+
+COLA_CASES = [  # window, nperseg, noverlap
+    ("hann", 8, 4), ("hann", 8, 3), ("hann", 256, 192), ("hamming", 64, 32),
+    ("blackman", 96, 64), ("blackman", 96, 72), ("hann", 10, 3), ("hann", 8, 0),
+    (("general_cosine", [0.5, 0.5]), 16, 8),
+]
+
+
+@pytest.mark.parametrize("window,nperseg,noverlap", COLA_CASES)
+def test_check_cola_and_nola_match_jax(window, nperseg, noverlap):
+    """Named windows resolve to the periodic f64 form, as the JAX package
+    and scipy resolve them."""
+    for name in ("check_cola", "check_nola"):
+        assert getattr(ts, name)(window, nperseg, noverlap) is \
+            getattr(js, name)(window, nperseg, noverlap), name
+
+
+def test_check_cola_named_window_is_periodic_f64():
+    # the f32 periodic hann deviates ~6e-8 from COLA, the symmetric one far
+    # more: only the periodic f64 form passes the 1e-10 default tolerance
+    assert ts.check_cola("hann", 256, 128)
+    assert not ts.check_cola(hann_np(256).astype(np.float32), 256, 128)
+    assert not ts.check_cola(np.asarray(jw.hann(256, periodic=False), np.float64), 256, 128)
+    assert ts.check_cola(torch.from_numpy(hann_np(256)).double(), 256, 128, tol=1e-6)
+    assert ts.check_COLA is ts.check_cola and ts.check_NOLA is ts.check_nola
+
+
+@pytest.mark.parametrize("window", [np.ones(16), np.asarray(jw.hamming(16), np.float64)])
+@pytest.mark.parametrize("noverlap", [0, 5, 8, 15])
+def test_check_cola_and_nola_arrays_match_jax(window, noverlap):
+    for name in ("check_cola", "check_nola"):
+        assert getattr(ts, name)(window, 16, noverlap) is \
+            getattr(js, name)(window, 16, noverlap), name
+
+
+def test_check_cola_nola_errors():
+    for fn in (ts.check_cola, ts.check_nola):
+        with pytest.raises(ValueError, match="noverlap must be less than nperseg"):
+            fn("hann", 8, 8)
+        with pytest.raises(ValueError, match="length of nperseg"):
+            fn(np.ones(7), 8, 4)
+        with pytest.raises(ValueError, match="1-D"):
+            fn(np.ones((2, 8)), 8, 4)
+    with pytest.raises(ValueError, match="tol must be positive"):
+        ts.check_nola("hann", 8, 4, tol=0.0)
