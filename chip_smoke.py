@@ -48,17 +48,62 @@ Phases (any failure raises, and the exit code is not 0):
      Phases 3-6 drive the main paths through their public entry points:
      the launch counters are zeroed just before each and read just after,
      and each must have launched the kernels of its path.
-  7. median of 5 CUDA-event timings of each kernel and its plain version,
+  7. median of 5 CUDA-event timings of each kernel, its plain version and
+     the one PyTorch call that computes the same function (`library_ms`,
+     never called by the port: F.conv1d of the folded weights for A and D,
+     torch.stft(center=False) for B, F.fold as a 1-D overlap-add for C),
      taken in turns, at the phase-2 shapes; then of the filtered chain's
-     two stages (the direct FIR and kernel B) at 768 x 480000.
-The line before the last is one JSON object describing the kernels; the last
+     two stages (the direct FIR and kernel B) at 768 x 480000. Each
+     kernel's bound is computed from this run's shapes, for the least work
+     its function needs (not the dense-matrix DFT the kernels run): the
+     larger of the operations of an FFT route (the FIR as an FFT
+     overlap-save convolution, a real FFT per frame, 2.5 n log2 n each) over
+     the 67 TFLOP/s f32 peak and its bytes (inputs read once, outputs
+     written once) over 3.35 TB/s (H100 SXM, NVIDIA's data sheet).
+  8. the sharded layer: 4 ranks spawned (torch.multiprocessing, 'spawn') in
+     one gloo group (FileStore in a temporary directory), on cuda:(rank %
+     device_count), so with one card all four share it and kernel E's
+     stores go through CUDA IPC. The ranks load the library phase 1 built.
+     Kernel E against its plain version (send/recv + concat), bitwise, on
+     mesh (1, 4) for 768 x 120320 blocks (the bench FIR's 'direct' block
+     rounding of 480000 / 4) with hl = hr = 127, K = 256 (128, 127) and
+     K = 2 (1, 0); then, each path with the counters zeroed before it
+     (every sharded halo is kernel E):
+     sharded_convolve_same with the bench FIR at 768 x 480000 on (1, 4)
+     and 64 x 480000 on (2, 2), each rank's shard within 1e-5 of its max
+     against the single-device convolve(mode='same'), E launched once per
+     rank; sharded_fir_framed_dft_power at the bench chain on (1, 4), each
+     rank's frames per bin within 1e-4 of the single-device stft_fir_chain,
+     A and E launched once per rank; sharded_stft -> sharded_istft at 64 x
+     480000 on (1, 4), B, C and E launched, the interior within 1e-5 x
+     max|x|, and the seeded sharded overlap-add bitwise equal to the
+     single-device fold. Last, at the bench geometry, the whole exchange
+     through kernel E with its barriers, the plain send/recv halo and the
+     bare send/recv (all ranks together, host clock; median of 5, the
+     largest rank reported), and E's put + assemble alone, rank by rank,
+     by CUDA events (`device_ms` in the kernels line). The parent joins
+     every rank with a timeout; a rank that fails or hangs fails the run.
+     Ranks prefix their lines with their rank.
+The line before the last is one JSON object describing the kernels (the
+launch counts add up every path's, phase 8's over all ranks; E's `ms`,
+`plain_ms` and `library_ms` are host-clock exchanges of all ranks at once,
+and its bound counts the bytes of all the ranks sharing the card); the last
 is the device line {"ok": true, "device": {...}}.
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+
+# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+_PEAK_F32_FLOPS = 67e12
+_PEAK_BYTES = 3.35e12
+_PHASE8_RANKS = 4
+_PHASE8_TIMEOUT_S = 600
 
 
 def _gpu_name_and_power_limit() -> str:
@@ -117,6 +162,33 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def _bound(flops, nbytes):
+    """(least ms, what bounds it) for `flops` f32 operations and `nbytes`
+    of device-memory traffic at the card's published peaks."""
+    ops_ms, bytes_ms = flops / _PEAK_F32_FLOPS * 1e3, nbytes / _PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _rfft_flops(n) -> float:
+    """Operations of one real-input FFT of length n (2.5 n log2 n)."""
+    return 2.5 * n * math.log2(n)
+
+
+def _fft_route_flops(rows, length, num_taps, frame, num_frames, n_fft, bins) -> float:
+    """Operations of the least-work route of the FIR + framed DFT power
+    chain on `rows` signals: the FIR (none for num_taps 0) as an FFT
+    overlap-save convolution of length 2 x the power of two >= K (a forward
+    and an inverse real FFT and a complex product per block of n - K + 1
+    outputs), then per frame the window, one real FFT and |.|^2 (3 per
+    bin; 0 for a complex output)."""
+    fir = 0.0
+    if num_taps:
+        n = 2 * (1 << (num_taps - 1).bit_length())
+        blocks = -(-length // (n - num_taps + 1))
+        fir = blocks * (2 * _rfft_flops(n) + 6.0 * (n // 2 + 1))
+    return rows * (fir + num_frames * (frame + _rfft_flops(n_fft) + 3.0 * bins))
+
+
 def _run_path(name, kernels, expect, fn):
     """Zero every launch counter, run one main path, and fail unless each
     kernel of `expect` was launched on it; returns the counts."""
@@ -147,6 +219,230 @@ def _numpy_power(y2, window, *, hop, num_frames, n_fft):
     return np.abs(np.fft.rfft(fr[:, ::hop][:, :num_frames] * window, n=n_fft)) ** 2
 
 
+def _phase8(world, device_type, sizes):
+    """Spawn `world` ranks running `_phase8_rank`, join them within
+    _PHASE8_TIMEOUT_S (a rank that fails raises here; one that hangs is
+    killed and fails the run), and return every rank's report."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_phase8_rank, args=(world, tmp, device_type, sizes),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + _PHASE8_TIMEOUT_S
+        while not ctx.join(max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"phase 8: ranks still running after {_PHASE8_TIMEOUT_S} s")
+        with open(os.path.join(tmp, "phase8.json")) as f:
+            return json.load(f)
+
+
+def _phase8_rank(rank, world, tmp, device_type, sizes):
+    """One rank of phase 8 (see the module docstring). `device_type`
+    'cpu' runs the same program on the CPU at a small `sizes`, with the
+    plain versions and without the launch gates and timings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    def say(msg):
+        print(f"[rank {rank}] {msg}", flush=True)
+
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.kernels._build import load_library
+    from nx_signal_tpu_torch.kernels.dft import framed_idft
+    from nx_signal_tpu_torch.models.pipeline import stft_fir_chain
+    from nx_signal_tpu_torch.ops.convolution import convolve
+    from nx_signal_tpu_torch.ops.filters import firwin
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel.halo import (
+        _halo_extend_torch, _shift_from_left, _shift_from_right)
+    from nx_signal_tpu_torch.parallel.mesh import (
+        block_row, make_dsp_mesh, mesh_coordinate, mesh_device)
+    from nx_signal_tpu_torch.parallel.sharded import (
+        _local_shard, _sharded_fold, gather_blocks, sharded_convolve_same,
+        sharded_fir_framed_dft_power, sharded_istft, sharded_stft)
+
+    mesh14 = make_dsp_mesh(1, world, device_type=device_type)
+    mesh22 = make_dsp_mesh(2, world // 2, device_type=device_type)
+    dev = mesh_device(mesh14)
+    on_card = dev.type == "cuda"
+    say(f"on {dev}")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    A, B = cuda_dft.fir_framed_dft_power_cuda, cuda_dft.framed_dft_cuda
+    C, E = cuda_dft.overlap_add_cuda, cuda_halo.halo_extend_cuda
+    kernels = (A, B, C, E)
+    report = {"rank": rank, "launches": {k.__name__: 0 for k in kernels}}
+    out = {}
+
+    def run_path(name, expect, fn):
+        for kernel in kernels:
+            kernel.launches = 0
+        fn()
+        sync()
+        counts = {k.__name__: k.launches for k in kernels}
+        say(f"launches on {name}: {counts}")
+        for kernel, n in expect.items():
+            if on_card and counts[kernel.__name__] != n:
+                raise AssertionError(f"rank {rank}: {kernel.__name__} launched "
+                                     f"{counts[kernel.__name__]} times on {name}, not {n}")
+        for kname, n in counts.items():
+            report["launches"][kname] += n
+
+    def bitwise(name, got, want):
+        """Fail unless bitwise equal; returns max|got - want|."""
+        same = got.shape == want.shape and torch.equal(got.contiguous().view(torch.int32),
+                                                       want.contiguous().view(torch.int32))
+        say(f"{name}: bitwise equal = {same}")
+        if not same:
+            raise AssertionError(f"rank {rank}: {name} not bitwise equal")
+        return float((got - want).abs().max())
+
+    channels, length, block = sizes["channels"], sizes["length"], sizes["block"]
+    small = sizes["small_channels"]
+    rate, num_taps, frame, hop, n_fft = 48000.0, 255, 512, 128, 512
+    _, b = mesh_coordinate(mesh14)
+
+    # kernel E against its plain version on each rank's own block
+    report["e_max_abs_err"] = 0.0
+    for k in (num_taps, 256, 2):
+        hr = (k - 1) // 2
+        hl = k - 1 - hr
+        gen = torch.Generator(device=dev).manual_seed(100 + rank)
+        x_blk = torch.randn((channels, block), generator=gen, device=dev)
+        err = bitwise(f"E {channels}x{block} hl={hl} hr={hr} vs send/recv + concat",
+                      E(x_blk, hl, hr, mesh=mesh14),
+                      _halo_extend_torch(x_blk, hl, hr, mesh=mesh14))
+        report["e_max_abs_err"] = max(report["e_max_abs_err"], err)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((channels, length), generator=gen, device=dev)  # the same on every rank
+    x_small = x[:small]
+    taps = firwin(num_taps, [2000.0], sampling_rate=rate)
+    for mesh, sig, tag in ((mesh14, x, "(1, 4)"), (mesh22, x_small, "(2, 2)")):
+        name = f"sharded_convolve_same {tag} {tuple(sig.shape)}"
+        run_path(name, {E: 1}, lambda: out.update(
+            y=sharded_convolve_same(sig, taps, mesh=mesh)))
+        y = out.pop("y")
+        c, bb = mesh_coordinate(mesh)
+        rows = sig.shape[0] // mesh.size(0)
+        start = bb * y.shape[-1]
+        stop = min(start + y.shape[-1], length)
+        ref = convolve(sig[c * rows:(c + 1) * rows], taps.to(dev)[None],
+                       mode="same")[:, start:stop]
+        got = y[:, :stop - start]
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        say(f"{name} vs single-device convolve 'same': max|d| = {err:.6g}, max = {scale:.6g}, "
+            f"bitwise = {torch.equal(got, ref)} (gate 1e-5 x max)")
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"rank {rank}: {name} off the single-device call by {err}")
+        del y, ref, got
+
+    window = hann(frame)
+    num_frames = (length - frame) // hop + 1
+    name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length}"
+    run_path(name, {A: 1, E: 1}, lambda: out.update(p=sharded_fir_framed_dft_power(
+        x, taps, window, mesh=mesh14, stride=hop, n_fft=n_fft)))
+    p = out.pop("p")
+    f0 = b * p.shape[1]
+    f1 = min(f0 + p.shape[1], num_frames)
+    single = stft_fir_chain(x, taps, window, fft_length=n_fft, overlap_length=frame - hop,
+                            sampling_rate=rate, return_filtered=False)
+    _check_close(f"[rank {rank}] {name} frames {f0}:{f1} vs single-device stft_fir_chain",
+                 p[:, :f1 - f0], single[:, f0:f1])
+    del p, single
+
+    win_t = hann(frame, device=dev)
+    kw = dict(fft_length=n_fft, overlap_length=frame - hop, sampling_rate=rate, onesided=True)
+
+    def round_trip():
+        z = sharded_stft(x_small, win_t, mesh=mesh14, **kw).z
+        out["z"] = gather_blocks(z, mesh=mesh14, length=num_frames, axis=-2)
+        out["y"] = sharded_istft(out["z"], win_t, mesh=mesh14, **kw)
+
+    run_path(f"sharded_stft -> sharded_istft (1, 4) {small}x{length}", {B: 1, C: 4, E: 1},
+             round_trip)
+    z, y = out.pop("z"), out.pop("y")
+    overlap = frame - hop
+    own = -(-num_frames // world) * hop
+    out_length = num_frames * hop + overlap
+    lo, hi = max(b * own, frame), min(b * own + y.shape[-1], out_length - frame)
+    err = float((y[:, lo - b * own:hi - b * own] - x_small[:, lo:hi]).abs().max())
+    scale = float(x_small.abs().max())
+    say(f"round trip samples {lo}:{hi}: max|d| = {err:.6g} (gate 1e-5 x {scale:.6g})")
+    if not (bool(torch.isfinite(y).all()) and err <= 1e-5 * scale):
+        raise AssertionError(f"rank {rank}: round trip error {err} > 1e-5 x {scale}")
+    frames = framed_idft(z, win_t, n_fft=n_fft, onesided=True)
+    fpb = own // hop
+    folded = _sharded_fold(_local_shard(frames, mesh14, fpb, 1, dev), hop, own, overlap, mesh14)
+    mine = folded if b == world - 1 else folded[..., :own]
+    ref = C(frames, stride=hop, out_length=out_length)[:, b * own:b * own + mine.shape[-1]]
+    bitwise("seeded sharded overlap-add vs the single-device fold", mine[..., :ref.shape[-1]],
+            ref)
+    del z, y, frames, folded, mine, ref
+
+    if on_card:  # kernel E's times at the bench geometry
+        hl = hr = (num_taps - 1) // 2
+        gen = torch.Generator(device=dev).manual_seed(100 + rank)
+        x_blk = torch.randn((channels, block), generator=gen, device=dev)
+        report["e_geometry"] = dict(c=channels, n=block, hl=hl, hr=hr)
+        E(x_blk, hl, hr, mesh=mesh14)
+        lib = load_library()
+        group, row, bi = block_row(mesh14)
+        bufs = cuda_halo._peer_buffers(lib, group, row, bi, channels * hl * 4,
+                                       channels * hr * 4, dev)
+        ext = torch.empty((channels, hl + block + hr), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def device_part():
+            cuda_halo._put(lib, x_blk, bufs, hl, hr, stream)
+            cuda_halo._assemble(lib, x_blk, ext, bufs.recv_left, bufs.recv_right, hl, hr,
+                                stream)
+
+        sync()
+        for turn in range(world):  # one rank at a time on the card
+            dist.barrier()
+            if turn == rank:
+                device_part()
+                sync()
+                report["e_kernel_ms"] = sorted(_time_ms(device_part) for _ in range(5))[2]
+        dist.barrier()
+
+        def together(fn):
+            times = []
+            for _ in range(5):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[2]
+
+        report["e_exchange_ms"] = together(lambda: E(x_blk, hl, hr, mesh=mesh14))
+        report["e_plain_ms"] = together(lambda: _halo_extend_torch(x_blk, hl, hr, mesh=mesh14))
+        report["e_library_ms"] = together(lambda: (_shift_from_left(x_blk[:, -hl:], mesh14),
+                                                   _shift_from_right(x_blk[:, :hr], mesh14)))
+        say(f"E put + assemble {report['e_kernel_ms']:.3f} ms, exchange "
+            f"{report['e_exchange_ms']:.3f} ms, plain {report['e_plain_ms']:.3f} ms, "
+            f"send/recv {report['e_library_ms']:.3f} ms")
+        cuda_halo.close_halo_buffers()
+
+    reports = [None] * world
+    dist.all_gather_object(reports, report)
+    if rank == 0:
+        with open(os.path.join(tmp, "phase8.json"), "w") as f:
+            json.dump(reports, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -163,6 +459,7 @@ def main() -> int:
 
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.kernels._build import library_path, load_library
+    from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
     from nx_signal_tpu_torch.kernels.dft import (
         _dft_weights, _framed_matmul_torch, _same_pad_left, _shared_power_torch,
         fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared, framed_idft,
@@ -431,30 +728,70 @@ def main() -> int:
     del y, power, fir
 
     # ---------------------------------------------------------------- 7
-    print("phase 7: median of 5 CUDA-event timings, kernel vs plain", flush=True)
+    print("phase 7: median of 5 CUDA-event timings, kernel vs plain vs library call",
+          flush=True)
+    import torch.nn.functional as F
+
+    from nx_signal_tpu_torch.kernels.dft import _exact_f32
+
+    # the library calls (timed here, never called by the port): the conv1d of
+    # the folded weights over the hop blocks, as the plain path runs it
+    # without its power epilogue (A, and D whose chain it computes)
+    rows_a = w_fold.shape[0]
+    c_blocks = -(-rows_a // hop)
+    needed = (num_frames + c_blocks - 1) * hop
+    xp = F.pad(x, (pad_left, max(0, needed - pad_left - length)))[..., :needed]
+    blocks = xp.reshape(channels, -1, hop).transpose(1, 2)
+    conv_w = F.pad(w_fold, (0, 0, 0, c_blocks * hop - rows_a)).reshape(
+        c_blocks, hop, 2 * bins).permute(2, 1, 0).contiguous()
+
+    def conv1d_folded():
+        with _exact_f32():
+            return F.conv1d(blocks, conv_w)
+
+    stft_window = hann(frame, device=dev)
+    fold_in = frames.transpose(1, 2).contiguous()
+    # A and D compute the same function (the FIR + framed DFT power chain):
+    # one bound, for the least work it needs, taps and window read once
+    bound_chain = _bound(_fft_route_flops(channels, length, num_taps, frame, num_frames, n_fft,
+                                          bins),
+                         4.0 * (x.numel() + num_taps + frame + channels * num_frames * bins))
     cases = [
         ("A", channels * length, lambda: A(x, w_fold, **args_a),
-         lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a)),
+         lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a), conv1d_folded,
+         bound_chain),
         ("B", 64 * length, lambda: B(x64, w_dft, **args_b),
          lambda: torch.complex(*_framed_matmul_torch(
-             x64, w_dft, pad_left=0, power=False, **args_b).split(bins, dim=-1))),
+             x64, w_dft, pad_left=0, power=False, **args_b).split(bins, dim=-1)),
+         lambda: torch.stft(x64, n_fft, hop_length=hop, win_length=frame, window=stft_window,
+                            center=False, onesided=True, return_complex=True),
+         # the window and a real FFT per frame, a complex64 output
+         _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_fft, 0),
+                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins)),
         ("C", 64 * out_length, lambda: C(frames, stride=hop, out_length=out_length),
-         lambda: _ola_fold_torch(frames, hop, out_length)),
+         lambda: _ola_fold_torch(frames, hop, out_length),
+         lambda: F.fold(fold_in, output_size=(1, out_length), kernel_size=(1, frame),
+                        stride=(1, hop)),
+         _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length))),
         ("D", channels * length, lambda: D(x, w_shared, tw_shared, coeffs, **args_d),
-         lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d)),
+         lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d), conv1d_folded,
+         bound_chain),
     ]
     timings = {}
-    for name, samples, kernel_fn, plain_fn in cases:
-        kernel_fn(), plain_fn()  # warm up
+    for name, samples, kernel_fn, plain_fn, library_fn, bound in cases:
+        kernel_fn(), plain_fn(), library_fn()  # warm up
         torch.cuda.synchronize()
-        k_ms, p_ms = [], []
-        for _ in range(5):  # in turns: kernel, plain, kernel, plain, ...
+        k_ms, p_ms, l_ms = [], [], []
+        for _ in range(5):  # in turns: kernel, plain, library, kernel, ...
             k_ms.append(_time_ms(kernel_fn))
             p_ms.append(_time_ms(plain_fn))
-        k_ms, p_ms = sorted(k_ms)[2], sorted(p_ms)[2]
-        timings[name] = (k_ms, p_ms)
+            l_ms.append(_time_ms(library_fn))
+        k_ms, p_ms, l_ms = sorted(k_ms)[2], sorted(p_ms)[2], sorted(l_ms)[2]
+        timings[name] = (k_ms, p_ms, l_ms, *bound)
         print(f"  {name}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
-              f"plain {p_ms:.3f} ms ({samples / p_ms / 1e3:.1f} Msamples/s)", flush=True)
+              f"plain {p_ms:.3f} ms, library call {l_ms:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]})", flush=True)
+    del xp, blocks, fold_in
 
     # where the filtered chain's time goes: the direct FIR, then kernel B
     from nx_signal_tpu_torch.kernels.dft import framed_dft
@@ -473,18 +810,50 @@ def main() -> int:
               f"{sorted(_time_ms(fn) for _ in range(5))[2]:.3f} ms", flush=True)
     del y
 
+    # ---------------------------------------------------------------- 8
+    del x, x64, xs, frames, w_fold, w_fold64, w_shared, conv_w
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
+          "CUDA IPC)", flush=True)
+    reports = _phase8(_PHASE8_RANKS, "cuda", dict(channels=channels, length=length,
+                                                   small_channels=64, block=120320))
+    for report in reports:
+        for name, n in report["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    # E's ms, plain_ms and library_ms: host-clock exchanges of all ranks at
+    # once; its bound: every rank reads its block once and writes its ext
+    # once, all on the cards the ranks share
+    geo = reports[0]["e_geometry"]
+    timings["E"] = (max(r["e_exchange_ms"] for r in reports),
+                    max(r["e_plain_ms"] for r in reports),
+                    max(r["e_library_ms"] for r in reports),
+                    *_bound(0.0, 4.0 * geo["c"] * (2 * geo["n"] + geo["hl"] + geo["hr"])
+                            * _PHASE8_RANKS / torch.cuda.device_count()))
+    e_device_ms = max(r["e_kernel_ms"] for r in reports)
+    err_e = max(r["e_max_abs_err"] for r in reports)
+    print(f"  E: the exchange with its barriers {timings['E'][0]:.3f} ms, plain send/recv + "
+          f"concat {timings['E'][1]:.3f} ms, bare send/recv {timings['E'][2]:.3f} ms (largest "
+          f"rank, host clock, all ranks at once), bound {timings['E'][3]:.3f} ms "
+          f"({timings['E'][4]}, {_PHASE8_RANKS} ranks); put + assemble alone "
+          f"{e_device_ms:.3f} ms (largest rank, CUDA events, one rank at a time)", flush=True)
+
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
         (B, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:127", err_b, "B"),
         (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", err_c, "C"),
         (D, "shared_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:687", err_d, "D"),
+        (halo_extend_cuda, "halo.cu", "nx_signal_tpu/kernels/pallas_halo.py:89", err_e, "E"),
     ]
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": k.__name__, "route": "cuda",
          "source": f"nx_signal_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
          "launches": launches[k.__name__], "max_abs_err": err,
-         "ms": timings[tag][0], "plain_ms": timings[tag][1]}
-        for k, src, replaces, err, tag in rows]}), flush=True)
+         "ms": timings[tag][0], "plain_ms": timings[tag][1], "bound_ms": timings[tag][3],
+         "bound_by": timings[tag][4], "library_ms": timings[tag][2]}
+        for k, src, replaces, err, tag in rows]
+    entries[-1]["device_ms"] = e_device_ms
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -12,12 +12,19 @@ Layering:
   spectral/  framing (as_windowed / overlap_and_add), stft / istft,
              check_cola / check_nola, mel (mel_filters, stft_to_mel)
   kernels/   host weight functions and plain paths (dft.py), hand-written
-             CUDA kernels for Hopper (csrc/, bound in cuda_dft.py)
+             CUDA kernels for Hopper (csrc/, bound in cuda_dft.py and
+             cuda_halo.py)
   models/    the pipelines (stft_fir_chain, StftFirChain, FIRFilterChain,
              SpectrogramPipeline, LogMelFrontend)
+  parallel/  mesh (make_dsp_mesh) and sharded (sharded_convolve_same,
+             sharded_fir_framed_dft_power, sharded_stft, sharded_istft,
+             sharded_oaconvolve_same, gather_blocks) on torch.distributed,
+             one process per rank
 
 On a CPU tensor every kernel wrapper runs its plain PyTorch version; on a
 CUDA tensor inside a kernel's contract the kernel runs, or the call raises.
+The entry points run on the card unless asked for the CPU: a signal that
+is not a tensor goes to the CUDA device (utils/devices.py).
 """
 
 from nx_signal_tpu_torch.kernels.dft import fir_framed_dft, fir_framed_dft_shared

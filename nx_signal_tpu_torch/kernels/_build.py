@@ -18,7 +18,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD_DIR = Path(__file__).with_name("_build")
-_SOURCES = ("framed_dft.cu", "overlap_add.cu", "shared_dft.cu")
+_SOURCES = ("framed_dft.cu", "overlap_add.cu", "shared_dft.cu", "halo.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC")
 
@@ -29,12 +29,34 @@ _SIGNATURES = {
     # x, w, out, channels, length, stride, krows, pad_left, num_frames, bins,
     # power, stream (all on the current device)
     "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # frames, out, channels, num_frames, frame_length, stride, out_length,
-    # stream (all on the current device)
-    "nx_overlap_add_f32": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # frames, init (or null), out, channels, num_frames, frame_length,
+    # stride, out_length, stream (all on the current device)
+    "nx_overlap_add_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, e, tw, wc, out, channels, length, stride, krows, pad_left,
     # num_frames, bins, j_taps, ncoef, stream (all on the current device)
     "nx_shared_dft_power_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # halo.cu (kernel E and its peer buffers), on the current device:
+    # bytes, address of the pointer it sets
+    "nx_halo_alloc": (_I, _P),
+    # pointer from nx_halo_alloc
+    "nx_halo_free": (_P,),
+    # pointer from nx_halo_alloc, address of a 64-byte handle it writes
+    "nx_ipc_get_handle": (_P, _P),
+    # address of a 64-byte handle of another process, address of the
+    # pointer it sets
+    "nx_ipc_open_handle": (_P, _P),
+    # pointer from nx_ipc_open_handle
+    "nx_ipc_close_handle": (_P,),
+    # stream
+    "nx_stream_synchronize": (_P,),
+    # x, the right neighbour's left buffer (or null), the left neighbour's
+    # right buffer (or null), rows, and in 4-byte words: block, left halo,
+    # right halo; stream
+    "nx_halo_put": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, received left halo (or null: zeros), received right halo (or null:
+    # zeros), ext, rows, and in 4-byte words: block, left halo, right halo;
+    # stream
+    "nx_halo_assemble": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -27,7 +27,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import _framed_matmul_torch, _shared_power_torch
-from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["fir_framed_dft_power_cuda", "framed_dft_cuda", "overlap_add_cuda",
@@ -128,28 +128,37 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
 framed_dft_cuda.launches = 0
 
 
-def overlap_add_cuda(frames, *, stride: int, out_length: int):
+def overlap_add_cuda(frames, *, stride: int, out_length: int, init=None):
     """Kernel C: overlap-add of (..., M, N) float32 frames at hop `stride`
     into (..., out_length), every output sample summing its frames in
     increasing frame order — bitwise equal to the plain fold. Any hop >= 1.
-    On a CPU tensor it returns the plain fold."""
+    `init` (..., any length), cut to out_length and zero-padded, seeds each
+    sample's sum (`spectral.framing._ola_fold`). On a CPU tensor it returns
+    the plain fold."""
     frames = torch.as_tensor(frames)
     if frames.dtype != DEFAULT_FLOAT or frames.ndim < 2:
         raise ValueError(f"expected float32 frames of rank >= 2, got {frames.dtype} "
                          f"rank {frames.ndim}")
     if not _on_card(frames):
-        return _ola_fold_torch(frames, stride, out_length)
+        return _ola_fold_torch(frames, stride, out_length, init=init)
     *batch, num_frames, frame_length = frames.shape
     if stride < 1 or out_length < 1 or frames.numel() == 0:
         raise ValueError(f"bad geometry: stride={stride}, out_length={out_length}, "
                          f"frames={num_frames}")
     f = frames.reshape(-1, num_frames, frame_length).contiguous()
+    seed = None
+    if init is not None:
+        seed = _ola_seed(init, batch, out_length, DEFAULT_FLOAT)
+        if seed.device != frames.device:
+            raise ValueError(f"init on {seed.device}, frames on {frames.device}")
+        seed = seed.reshape(-1, out_length).contiguous()
     out = torch.empty((f.shape[0], out_length), dtype=DEFAULT_FLOAT, device=frames.device)
     lib = load_library()
     with torch.cuda.device(frames.device):
         err = lib.nx_overlap_add_f32(
-            f.data_ptr(), out.data_ptr(), f.shape[0], num_frames, frame_length, stride,
-            out_length, torch.cuda.current_stream().cuda_stream)
+            f.data_ptr(), None if seed is None else seed.data_ptr(), out.data_ptr(),
+            f.shape[0], num_frames, frame_length, stride, out_length,
+            torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "overlap_add kernel")
     overlap_add_cuda.launches += 1
     return out.reshape(*batch, out_length)

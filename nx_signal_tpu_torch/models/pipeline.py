@@ -37,6 +37,7 @@ from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.windows import hann
 from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
 from nx_signal_tpu_torch.spectral.stft import stft
+from nx_signal_tpu_torch.utils.devices import as_signal, card_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
@@ -64,7 +65,7 @@ class SpectrogramPipeline:
     sampling_rate: float = 16000.0
 
     def __call__(self, x):
-        x = torch.as_tensor(x)
+        x = as_signal(x)
         z, times, freqs = stft(x, hann(self.frame_length, device=x.device),
                                sampling_rate=self.sampling_rate, fft_length=self.fft_length,
                                overlap_length=self.overlap_length, scaling="spectrum")
@@ -93,7 +94,7 @@ class LogMelFrontend:
     sampling_rate: float = 16000.0
 
     def __call__(self, x):
-        x = torch.as_tensor(x)
+        x = as_signal(x)
         z = stft(x, hann(self.frame_length, device=x.device), sampling_rate=self.sampling_rate,
                  fft_length=self.fft_length,
                  overlap_length=self.frame_length - self.hop_length,
@@ -127,7 +128,7 @@ class FIRFilterChain:
                       sampling_rate=self.sampling_rate)
 
     def __call__(self, x):
-        x = torch.as_tensor(x)
+        x = as_signal(x)
         taps = self.taps.to(x.device)
         if x.ndim > 1:
             taps = taps.reshape((1,) * (x.ndim - 1) + (-1,))
@@ -169,7 +170,7 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
     >>> y.shape, p.shape
     (torch.Size([2, 4096]), torch.Size([2, 61, 129]))
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     taps = torch.as_tensor(taps, device=x.device)
     window = torch.as_tensor(window, device=x.device)
     n_fft = fft_length
@@ -217,7 +218,7 @@ class StftFirChain(nn.Module):
     >>> from nx_signal_tpu_torch.ops.filters import firwin
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> chain = StftFirChain.from_numpy(firwin(31, [0.2]).numpy(), hann(256).numpy(),
-    ...                                 stride=64, n_fft=256)
+    ...                                 stride=64, n_fft=256, device="cpu")
     >>> chain(torch.zeros(3, 1024)).shape
     torch.Size([3, 13, 129])
     """
@@ -239,7 +240,11 @@ class StftFirChain(nn.Module):
     @classmethod
     def from_numpy(cls, taps, window, *, stride: int, n_fft: int, device=None):
         """Fold the numpy `taps` and `window` (e.g. `np.asarray` of the JAX
-        package's firwin / hann) into the module's weights on `device`."""
+        package's firwin / hann) into the module's weights on `device`, by
+        default the CUDA device (a RuntimeError where there is none: pass
+        device='cpu' for the CPU)."""
+        if device is None:
+            device = card_device()
         taps = np.asarray(taps, dtype=np.float64).reshape(-1)
         window = np.asarray(window, dtype=np.float64)
         if n_fft < window.shape[-1]:

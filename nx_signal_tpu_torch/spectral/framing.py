@@ -92,29 +92,63 @@ def as_windowed(x, *, window_length: int, stride: int = 1, padding="valid"):
     return x.unfold(-1, window_length, stride)
 
 
-def _ola_fold_torch(frames, stride: int, out_length: int):
+def _ola_seed(init, batch, length: int, dtype):
+    """The (*batch, length) seed of a fold: `init` cut to `length` samples
+    and zero-padded to it, in `dtype`."""
+    init = torch.as_tensor(init)
+    if tuple(init.shape[:-1]) != tuple(batch):
+        raise ValueError(f"init must have the frames' batch shape {tuple(batch)}, "
+                         f"got {tuple(init.shape[:-1])}")
+    init = init[..., :length].to(dtype)
+    return F.pad(init, (0, length - init.shape[-1]))
+
+
+def _ola_fold_torch(frames, stride: int, out_length: int, init=None):
     """Plain deterministic overlap-add: a left fold of the C shifted blocks,
     j descending, so sample p = q*stride + s receives frames[q - j,
-    s + j*stride] in increasing frame order. Each block is added in place
-    into its row range of the (rows, stride) accumulator grid; the JAX fold
-    adds +0.0 outside that range instead, which leaves every sum unchanged
-    (the accumulator starts at +0.0 and can never become -0.0)."""
+    s + j*stride] in increasing frame order.
+
+    The (rows, stride) accumulator grid starts at `init` (cut to
+    rows*stride samples, zero-padded), or at +0.0 without one, and every
+    block is added to the whole grid, zeros outside its row range, as the
+    JAX fold does: a seed of -0.0 then meets the same +0.0 terms.
+
+    Complex frames fold their real and imaginary parts apart: torch's
+    complex add computes a + 1*b, and the complex product 1*b turns a real
+    part of -0.0 into +0.0 where the imaginary part is negative."""
+    if frames.is_complex():
+        seeds = (None, None)
+        if init is not None:
+            init = torch.as_tensor(init)
+            seeds = (init.real, init.imag) if init.is_complex() else (init, None)
+        re = _ola_fold_torch(frames.real, stride, out_length, init=seeds[0])
+        im = _ola_fold_torch(frames.imag, stride, out_length, init=seeds[1])
+        return torch.complex(re, im)
     *batch, num_frames, window_length = frames.shape
     widths = _frame_block_widths(window_length, stride)
     num_rows = -(-out_length // stride)
-    acc = torch.zeros((*batch, num_rows, stride), dtype=frames.dtype,
-                      device=frames.device)
+    grid = (*batch, num_rows, stride)
+    if init is None:
+        acc = torch.zeros(grid, dtype=frames.dtype, device=frames.device)
+    else:
+        acc = _ola_seed(init, batch, num_rows * stride, frames.dtype).reshape(grid)
+        acc = acc.to(frames.device, copy=True)
+    block = torch.empty_like(acc)
     for j in range(len(widths) - 1, -1, -1):
-        rows = min(num_frames, num_rows - j)
-        if rows <= 0:
-            continue
+        rows = max(min(num_frames, num_rows - j), 0)
         w = widths[j]
-        acc[..., j:j + rows, :w] += frames[..., :rows, j * stride:j * stride + w]
+        block.zero_()
+        block[..., j:j + rows, :w] = frames[..., :rows, j * stride:j * stride + w]
+        acc += block
     return acc.reshape(*batch, num_rows * stride)[..., :out_length]
 
 
-def _ola_fold(frames, stride: int, out_length: int):
+def _ola_fold(frames, stride: int, out_length: int, init=None):
     """Deterministic overlap-add of (..., M, N) frames into (..., out_length).
+    `init` (..., any length), if given, seeds the accumulator: a sample
+    receiving frames m0 < m1 < ... is (((init + f_m0) + f_m1) + ...) with
+    exactly that association, which the sharded overlap-add
+    (parallel/sharded.py:sharded_istft) needs to stay bitwise.
 
     float32 frames go through `kernels.cuda_dft.overlap_add_cuda` (the
     hand-written kernel on a CUDA tensor, its plain version on a CPU one);
@@ -122,8 +156,8 @@ def _ola_fold(frames, stride: int, out_length: int):
     if frames.dtype == DEFAULT_FLOAT:
         from nx_signal_tpu_torch.kernels.cuda_dft import overlap_add_cuda
 
-        return overlap_add_cuda(frames, stride=stride, out_length=out_length)
-    return _ola_fold_torch(frames, stride, out_length)
+        return overlap_add_cuda(frames, stride=stride, out_length=out_length, init=init)
+    return _ola_fold_torch(frames, stride, out_length, init=init)
 
 
 def overlap_and_add(frames, *, overlap_length: int, dtype=None):

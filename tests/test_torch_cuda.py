@@ -9,7 +9,8 @@ root:
 
 Tolerances: the contraction kernels (A, B, D) against their plain versions
 per bin at 1e-4 of the bin's max, or at 1e-4 x max where the plain version
-sums in f32 too (the gate of chip_smoke.py); the overlap-add (C) bitwise.
+sums in f32 too (the gate of chip_smoke.py); the overlap-add (C, with and
+without a seed) and the halo exchange (E) bitwise.
 """
 
 import numpy as np
@@ -74,6 +75,18 @@ def test_overlap_add_kernel_bitwise_on_cuda(rng):
     got = cuda_dft.overlap_add_cuda(frames, stride=150, out_length=40 * 150 + 250)
     want = _ola_fold_torch(frames, 150, 40 * 150 + 250).cpu()
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_halo_kernel_and_seeded_overlap_add_bitwise_on_cuda(tmp_path):
+    """Two ranks sharing cuda:0 (a gloo group; CUDA IPC between the
+    processes): kernel E against the send/recv halo, bitwise, for f32 with
+    hl = 128, hr = 127, for hl = 1, hr = 0, and for f64; kernel C with a
+    seed (some of it -0.0) against the plain seeded fold, bitwise."""
+    need_cuda()
+    from tests import torch_sharded_ranks as ranks
+
+    assert ranks.spawn(ranks.cuda_halo_case, 2, tmp_path) == [True] * 4
 
 
 @pytest.mark.cuda

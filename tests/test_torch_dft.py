@@ -240,7 +240,10 @@ def test_good_matmul_fft_length(n_fft):
 
 
 @pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_overlap_add_f32",
-                                  "nx_shared_dft_power_f32"])
+                                  "nx_shared_dft_power_f32", "nx_halo_alloc", "nx_halo_free",
+                                  "nx_ipc_get_handle", "nx_ipc_open_handle",
+                                  "nx_ipc_close_handle", "nx_stream_synchronize",
+                                  "nx_halo_put", "nx_halo_assemble"])
 def test_ctypes_signatures_match_the_sources(name):
     """The argtypes declared for each C entry point match its prototype in
     kernels/csrc (ctypes cannot check this, and the card is not here)."""

@@ -15,9 +15,12 @@ MODULES = [
     "nx_signal_tpu_torch.ops.transforms",
     "nx_signal_tpu_torch.ops.waveforms",
     "nx_signal_tpu_torch.ops.windows",
+    "nx_signal_tpu_torch.parallel.mesh",
+    "nx_signal_tpu_torch.parallel.sharded",
     "nx_signal_tpu_torch.spectral.framing",
     "nx_signal_tpu_torch.spectral.mel",
     "nx_signal_tpu_torch.spectral.stft",
+    "nx_signal_tpu_torch.utils.devices",
     "nx_signal_tpu_torch.utils.dtypes",
     "nx_signal_tpu_torch.utils.shapes",
 ]

@@ -94,6 +94,41 @@ def test_ola_fold_bitwise(m, n, stride, extra, batch, rng):
     assert_bitwise(got, want)
 
 
+@pytest.mark.parametrize("m,n,stride,extra", OLA_GEOMETRIES)
+@pytest.mark.parametrize("seed_length", ["short", "exact", "long"])
+def test_ola_fold_with_init_bitwise(m, n, stride, extra, seed_length, rng):
+    """The seeded fold, (((init + f_m0) + f_m1) + ...), against the JAX fold
+    with the same init: cut to the grid, zero-padded, and -0.0 seeds meet
+    the same +0.0 terms as the JAX fold's zero-padded blocks."""
+    frames = rng.normal(size=(2, m, n)).astype(np.float32)
+    frames[0, 0, :3] = -0.0
+    out_length = m * stride + max(n - stride, 0) + extra
+    length = {"short": max(out_length // 3, 1), "exact": out_length,
+              "long": out_length + 2 * stride + 1}[seed_length]
+    init = rng.normal(size=(2, length)).astype(np.float32)
+    init[:, ::4] = -0.0
+    want = jf._ola_fold(jnp.asarray(frames), stride, out_length, init=jnp.asarray(init))
+    got = tf._ola_fold(torch.from_numpy(frames), stride, out_length,
+                       init=torch.from_numpy(init))
+    assert_bitwise(got, want)
+    before = cuda_dft.overlap_add_cuda.launches
+    assert_bitwise(cuda_dft.overlap_add_cuda(torch.from_numpy(frames), stride=stride,
+                                             out_length=out_length,
+                                             init=torch.from_numpy(init)), want)
+    assert cuda_dft.overlap_add_cuda.launches == before
+    # complex frames take the plain fold with the same seed
+    cframes = frames + 1j * frames[::-1]
+    cinit = init + 1j * init[::-1]
+    want = jf._ola_fold(jnp.asarray(cframes), stride, out_length, init=jnp.asarray(cinit))
+    assert_bitwise(tf._ola_fold(torch.from_numpy(cframes), stride, out_length,
+                                init=torch.from_numpy(cinit)), want)
+
+
+def test_ola_fold_init_batch_must_match():
+    with pytest.raises(ValueError, match="batch shape"):
+        tf._ola_fold(torch.zeros(2, 3, 8), 4, 16, init=torch.zeros(3, 16))
+
+
 @pytest.mark.parametrize("shape,overlap", [((2, 6, 512), 384), ((5, 256), 128)])
 def test_overlap_and_add_matches_pallas_interpret(shape, overlap, rng):
     frames = rng.normal(size=shape).astype(np.float32)

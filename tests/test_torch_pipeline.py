@@ -138,7 +138,7 @@ def test_stft_fir_chain_module(k, frame, hop, n_fft, rng):
     x = rng.normal(size=(2, 6000)).astype(np.float32)
     taps = np.array(jfilt.firwin(k, [3000.0], sampling_rate=48000.0))
     window = np.array(jw.hann(frame))
-    chain = StftFirChain.from_numpy(taps, window, stride=hop, n_fft=n_fft)
+    chain = StftFirChain.from_numpy(taps, window, stride=hop, n_fft=n_fft, device="cpu")
     assert dict(chain.named_buffers())["weights"] is chain.weights
     np.testing.assert_array_equal(chain.weights.numpy(),
                                   np.asarray(jax_fold(taps, window, n_fft, True)))
@@ -157,7 +157,7 @@ def test_stft_fir_chain_unported_paths():
     with pytest.raises(ValueError, match="method"):
         jax_chain(jnp.zeros((2, 4096)), taps, np.asarray(window), **kw)
     with pytest.raises(ValueError, match="shorter than the window"):
-        StftFirChain.from_numpy(taps, window.numpy(), stride=64, n_fft=128)
+        StftFirChain.from_numpy(taps, window.numpy(), stride=64, n_fft=128, device="cpu")
 
 
 FILTERED_GEOMETRIES = [  # channels, length, taps, frame, overlap, n_fft
@@ -233,6 +233,27 @@ def test_spectrogram_pipeline_matches_jax(params, rng):
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-6)
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=1e-6)
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, rng):
+    """A signal that is not a tensor goes to the CUDA device, and
+    from_numpy builds there by default: with no card both raise (never a
+    quiet run on the CPU). A CPU tensor or device='cpu' asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = rng.normal(size=(2, 4096)).astype(np.float32)
+    taps, window = tfilt.firwin(31, [0.2]).numpy(), tw.hann(256).numpy()
+    kw = dict(fft_length=256, overlap_length=192)
+    for call in (lambda: stft_fir_chain(x, taps, window, return_filtered=False, **kw),
+                 lambda: stft_fir_chain(x.tolist(), taps, window, **kw),
+                 lambda: SpectrogramPipeline(frame_length=256, fft_length=256)(x[0]),
+                 lambda: FIRFilterChain(num_taps=31)(x),
+                 lambda: StftFirChain.from_numpy(taps, window, stride=64, n_fft=256)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    got = stft_fir_chain(torch.from_numpy(x), taps, window, return_filtered=False, **kw)
+    chain = StftFirChain.from_numpy(taps, window, stride=64, n_fft=256, device="cpu")
+    assert got.device.type == "cpu" and chain.weights.device.type == "cpu"
+    assert_close_to_max(chain(torch.from_numpy(x)), got)
 
 
 def _run(args, cwd, env_extra=None):

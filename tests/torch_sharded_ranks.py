@@ -1,0 +1,228 @@
+"""Rank programs of the sharded port's tests: each runs in a process of its
+own, spawned by tests/test_torch_sharded.py (a gloo group of CPU ranks) or
+tests/test_torch_cuda.py (ranks sharing one CUDA device). This module
+imports no JAX: the spawned ranks must start without it.
+
+Each case makes its inputs with numpy from a seed (`signal`), so the
+parent process rebuilds the same inputs for the JAX package.
+"""
+
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+WORLD = 4
+
+MESHES = [(1, 4), (2, 2), (4, 1)]
+CONV_SHAPES = [(4096, 255), (4096, 256), (1000, 31), (4099, 17)]  # tests/test_sharded.py:44
+CONV_CASES = [(mesh, length, k, method) for mesh in MESHES for length, k in CONV_SHAPES
+              for method in ("conv", "direct")]
+# channels, length, taps, frame, hop, n_fft: the bench chain cut to size
+# (block 2048, a multiple of the hop), and a ragged one
+CHAIN_CASES = [((1, 4), (4, 8192, 255, 512, 128, 512)), ((2, 2), (4, 8192, 255, 512, 128, 512)),
+               ((2, 2), (2, 6000, 100, 400, 150, 512))]
+# mesh, channels, length, frame, overlap, onesided (61 frames: padded to 64
+# on 4 blocks; 4099 samples: a padded block)
+STFT_CASES = [((1, 4), 4, 4096, 256, 192, True), ((2, 2), 4, 4096, 256, 192, False),
+              ((1, 4), 2, 4099, 256, 128, True)]
+OA_CASES = [((1, 4), 4096, 255), ((2, 2), 4099, 64)]
+HALO_PADS = [(5, 3), (1, 0), (0, 4), (16, 16), (0, 0)]  # on 16-sample blocks
+
+
+def signal(seed, shape, dtype=np.float32):
+    return np.random.default_rng(seed).normal(size=shape).astype(dtype)
+
+
+def _init(rank, world, store_path):
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+
+
+def _error(fn):
+    """The message of the ValueError `fn` raises (None if it returns)."""
+    try:
+        fn()
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def cpu_cases(rank, store_path, out_path):
+    """Every case of tests/test_torch_sharded.py on a gloo group of WORLD CPU
+    ranks; rank 0 pickles the gathered results to `out_path`."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.kernels.dft import framed_idft
+    from nx_signal_tpu_torch.ops.convolution import _direct_convolve
+    from nx_signal_tpu_torch.ops.filters import firwin
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel import sharded as ts
+    from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh, mesh_coordinate
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold
+
+    _init(rank, WORLD, store_path)
+    meshes = {shape: make_dsp_mesh(*shape, device_type="cpu") for shape in MESHES}
+    out = {}
+
+    def gather(local, mesh, length, axis=-1):
+        return ts.gather_blocks(local, mesh=mesh, length=length, axis=axis).numpy()
+
+    for mesh_shape, length, k, method in CONV_CASES:
+        mesh = meshes[mesh_shape]
+        x, taps = signal(1, (8, length)), signal(2, k)
+        y = ts.sharded_convolve_same(torch.from_numpy(x), torch.from_numpy(taps), mesh=mesh,
+                                     method=method)
+        out["conv", mesh_shape, length, k, method] = gather(y, mesh, length)
+        if method == "conv":
+            out["conv_single", length, k] = _direct_convolve(
+                torch.from_numpy(x), torch.from_numpy(taps)[None], "same",
+                use_matmul=False).numpy()
+    mesh = meshes[(1, 4)]
+    x1, taps1 = signal(3, 2048), signal(4, 33)
+    out["conv_1d"] = gather(ts.sharded_convolve_same(x1, taps1, mesh=mesh), mesh, 2048)
+
+    # the plain halo against the concat of the global signal's slices
+    x = torch.from_numpy(signal(5, (2, 64)))
+    _, b = mesh_coordinate(mesh)
+    blk = x[:, 16 * b:16 * (b + 1)]
+    halo_ok = []
+    for pl, pr in HALO_PADS:
+        left = x[:, 16 * b - pl:16 * b] if b > 0 else torch.zeros(2, pl)
+        right = x[:, 16 * (b + 1):16 * (b + 1) + pr] if b < 3 else torch.zeros(2, pr)
+        want = torch.cat([left, blk, right], dim=-1)
+        before = cuda_halo.halo_extend_cuda.launches
+        got = _halo_extend_torch(blk, pl, pr, mesh=mesh)
+        got_e = cuda_halo.halo_extend_cuda(blk, pl, pr, mesh=mesh)
+        halo_ok.append(bool(torch.equal(got, want) and torch.equal(got_e, want)
+                            and cuda_halo.halo_extend_cuda.launches == before
+                            and ((pl, pr) != (0, 0) or got is blk)))
+    per_rank = {("halo_ok", rank): halo_ok}
+
+    for mesh_shape, (channels, length, k, frame, hop, n_fft) in CHAIN_CASES:
+        mesh = meshes[mesh_shape]
+        x = signal(6, (channels, length))
+        taps = firwin(k, [2000.0], sampling_rate=48000.0)
+        before = cuda_dft.fir_framed_dft_power_cuda.launches
+        p = ts.sharded_fir_framed_dft_power(torch.from_numpy(x), taps, hann(frame), mesh=mesh,
+                                            stride=hop, n_fft=n_fft)
+        per_rank["chain_launches", mesh_shape, length, rank] = (
+            cuda_dft.fir_framed_dft_power_cuda.launches - before)
+        out["chain", mesh_shape, length] = gather(p, mesh, (length - frame) // hop + 1, -2)
+
+    for mesh_shape, channels, length, frame, overlap, onesided in STFT_CASES:
+        mesh = meshes[mesh_shape]
+        x = signal(7, (channels, length))
+        kw = dict(fft_length=frame, overlap_length=overlap, sampling_rate=8000.0,
+                  onesided=onesided)
+        z, times, freqs = ts.sharded_stft(torch.from_numpy(x), hann(frame), mesh=mesh, **kw)
+        key = mesh_shape, length, onesided
+        num_frames = times.shape[0]
+        out["stft", key] = (gather(z, mesh, num_frames, -2), times.numpy(), freqs.numpy())
+        # istft of the gathered spectrum, every rank passing the global one
+        z_global = ts.gather_blocks(z, mesh=mesh, length=num_frames, axis=-2)
+        y = ts.sharded_istft(z_global, hann(frame), mesh=mesh, **kw)
+        stride = frame - overlap
+        out_length = num_frames * stride + overlap
+        out["istft", key] = gather(y, mesh, out_length)
+        # the seeded fold against the single-device fold, on the same frames
+        frames = framed_idft(z_global, hann(frame), n_fft=frame, onesided=onesided)
+        frames = frames if onesided else frames.real.contiguous()
+        fpb = -(-num_frames // mesh_shape[1])
+        shard = ts._local_shard(frames, mesh, fpb, 1, frames.device)
+        own = fpb * stride
+        folded = ts._sharded_fold(shard, stride, own, overlap, mesh)
+        _, b = mesh_coordinate(mesh)
+        mine = folded if b == mesh_shape[1] - 1 else folded[..., :own]
+        out["fold", key] = (gather(mine, mesh, out_length),
+                            _ola_fold(frames, stride, out_length).numpy())
+
+    for mesh_shape, length, k in OA_CASES:
+        mesh = meshes[mesh_shape]
+        x, taps = signal(8, (4, length)), signal(9, k)
+        y = ts.sharded_oaconvolve_same(torch.from_numpy(x), torch.from_numpy(taps), mesh=mesh)
+        out["oa", mesh_shape, length, k] = gather(y, mesh, length)
+
+    mesh = meshes[(1, 4)]
+    out["errors"] = {
+        "halo": _error(lambda: ts.sharded_convolve_same(
+            torch.zeros(1, 32), torch.zeros(33), mesh=mesh, method="conv")),
+        "chain_halo": _error(lambda: ts.sharded_fir_framed_dft_power(
+            torch.zeros(1, 2048), torch.zeros(301), hann(512), mesh=mesh, stride=128,
+            n_fft=512)),
+        "channels": _error(lambda: ts.sharded_convolve_same(
+            torch.zeros(3, 4096), torch.zeros(5), mesh=meshes[(2, 2)])),
+        "kernel_halo": _error(lambda: cuda_halo.halo_extend_cuda(
+            torch.zeros(2, 16), 17, 0, mesh=mesh)),
+        "frame_halo": _error(lambda: ts.sharded_stft(
+            torch.zeros(1, 1024), hann(512), mesh=mesh, overlap_length=448)),
+        "mesh": _error(lambda: make_dsp_mesh(3, device_type="cpu")),
+    }
+    every = [None] * WORLD
+    dist.all_gather_object(every, per_rank)
+    if rank == 0:
+        for entries in every:
+            out.update(entries)
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def cuda_halo_case(rank, store_path, out_path):
+    """Two ranks on cuda:0: kernel E against the plain halo, bitwise, and
+    kernel C with a seed against the plain fold, bitwise; rank 0 pickles
+    the verdicts."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+
+    _init(rank, 2, store_path)
+    mesh = make_dsp_mesh(1, 2)
+    dev = torch.device("cuda", 0)
+    verdicts = []
+    for dtype, (c, n, pl, pr) in [(torch.float32, (3, 1000, 128, 127)),
+                                  (torch.float32, (2, 64, 1, 0)),
+                                  (torch.float64, (2, 77, 5, 9))]:
+        x = torch.from_numpy(signal(10, (c, 2 * n), np.float64)).to(dtype)
+        blk = x[:, rank * n:(rank + 1) * n].to(dev)
+        before = cuda_halo.halo_extend_cuda.launches
+        got = cuda_halo.halo_extend_cuda(blk, pl, pr, mesh=mesh)
+        want = _halo_extend_torch(blk, pl, pr, mesh=mesh)
+        verdicts.append(bool(torch.equal(got.cpu(), want.cpu()))
+                        and cuda_halo.halo_extend_cuda.launches == before + 1)
+    frames = torch.from_numpy(signal(11, (2, 40, 400))).to(dev)
+    init = torch.from_numpy(signal(12, (2, 900))).to(dev)
+    init[:, ::5] = -0.0
+    got = cuda_dft.overlap_add_cuda(frames, stride=150, out_length=6250, init=init)
+    want = _ola_fold_torch(frames.cpu(), 150, 6250, init=init.cpu())
+    verdicts.append(got.cpu().numpy().tobytes() == want.numpy().tobytes())
+    cuda_halo.close_halo_buffers()
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(verdicts, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn(fn, nprocs, tmp_dir, timeout=240):
+    """Run `fn(rank, store_path, out_path)` in `nprocs` spawned processes,
+    join them within `timeout` seconds (a rank that fails raises here), and
+    return what rank 0 pickled."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    store_path, out_path = str(tmp_dir / "store"), str(tmp_dir / "out.pkl")
+    ctx = mp.start_processes(fn, args=(store_path, out_path), nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"ranks still running after {timeout} s")
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
