@@ -60,8 +60,9 @@ Phases (any failure raises, and the exit code is not 0):
      overlap-save convolution, a real FFT per frame, 2.5 n log2 n each) over
      the 67 TFLOP/s f32 peak and its bytes (inputs read once, outputs
      written once) over 3.35 TB/s (H100 SXM, NVIDIA's data sheet).
-  8. the sharded layer: 4 ranks spawned (torch.multiprocessing, 'spawn') in
-     one gloo group (FileStore in a temporary directory), on cuda:(rank %
+  8. the sharded layer: 4 ranks, each a fresh interpreter running this
+     script with --phase8-rank (subprocess; never fork, which CUDA forbids),
+     in one gloo group (FileStore in a temporary directory), on cuda:(rank %
      device_count), so with one card all four share it and kernel E's
      stores go through CUDA IPC. The ranks load the library phase 1 built.
      Kernel E against its plain version (send/recv + concat), bitwise, on
@@ -81,9 +82,11 @@ Phases (any failure raises, and the exit code is not 0):
      through kernel E with its barriers, the plain send/recv halo and the
      bare send/recv (all ranks together, host clock; median of 5, the
      largest rank reported), and E's put + assemble alone, rank by rank,
-     by CUDA events (`device_ms` in the kernels line). The parent joins
-     every rank with a timeout; a rank that fails or hangs fails the run.
-     Ranks prefix their lines with their rank.
+     by CUDA events (`device_ms` in the kernels line). The parent waits
+     for every rank with a timeout; a rank that fails or hangs fails the
+     run, and the ranks still running are killed. Ranks prefix their lines
+     with their rank. Last of all, a process this script started that is
+     still running is killed and fails the run.
 The line before the last is one JSON object describing the kernels (the
 launch counts add up every path's, phase 8's over all ranks; E's `ms`,
 `plain_ms` and `library_ms` are host-clock exchanges of all ranks at once,
@@ -94,6 +97,7 @@ is the device line {"ok": true, "device": {...}}.
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -220,22 +224,56 @@ def _numpy_power(y2, window, *, hop, num_frames, n_fft):
 
 
 def _phase8(world, device_type, sizes):
-    """Spawn `world` ranks running `_phase8_rank`, join them within
-    _PHASE8_TIMEOUT_S (a rank that fails raises here; one that hangs is
-    killed and fails the run), and return every rank's report."""
-    import torch.multiprocessing as mp
-
+    """Start `world` ranks, each a fresh interpreter running this script's
+    `_phase8_rank`, wait for them within _PHASE8_TIMEOUT_S, and return every
+    rank's report. A rank that fails or hangs fails the run; every rank
+    still running is then killed, and each is reaped before this returns.
+    The ranks are plain subprocesses, not multiprocessing's, whose 'spawn'
+    leaves its resource-tracker process running until the interpreter
+    exits."""
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(_phase8_rank, args=(world, tmp, device_type, sizes),
-                                 nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + _PHASE8_TIMEOUT_S
-        while not ctx.join(max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
+        cmd = [sys.executable, os.path.abspath(__file__), "--phase8-rank"]
+        procs = []
+        try:
+            for rank in range(world):
+                procs.append(subprocess.Popen(
+                    [*cmd, str(rank), str(world), tmp, device_type, json.dumps(sizes)]))
+            deadline = time.monotonic() + _PHASE8_TIMEOUT_S
+            while True:
+                codes = [proc.poll() for proc in procs]
+                for rank, code in enumerate(codes):
+                    if code not in (None, 0):
+                        raise RuntimeError(f"phase 8: rank {rank} exited with {code}")
+                if all(code == 0 for code in codes):
+                    break
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"phase 8: ranks still running after "
+                                       f"{_PHASE8_TIMEOUT_S} s")
+                time.sleep(0.2)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
                     proc.kill()
-                raise TimeoutError(f"phase 8: ranks still running after {_PHASE8_TIMEOUT_S} s")
+                proc.wait()
         with open(os.path.join(tmp, "phase8.json")) as f:
             return json.load(f)
+
+
+def _live_children():
+    """(pid, command line) of every process whose parent is this one."""
+    found = []
+    for stat in os.listdir("/proc"):
+        if not stat.isdigit():
+            continue
+        try:
+            with open(f"/proc/{stat}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == os.getpid():
+                with open(f"/proc/{stat}/cmdline", "rb") as f:
+                    found.append((int(stat), f.read().replace(b"\0", b" ").decode().strip()))
+        except (OSError, IndexError, ValueError):
+            continue  # gone while we looked
+    return found
 
 
 def _phase8_rank(rank, world, tmp, device_type, sizes):
@@ -853,6 +891,14 @@ def main() -> int:
          "bound_by": timings[tag][4], "library_ms": timings[tag][2]}
         for k, src, replaces, err, tag in rows]
     entries[-1]["device_ms"] = e_device_ms
+
+    # every process this run started has ended: stop any that has not, and fail
+    left = _live_children()
+    for pid, _ in left:
+        os.kill(pid, signal.SIGKILL)
+        os.waitpid(pid, 0)
+    if left:
+        raise AssertionError(f"processes still running at the end, killed: {left}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -861,4 +907,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase8-rank"]:  # one rank of phase 8, started by _phase8
+        rank, world, tmp, device_type, sizes = sys.argv[2:]
+        _phase8_rank(int(rank), int(world), tmp, device_type, json.loads(sizes))
+        sys.exit(0)
     sys.exit(main())

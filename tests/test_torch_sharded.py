@@ -181,7 +181,10 @@ def test_chip_smoke_phase8_on_cpu_ranks():
     skipped): the paths, shapes and checks the card runs, rehearsed."""
     import chip_smoke
 
+    before = {pid for pid, _ in chip_smoke._live_children()}
     reports = chip_smoke._phase8(4, "cpu", dict(channels=8, length=16384, small_channels=4,
                                                 block=4096))
     assert [r["rank"] for r in reports] == [0, 1, 2, 3]
     assert all(set(r["launches"].values()) == {0} for r in reports)
+    # the ranks are reaped and no helper process outlives the phase
+    assert [c for c in chip_smoke._live_children() if c[0] not in before] == []
