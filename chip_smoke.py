@@ -10,56 +10,71 @@ Phases (any failure raises, and the exit code is not 0):
   0. the card's name and power limit (nvidia-smi); no CUDA device is a failure.
   1. build the kernels of nx_signal_tpu_torch/kernels/csrc with nvcc (sm_90a),
      one nvcc process per source, all at once.
-  2. each kernel against its plain version on the same device tensors:
-     A (fused FIR + framed DFT + power) at 768 x 480000 with the bench chain
-     (firwin 255 taps @ 48 kHz, hann 512, hop 128, n_fft 512) and B (framed
-     DFT) at 64 x 480000, each bin within 1e-4 x that bin's max|plain| (a
-     per-bin gate, so the low-pass chain's small stopband bins are held as
-     tightly as its passband); C (overlap-add) on the (64, 3747, 512) frames
-     of framed_idft, bitwise; then two ragged geometries (even taps, hop not
-     dividing the frame, length not a multiple of the hop, a hop whose
-     window needs the small frame tile), and stft_fir_chain with
-     frame_chunks=4, which must launch kernel A once. D (the shared
-     hop-block chain) at 768 x 480000 with the bench chain against its
-     plain version and against A given the window D applies (the periodic
-     hann in f64), per bin at 1e-4; then D on the geometries of the JAX
-     package's shared-kernel tests (Blackman with 63 taps on a (3, 2)
-     batch, Hamming with hop 256 and no taps, n_fft 1024 with 129 taps)
-     and on a length that is not a multiple of the hop with even taps, a
-     hop of 50, and a hop of 1000 (whose window needs the 16-block tile),
-     with random taps as those tests use.
+  2. each kernel against its plain version on the same device tensors,
+     each bin within 1e-4 x that bin's max|plain| (a per-bin gate, so the
+     low-pass chain's small stopband bins are held as tightly as its
+     passband) unless said otherwise: A (fused FIR + framed DFT + power,
+     exact f32) at 768 x 480000 with the bench chain (firwin 255 taps @ 48
+     kHz, hann 512, hop 128, n_fft 512); A-tc ('high' 3xTF32 and 'default'
+     one TF32 pass) on the same chain against its plain version (the same
+     TF32 products summed in f64, 192 channels at a time) and, on two
+     channels, against an f64 numpy reference (convolve, frame, window,
+     rfft, |.|^2) at 1e-4 ('high') and 1e-2 ('default'); B-fft (a real FFT
+     per frame) at 64 x 480000, complex and power, and the dense B at
+     n_fft 600 (which B-fft does not take); C (overlap-add) on the (64,
+     3747, 512) frames of framed_idft, bitwise; B-fft on the full spectrum
+     at 64 x 480000, n_fft 16, 8 (frame 5) and 1024; then two ragged
+     geometries (even taps, hop not dividing the frame, length not a
+     multiple of the hop, frame 400 with n_fft 512, a hop whose window
+     needs the small frame tile and where A-tc's window does not fit, so
+     'high' runs kernel A) for A, A-tc, B, B-fft and C, and
+     stft_fir_chain(precision='high', frame_chunks=4), which must launch
+     kernel A-tc once. D (the shared hop-block chain) at 768 x 480000 with
+     the bench chain against its plain version and against A given the
+     window D applies (the periodic hann in f64); then D on the geometries
+     of the JAX package's shared-kernel tests (Blackman with 63 taps on a
+     (3, 2) batch, Hamming with hop 256 and no taps, n_fft 1024 with 129
+     taps) and on a length that is not a multiple of the hop with even
+     taps, a hop of 50, and a hop of 1000 (whose window needs the 16-block
+     tile), with random taps as those tests use.
   3. the fused chain, models.pipeline.stft_fir_chain(return_filtered=False,
-     precision='high') on 768 x 480000, held on two channels against an
-     f64 numpy reference (convolve, frame, window, rfft, |.|^2), per bin.
+     precision='high') on 768 x 480000 (kernel A-tc), then the same chain
+     as the module StftFirChain, exact f32 (kernel A), each held on two
+     channels against the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
-     the public functions; interior reconstruction error <= 1e-5 x max|x|.
+     the public functions (B-fft, C); interior reconstruction error <= 1e-5
+     x max|x|; then stft at fft_length 600 (the dense B) on the same signal,
+     held on two channels against the f64 numpy rfft per bin.
   5. the shared path: fir_framed_dft(kernel='cuda_shared') and
      fir_framed_dft_shared(output='power', onesided=True) on 768 x 480000,
      each held on two channels against the f64 numpy reference with the
      periodic f64 hann, per bin.
   6. the filtered chain: stft_fir_chain(return_filtered=True) on 768 x
-     480000, on two channels: the filtered signal against np.convolve
-     'same', the power against the f64 DFT of that filtered signal and end
-     to end against the f64 numpy reference, each within 1e-4 x max and
-     per bin within 5e-3 of the bin's max (an f32 filtered signal has no
-     digits for a per-bin 1e-4 at its deepest stopband bins); then
-     FIRFilterChain on the same signal against np.convolve 'same' (within
-     1e-4 x max).
+     480000 (the direct FIR, then B-fft), on two channels: the filtered
+     signal against np.convolve 'same', the power against the f64 DFT of
+     that filtered signal and end to end against the f64 numpy reference,
+     each within 1e-4 x max and per bin within 5e-3 of the bin's max (an
+     f32 filtered signal has no digits for a per-bin 1e-4 at its deepest
+     stopband bins); then FIRFilterChain on the same signal against
+     np.convolve 'same' (within 1e-4 x max).
      Phases 3-6 drive the main paths through their public entry points:
      the launch counters are zeroed just before each and read just after,
      and each must have launched the kernels of its path.
   7. median of 5 CUDA-event timings of each kernel, its plain version and
      the one PyTorch call that computes the same function (`library_ms`,
      never called by the port: F.conv1d of the folded weights for A and D,
-     torch.stft(center=False) for B, F.fold as a 1-D overlap-add for C),
-     taken in turns, at the phase-2 shapes; then of the filtered chain's
-     two stages (the direct FIR and kernel B) at 768 x 480000. Each
-     kernel's bound is computed from this run's shapes, for the least work
-     its function needs (not the dense-matrix DFT the kernels run): the
-     larger of the operations of an FFT route (the FIR as an FFT
-     overlap-save convolution, a real FFT per frame, 2.5 n log2 n each) over
-     the 67 TFLOP/s f32 peak and its bytes (inputs read once, outputs
-     written once) over 3.35 TB/s (H100 SXM, NVIDIA's data sheet).
+     exact f32, and for A-tc in TF32 beside the exact one;
+     torch.stft(center=False) for B-fft and, its window zero-padded to
+     n_fft 600, for the dense B; F.fold as a 1-D overlap-add for C), taken
+     in turns, at the phase-2 shapes, A-tc at 'high' and 'default'; then of
+     the filtered chain's two stages (the direct FIR and B-fft) at 768 x
+     480000. Each kernel's bound is computed from this run's shapes, for
+     the least work its function needs (not the dense-matrix DFT the
+     contraction kernels run): the larger of the operations of an FFT route
+     (the FIR as an FFT overlap-save convolution, a real FFT per frame, 2.5
+     n log2 n each) over the 67 TFLOP/s f32 peak and its bytes (inputs read
+     once, outputs written once) over 3.35 TB/s (H100 SXM, NVIDIA's data
+     sheet); A-tc's own route at the 495 TFLOP/s TF32 peak is printed beside.
   8. the sharded layer: 4 ranks, each a fresh interpreter running this
      script with --phase8-rank (subprocess; never fork, which CUDA forbids),
      in one gloo group (FileStore in a temporary directory), on cuda:(rank %
@@ -73,10 +88,12 @@ Phases (any failure raises, and the exit code is not 0):
      sharded_convolve_same with the bench FIR at 768 x 480000 on (1, 4)
      and 64 x 480000 on (2, 2), each rank's shard within 1e-5 of its max
      against the single-device convolve(mode='same'), E launched once per
-     rank; sharded_fir_framed_dft_power at the bench chain on (1, 4), each
-     rank's frames per bin within 1e-4 of the single-device stft_fir_chain,
-     A and E launched once per rank; sharded_stft -> sharded_istft at 64 x
-     480000 on (1, 4), B, C and E launched, the interior within 1e-5 x
+     rank; sharded_fir_framed_dft_power at the bench chain on (1, 4) at
+     precision 'highest' (kernel A) and 'high' (A-tc), each rank's frames
+     bitwise equal to the single-device stft_fir_chain at the same
+     precision, the kernel and E launched once per rank; sharded_stft ->
+     sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
+     interior within 1e-5 x
      max|x|, and the seeded sharded overlap-add bitwise equal to the
      single-device fold. Last, at the bench geometry, the whole exchange
      through kernel E with its barriers, the plain send/recv halo and the
@@ -87,11 +104,14 @@ Phases (any failure raises, and the exit code is not 0):
      run, and the ranks still running are killed. Ranks prefix their lines
      with their rank. Last of all, a process this script started that is
      still running is killed and fails the run.
-The line before the last is one JSON object describing the kernels (the
-launch counts add up every path's, phase 8's over all ranks; E's `ms`,
-`plain_ms` and `library_ms` are host-clock exchanges of all ranks at once,
-and its bound counts the bytes of all the ranks sharing the card); the last
-is the device line {"ok": true, "device": {...}}.
+The line before the last is one JSON object describing the kernels A,
+A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
+8's over all ranks; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
+'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
+`library_exact_ms` beside; E's `ms`, `plain_ms` and `library_ms` are
+host-clock exchanges of all ranks at once, and its bound counts the bytes
+of all the ranks sharing the card); the last is the device line {"ok":
+true, "device": {...}}.
 """
 
 import json
@@ -120,24 +140,45 @@ def _max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def _check_close(name, got, want, rel=1e-4) -> float:
-    """Gate each bin (last axis) at rel x that bin's own max|want|; returns
-    the max abs error over all bins."""
+def _per_bin(name, got, want):
+    """(max|got - want|, max|want|) of each bin (last axis)."""
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     dims = tuple(range(want.ndim - 1))
-    err_bin = (got - want).abs().amax(dim=dims)
-    scale_bin = want.abs().amax(dim=dims)
+    return (got - want).abs().amax(dim=dims), want.abs().amax(dim=dims)
+
+
+def _gate_bins(name, err_bin, scale_bin, rel) -> float:
+    """Gate each bin at rel x that bin's own max|want|; returns the max abs
+    error over all bins."""
     rel_bin = err_bin / scale_bin
     worst = int(rel_bin.argmax())
     err, worst_rel = float(err_bin.max()), float(rel_bin[worst])
     print(f"  {name}: max|d| = {err:.6g}, max|plain| = {float(scale_bin.max()):.6g}, "
-          f"largest per-bin rel = {worst_rel:.3g} at bin {worst} of {want.shape[-1]} "
+          f"largest per-bin rel = {worst_rel:.3g} at bin {worst} of {err_bin.shape[0]} "
           f"(gate {rel:g})", flush=True)
     if not worst_rel <= rel:
         raise AssertionError(f"{name}: bin {worst} max|d| {float(err_bin[worst])} > "
                              f"{rel} x {float(scale_bin[worst])}")
     return err
+
+
+def _check_close(name, got, want, rel=1e-4) -> float:
+    """Gate each bin (last axis) at rel x that bin's own max|want|; returns
+    the max abs error over all bins."""
+    return _gate_bins(name, *_per_bin(name, got, want), rel)
+
+
+def _check_close_rows(name, got, plain, rows, rel=1e-4) -> float:
+    """_check_close of got against plain(leading-axis slice), `rows` rows at
+    a time (a plain version with f64 sums of every row at once would hold
+    tens of GB)."""
+    import torch
+
+    pairs = [_per_bin(name, got[r:r + rows], plain(slice(r, r + rows)))
+             for r in range(0, got.shape[0], rows)]
+    return _gate_bins(name, torch.stack([e for e, _ in pairs]).amax(dim=0),
+                      torch.stack([s for _, s in pairs]).amax(dim=0), rel)
 
 
 def _check_bitwise(name, got, want) -> float:
@@ -314,9 +355,10 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         if on_card:
             torch.cuda.synchronize(dev)
 
-    A, B = cuda_dft.fir_framed_dft_power_cuda, cuda_dft.framed_dft_cuda
+    A, A_tc = cuda_dft.fir_framed_dft_power_cuda, cuda_dft.fir_framed_dft_power_tc_cuda
+    B_fft, B = cuda_dft.framed_fft_cuda, cuda_dft.framed_dft_cuda
     C, E = cuda_dft.overlap_add_cuda, cuda_halo.halo_extend_cuda
-    kernels = (A, B, C, E)
+    kernels = (A, A_tc, B_fft, B, C, E)
     report = {"rank": rank, "launches": {k.__name__: 0 for k in kernels}}
     out = {}
 
@@ -385,17 +427,21 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
 
     window = hann(frame)
     num_frames = (length - frame) // hop + 1
-    name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length}"
-    run_path(name, {A: 1, E: 1}, lambda: out.update(p=sharded_fir_framed_dft_power(
-        x, taps, window, mesh=mesh14, stride=hop, n_fft=n_fft)))
-    p = out.pop("p")
-    f0 = b * p.shape[1]
-    f1 = min(f0 + p.shape[1], num_frames)
-    single = stft_fir_chain(x, taps, window, fft_length=n_fft, overlap_length=frame - hop,
-                            sampling_rate=rate, return_filtered=False)
-    _check_close(f"[rank {rank}] {name} frames {f0}:{f1} vs single-device stft_fir_chain",
-                 p[:, :f1 - f0], single[:, f0:f1])
-    del p, single
+    for precision, kernel in (("highest", A), ("high", A_tc)):
+        name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length} precision={precision}"
+        run_path(name, {kernel: 1, E: 1}, lambda: out.update(p=sharded_fir_framed_dft_power(
+            x, taps, window, mesh=mesh14, stride=hop, n_fft=n_fft, precision=precision)))
+        p = out.pop("p")
+        f0 = b * p.shape[1]
+        f1 = min(f0 + p.shape[1], num_frames)
+        single = stft_fir_chain(x, taps, window, fft_length=n_fft, overlap_length=frame - hop,
+                                sampling_rate=rate, return_filtered=False, precision=precision)
+        got, want = p[:, :f1 - f0], single[:, f0:f1]
+        _check_close(f"[rank {rank}] {name} frames {f0}:{f1} vs single-device stft_fir_chain",
+                     got, want)
+        if on_card:  # each frame sums the same way whatever its tile
+            bitwise(f"{name} vs the single-device chain", got, want)
+        del p, single, got, want
 
     win_t = hann(frame, device=dev)
     kw = dict(fft_length=n_fft, overlap_length=frame - hop, sampling_rate=rate, onesided=True)
@@ -405,7 +451,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         out["z"] = gather_blocks(z, mesh=mesh14, length=num_frames, axis=-2)
         out["y"] = sharded_istft(out["z"], win_t, mesh=mesh14, **kw)
 
-    run_path(f"sharded_stft -> sharded_istft (1, 4) {small}x{length}", {B: 1, C: 4, E: 1},
+    run_path(f"sharded_stft -> sharded_istft (1, 4) {small}x{length}", {B_fft: 1, C: 4, E: 1},
              round_trip)
     z, y = out.pop("z"), out.pop("y")
     overlap = frame - hop
@@ -499,10 +545,10 @@ def main() -> int:
     from nx_signal_tpu_torch.kernels._build import library_path, load_library
     from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
     from nx_signal_tpu_torch.kernels.dft import (
-        _dft_weights, _framed_matmul_torch, _same_pad_left, _shared_power_torch,
-        fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared, framed_idft,
-        recognize_cosine_window, shared_fold_weights, shared_twiddles)
-    from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, stft_fir_chain
+        _dft_weights, _framed_matmul_tf32_torch, _framed_matmul_torch, _same_pad_left,
+        _shared_power_torch, fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared,
+        framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
+    from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, StftFirChain, stft_fir_chain
     from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
@@ -510,10 +556,12 @@ def main() -> int:
     from nx_signal_tpu_torch.spectral.stft import istft, stft
 
     A = cuda_dft.fir_framed_dft_power_cuda
+    A_tc = cuda_dft.fir_framed_dft_power_tc_cuda
+    B_fft = cuda_dft.framed_fft_cuda
     B = cuda_dft.framed_dft_cuda
     C = cuda_dft.overlap_add_cuda
     D = cuda_dft.fir_framed_dft_power_shared_cuda
-    kernels = (A, B, C, D)
+    kernels = (A, A_tc, B_fft, B, C, D)
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -540,16 +588,68 @@ def main() -> int:
     err_a = _check_close(f"A {channels}x{length}", got, want)
     del got, want
 
+    # A-tc ('high': 3xTF32, 'default': one TF32 pass) on the same chain:
+    # against its plain version (the same TF32 products summed in f64), 192
+    # channels at a time, per bin at 1e-4; on two channels against the f64
+    # numpy reference (convolve, frame, window, rfft, |.|^2) per bin, at
+    # 1e-4 for 'high' and 1e-2 for 'default' (TF32 keeps ~3 digits)
+    xh = x[:2].double().cpu().numpy()
+    ref_kw = dict(hop=hop, num_frames=num_frames, n_fft=n_fft)
+    ref_y = _numpy_filter(xh, taps.astype(np.float64))
+    ref = torch.as_tensor(_numpy_power(ref_y, window.astype(np.float64), **ref_kw))
+    ref_y = torch.as_tensor(ref_y)
+    err_atc = {}
+    for precision, passes, gate in (("high", 3, 1e-4), ("default", 1, 1e-2)):
+        got = A_tc(x, w_fold, precision=precision, **args_a)
+        err_atc[precision] = _check_close_rows(
+            f"A-tc {precision} {channels}x{length} vs its plain version", got,
+            lambda rows: _framed_matmul_tf32_torch(x[rows], w_fold, passes=passes, **args_a),
+            192)
+        _check_close(f"A-tc {precision} vs f64 numpy reference (2 channels)",
+                     got[:2].double().cpu(), ref, rel=gate)
+        del got
+
+    # B-fft (a real FFT per frame) and the dense B at an n_fft B-fft does
+    # not take (600), each against the plain version, complex and power
     x64 = x[:64]
-    w_dft = torch.as_tensor(_dft_weights(window, frame, n_fft, True, np.float32), device=dev)
     args_b = dict(stride=hop, num_frames=num_frames, bins=bins)
-    z_kernel = B(x64, w_dft, **args_b)
+    fft_kw = dict(stride=hop, n_fft=n_fft, onesided=True)
+    w_dft = torch.as_tensor(_dft_weights(window, frame, n_fft, True, np.float32), device=dev)
     acc = _framed_matmul_torch(x64, w_dft, pad_left=0, power=False, **args_b)
     z_plain = torch.complex(acc[..., :bins], acc[..., bins:])
-    err_b = _check_close("B 64x480000 complex", z_kernel, z_plain)
-    _check_close("B 64x480000 power", B(x64, w_dft, output="power", **args_b),
+    err_bfft = _check_close(f"B-fft 64x{length} complex", B_fft(x64, window, **fft_kw), z_plain)
+    _check_close(f"B-fft 64x{length} power", B_fft(x64, window, output="power", **fft_kw),
                  acc[..., :bins] ** 2 + acc[..., bins:] ** 2)
-    del z_kernel, acc
+    n_dense = 600
+    bins_dense = n_dense // 2 + 1
+    w_dense = torch.as_tensor(_dft_weights(window, frame, n_dense, True, np.float32), device=dev)
+    args_dense = dict(stride=hop, num_frames=num_frames, bins=bins_dense)
+    acc = _framed_matmul_torch(x64, w_dense, pad_left=0, power=False, **args_dense)
+    err_b = _check_close(f"B (dense) 64x{length} n_fft={n_dense} complex",
+                         B(x64, w_dense, **args_dense),
+                         torch.complex(acc[..., :bins_dense], acc[..., bins_dense:]))
+    _check_close(f"B (dense) 64x{length} n_fft={n_dense} power",
+                 B(x64, w_dense, output="power", **args_dense),
+                 acc[..., :bins_dense] ** 2 + acc[..., bins_dense:] ** 2)
+    del acc
+    fft_ragged = [  # channels, length, frame, hop, n_fft, onesided
+        (64, length, frame, hop, n_fft, False),   # the full spectrum
+        (2, 20000, 16, 7, 16, True),
+        (2, 20001, 12, 5, 16, False),
+        (2, 20001, 5, 3, 8, True),
+        (3, 30001, 1024, 256, 1024, True),
+    ]
+    for ch, n, fl, hp, nf, onesided in fft_ragged:
+        xr = x[:ch, :n]
+        wr = hann(fl).numpy()
+        nb = nf // 2 + 1 if onesided else nf
+        wd = torch.as_tensor(_dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
+        acc = _framed_matmul_torch(xr, wd, stride=hp, pad_left=0, num_frames=(n - fl) // hp + 1,
+                                   bins=nb, power=False)
+        _check_close(f"B-fft {ch}x{n} frame={fl} hop={hp} n_fft={nf} onesided={onesided}",
+                     B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided),
+                     torch.complex(acc[..., :nb], acc[..., nb:]))
+        del acc
 
     frames = framed_idft(z_plain, window, n_fft=n_fft, onesided=True)
     out_length = num_frames * hop + (frame - hop)
@@ -573,31 +673,44 @@ def main() -> int:
                     bins=nf // 2 + 1)
         _check_close(f"A {tag}", A(xr, wf, **args),
                      _framed_matmul_torch(xr, wf, power=True, **args))
+        # A-tc where its staged window fits in shared memory; elsewhere
+        # 'high' runs the exact kernel A
+        if cuda_dft._tc_takes(hp, wf.shape[0]):
+            _check_close(f"A-tc high {tag}", A_tc(xr, wf, precision="high", **args),
+                         _framed_matmul_tf32_torch(xr, wf, passes=3, **args))
+        else:
+            before = A.launches
+            A(xr, wf, precision="high", **args)
+            if A.launches != before + 1:
+                raise AssertionError(f"'high' at {tag} did not run kernel A")
+            print(f"  A 'high' {tag}: A-tc's window does not fit; kernel A ran", flush=True)
         nb = nf // 2 + 1 if onesided else nf
         wd = torch.as_tensor(_dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
         acc = _framed_matmul_torch(xr, wd, stride=hp, pad_left=0, num_frames=m, bins=nb,
                                    power=False)
+        z_want = torch.complex(acc[..., :nb], acc[..., nb:])
         _check_close(f"B {tag} onesided={onesided}",
-                     B(xr, wd, stride=hp, num_frames=m, bins=nb),
-                     torch.complex(acc[..., :nb], acc[..., nb:]))
+                     B(xr, wd, stride=hp, num_frames=m, bins=nb), z_want)
+        _check_close(f"B-fft {tag} onesided={onesided}",
+                     B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided), z_want)
         fr = torch.randn((ch, m, fl), generator=gen, device=dev)
         ol = m * hp + (fl - hp)
         _check_bitwise(f"C {tuple(fr.shape)} hop={hp}", C(fr, stride=hp, out_length=ol),
                        _ola_fold_torch(fr, hp, ol))
 
-    # frame_chunks shapes only the plain path: the chain still runs kernel A
+    # frame_chunks shapes only the plain path: the chain still runs kernel A-tc
     chain_args = dict(fft_length=n_fft, overlap_length=frame - hop, sampling_rate=rate,
                       onesided=True, return_filtered=False, precision="high",
                       frame_chunks=4)
     xs = x[:4, :48000]
-    before = A.launches
+    before = A_tc.launches
     got = stft_fir_chain(xs, taps, window, **chain_args)
-    if A.launches != before + 1:
-        raise AssertionError(f"stft_fir_chain(frame_chunks=4) launched kernel A "
-                             f"{A.launches - before} times, not once")
+    if A_tc.launches != before + 1:
+        raise AssertionError(f"stft_fir_chain(frame_chunks=4) launched kernel A-tc "
+                             f"{A_tc.launches - before} times, not once")
     want = fir_framed_dft(xs, taps, window, stride=hop, n_fft=n_fft, onesided=True,
                           output="power", frame_chunks=4, kernel="torch")
-    _check_close("A via stft_fir_chain(frame_chunks=4) vs chunked plain", got, want)
+    _check_close("A-tc via stft_fir_chain(frame_chunks=4) vs chunked plain", got, want)
     del got, want
 
     # D applies the window as its exact cosine sum: A is given the same
@@ -653,19 +766,28 @@ def main() -> int:
         print(f"  {tuple(out['power'].shape)} in {time.perf_counter() - t0:.3f} s "
               "(first call)", flush=True)
 
-    launches = _run_path("the fused chain", kernels, (A,), fused_chain)
+    launches = _run_path("the fused chain", kernels, (A_tc,), fused_chain)
     power = out.pop("power")
     if tuple(power.shape) != (channels, num_frames, bins):
         raise AssertionError(f"chain output shape {tuple(power.shape)}")
     if not bool(torch.isfinite(power).all()):
         raise AssertionError("chain output is not finite")
-    xh = x[:2].double().cpu().numpy()
-    taps64 = taps.astype(np.float64)
-    ref_kw = dict(hop=hop, num_frames=num_frames, n_fft=n_fft)
-    ref_y = _numpy_filter(xh, taps64)
-    ref = torch.as_tensor(_numpy_power(ref_y, window.astype(np.float64), **ref_kw))
-    ref_y = torch.as_tensor(ref_y)
     _check_close("chain vs f64 numpy reference (2 channels)", power[:2].double().cpu(), ref)
+    del power
+
+    # the chain as a module keeps exact f32: kernel A
+    def chain_module():
+        out["power"] = StftFirChain.from_numpy(taps, window, stride=hop, n_fft=n_fft)(x)
+        torch.cuda.synchronize()
+
+    counts = _run_path("StftFirChain", kernels, (A,), chain_module)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    power = out.pop("power")
+    if tuple(power.shape) != (channels, num_frames, bins) or not bool(
+            torch.isfinite(power).all()):
+        raise AssertionError(f"StftFirChain output {tuple(power.shape)} not finite or wrong shape")
+    _check_close("StftFirChain vs f64 numpy reference (2 channels)", power[:2].double().cpu(),
+                 ref)
     del power
 
     print("phase 4: stft -> istft round trip, 64 x 480000", flush=True)
@@ -678,7 +800,7 @@ def main() -> int:
                          onesided=True, sampling_rate=rate)
         torch.cuda.synchronize()
 
-    counts = _run_path("the round trip", kernels, (B, C), round_trip)
+    counts = _run_path("the round trip", kernels, (B_fft, C), round_trip)
     launches = {name: launches[name] + counts[name] for name in launches}
     y = out.pop("y")
     if tuple(y.shape) != (64, out_length) or not bool(torch.isfinite(y).all()):
@@ -690,6 +812,23 @@ def main() -> int:
     if not err <= 1e-5 * scale:
         raise AssertionError(f"round trip error {err} > 1e-5 x {scale}")
     del y
+
+    # an fft_length that is not a power of two: the dense kernel B
+    def stft_600():
+        out["z"] = stft(x64, win_t, sampling_rate=rate, fft_length=n_dense,
+                        overlap_length=frame - hop, onesided=True).z
+        torch.cuda.synchronize()
+
+    counts = _run_path(f"stft at fft_length {n_dense}", kernels, (B,), stft_600)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    z = out.pop("z")
+    if tuple(z.shape) != (64, num_frames, bins_dense) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+    fr = np.lib.stride_tricks.sliding_window_view(xh, frame, axis=-1)[:, ::hop][:, :num_frames]
+    _check_close(f"stft at fft_length {n_dense} vs f64 numpy rfft (2 channels)",
+                 z[:2].cpu().to(torch.complex128),
+                 torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_dense)))
+    del z, fr
 
     # ---------------------------------------------------------------- 5
     print("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
@@ -731,7 +870,7 @@ def main() -> int:
         out["fir"] = fir_chain(x)
         torch.cuda.synchronize()
 
-    counts = _run_path("the filtered chain", kernels, (B, C), filtered_chain)
+    counts = _run_path("the filtered chain", kernels, (B_fft, C), filtered_chain)
     launches = {name: launches[name] + counts[name] for name in launches}
     y, power, fir = out.pop("y"), out.pop("power"), out.pop("fir")
     for name, got, shape in (("filtered", y, (channels, length)),
@@ -783,62 +922,93 @@ def main() -> int:
     conv_w = F.pad(w_fold, (0, 0, 0, c_blocks * hop - rows_a)).reshape(
         c_blocks, hop, 2 * bins).permute(2, 1, 0).contiguous()
 
-    def conv1d_folded():
-        with _exact_f32():
-            return F.conv1d(blocks, conv_w)
+    def conv1d_folded(tf32=False):
+        """cuDNN's conv1d of the folded weights, exact f32 or TF32."""
+        saved = torch.backends.cudnn.allow_tf32
+        try:
+            with _exact_f32():
+                torch.backends.cudnn.allow_tf32 = tf32
+                return F.conv1d(blocks, conv_w)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
 
     stft_window = hann(frame, device=dev)
+    dense_window = F.pad(stft_window, (0, n_dense - frame))  # zeros past the frame
     fold_in = frames.transpose(1, 2).contiguous()
-    # A and D compute the same function (the FIR + framed DFT power chain):
-    # one bound, for the least work it needs, taps and window read once
+    # A, A-tc and D compute the same function (the FIR + framed DFT power
+    # chain): one bound, for the least work it needs, taps and window read once
     bound_chain = _bound(_fft_route_flops(channels, length, num_taps, frame, num_frames, n_fft,
                                           bins),
                          4.0 * (x.numel() + num_taps + frame + channels * num_frames * bins))
-    cases = [
-        ("A", channels * length, lambda: A(x, w_fold, **args_a),
-         lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a), conv1d_folded,
-         bound_chain),
-        ("B", 64 * length, lambda: B(x64, w_dft, **args_b),
-         lambda: torch.complex(*_framed_matmul_torch(
-             x64, w_dft, pad_left=0, power=False, **args_b).split(bins, dim=-1)),
-         lambda: torch.stft(x64, n_fft, hop_length=hop, win_length=frame, window=stft_window,
-                            center=False, onesided=True, return_complex=True),
+    cases = [  # tag, samples, bound, (label, fn) in turns: kernel, plain, library, more
+        ("A", channels * length, bound_chain, [
+            ("kernel", lambda: A(x, w_fold, **args_a)),
+            ("plain", lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a)),
+            ("library", conv1d_folded)]),
+        ("A-tc", channels * length, bound_chain, [
+            ("kernel", lambda: A_tc(x, w_fold, precision="high", **args_a)),
+            ("plain", lambda: _framed_matmul_tf32_torch(x, w_fold, passes=3, **args_a)),
+            ("library", lambda: conv1d_folded(tf32=True)),
+            ("kernel 'default'", lambda: A_tc(x, w_fold, precision="default", **args_a)),
+            ("exact library", conv1d_folded)]),
+        ("B-fft", 64 * length,
          # the window and a real FFT per frame, a complex64 output
          _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_fft, 0),
-                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins)),
-        ("C", 64 * out_length, lambda: C(frames, stride=hop, out_length=out_length),
-         lambda: _ola_fold_torch(frames, hop, out_length),
-         lambda: F.fold(fold_in, output_size=(1, out_length), kernel_size=(1, frame),
-                        stride=(1, hop)),
-         _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length))),
-        ("D", channels * length, lambda: D(x, w_shared, tw_shared, coeffs, **args_d),
-         lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d), conv1d_folded,
-         bound_chain),
+                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins), [
+            ("kernel", lambda: B_fft(x64, window, **fft_kw)),
+            ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                x64, w_dft, pad_left=0, power=False, **args_b).split(bins, dim=-1))),
+            ("library", lambda: torch.stft(x64, n_fft, hop_length=hop, win_length=frame,
+                                           window=stft_window, center=False, onesided=True,
+                                           return_complex=True))]),
+        ("B", 64 * length,
+         _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_dense, 0),
+                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_dense), [
+            ("kernel", lambda: B(x64, w_dense, **args_dense)),
+            ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                x64, w_dense, pad_left=0, power=False, **args_dense).split(bins_dense, dim=-1))),
+            ("library", lambda: torch.stft(x64, n_dense, hop_length=hop, window=dense_window,
+                                           center=False, onesided=True, return_complex=True))]),
+        ("C", 64 * out_length,
+         _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length)), [
+            ("kernel", lambda: C(frames, stride=hop, out_length=out_length)),
+            ("plain", lambda: _ola_fold_torch(frames, hop, out_length)),
+            ("library", lambda: F.fold(fold_in, output_size=(1, out_length),
+                                       kernel_size=(1, frame), stride=(1, hop)))]),
+        ("D", channels * length, bound_chain, [
+            ("kernel", lambda: D(x, w_shared, tw_shared, coeffs, **args_d)),
+            ("plain", lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d)),
+            ("library", conv1d_folded)]),
     ]
     timings = {}
-    for name, samples, kernel_fn, plain_fn, library_fn, bound in cases:
-        kernel_fn(), plain_fn(), library_fn()  # warm up
+    for tag, samples, bound, fns in cases:
+        for _, fn in fns:  # warm up
+            fn()
         torch.cuda.synchronize()
-        k_ms, p_ms, l_ms = [], [], []
-        for _ in range(5):  # in turns: kernel, plain, library, kernel, ...
-            k_ms.append(_time_ms(kernel_fn))
-            p_ms.append(_time_ms(plain_fn))
-            l_ms.append(_time_ms(library_fn))
-        k_ms, p_ms, l_ms = sorted(k_ms)[2], sorted(p_ms)[2], sorted(l_ms)[2]
-        timings[name] = (k_ms, p_ms, l_ms, *bound)
-        print(f"  {name}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
-              f"plain {p_ms:.3f} ms, library call {l_ms:.3f} ms, bound {bound[0]:.3f} ms "
-              f"({bound[1]})", flush=True)
+        times = {label: [] for label, _ in fns}
+        for _ in range(5):  # in turns: kernel, plain, library, ..., kernel, ...
+            for label, fn in fns:
+                times[label].append(_time_ms(fn))
+        timings[tag] = {label: sorted(t)[2] for label, t in times.items()}
+        timings[tag].update(bound_ms=bound[0], bound_by=bound[1])
+        k_ms = timings[tag]["kernel"]
+        print(f"  {tag}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
+              + ", ".join(f"{label} {timings[tag][label]:.3f} ms" for label, _ in fns[1:])
+              + f", bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
+    # A-tc's own floor: the dense route's TF32 products at the 495 TFLOP/s peak
+    tc_flops = 2.0 * channels * num_frames * rows_a * 2 * bins
+    print(f"  A-tc's route at the TF32 peak: 'high' {3 * tc_flops / 495e9:.3f} ms, "
+          f"'default' {tc_flops / 495e9:.3f} ms", flush=True)
     del xp, blocks, fold_in
 
-    # where the filtered chain's time goes: the direct FIR, then kernel B
+    # where the filtered chain's time goes: the direct FIR, then kernel B-fft
     from nx_signal_tpu_torch.kernels.dft import framed_dft
     from nx_signal_tpu_torch.ops.convolution import convolve
 
     taps_t = torch.as_tensor(taps, device=dev).reshape(1, -1)
     y = convolve(x, taps_t, mode="same")
     stages = [("FIR (convolve 'same', cuDNN conv1d)", lambda: convolve(x, taps_t, mode="same")),
-              ("framed_dft power (kernel B)",
+              ("framed_dft power (kernel B-fft)",
                lambda: framed_dft(y, window, stride=hop, n_fft=n_fft, onesided=True,
                                   output="power"))]
     for name, fn in stages:
@@ -849,7 +1019,7 @@ def main() -> int:
     del y
 
     # ---------------------------------------------------------------- 8
-    del x, x64, xs, frames, w_fold, w_fold64, w_shared, conv_w
+    del x, x64, xs, frames, w_fold, w_fold64, w_shared, w_dense, conv_w
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
@@ -863,21 +1033,26 @@ def main() -> int:
     # once; its bound: every rank reads its block once and writes its ext
     # once, all on the cards the ranks share
     geo = reports[0]["e_geometry"]
-    timings["E"] = (max(r["e_exchange_ms"] for r in reports),
-                    max(r["e_plain_ms"] for r in reports),
-                    max(r["e_library_ms"] for r in reports),
-                    *_bound(0.0, 4.0 * geo["c"] * (2 * geo["n"] + geo["hl"] + geo["hr"])
-                            * _PHASE8_RANKS / torch.cuda.device_count()))
+    timings["E"] = dict(zip(("kernel", "plain", "library"),
+                            (max(r[key] for r in reports)
+                             for key in ("e_exchange_ms", "e_plain_ms", "e_library_ms"))))
+    timings["E"].update(zip(("bound_ms", "bound_by"), _bound(
+        0.0, 4.0 * geo["c"] * (2 * geo["n"] + geo["hl"] + geo["hr"]) * _PHASE8_RANKS
+        / torch.cuda.device_count())))
     e_device_ms = max(r["e_kernel_ms"] for r in reports)
     err_e = max(r["e_max_abs_err"] for r in reports)
-    print(f"  E: the exchange with its barriers {timings['E'][0]:.3f} ms, plain send/recv + "
-          f"concat {timings['E'][1]:.3f} ms, bare send/recv {timings['E'][2]:.3f} ms (largest "
-          f"rank, host clock, all ranks at once), bound {timings['E'][3]:.3f} ms "
-          f"({timings['E'][4]}, {_PHASE8_RANKS} ranks); put + assemble alone "
+    e = timings["E"]
+    print(f"  E: the exchange with its barriers {e['kernel']:.3f} ms, plain send/recv + "
+          f"concat {e['plain']:.3f} ms, bare send/recv {e['library']:.3f} ms (largest "
+          f"rank, host clock, all ranks at once), bound {e['bound_ms']:.3f} ms "
+          f"({e['bound_by']}, {_PHASE8_RANKS} ranks); put + assemble alone "
           f"{e_device_ms:.3f} ms (largest rank, CUDA events, one rank at a time)", flush=True)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
+        (A_tc, "framed_dft_tc.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_atc["high"],
+         "A-tc"),
+        (B_fft, "framed_fft.cu", "nx_signal_tpu/kernels/pallas_dft.py:127", err_bfft, "B-fft"),
         (B, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:127", err_b, "B"),
         (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", err_c, "C"),
         (D, "shared_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:687", err_d, "D"),
@@ -887,9 +1062,15 @@ def main() -> int:
         {"name": k.__name__, "route": "cuda",
          "source": f"nx_signal_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
          "launches": launches[k.__name__], "max_abs_err": err,
-         "ms": timings[tag][0], "plain_ms": timings[tag][1], "bound_ms": timings[tag][3],
-         "bound_by": timings[tag][4], "library_ms": timings[tag][2]}
+         "ms": timings[tag]["kernel"], "plain_ms": timings[tag]["plain"],
+         "bound_ms": timings[tag]["bound_ms"], "bound_by": timings[tag]["bound_by"],
+         "library_ms": timings[tag]["library"]}
         for k, src, replaces, err, tag in rows]
+    # A-tc: 'high' above; its 'default' time, its 'default' error against
+    # the plain version, and the exact conv1d beside the TF32 one
+    entries[1].update(ms_default=timings["A-tc"]["kernel 'default'"],
+                      max_abs_err_default=err_atc["default"],
+                      library_exact_ms=timings["A-tc"]["exact library"])
     entries[-1]["device_ms"] = e_device_ms
 
     # every process this run started has ended: stop any that has not, and fail

@@ -18,7 +18,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD_DIR = Path(__file__).with_name("_build")
-_SOURCES = ("framed_dft.cu", "overlap_add.cu", "shared_dft.cu", "halo.cu")
+_SOURCES = ("framed_dft.cu", "framed_fft.cu", "framed_dft_tc.cu", "overlap_add.cu",
+            "shared_dft.cu", "halo.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC")
 
@@ -29,6 +30,14 @@ _SIGNATURES = {
     # x, w, out, channels, length, stride, krows, pad_left, num_frames, bins,
     # power, stream (all on the current device)
     "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, win, tw, out, channels, length, stride, frame_length, n_fft,
+    # num_frames, bins, power, stream (all on the current device)
+    "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # stride, krows_pad, address of the int64 frames-per-CTA it sets
+    "nx_framed_dft_tc_frames": (_I, _I, _P),
+    # x, split weights, out, channels, length, stride, krows_pad, pad_left,
+    # num_frames, bins, passes, stream (all on the current device)
+    "nx_framed_dft_tc_power_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # frames, init (or null), out, channels, num_frames, frame_length,
     # stride, out_length, stream (all on the current device)
     "nx_overlap_add_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

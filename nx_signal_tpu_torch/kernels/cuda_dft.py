@@ -1,42 +1,67 @@
 """Hand-written CUDA kernels for Hopper and their wrappers (counterpart of
 nx_signal_tpu/kernels/pallas_dft.py).
 
-== ================================== ================================ ==================================
-   wrapper                            kernel (kernels/csrc/)           replaces (pallas_dft.py)
-== ================================== ================================ ==================================
-A  fir_framed_dft_power_cuda          framed_dft.cu, POWER, FIR fold   fir_framed_dft_power_pallas
-B  framed_dft_cuda                    framed_dft.cu, no fold           framed_dft_pallas
-C  overlap_add_cuda                   overlap_add.cu                   overlap_add_pallas
-D  fir_framed_dft_power_shared_cuda   shared_dft.cu                    fir_framed_dft_power_shared_pallas
-== ================================== ================================ ==================================
+===== ================================ ==========================================
+      wrapper                          kernel (kernels/csrc/)
+===== ================================ ==========================================
+A     fir_framed_dft_power_cuda        framed_dft.cu, POWER, FIR fold (exact f32)
+A-tc  fir_framed_dft_power_tc_cuda     framed_dft_tc.cu (3xTF32 or one TF32 pass)
+B-fft framed_fft_cuda                  framed_fft.cu (a real FFT per frame)
+B     framed_dft_cuda                  framed_dft.cu, no fold (exact f32)
+C     overlap_add_cuda                 overlap_add.cu
+D     fir_framed_dft_power_shared_cuda shared_dft.cu
+===== ================================ ==========================================
+
+They replace the TPU kernels of nx_signal_tpu/kernels/pallas_dft.py: A and
+A-tc fir_framed_dft_power_pallas, B-fft and B framed_dft_pallas, C
+overlap_add_pallas, D fir_framed_dft_power_shared_pallas.
 
 Each wrapper takes the tensor's device as its dispatch rule: on a CPU
-tensor it returns its plain PyTorch version (`_framed_matmul_torch` and
-`_shared_power_torch` in kernels/dft.py, `_ola_fold_torch` in
-spectral/framing.py); on a CUDA tensor it launches its kernel, built at
-first use (kernels/_build.py), or raises. Nothing falls back. Each wrapper
-counts its launches in its `launches` attribute, a plain integer that
-callers may reset.
+tensor it returns its plain PyTorch version (`_framed_matmul_torch`,
+`_framed_matmul_tf32_torch` and `_shared_power_torch` in kernels/dft.py,
+`_ola_fold_torch` in spectral/framing.py); on a CUDA tensor it launches its
+kernel, built at first use (kernels/_build.py), or raises. Nothing falls
+back. Each wrapper counts its launches in its `launches` attribute, a plain
+integer that callers may reset.
 
-Kernels A, B and D run exact f32 FMA for every `precision` of their
-callers, at least as accurate as the JAX package's modes (whose 'high' is a
-bf16x3 split on the TPU). Kernel C is bitwise equal to the plain fold.
+Precision of the power chain (`fir_framed_dft_power_cuda`'s `precision`,
+the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
+'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
+and one TF32 pass (about three digits), wherever A-tc's staged window fits
+in shared memory, and kernel A elsewhere (more accurate than asked). The
+framed DFT (kernel B) splits by n_fft: B-fft for a power of two from 8 to
+1024, the dense B for any other. Kernels B, B-fft and D run f32 whatever
+the caller's precision; C is bitwise equal to the plain fold.
 """
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
-from nx_signal_tpu_torch.kernels.dft import _framed_matmul_torch, _shared_power_torch
+from nx_signal_tpu_torch.kernels.dft import (
+    _dft_weights, _fft_twiddles, _framed_matmul_tf32_torch, _framed_matmul_torch, _host_f64,
+    _shared_power_torch, _tf32_passes, _tf32_split)
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
-__all__ = ["fir_framed_dft_power_cuda", "framed_dft_cuda", "overlap_add_cuda",
-           "fir_framed_dft_power_shared_cuda"]
+__all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_fft_cuda",
+           "framed_dft_cuda", "overlap_add_cuda", "fir_framed_dft_power_shared_cuda",
+           "fft_kernel_takes"]
 
 # Kernel D's limits: window coefficients (so at most 7 neighbour bins each
 # side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks)
 _SHARED_MAX_COEFFS = 8
 _SHARED_MAX_BLOCKS = 64
+# Kernel B-fft's n_fft (powers of two) and kernel A-tc's weight layout: bins
+# per tile and the row multiple of its weight chunks (framed_fft.cu,
+# framed_dft_tc.cu)
+_FFT_MIN, _FFT_MAX = 8, 1024
+_TC_TILE_BINS = 64
+_TC_CHUNK = 16
 
 
 def _on_card(t) -> bool:
@@ -79,16 +104,23 @@ def _launch_framed(x, weights, *, stride, pad_left, num_frames, bins, power):
 
 
 def fir_framed_dft_power_cuda(x, weights, *, stride: int, pad_left: int,
-                              num_frames: int, bins: int):
+                              num_frames: int, bins: int, precision: str = "highest"):
     """Kernel A: the one-sided power spectrum of the FIR-filtered, framed,
     windowed signal, |frames_ext(x) @ W|^2 with W the folded (frame + K - 1,
     2*bins) weights of `kernels.dft.fir_dft_fold_weights`. Extended frame m
     covers x[m*stride - pad_left : ...], zeros outside the signal; any hop
     >= 1. Returns (..., num_frames, bins) f32.
 
-    Runs exact f32 FMA whatever precision the caller asked for. On a CPU
-    tensor it returns the plain version (conv1d + re^2 + im^2)."""
-    x = torch.as_tensor(x)
+    `precision` 'highest' runs exact f32 FMA (on a CPU tensor the plain
+    version, conv1d + re^2 + im^2). 'high' and 'default' are
+    `fir_framed_dft_power_tc_cuda` (kernel A-tc) on a CPU tensor and on a
+    CUDA one whose geometry A-tc takes (`_tc_takes`); on a CUDA tensor
+    outside it they run exact f32 as 'highest' does."""
+    x = as_signal(x)
+    if precision != "highest" and (not _on_card(x) or _tc_takes(stride, weights.shape[0])):
+        return fir_framed_dft_power_tc_cuda(x, weights, stride=stride, pad_left=pad_left,
+                                            num_frames=num_frames, bins=bins,
+                                            precision=precision)
     if not _on_card(x):
         return _framed_matmul_torch(x, weights, stride=stride, pad_left=pad_left,
                                     num_frames=num_frames, bins=bins, power=True)
@@ -101,17 +133,169 @@ def fir_framed_dft_power_cuda(x, weights, *, stride: int, pad_left: int,
 fir_framed_dft_power_cuda.launches = 0
 
 
-def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
+def _tc_krows_pad(krows: int) -> int:
+    return -(-krows // _TC_CHUNK) * _TC_CHUNK
+
+
+def _tc_takes(stride: int, krows: int) -> bool:
+    """Whether kernel A-tc's staged window (its frames' span of x, in f32,
+    beside its weight stages) fits in the card's shared memory for this hop
+    and weight-row count."""
+    lib = load_library()
+    frames = ctypes.c_int64(0)
+    _check(lib, lib.nx_framed_dft_tc_frames(stride, _tc_krows_pad(krows),
+                                            ctypes.byref(frames)), "framed_dft_tc query")
+    return frames.value > 0
+
+
+def _tc_weights(weights, bins: int):
+    """Kernel A-tc's weights: the (krows, 2*bins) f32 [Re | Im] weights split
+    into TF32 (hi, lo) and laid out per tile of 64 bins as (tiles,
+    krows_pad, 128, 2), Re columns then Im columns of the tile's bins, zeros
+    past `bins` and past the last row."""
+    krows = weights.shape[0]
+    tiles = -(-bins // _TC_TILE_BINS)
+    w = weights.to(DEFAULT_FLOAT)
+    pad_bins = tiles * _TC_TILE_BINS - bins
+    pad_rows = _tc_krows_pad(krows) - krows
+    parts = [torch.nn.functional.pad(w[:, i * bins:(i + 1) * bins], (0, pad_bins, 0, pad_rows))
+             .reshape(-1, tiles, _TC_TILE_BINS) for i in (0, 1)]
+    tiled = torch.stack(parts, dim=2).permute(1, 0, 2, 3)   # (tiles, krows_pad, 2, 64)
+    hi, lo = _tf32_split(tiled.reshape(tiles, -1, 2 * _TC_TILE_BINS))
+    return torch.stack([hi, lo], dim=-1).contiguous()
+
+
+def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
+                                 num_frames: int, bins: int, precision: str = "high"):
+    """Kernel A-tc: kernel A's function (see `fir_framed_dft_power_cuda`) on
+    the tensor cores. x and W are split into TF32 parts (round to nearest,
+    ties away: `kernels.dft._round_tf32`); 'high' sums x_lo W_hi + x_hi W_lo
+    + x_hi W_hi (3xTF32), 'default' x_hi W_hi alone, with f32 accumulation,
+    each frame's k-steps and products in one fixed order. Returns (...,
+    num_frames, bins) f32.
+
+    On a CPU tensor it returns the plain version
+    (`kernels.dft._framed_matmul_tf32_torch`, the same products summed in
+    f64). On a CUDA tensor it raises where the staged window of x does not
+    fit in shared memory (`_tc_takes`)."""
+    passes = _tf32_passes(precision)
+    x = as_signal(x)
+    if not _on_card(x):
+        return _framed_matmul_tf32_torch(x, weights, passes=passes, stride=stride,
+                                         pad_left=pad_left, num_frames=num_frames, bins=bins)
+    if weights.device != x.device:
+        raise ValueError(f"weights on {weights.device}, signal on {x.device}")
+    if weights.ndim != 2 or weights.shape[1] != 2 * bins:
+        raise ValueError(f"weights must be (rows, {2 * bins}), got {tuple(weights.shape)}")
+    if stride < 1 or num_frames < 1 or x.numel() == 0:
+        raise ValueError(f"bad geometry: stride={stride}, num_frames={num_frames}, "
+                         f"shape={tuple(x.shape)}")
+    if not _tc_takes(stride, weights.shape[0]):
+        raise ValueError(f"kernel A-tc cannot stage the window of hop {stride} with "
+                         f"{weights.shape[0]} weight rows in shared memory; use "
+                         "precision='highest' (kernel A)")
+    batch, length = x.shape[:-1], x.shape[-1]
+    xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
+    w = _tc_weights(weights, bins)
+    out = torch.empty((xf.shape[0], num_frames, bins), dtype=DEFAULT_FLOAT, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.nx_framed_dft_tc_power_f32(
+            xf.data_ptr(), w.data_ptr(), out.data_ptr(), xf.shape[0], length, stride,
+            w.shape[1], pad_left, num_frames, bins, passes,
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "framed_dft_tc kernel")
+    fir_framed_dft_power_tc_cuda.launches += 1
+    return out.reshape(*batch, num_frames, bins)
+
+
+fir_framed_dft_power_tc_cuda.launches = 0
+
+
+@functools.cache
+def _device_twiddles(n_fft: int, device):
+    """Kernel B-fft's twiddle table (`kernels.dft._fft_twiddles`), built
+    once per n_fft and device."""
+    return _fft_twiddles(n_fft, device=device)
+
+
+def fft_kernel_takes(n_fft: int) -> bool:
+    """Whether kernel B-fft serves this n_fft: a power of two from 8 to
+    1024 (what stft's default power-of-two fft_length gives any frame of 5
+    to 1024 samples). The dense kernel B serves every other n_fft.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
+    >>> fft_kernel_takes(512), fft_kernel_takes(600), fft_kernel_takes(4)
+    (True, False, False)
+    """
+    return _FFT_MIN <= n_fft <= _FFT_MAX and n_fft & (n_fft - 1) == 0
+
+
+def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = False,
                     output: str = "complex"):
-    """Kernel B: the windowed framed DFT frames(x) @ W of the (..., L) real
-    signal, W the (frame, 2*bins) [Re | Im] weights of
-    `kernels.dft._dft_weights`. The kernel writes the stacked f32
-    [Re | Im]; this returns it as complex64 (..., num_frames, bins), or
-    with `output='power'` the kernel's re^2 + im^2. Exact f32 FMA. On a CPU
-    tensor it returns the plain version."""
+    """Kernel B-fft: the windowed framed DFT of the (..., L) real signal as
+    a real FFT per frame (framed_fft.cu): frame m is x[m*stride : ... +
+    frame_length] times `window` (a host array or tensor of frame_length <=
+    n_fft samples), zero-padded to n_fft. Returns complex64 (..., M, bins),
+    bins = n_fft//2 + 1 (`onesided`) or n_fft, M = (L - frame)//stride + 1,
+    or with `output='power'` re^2 + im^2 f32. On a CUDA tensor n_fft must
+    be a power of two from 8 to 1024 (`fft_kernel_takes`); the kernel
+    writes the complex64 tensor directly. On a CPU tensor it returns the
+    plain version (the dense [Re | Im] contraction of `_framed_matmul_torch`)."""
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
-    x = torch.as_tensor(x)
+    x = as_signal(x)
+    window = _host_f64(window).reshape(-1)
+    frame_length = window.shape[0]
+    num_frames = (x.shape[-1] - frame_length) // stride + 1
+    bins = n_fft // 2 + 1 if onesided else n_fft
+    power = output == "power"
+    if stride < 1 or num_frames < 1 or frame_length > n_fft:
+        raise ValueError(f"bad geometry: stride={stride}, frame={frame_length}, "
+                         f"n_fft={n_fft}, shape={tuple(x.shape)}")
+    if not _on_card(x):
+        weights = torch.as_tensor(
+            _dft_weights(window, frame_length, n_fft, onesided, np.float32))
+        acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=0,
+                                   num_frames=num_frames, bins=bins, power=power)
+        return acc if power else torch.complex(acc[..., :bins], acc[..., bins:])
+    if not fft_kernel_takes(n_fft):
+        raise ValueError(f"kernel B-fft takes a power-of-two n_fft from {_FFT_MIN} to "
+                         f"{_FFT_MAX}, got {n_fft}")
+    batch, length = x.shape[:-1], x.shape[-1]
+    xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
+    win = torch.as_tensor(window.astype(np.float32), device=x.device)
+    tw = _device_twiddles(n_fft, x.device)
+    out = torch.empty((xf.shape[0], num_frames, bins),
+                      dtype=DEFAULT_FLOAT if power else torch.complex64, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.nx_framed_fft_f32(
+            xf.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), xf.shape[0], length,
+            stride, frame_length, n_fft, num_frames, bins, int(power),
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "framed_fft kernel")
+    framed_fft_cuda.launches += 1
+    return out.reshape(*batch, num_frames, bins)
+
+
+framed_fft_cuda.launches = 0
+
+
+def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
+                    output: str = "complex"):
+    """Kernel B (dense): the windowed framed DFT frames(x) @ W of the
+    (..., L) real signal, W the (frame, 2*bins) [Re | Im] weights of
+    `kernels.dft._dft_weights`, for an n_fft kernel B-fft does not take.
+    The kernel writes the stacked f32 [Re | Im]; this returns it as
+    complex64 (..., num_frames, bins), or with `output='power'` the
+    kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the
+    plain version."""
+    if output not in ("complex", "power"):
+        raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
+    x = as_signal(x)
     power = output == "power"
     if not _on_card(x):
         acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=0,
@@ -135,7 +319,7 @@ def overlap_add_cuda(frames, *, stride: int, out_length: int, init=None):
     `init` (..., any length), cut to out_length and zero-padded, seeds each
     sample's sum (`spectral.framing._ola_fold`). On a CPU tensor it returns
     the plain fold."""
-    frames = torch.as_tensor(frames)
+    frames = as_signal(frames)
     if frames.dtype != DEFAULT_FLOAT or frames.ndim < 2:
         raise ValueError(f"expected float32 frames of rank >= 2, got {frames.dtype} "
                          f"rank {frames.ndim}")
@@ -182,7 +366,7 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
     tensor it returns the plain version (a conv1d with f64 sums, then the
     combine and the spectral window as torch ops). On a CUDA tensor it
     needs at most 8 coefficients, fewer than bins - 1, and J <= 64."""
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     coeffs = tuple(float(b) for b in window_coeffs)
     if not _on_card(x):
         return _shared_power_torch(x, weights, twiddles, coeffs, stride=stride,

@@ -49,6 +49,7 @@ from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.cuda_dft import _check, _on_card
 from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
 from nx_signal_tpu_torch.parallel.mesh import block_row
+from nx_signal_tpu_torch.utils.devices import as_signal
 
 __all__ = ["halo_extend_cuda", "close_halo_buffers"]
 
@@ -155,7 +156,7 @@ def halo_extend_cuda(x_blk, pad_left: int, pad_right: int, *, mesh):
     CUDA tensor (any element of 4 or 8 bytes) it runs the peer copy of
     kernels/csrc/halo.cu, bitwise equal to the plain version; on a CPU
     tensor it returns the plain version."""
-    x_blk = torch.as_tensor(x_blk)
+    x_blk = as_signal(x_blk)
     if pad_left == 0 and pad_right == 0:
         return x_blk
     if x_blk.ndim != 2:

@@ -13,9 +13,10 @@ The weights are built on the host in f64 numpy (the same arithmetic as the
 JAX package, so they are bitwise equal to its weights) and cast to f32.
 The contraction runs as
 
-* the hand-written CUDA kernel of `kernels/cuda_dft.py` on a CUDA tensor
-  inside the kernel's contract (real input; the fused chain additionally
-  needs output='power', onesided=True);
+* the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
+  inside their contract (real input; the fused chain additionally needs
+  output='power', onesided=True); the framed DFT runs there as a real FFT
+  per frame (kernel B-fft) for a power-of-two n_fft from 8 to 1024;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -27,7 +28,11 @@ twiddle combine across the J = n_fft/stride blocks of a frame, and the
 window as a sparse spectral convolution. Its power output is kernel D
 (`kernels/cuda_dft.py:fir_framed_dft_power_shared_cuda`) on a CUDA tensor.
 
-Every `precision` ('highest' | 'high' | 'default') runs exact f32 here.
+`precision` ('highest' | 'high' | 'default') shapes the fused power chain
+only: 'highest' is exact f32 (kernel A), 'high' 3xTF32 and 'default' one
+TF32 pass (kernel A-tc, whose plain version `_framed_matmul_tf32_torch`
+rounds the operands to TF32 by the tensor cores' rule, `_round_tf32`).
+Every other path runs exact f32 at every precision.
 """
 
 import contextlib
@@ -37,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from nx_signal_tpu_torch.spectral.framing import _frame_block_widths
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights",
@@ -140,7 +146,7 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
     _check_precision(precision)
     if strategy not in ("conv", "materialize"):
         raise ValueError(f"strategy must be 'conv' or 'materialize', got {strategy!r}")
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     weights = torch.as_tensor(weights, device=x.device)
     c_blocks = len(_frame_block_widths(window_length, stride))
     needed = (num_frames + c_blocks - 1) * stride
@@ -175,6 +181,17 @@ def _dft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):
     return np.concatenate([wr, wi], axis=1).astype(dtype)
 
 
+def _frame_contract(x, weights, *, stride: int, pad_left: int, num_frames: int, dtype):
+    """frames_ext(x) @ weights in `dtype`: extended frame m covers
+    x[m*stride - pad_left : ... + weights rows], zeros outside the signal."""
+    x = x.to(dtype)
+    c_blocks = -(-weights.shape[0] // stride)
+    needed = (num_frames + c_blocks - 1) * stride
+    xp = F.pad(x, (pad_left, max(0, needed - pad_left - x.shape[-1])))
+    return blocked_frame_matmul(xp, weights.to(dtype), window_length=weights.shape[0],
+                                stride=stride, num_frames=num_frames)
+
+
 def _framed_matmul_torch(x, weights, *, stride: int, pad_left: int, num_frames: int,
                          bins: int, power: bool, accumulate=DEFAULT_FLOAT):
     """Plain version of the framed-DFT kernels (`kernels/cuda_dft.py`):
@@ -183,16 +200,64 @@ def _framed_matmul_torch(x, weights, *, stride: int, pad_left: int, num_frames: 
     [Re | Im] or, with `power`, re^2 + im^2 (..., M, bins). The f32
     signal and weights are contracted in `accumulate` (float64: exact
     products, f64 sums) and the result rounded to f32."""
-    x = x.to(DEFAULT_FLOAT).to(accumulate)
-    c_blocks = -(-weights.shape[0] // stride)
-    needed = (num_frames + c_blocks - 1) * stride
-    xp = F.pad(x, (pad_left, max(0, needed - pad_left - x.shape[-1])))
-    acc = blocked_frame_matmul(xp, weights.to(DEFAULT_FLOAT).to(accumulate),
-                               window_length=weights.shape[0], stride=stride,
-                               num_frames=num_frames).to(DEFAULT_FLOAT)
+    acc = _frame_contract(x.to(DEFAULT_FLOAT), weights.to(DEFAULT_FLOAT), stride=stride,
+                          pad_left=pad_left, num_frames=num_frames,
+                          dtype=accumulate).to(DEFAULT_FLOAT)
     if power:
         return acc[..., :bins] ** 2 + acc[..., bins:] ** 2
     return acc
+
+
+def _round_tf32(t):
+    """f32 values rounded to TF32 (10 explicit mantissa bits) as the tensor
+    cores' `cvt.rna.tf32.f32` does: to nearest, ties away from zero, on the
+    low 13 mantissa bits, which come out zero. Adding half an ulp to the
+    magnitude bits and clearing them rounds both signs alike.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.dft import _round_tf32
+    >>> ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])  # half an ulp of TF32
+    >>> _round_tf32(ties).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    True
+    """
+    bits = t.to(DEFAULT_FLOAT).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(DEFAULT_FLOAT)
+
+
+def _tf32_split(t):
+    """(hi, lo) TF32 parts of the f32 tensor: hi = tf32(t), lo = tf32(t - hi)."""
+    hi = _round_tf32(t)
+    return hi, _round_tf32(t.to(DEFAULT_FLOAT) - hi)
+
+
+def _tf32_passes(precision) -> int:
+    """TF32 products per term of the tensor-core contraction: 3 for 'high'
+    (x_lo W_hi + x_hi W_lo + x_hi W_hi), 1 for 'default' (x_hi W_hi)."""
+    if precision not in ("high", "default"):
+        raise ValueError(f"the TF32 contraction takes precision 'high' or 'default', "
+                         f"got {precision!r}")
+    return 3 if precision == "high" else 1
+
+
+def _framed_matmul_tf32_torch(x, weights, *, passes: int, stride: int, pad_left: int,
+                              num_frames: int, bins: int):
+    """Plain version of kernel A-tc (`kernels/cuda_dft.py`): the power
+    |frames_ext(x) @ W|^2 with x and W rounded to TF32 by the kernel's rule
+    (`_tf32_split`) and each term taken as x_lo W_hi + x_hi W_lo + x_hi W_hi
+    (passes=3, 'high') or x_hi W_hi (passes=1, 'default'). The products are
+    summed in f64 and rounded to f32 once; re^2 + im^2 is f32."""
+    x_hi, x_lo = _tf32_split(x)
+    w_hi, w_lo = _tf32_split(weights)
+    kw = dict(stride=stride, pad_left=pad_left, num_frames=num_frames, dtype=torch.float64)
+    if passes == 1:
+        acc = _frame_contract(x_hi, w_hi, **kw)
+    else:  # x_hi (W_hi + W_lo) is exact in f64: 11 x 22 significant bits
+        acc = (_frame_contract(x_hi, w_hi.double() + w_lo.double(), **kw)
+               + _frame_contract(x_lo, w_hi, **kw))
+    acc = acc.to(DEFAULT_FLOAT)
+    return acc[..., :bins] ** 2 + acc[..., bins:] ** 2
 
 
 def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
@@ -203,8 +268,11 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     `output='power'` returns re^2 + im^2 instead. The signal must already
     be padded (spectral/stft.py handles the padding modes).
 
-    Runs `kernels.cuda_dft.framed_dft_cuda`: the CUDA kernel on a CUDA
-    tensor, its plain conv1d version on a CPU one.
+    Runs kernel B: `kernels.cuda_dft.framed_fft_cuda` (a real FFT per
+    frame in shared memory) for n_fft a power of two from 8 to 1024, and
+    `kernels.cuda_dft.framed_dft_cuda` (the dense contraction) for any
+    other n_fft. Both are hand-written kernels on a CUDA tensor and the same
+    plain conv1d version on a CPU one.
 
     Examples:
 
@@ -220,10 +288,11 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     >>> bool(np.abs(z[0].numpy() - np.fft.rfft(frame0)).max() < 1e-3)
     True
     """
-    from nx_signal_tpu_torch.kernels.cuda_dft import framed_dft_cuda
+    from nx_signal_tpu_torch.kernels.cuda_dft import (
+        fft_kernel_takes, framed_dft_cuda, framed_fft_cuda)
 
     _check_precision(precision)
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     if x.is_complex():
         raise ValueError("framed_dft needs a real signal")
     window = _host_f64(window)
@@ -232,10 +301,29 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     if num_frames < 1:
         raise ValueError(
             f"window length {frame_length} exceeds signal length {x.shape[-1]}")
+    if fft_kernel_takes(n_fft) and frame_length <= n_fft:
+        return framed_fft_cuda(x, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                               output=output)
     weights = torch.as_tensor(
         _dft_weights(window, frame_length, n_fft, onesided, np.float32), device=x.device)
     return framed_dft_cuda(x, weights, stride=stride, num_frames=num_frames,
                            bins=n_fft // 2 + 1 if onesided else n_fft, output=output)
+
+
+def _fft_twiddles(n_fft: int, *, device=None):
+    """The (n_fft, 2) f32 table exp(-2 pi i t / n_fft), t = 0..n_fft-1, of
+    the FFT kernel (cos, sin pairs computed in f64, then cast).
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _fft_twiddles
+    >>> _fft_twiddles(8)[2].tolist()
+    [0.0, -1.0]
+    """
+    ang = -2.0 * np.pi * np.arange(n_fft) / n_fft
+    table = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    table[np.abs(table) < 1e-15] = 0.0  # exact zeros at the quarter turns
+    return torch.as_tensor(table.astype(np.float32), device=device)
 
 
 def _idft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):
@@ -285,7 +373,7 @@ def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
     (torch.Size([13, 256]), torch.float32)
     """
     _check_precision(precision)
-    z = torch.as_tensor(z)
+    z = as_signal(z)
     if not z.is_complex():
         z = z.to(torch.complex64)
     window = _host_f64(window)
@@ -374,11 +462,13 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     filtered signal is never built.
 
     `kernel`:
-    * 'auto' runs `kernels.cuda_dft.fir_framed_dft_power_cuda` (kernel A)
-      when the call is inside its contract (output='power', onesided=True,
-      real input): the hand-written kernel on a CUDA tensor, its plain
-      version on a CPU one. Outside it, and with 'torch', the plain conv1d
-      path runs. 'cuda' raises outside the contract.
+    * 'auto' runs `kernels.cuda_dft.fir_framed_dft_power_cuda` when the
+      call is inside its contract (output='power', onesided=True, real
+      input): kernel A at precision 'highest', kernel A-tc (3xTF32 for
+      'high', one TF32 pass for 'default') otherwise, the hand-written
+      kernel on a CUDA tensor and its plain version on a CPU one. Outside
+      the contract, and with 'torch', the plain exact-f32 conv1d path runs
+      whatever the precision. 'cuda' raises outside the contract.
     * 'cuda_shared' runs `fir_framed_dft_shared` (kernel D on a CUDA
       tensor, its plain version on a CPU one), the half-FLOP shared
       hop-block form. It raises unless output='power', onesided=True, the
@@ -416,7 +506,7 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
     if edge not in ("pad", "conv"):
         raise ValueError(f"edge must be 'pad' or 'conv', got {edge!r}")
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     taps = _host_f64(taps).reshape(-1)
     window = _host_f64(window)
     k = taps.shape[0]
@@ -456,7 +546,8 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
         from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
 
         return fir_framed_dft_power_cuda(x, weights, stride=stride, pad_left=pad_left,
-                                         num_frames=num_frames, bins=bins)
+                                         num_frames=num_frames, bins=bins,
+                                         precision=precision)
 
     power = output == "power"
     if edge == "conv" and power and frame_chunks == 1:
@@ -695,7 +786,7 @@ def fir_framed_dft_shared(x, taps, *, stride: int, n_fft: int, window_coeffs,
     window_coeffs = tuple(float(b) for b in window_coeffs)
     if len(window_coeffs) < 1 or len(window_coeffs) > stride:
         raise ValueError("window_coeffs must have 1..stride terms")
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     length = x.shape[-1]
     if length < n_fft:
         raise ValueError(f"window length {n_fft} exceeds signal length {length}")

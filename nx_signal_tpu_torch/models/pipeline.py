@@ -5,16 +5,17 @@ and spectral layers.
 * `stft_fir_chain`: a FIR low-pass then a windowed STFT power spectrogram.
   Its power alone (`return_filtered=False`, real input) is fused into one
   frame contraction against weights that fold the filter's 'same' Toeplitz
-  matrix into the window-scaled DFT (kernels/dft.py:fir_framed_dft): kernel
-  A (kernels/cuda_dft.py:fir_framed_dft_power_cuda) on a CUDA tensor. The
-  filtered path (`return_filtered=True`, the default) builds the filtered
-  signal with ops/convolution.py (the direct Toeplitz conv1d, the FFT, or
-  overlap-add through kernel C) and frames it with kernel B
-  (kernels/dft.py:framed_dft), or with torch.fft through spectral/stft.py
-  for complex input or n_fft > 1024.
+  matrix into the window-scaled DFT (kernels/dft.py:fir_framed_dft): on a
+  CUDA tensor kernel A (kernels/cuda_dft.py:fir_framed_dft_power_cuda) at
+  precision 'highest', kernel A-tc on the tensor cores at 'high' (3xTF32)
+  and 'default' (one TF32 pass). The filtered path (`return_filtered=True`,
+  the default) builds the filtered signal with ops/convolution.py (the
+  direct Toeplitz conv1d, the FFT, or overlap-add through kernel C) and
+  frames it with kernel B-fft or B (kernels/dft.py:framed_dft), or with
+  torch.fft through spectral/stft.py for complex input or n_fft > 1024.
 * `StftFirChain`: the fused power chain as an nn.Module (kernel A).
 * `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
-* `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B), then dBFS or
+* `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B-fft), then dBFS or
   Whisper's log-mel normalization.
 """
 
@@ -146,12 +147,13 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
 
     * `return_filtered=False` with real input and frame_length <= fft_length
       <= 1024 runs `kernels.dft.fir_framed_dft(output='power')`, which never
-      builds the filtered signal (kernel A on a CUDA tensor; `frame_chunks`
-      shapes only its plain path).
+      builds the filtered signal (on a CUDA tensor kernel A at 'highest',
+      kernel A-tc at 'high' and 'default'; `frame_chunks` shapes only its
+      plain path).
     * Otherwise the filtered signal comes from `ops.convolution`:
       `fir_method` 'direct' (the Toeplitz conv1d), 'fft', or 'oa'
       (overlap-add, kernel C). Its power is `kernels.dft.framed_dft` (kernel
-      B) for real input with frame_length <= fft_length <= 1024, and
+      B-fft or B) for real input with frame_length <= fft_length <= 1024, and
       |stft|^2 (torch.fft) otherwise.
 
     Examples:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from nx_signal_tpu_torch.kernels.dft import _exact_f32, blocked_frame_matmul, toeplitz_band
 from nx_signal_tpu_torch.ops.transforms import fft_nd, ifft_nd, irfft_nd, rfft_nd
 from nx_signal_tpu_torch.spectral.framing import _ola_fold
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import default_complex, result_real_dtype
 from nx_signal_tpu_torch.utils.shapes import fft_fast_length
 
@@ -50,7 +51,7 @@ def _check_mode_method(mode, method):
 
 def _operands(in1, in2):
     """Both operands as tensors on the first one's device."""
-    in1 = torch.as_tensor(in1)
+    in1 = as_signal(in1)
     return in1, torch.as_tensor(in2, device=in1.device)
 
 
@@ -264,7 +265,7 @@ def fir_convolve_1d(x, taps, mode="full", *, origin: int = 0):
     >>> fir_convolve_1d(torch.tensor([1.0, 2.0, 3.0, 4.0]), torch.tensor([1.0, 1.0]))
     tensor([1., 3., 5., 7., 4.])
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     taps = torch.as_tensor(taps, device=x.device).reshape(-1)
     k = taps.shape[0]
     length = x.shape[-1]
@@ -520,7 +521,7 @@ def deconvolve(signal, divisor):
     """
     from scipy.signal import lfilter
 
-    num = torch.atleast_1d(torch.as_tensor(signal))
+    num = torch.atleast_1d(as_signal(signal))
     den = torch.atleast_1d(torch.as_tensor(divisor, device=num.device))
     if num.ndim != 1 or den.ndim != 1:
         raise ValueError("deconvolve requires 1-D signal and divisor")

@@ -6,6 +6,8 @@ matching entry of `lengths`.
 
 import torch
 
+from nx_signal_tpu_torch.utils.devices import as_signal
+
 __all__ = ["fft_nd", "ifft_nd", "rfft_nd", "irfft_nd"]
 
 
@@ -32,7 +34,7 @@ def fft_nd(x, *, axes=None, lengths=None):
     >>> X.shape, X.dtype
     (torch.Size([2, 8]), torch.complex64)
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     axes, lengths = _norm_axes_lengths(x, axes, lengths)
     return torch.fft.fftn(x, s=lengths, dim=axes)
 
@@ -49,7 +51,7 @@ def ifft_nd(x, *, axes=None, lengths=None):
     tensor([[1., 1., 1., 1.],
             [1., 1., 1., 1.]])
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     axes, lengths = _norm_axes_lengths(x, axes, lengths)
     return torch.fft.ifftn(x, s=lengths, dim=axes)
 
@@ -66,7 +68,7 @@ def rfft_nd(x, *, axes=None, lengths=None):
     >>> R.shape, R.dtype
     (torch.Size([2, 5]), torch.complex64)
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     axes, lengths = _norm_axes_lengths(x, axes, lengths)
     return torch.fft.rfftn(x, s=lengths, dim=axes)
 
@@ -82,6 +84,6 @@ def irfft_nd(x, *, axes=None, lengths=None):
     >>> y.shape, y.dtype
     (torch.Size([2, 8]), torch.float32)
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     axes, lengths = _norm_axes_lengths(x, axes, lengths)
     return torch.fft.irfftn(x, s=lengths, dim=axes)

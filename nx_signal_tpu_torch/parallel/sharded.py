@@ -413,9 +413,10 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     neighbour (zeros at block 0, the single-device left pad) and frame -
     stride + (K-1)//2 from the right. Every rank then contracts
     [left halo | block | right halo] against the folded weights with kernel
-    A (kernels/cuda_dft.py:fir_framed_dft_power_cuda, pad_left=0) on a
-    CUDA tensor, its plain conv1d version on a CPU one. The filtered signal
-    is never built."""
+    A (kernels/cuda_dft.py:fir_framed_dft_power_cuda, pad_left=0, at the
+    caller's `precision`: kernel A-tc for 'high' and 'default') on a CUDA
+    tensor, its plain version on a CPU one. The filtered signal is never
+    built."""
     _check_precision(precision)
     x, squeeze, device = _norm_2d(x, mesh)
     taps = torch.as_tensor(taps).reshape(-1)
@@ -442,5 +443,5 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     x_blk = _local_shard(x, mesh, block_len, -1, device).to(DEFAULT_FLOAT)
     ext = halo_extend_cuda(x_blk, pad_left, halo_right, mesh=mesh)
     out = fir_framed_dft_power_cuda(ext, weights, stride=stride, pad_left=0,
-                                    num_frames=frames_per_block, bins=bins)
+                                    num_frames=frames_per_block, bins=bins, precision=precision)
     return out[0] if squeeze else out

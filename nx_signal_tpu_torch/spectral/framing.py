@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["as_windowed", "overlap_and_add", "pad_for_windowing"]
@@ -54,7 +55,7 @@ def pad_for_windowing(x, window_length: int, padding):
     >>> pad_for_windowing(torch.arange(6.0), window_length=4, padding='reflect')
     tensor([2., 1., 0., 1., 2., 3., 4., 5., 4., 3.])
     """
-    x = torch.as_tensor(x)
+    x = as_signal(x)
     if padding == "reflect":
         half = window_length // 2
         idx = np.pad(np.arange(x.shape[-1]), (half, half), mode="reflect")
@@ -173,7 +174,7 @@ def overlap_and_add(frames, *, overlap_length: int, dtype=None):
     >>> overlap_and_add(frames, overlap_length=2)
     tensor([  1,   1,  11,  11, 110, 110, 100, 100])
     """
-    frames = torch.as_tensor(frames)
+    frames = as_signal(frames)
     if frames.ndim < 2:
         raise ValueError(f"expected a tensor of rank >= 2, got rank {frames.ndim}")
     num_frames, window_length = frames.shape[-2], frames.shape[-1]

@@ -9,6 +9,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32
 from nx_signal_tpu_torch.spectral.stft import _linspace, fft_frequencies
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["mel_filters", "stft_to_mel"]
@@ -82,7 +83,7 @@ def stft_to_mel(z, sampling_rate, *, fft_length: int, mel_bins: int = 128,
     >>> m.shape, bool(torch.isfinite(m).all())
     (torch.Size([30, 40]), True)
     """
-    z = torch.as_tensor(z)
+    z = as_signal(z)
     filters = mel_filters(fft_length, mel_bins, sampling_rate, max_mel=max_mel,
                           mel_frequency_spacing=mel_frequency_spacing, dtype=dtype,
                           device=z.device)

@@ -1,9 +1,11 @@
 """Short-Time Fourier Transform: stft / istft / fft_frequencies
 (counterpart of nx_signal_tpu/spectral/stft.py).
 
-The forward transform runs the fused framing + window + DFT contraction
-(kernels/dft.py:framed_dft, the CUDA kernel B on a CUDA tensor) for real
-input with fft_length <= 1024, and torch.fft on explicit frames otherwise.
+The forward transform runs the fused framing + window + DFT
+(kernels/dft.py:framed_dft: on a CUDA tensor the CUDA kernel B-fft, a real
+FFT per frame, for a power-of-two fft_length, the dense kernel B for other
+lengths) for real input with fft_length <= 1024, and torch.fft on explicit
+frames otherwise.
 The inverse runs the fused inverse-DFT + synthesis-window matmul
 (kernels/dft.py:framed_idft) and the deterministic overlap-add
 (spectral/framing.py:_ola_fold, the CUDA kernel C on a CUDA tensor).
@@ -19,6 +21,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul_fft_length
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for_windowing
+from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.shapes import next_power_of_two
 
@@ -105,7 +108,7 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     `method`: 'auto' uses the framed-DFT contraction for real input with
     frame_length <= fft_length <= 1024 and torch.fft otherwise; 'fft' and
     'matmul' force a path. `precision` is accepted for the JAX package's
-    signature; the contraction is exact f32 at every setting.
+    signature; the framed DFT runs f32 at every setting.
 
     Examples:
 
@@ -117,7 +120,7 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     >>> z.shape, float(freqs[16]), int(z[0].abs().argmax())
     (torch.Size([11, 64]), 100.0, 16)
     """
-    data = torch.as_tensor(data)
+    data = as_signal(data)
     window = torch.as_tensor(window, device=data.device)
     (frame_length,) = window.shape
     if overlap_length is None:
@@ -197,7 +200,7 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     >>> bool((y.real[16:-16] - x[16:y.shape[-1] - 16]).abs().max() < 1e-6)
     True
     """
-    z = torch.as_tensor(z)
+    z = as_signal(z)
     window = torch.as_tensor(window, device=z.device)
     if onesided and fft_length is None:
         n_fft = 2 * (z.shape[-1] - 1)

@@ -7,10 +7,11 @@ root:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the contraction kernels (A, B, D) against their plain versions
-per bin at 1e-4 of the bin's max, or at 1e-4 x max where the plain version
-sums in f32 too (the gate of chip_smoke.py); the overlap-add (C, with and
-without a seed) and the halo exchange (E) bitwise.
+Tolerances: the contraction kernels (A, A-tc, B, D) and the FFT kernel
+(B-fft) against their plain versions per bin at 1e-4 of the bin's max, or
+at 1e-4 x max where the plain version sums in f32 too (the gate of
+chip_smoke.py); the overlap-add (C, with and without a seed) and the halo
+exchange (E) bitwise.
 """
 
 import numpy as np
@@ -45,6 +46,14 @@ def hann_np(n):
     return tw.hann(n, dtype=torch.float64).numpy()
 
 
+def assert_close_per_bin(got, want, rel=1e-4):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    err = (got - want).abs().reshape(-1, want.shape[-1]).amax(0)
+    scale = want.abs().reshape(-1, want.shape[-1]).amax(0)
+    assert float((err / scale).max()) <= rel
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("power", [True, False])
 def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
@@ -62,10 +71,65 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
                                                      **kw).cpu())
     output = "power" if power else "complex"
     kw = dict(stride=150, n_fft=512, onesided=True, output=output)
+    before = cuda_dft.framed_fft_cuda.launches
+    got = td.framed_dft(x, window, **kw)
+    assert cuda_dft.framed_fft_cuda.launches == before + 1
+    assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
+    kw = dict(stride=150, n_fft=600, onesided=True, output=output)
     before = cuda_dft.framed_dft_cuda.launches
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_dft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [  # channels, length, frame, hop, n_fft, onesided
+    (4, 48000, 512, 128, 512, True),
+    (2, 30000, 512, 128, 512, False),   # the full spectrum
+    (3, 20001, 400, 150, 512, True),    # frame < n_fft, a hop that does not divide it
+    (2, 20000, 12, 5, 16, True),
+    (2, 20001, 5, 3, 8, False),
+    (2, 30001, 1024, 1000, 1024, True),
+])
+@pytest.mark.parametrize("output", ["complex", "power"])
+def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
+    """Kernel B-fft (a real FFT per frame) against its plain version (the
+    dense contraction), per bin at 1e-4 of the bin's max."""
+    need_cuda()
+    ch, n, frame, hop, n_fft, onesided = geometry
+    x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
+    window = hann_np(frame)
+    kw = dict(stride=hop, n_fft=n_fft, onesided=onesided, output=output)
+    before = cuda_dft.framed_fft_cuda.launches
+    got = cuda_dft.framed_fft_cuda(x, window, **kw)
+    assert cuda_dft.framed_fft_cuda.launches == before + 1
+    assert got.dtype == (torch.float32 if output == "power" else torch.complex64)
+    assert_close_per_bin(got, cuda_dft.framed_fft_cuda(x.cpu(), window, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("geometry", [  # channels, length, taps, frame, hop, n_fft
+    (3, 20000, 255, 512, 128, 512),
+    (2, 12001, 100, 400, 150, 512),     # even taps, a hop that does not divide the frame
+])
+def test_tc_kernel_matches_plain_on_cuda(precision, geometry, rng):
+    """Kernel A-tc against its plain version (the same TF32 products summed
+    in f64), per bin at 1e-4; fir_framed_dft launches it for 'high' and
+    'default' and kernel A for 'highest'."""
+    need_cuda()
+    ch, n, k, frame, hop, n_fft = geometry
+    x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
+    taps, window = rng.normal(size=k), hann_np(frame)
+    kw = dict(stride=hop, n_fft=n_fft, onesided=True, output="power")
+    before = (cuda_dft.fir_framed_dft_power_cuda.launches,
+              cuda_dft.fir_framed_dft_power_tc_cuda.launches)
+    got = td.fir_framed_dft(x, taps, window, precision=precision, **kw)
+    td.fir_framed_dft(x, taps, window, precision="highest", **kw)
+    assert (cuda_dft.fir_framed_dft_power_cuda.launches,
+            cuda_dft.fir_framed_dft_power_tc_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert_close_per_bin(got, td.fir_framed_dft(x.cpu(), taps, window, precision=precision,
+                                                **kw))
 
 
 @pytest.mark.cuda
@@ -108,16 +172,16 @@ def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
 
 @pytest.mark.cuda
 def test_filtered_chain_runs_kernels_b_and_c_on_cuda(rng):
-    """On the card the filtered chain frames with kernel B and FIRFilterChain
+    """On the card the filtered chain frames with kernel B-fft and FIRFilterChain
     overlap-adds with kernel C; both agree with the CPU at 1e-4 x max."""
     need_cuda()
     x = rng.normal(size=(2, 8192)).astype(np.float32)
     taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
-    before_b, before_c = cuda_dft.framed_dft_cuda.launches, cuda_dft.overlap_add_cuda.launches
+    before_b, before_c = cuda_dft.framed_fft_cuda.launches, cuda_dft.overlap_add_cuda.launches
     y, p = stft_fir_chain(torch.from_numpy(x).cuda(), taps, window, fft_length=512,
                           overlap_length=384)
     filtered = FIRFilterChain()(torch.from_numpy(x).cuda())
-    assert cuda_dft.framed_dft_cuda.launches == before_b + 1
+    assert cuda_dft.framed_fft_cuda.launches == before_b + 1
     assert cuda_dft.overlap_add_cuda.launches == before_c + 1
     want_y, want_p = stft_fir_chain(torch.from_numpy(x), taps, window, fft_length=512,
                                     overlap_length=384)

@@ -86,6 +86,10 @@ FRAMED_GEOMETRIES = [  # channels, length, frame, hop, n_fft
     (2, 4096, 512, 128, 512),
     (1, 3000, 400, 150, 512),   # hop does not divide the frame, n_fft > frame
     (3, 2048, 256, 256, 256),   # no overlap
+    (2, 3000, 512, 128, 600),   # n_fft not a power of two: the dense kernel B
+    (2, 1000, 12, 5, 16),       # the FFT kernel's small sizes
+    (1, 500, 5, 3, 8),
+    (1, 5000, 1000, 300, 1024),  # its largest
 ]
 
 
@@ -102,6 +106,35 @@ def test_framed_dft(geometry, onesided, output, rng):
                         n_fft=n_fft, onesided=onesided, output=output)
     assert got.dtype == (torch.complex64 if output == "complex" else torch.float32)
     assert_close_to_max(got, np.asarray(want).astype(got.numpy().dtype))
+
+
+@pytest.mark.parametrize("n_fft,kernel", [(8, "fft"), (16, "fft"), (512, "fft"), (1024, "fft"),
+                                          (4, "dense"), (600, "dense"), (2048, "dense")])
+def test_framed_dft_kernel_split(n_fft, kernel, rng):
+    """framed_dft takes kernel B-fft for a power-of-two n_fft from 8 to
+    1024 and the dense kernel B for any other; on a CPU tensor both wrappers
+    are the same plain version, so their results are equal bitwise."""
+    assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
+    frame = min(n_fft, 400)
+    x = torch.from_numpy(rng.normal(size=(2, 3 * frame + 7)).astype(np.float32))
+    window = hann_np(frame)
+    m = (x.shape[-1] - frame) // 3 + 1
+    bins = n_fft // 2 + 1
+    dense = cuda_dft.framed_dft_cuda(
+        x, torch.as_tensor(td._dft_weights(window, frame, n_fft, True, np.float32)), stride=3,
+        num_frames=m, bins=bins)
+    assert torch.equal(cuda_dft.framed_fft_cuda(x, window, stride=3, n_fft=n_fft, onesided=True),
+                       dense)
+    assert torch.equal(td.framed_dft(x, window, stride=3, n_fft=n_fft, onesided=True), dense)
+
+
+@pytest.mark.parametrize("n_fft", [8, 512, 1024])
+def test_fft_twiddles(n_fft):
+    want = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    got = td._fft_twiddles(n_fft).numpy()
+    assert got.shape == (n_fft, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want, rtol=0, atol=6e-8)
+    assert got[n_fft // 4, 0] == 0.0 and got[n_fft // 4, 1] == -1.0
 
 
 @pytest.mark.parametrize("onesided", [True, False])
@@ -239,7 +272,9 @@ def test_good_matmul_fft_length(n_fft):
     assert td.good_matmul_fft_length(n_fft) == jd.good_matmul_fft_length(n_fft)
 
 
-@pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_overlap_add_f32",
+@pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_framed_fft_f32",
+                                  "nx_framed_dft_tc_frames", "nx_framed_dft_tc_power_f32",
+                                  "nx_overlap_add_f32",
                                   "nx_shared_dft_power_f32", "nx_halo_alloc", "nx_halo_free",
                                   "nx_ipc_get_handle", "nx_ipc_open_handle",
                                   "nx_ipc_close_handle", "nx_stream_synchronize",
@@ -257,3 +292,21 @@ def test_ctypes_signatures_match_the_sources(name):
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64 for p in params]
     assert list(_build._SIGNATURES[name]) == kinds
+
+
+@pytest.mark.parametrize("source,constants", [
+    ("framed_fft.cu", {"kMinFft": "_FFT_MIN", "kMaxFft": "_FFT_MAX"}),
+    ("framed_dft_tc.cu", {"kTileBins": "_TC_TILE_BINS", "kChunk": "_TC_CHUNK"}),
+])
+def test_kernel_constants_match_the_sources(source, constants):
+    """The wrappers' copies of each kernel's limits and weight layout equal
+    the constants the CUDA source declares."""
+    import re
+    from pathlib import Path
+
+    from nx_signal_tpu_torch.kernels import _build
+
+    text = Path(_build._CSRC, source).read_text()
+    for c_name, py_name in constants.items():
+        value = re.search(rf"constexpr int {c_name} = (\d+);", text).group(1)
+        assert int(value) == getattr(cuda_dft, py_name), c_name
