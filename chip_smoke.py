@@ -19,11 +19,15 @@ Phases (any failure raises, and the exit code is not 0):
      one TF32 pass) on the same chain against its plain version (the same
      TF32 products summed in f64, 192 channels at a time) and, on two
      channels, against an f64 numpy reference (convolve, frame, window,
-     rfft, |.|^2) at 1e-4 ('high') and 1e-2 ('default'); B-fft (a real FFT
-     per frame) at 64 x 480000, complex and power, and the dense B at
-     n_fft 600 (which B-fft does not take); C (overlap-add) on the (64,
-     3747, 512) frames of framed_idft, bitwise; B-fft on the full spectrum
-     at 64 x 480000, n_fft 16, 8 (frame 5) and 1024; then two ragged
+     rfft, |.|^2) at 1e-4 ('high') and 1e-2 ('default'); B-fft (an FFT per
+     frame) at 64 x 480000, complex and power, at n_fft 512 (its radix-8
+     kernel) and 600 (its mixed-radix kernel), and the dense B at n_fft 572
+     (= 2^2 * 11 * 13, which B-fft does not take); C (overlap-add) on the
+     (64, 3747, 512) frames of framed_idft, bitwise; B-fft, complex and
+     power, on the full spectrum at 64 x 480000, n_fft 16, 8 (frame 5) and
+     1024, and the mixed-radix kernel at n_fft 400 (hop 160), 441 (odd: two
+     frames per FFT; full spectrum, and frame 300), 480, 960, 1000, 9 and
+     10 with hops that do not divide the frame; then two ragged
      geometries (even taps, hop not dividing the frame, length not a
      multiple of the hop, frame 400 with n_fft 512, a hop whose window
      needs the small frame tile and where A-tc's window does not fit, so
@@ -43,8 +47,14 @@ Phases (any failure raises, and the exit code is not 0):
      channels against the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions (B-fft, C); interior reconstruction error <= 1e-5
-     x max|x|; then stft at fft_length 600 (the dense B) on the same signal,
-     held on two channels against the f64 numpy rfft per bin.
+     x max|x|; then stft at fft_length 600 on the same signal (B-fft's
+     mixed-radix kernel, and not the dense B) and at fft_length 572 (the
+     dense B, and not B-fft), each held on two channels against the f64
+     numpy rfft per bin; then LogMelFrontend(frame_length=400,
+     hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
+     kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
+     (reflect padding, rfft, |.|^2, the mel filters, log10, floor) within
+     1e-5 of its max.
   5. the shared path: fir_framed_dft(kernel='cuda_shared') and
      fir_framed_dft_shared(output='power', onesided=True) on 768 x 480000,
      each held on two channels against the f64 numpy reference with the
@@ -64,9 +74,10 @@ Phases (any failure raises, and the exit code is not 0):
      the one PyTorch call that computes the same function (`library_ms`,
      never called by the port: F.conv1d of the folded weights for A and D,
      exact f32, and for A-tc in TF32 beside the exact one;
-     torch.stft(center=False) for B-fft and, its window zero-padded to
-     n_fft 600, for the dense B; F.fold as a 1-D overlap-add for C), taken
-     in turns, at the phase-2 shapes, A-tc at 'high' and 'default'; then of
+     torch.stft(center=False) for B-fft at n_fft 512 and 600 and, its
+     window zero-padded to n_fft 572, for the dense B; F.fold as a 1-D
+     overlap-add for C), taken in turns, at the phase-2 shapes, A-tc at
+     'high' and 'default', the dense B also at n_fft 600; then of
      the filtered chain's two stages (the direct FIR and B-fft) at 768 x
      480000. Each kernel's bound is computed from this run's shapes, for
      the least work its function needs (not the dense-matrix DFT the
@@ -108,7 +119,10 @@ The line before the last is one JSON object describing the kernels A,
 A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
 8's over all ranks; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
-`library_exact_ms` beside; E's `ms`, `plain_ms` and `library_ms` are
+`library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
+kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
+`bound_by_600` and `max_abs_err_600` at 600 beside; B's at its `n_fft`
+572, with `ms_600` beside; E's `ms`, `plain_ms` and `library_ms` are
 host-clock exchanges of all ranks at once, and its bound counts the bytes
 of all the ranks sharing the card); the last is the device line {"ok":
 true, "device": {...}}.
@@ -234,9 +248,10 @@ def _fft_route_flops(rows, length, num_taps, frame, num_frames, n_fft, bins) -> 
     return rows * (fir + num_frames * (frame + _rfft_flops(n_fft) + 3.0 * bins))
 
 
-def _run_path(name, kernels, expect, fn):
+def _run_path(name, kernels, expect, fn, avoid=()):
     """Zero every launch counter, run one main path, and fail unless each
-    kernel of `expect` was launched on it; returns the counts."""
+    kernel of `expect` was launched on it and none of `avoid`; returns the
+    counts."""
     for kernel in kernels:
         kernel.launches = 0
     fn()
@@ -245,6 +260,9 @@ def _run_path(name, kernels, expect, fn):
     for kernel in expect:
         if counts[kernel.__name__] < 1:
             raise AssertionError(f"{kernel.__name__} was not launched on {name}")
+    for kernel in avoid:
+        if counts[kernel.__name__]:
+            raise AssertionError(f"{kernel.__name__} was launched on {name}")
     return counts
 
 
@@ -548,11 +566,13 @@ def main() -> int:
         _dft_weights, _framed_matmul_tf32_torch, _framed_matmul_torch, _same_pad_left,
         _shared_power_torch, fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared,
         framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
-    from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, StftFirChain, stft_fir_chain
+    from nx_signal_tpu_torch.models.pipeline import (
+        FIRFilterChain, LogMelFrontend, StftFirChain, stft_fir_chain)
     from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
     from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+    from nx_signal_tpu_torch.spectral.mel import mel_filters
     from nx_signal_tpu_torch.spectral.stft import istft, stft
 
     A = cuda_dft.fir_framed_dft_power_cuda
@@ -609,47 +629,71 @@ def main() -> int:
                      got[:2].double().cpu(), ref, rel=gate)
         del got
 
-    # B-fft (a real FFT per frame) and the dense B at an n_fft B-fft does
-    # not take (600), each against the plain version, complex and power
+    # B-fft (an FFT per frame: the radix-8 kernel at n_fft 512, the
+    # mixed-radix one at 600) and the dense B at an n_fft B-fft does not
+    # take (572 = 2^2 * 11 * 13), each against the plain version, complex
+    # and power
     x64 = x[:64]
+
+    def plain_dft(xr, wr, fl, hp, nf, onesided):
+        """The plain framed DFT: its weights and (complex, power)."""
+        nb = nf // 2 + 1 if onesided else nf
+        wd = torch.as_tensor(_dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
+        acc = _framed_matmul_torch(xr, wd, stride=hp, pad_left=0,
+                                   num_frames=(xr.shape[-1] - fl) // hp + 1, bins=nb, power=False)
+        re, im = acc[..., :nb], acc[..., nb:]
+        return wd, torch.complex(re, im), re ** 2 + im ** 2
+
     args_b = dict(stride=hop, num_frames=num_frames, bins=bins)
     fft_kw = dict(stride=hop, n_fft=n_fft, onesided=True)
-    w_dft = torch.as_tensor(_dft_weights(window, frame, n_fft, True, np.float32), device=dev)
-    acc = _framed_matmul_torch(x64, w_dft, pad_left=0, power=False, **args_b)
-    z_plain = torch.complex(acc[..., :bins], acc[..., bins:])
+    w_dft, z_plain, p_plain = plain_dft(x64, window, frame, hop, n_fft, True)
     err_bfft = _check_close(f"B-fft 64x{length} complex", B_fft(x64, window, **fft_kw), z_plain)
     _check_close(f"B-fft 64x{length} power", B_fft(x64, window, output="power", **fft_kw),
-                 acc[..., :bins] ** 2 + acc[..., bins:] ** 2)
-    n_dense = 600
+                 p_plain)
+    del p_plain
+    n_mixed = 600
+    bins_mixed = n_mixed // 2 + 1
+    mixed_kw = dict(stride=hop, n_fft=n_mixed, onesided=True)
+    w_mixed, want_z, want_p = plain_dft(x64, window, frame, hop, n_mixed, True)
+    err_bfft_600 = _check_close(f"B-fft 64x{length} n_fft={n_mixed} complex",
+                                B_fft(x64, window, **mixed_kw), want_z)
+    _check_close(f"B-fft 64x{length} n_fft={n_mixed} power",
+                 B_fft(x64, window, output="power", **mixed_kw), want_p)
+    n_dense = 572
     bins_dense = n_dense // 2 + 1
-    w_dense = torch.as_tensor(_dft_weights(window, frame, n_dense, True, np.float32), device=dev)
     args_dense = dict(stride=hop, num_frames=num_frames, bins=bins_dense)
-    acc = _framed_matmul_torch(x64, w_dense, pad_left=0, power=False, **args_dense)
+    w_dense, want_z, want_p = plain_dft(x64, window, frame, hop, n_dense, True)
     err_b = _check_close(f"B (dense) 64x{length} n_fft={n_dense} complex",
-                         B(x64, w_dense, **args_dense),
-                         torch.complex(acc[..., :bins_dense], acc[..., bins_dense:]))
+                         B(x64, w_dense, **args_dense), want_z)
     _check_close(f"B (dense) 64x{length} n_fft={n_dense} power",
-                 B(x64, w_dense, output="power", **args_dense),
-                 acc[..., :bins_dense] ** 2 + acc[..., bins_dense:] ** 2)
-    del acc
+                 B(x64, w_dense, output="power", **args_dense), want_p)
+    del want_z, want_p
     fft_ragged = [  # channels, length, frame, hop, n_fft, onesided
         (64, length, frame, hop, n_fft, False),   # the full spectrum
         (2, 20000, 16, 7, 16, True),
         (2, 20001, 12, 5, 16, False),
         (2, 20001, 5, 3, 8, True),
         (3, 30001, 1024, 256, 1024, True),
+        # the mixed-radix kernel: Whisper's 400 / 160, odd n_fft (two frames
+        # per FFT) with a ragged last pair, hops that do not divide the frame
+        (3, 30001, 400, 160, 400, True),
+        (3, 30001, 441, 100, 441, False),
+        (2, 30002, 300, 147, 441, True),
+        (3, 30001, 480, 130, 480, True),
+        (2, 30001, 960, 333, 960, False),
+        (2, 30001, 1000, 250, 1000, True),
+        (2, 20001, 9, 4, 9, True),
+        (2, 20001, 10, 3, 10, False),
     ]
     for ch, n, fl, hp, nf, onesided in fft_ragged:
         xr = x[:ch, :n]
         wr = hann(fl).numpy()
-        nb = nf // 2 + 1 if onesided else nf
-        wd = torch.as_tensor(_dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
-        acc = _framed_matmul_torch(xr, wd, stride=hp, pad_left=0, num_frames=(n - fl) // hp + 1,
-                                   bins=nb, power=False)
-        _check_close(f"B-fft {ch}x{n} frame={fl} hop={hp} n_fft={nf} onesided={onesided}",
-                     B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided),
-                     torch.complex(acc[..., :nb], acc[..., nb:]))
-        del acc
+        _, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, onesided)
+        tag = f"B-fft {ch}x{n} frame={fl} hop={hp} n_fft={nf} onesided={onesided}"
+        _check_close(tag, B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided), want_z)
+        _check_close(f"{tag} power", B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided,
+                                           output="power"), want_p)
+        del want_z, want_p
 
     frames = framed_idft(z_plain, window, n_fft=n_fft, onesided=True)
     out_length = num_frames * hop + (frame - hop)
@@ -813,13 +857,31 @@ def main() -> int:
         raise AssertionError(f"round trip error {err} > 1e-5 x {scale}")
     del y
 
-    # an fft_length that is not a power of two: the dense kernel B
+    # fft_length 600 = 2^3 * 3 * 5^2: the mixed-radix kernel B-fft, not the
+    # dense B
     def stft_600():
+        out["z"] = stft(x64, win_t, sampling_rate=rate, fft_length=n_mixed,
+                        overlap_length=frame - hop, onesided=True).z
+        torch.cuda.synchronize()
+
+    counts = _run_path(f"stft at fft_length {n_mixed}", kernels, (B_fft,), stft_600, avoid=(B,))
+    launches = {name: launches[name] + counts[name] for name in launches}
+    z = out.pop("z")
+    if tuple(z.shape) != (64, num_frames, bins_mixed) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+    fr = np.lib.stride_tricks.sliding_window_view(xh, frame, axis=-1)[:, ::hop][:, :num_frames]
+    _check_close(f"stft at fft_length {n_mixed} vs f64 numpy rfft (2 channels)",
+                 z[:2].cpu().to(torch.complex128),
+                 torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_mixed)))
+    del z, fr
+
+    # fft_length 572 = 2^2 * 11 * 13: the dense kernel B
+    def stft_572():
         out["z"] = stft(x64, win_t, sampling_rate=rate, fft_length=n_dense,
                         overlap_length=frame - hop, onesided=True).z
         torch.cuda.synchronize()
 
-    counts = _run_path(f"stft at fft_length {n_dense}", kernels, (B,), stft_600)
+    counts = _run_path(f"stft at fft_length {n_dense}", kernels, (B,), stft_572, avoid=(B_fft,))
     launches = {name: launches[name] + counts[name] for name in launches}
     z = out.pop("z")
     if tuple(z.shape) != (64, num_frames, bins_dense) or not bool(torch.isfinite(z).all()):
@@ -829,6 +891,35 @@ def main() -> int:
                  z[:2].cpu().to(torch.complex128),
                  torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_dense)))
     del z, fr
+
+    # Whisper's log-mel front end (frame 400, hop 160, n_fft 400 = 2^4 5^2)
+    # on 64 x 30 s at 16 kHz: kernel B-fft, not the dense B
+    mel_front = LogMelFrontend(frame_length=400, hop_length=160, fft_length=400)
+
+    def log_mel():
+        out["mel"] = mel_front(x64)
+        torch.cuda.synchronize()
+
+    counts = _run_path("LogMelFrontend(fft_length=400)", kernels, (B_fft,), log_mel, avoid=(B,))
+    launches = {name: launches[name] + counts[name] for name in launches}
+    mel = out.pop("mel")
+    mel_frames = length // 160 + 1   # reflect padding of 200 on each side
+    if tuple(mel.shape) != (64, mel_frames, 80) or not bool(torch.isfinite(mel).all()):
+        raise AssertionError(f"log-mel output {tuple(mel.shape)} not finite or wrong shape")
+    # the f64 reference on two channels: reflect padding, the frontend's hann
+    # samples, rfft, |.|^2, its mel filters, log10 with the 1e-10 clip, the
+    # floor max - 8 (white noise stays far above it), (x + 4) / 4; within
+    # 1e-5 of the max, the JAX package's own gate for the front end
+    frm = np.lib.stride_tricks.sliding_window_view(
+        np.pad(xh, ((0, 0), (200, 200)), mode="reflect"), 400, axis=-1)[:, ::160]
+    mel_power = np.abs(np.fft.rfft(frm * hann(400).double().numpy(), n=400)) ** 2
+    filters = mel_filters(400, 80, 16000.0).double().numpy()
+    log_ref = np.log10(np.maximum(mel_power[..., :200] @ filters[:, :200].T, 1e-10))
+    log_ref = (np.maximum(log_ref, log_ref.max() - 8.0) + 4.0) / 4.0
+    _check_close("LogMelFrontend(fft_length=400) vs f64 numpy log-mel (2 channels)",
+                 mel[:2].double().cpu().reshape(-1, 1), torch.as_tensor(log_ref).reshape(-1, 1),
+                 rel=1e-5)
+    del mel, frm, mel_power
 
     # ---------------------------------------------------------------- 5
     print("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
@@ -934,6 +1025,8 @@ def main() -> int:
 
     stft_window = hann(frame, device=dev)
     dense_window = F.pad(stft_window, (0, n_dense - frame))  # zeros past the frame
+    mixed_window = F.pad(stft_window, (0, n_mixed - frame))
+    args_mixed = dict(stride=hop, num_frames=num_frames, bins=bins_mixed)
     fold_in = frames.transpose(1, 2).contiguous()
     # A, A-tc and D compute the same function (the FIR + framed DFT power
     # chain): one bound, for the least work it needs, taps and window read once
@@ -961,6 +1054,14 @@ def main() -> int:
             ("library", lambda: torch.stft(x64, n_fft, hop_length=hop, win_length=frame,
                                            window=stft_window, center=False, onesided=True,
                                            return_complex=True))]),
+        ("B-fft 600", 64 * length,   # the mixed-radix kernel
+         _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_mixed, 0),
+                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_mixed), [
+            ("kernel", lambda: B_fft(x64, window, **mixed_kw)),
+            ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                x64, w_mixed, pad_left=0, power=False, **args_mixed).split(bins_mixed, dim=-1))),
+            ("library", lambda: torch.stft(x64, n_mixed, hop_length=hop, window=mixed_window,
+                                           center=False, onesided=True, return_complex=True))]),
         ("B", 64 * length,
          _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_dense, 0),
                 4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_dense), [
@@ -968,7 +1069,9 @@ def main() -> int:
             ("plain", lambda: torch.complex(*_framed_matmul_torch(
                 x64, w_dense, pad_left=0, power=False, **args_dense).split(bins_dense, dim=-1))),
             ("library", lambda: torch.stft(x64, n_dense, hop_length=hop, window=dense_window,
-                                           center=False, onesided=True, return_complex=True))]),
+                                           center=False, onesided=True, return_complex=True)),
+            # the dense B where it ran before B-fft took 600 (PRs 1-4's shape)
+            ("kernel at n_fft 600", lambda: B(x64, w_mixed, **args_mixed))]),
         ("C", 64 * out_length,
          _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length)), [
             ("kernel", lambda: C(frames, stride=hop, out_length=out_length)),
@@ -1019,7 +1122,7 @@ def main() -> int:
     del y
 
     # ---------------------------------------------------------------- 8
-    del x, x64, xs, frames, w_fold, w_fold64, w_shared, w_dense, conv_w
+    del x, x64, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
@@ -1071,6 +1174,13 @@ def main() -> int:
     entries[1].update(ms_default=timings["A-tc"]["kernel 'default'"],
                       max_abs_err_default=err_atc["default"],
                       library_exact_ms=timings["A-tc"]["exact library"])
+    # B-fft: n_fft 512 above (the radix-8 kernel); the mixed-radix kernel at
+    # n_fft 600 beside torch.stft there. B: n_fft 572 above; its time at 600
+    b600 = timings["B-fft 600"]
+    entries[2].update(ms_600=b600["kernel"], plain_ms_600=b600["plain"],
+                      library_ms_600=b600["library"], bound_ms_600=b600["bound_ms"],
+                      bound_by_600=b600["bound_by"], max_abs_err_600=err_bfft_600)
+    entries[3].update(n_fft=n_dense, ms_600=timings["B"]["kernel at n_fft 600"])
     entries[-1]["device_ms"] = e_device_ms
 
     # every process this run started has ended: stop any that has not, and fail

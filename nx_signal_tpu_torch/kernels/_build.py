@@ -27,12 +27,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 # C entry points: name -> argument types; each returns its cudaError_t
 _SIGNATURES = {
-    # x, w, out, channels, length, stride, krows, pad_left, num_frames, bins,
-    # power, stream (all on the current device)
-    "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, laid-out weights, out, channels, length, stride, krows_pad,
+    # pad_left, num_frames, bins, packed, power, stream (all on the current
+    # device)
+    "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, out, channels, length, stride, frame_length, n_fft,
-    # num_frames, bins, power, stream (all on the current device)
-    "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # num_frames, bins, plan (0: power of two), power, stream (all on the
+    # current device)
+    "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # stride, krows_pad, address of the int64 frames-per-CTA it sets
     "nx_framed_dft_tc_frames": (_I, _I, _P),
     # x, split weights, out, channels, length, stride, krows_pad, pad_left,

@@ -1,10 +1,11 @@
-// Hopper kernel B (power-of-two n_fft): the windowed framed DFT as one real
-// FFT per frame, in shared memory.
+// Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
+// shared memory, for every n_fft from 8 to 1024 whose prime factors are 2,
+// 3, 5 and 7.
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
-// for n_fft a power of two from 8 to 1024; other n_fft keep the dense
-// contraction of framed_dft.cu.
+// for those n_fft; any other n_fft keeps the dense contraction of
+// framed_dft.cu.
 //
 // For channel c and frame m (0 <= m < num_frames), with
 //   xw[i] = x[c, m*stride + i] * win[i] for i < frame_length, 0 up to n_fft,
@@ -12,19 +13,33 @@
 // out[c, m, k] is X[k] (complex64 as interleaved float2) or, with POWER,
 // re^2 + im^2 (f32), for the bins = n_fft/2 + 1 (onesided) or n_fft bins.
 //
-// The transform: the real frame of n = n_fft becomes one complex FFT of
-// h = n/2 points, z[j] = xw[2j] + i xw[2j+1] (the window multiply fused
-// into the load), run as Stockham autosort passes of radix 8 (a last pass
-// of radix 4 or 2 where log2 h is not a multiple of 3) with the butterflies
-// in registers and one shared-memory exchange per pass; then the split
-// post-pass
-//   X[k] = (Z[k] + conj Z[h-k]) / 2 - i W^k (Z[k] - conj Z[h-k]) / 2,
-//   W = exp(-2 pi i / n), k = 0..h (indices mod h), X[n-k] = conj X[k],
-// which forms X[k] and X[h-k] from the same two values and one twiddle.
-// Twiddles come from the (n_fft) float2 table exp(-2 pi i t / n_fft) the
-// host builds in f64. Each CTA copies it, and lays out the entries each
-// Stockham pass after the first reads, exp(-2 pi i jm r / (Ns R)) at r*Ns +
-// jm, so that a warp's twiddle loads hit consecutive addresses.
+// Two kernels compute it:
+//   * framed_fft_kernel, n_fft a power of two. The real frame of n = n_fft
+//     becomes one complex FFT of h = n/2 points, z[j] = xw[2j] + i xw[2j+1]
+//     (the window multiply fused into the load), run as Stockham autosort
+//     passes of radix 8 (a last pass of radix 4 or 2 where log2 h is not a
+//     multiple of 3) with the butterflies in registers and one shared-memory
+//     exchange per pass; then the split post-pass
+//       X[k] = (Z[k] + conj Z[h-k]) / 2 - i W^k (Z[k] - conj Z[h-k]) / 2,
+//       W = exp(-2 pi i / n), k = 0..h (indices mod h), X[n-k] = conj X[k],
+//     which forms X[k] and X[h-k] from the same two values and one twiddle.
+//     Twiddles come from the (n_fft) float2 table exp(-2 pi i t / n_fft) the
+//     host builds in f64. Each CTA copies it, and lays out the entries each
+//     Stockham pass after the first reads, exp(-2 pi i jm r / (Ns R)) at
+//     r*Ns + jm, so that a warp's twiddle loads hit consecutive addresses.
+//   * framed_fft_mixed_kernel, any other such n_fft, following the host's
+//     plan (kernels/dft.py:_fft_plan): Stockham passes of radix 8 and a 4
+//     or 2, then 7, 5, 3, of L points. For even n_fft, L = n/2 and the
+//     same split post-pass. For odd n_fft, L = n and two frames share one
+//     FFT, z = xw_m + i xw_{m+1}, separated after it as
+//       X_m[k] = (Z[k] + conj Z[n-k]) / 2,  X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i).
+//     Each pass reads one buffer and writes the other (a ping-pong pair per
+//     FFT), each thread looping over its share of the L/R butterflies, so
+//     one warp sync per pass. The plan stores pass p's output index i at
+//     i + (i / (Ns R)) c_p, which sends the stores of a half-warp to
+//     distinct banks for the radix-3, -5 and -7 strides as for the even
+//     ones. Its f64 table (post-pass twiddles, then each later pass's
+//     twiddles in the order the pass reads them) is cast to f32 on the host.
 //
 // What bounds it on the H100: bytes. Per input sample it moves 4 B in and
 // 8 * bins / stride B out (complex64), against about 2.5 n log2 n / stride
@@ -32,12 +47,11 @@
 //   * One CTA per (channel, tile of frames). It stages the tile's window of
 //     x once with 16-byte cp.async where the alignment allows, so each
 //     sample is read from device memory about once, not once per frame.
-//   * h/8 threads per frame, several frames per CTA at once; each pass
-//     reads and writes each value once in shared memory (index i stored at
-//     i + i/8, which spreads the radix-8 strides over the banks). A frame's
-//     threads wait only for each other: for n_fft <= 512 they are one warp
-//     (or part of one), so the passes sync with __syncwarp and the warps of
-//     a CTA never wait for each other after the staging.
+//   * A frame's threads (one warp or part of one for every n_fft <= 512 of
+//     the power-of-two kernel and every n_fft of the mixed one) run its
+//     passes in registers and shared memory, several frames per CTA at once;
+//     they sync with __syncwarp, so the warps of a CTA never wait for each
+//     other after the staging.
 //   * The output is written straight into the complex64 tensor, consecutive
 //     threads on consecutive bins (no stacked [Re | Im] and no copy).
 
@@ -122,6 +136,94 @@ __device__ __forceinline__ void dft<8>(float2* v) {
   for (int k = 0; k < 4; ++k) {
     v[k] = cadd(e[k], o[k]);
     v[k + 4] = csub(e[k], o[k]);
+  }
+}
+
+// cos and sin of 2 pi m / R, R = 3, 5 or 7, 1 <= m <= (R - 1) / 2
+__device__ __forceinline__ float root_cos(int R, int m) {
+  if (R == 3) return -0.5f;
+  if (R == 5) return m == 1 ? 0.30901699437494745f : -0.8090169943749473f;
+  return m == 1 ? 0.6234898018587336f : (m == 2 ? -0.22252093395631434f : -0.900968867902419f);
+}
+__device__ __forceinline__ float root_sin(int R, int m) {
+  if (R == 3) return 0.8660254037844387f;
+  if (R == 5) return m == 1 ? 0.9510565162951535f : 0.5877852522924732f;
+  return m == 1 ? 0.7818314824680298f : (m == 2 ? 0.9749279121818236f : 0.43388373911755823f);
+}
+
+// In-register forward DFT of an odd R points from the symmetric pairs
+// a_n = v[n] + v[R-n], b_n = v[n] - v[R-n]:
+//   X[k] = v[0] + sum_n a_n cos(2 pi n k / R) - i sum_n b_n sin(2 pi n k / R),
+// and X[R-k] the same with + i.
+template <int R>
+__device__ __forceinline__ void dft_odd(float2* v) {
+  constexpr int H = (R - 1) / 2;
+  float2 a[H], b[H];
+  float2 x0 = v[0];
+#pragma unroll
+  for (int n = 1; n <= H; ++n) {
+    a[n - 1] = cadd(v[n], v[R - n]);
+    b[n - 1] = csub(v[n], v[R - n]);
+    x0 = cadd(x0, a[n - 1]);
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 s = v[0], t = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int n = 1; n <= H; ++n) {
+      const int q = n * k % R;  // the angle 2 pi q / R, folded into 1..H
+      const float c = root_cos(R, q <= H ? q : R - q);
+      const float sn = q <= H ? root_sin(R, q) : -root_sin(R, R - q);
+      s = make_float2(fmaf(c, a[n - 1].x, s.x), fmaf(c, a[n - 1].y, s.y));
+      t = make_float2(fmaf(sn, b[n - 1].x, t.x), fmaf(sn, b[n - 1].y, t.y));
+    }
+    v[k] = make_float2(s.x + t.y, s.y - t.x);      // s - i t
+    v[R - k] = make_float2(s.x - t.y, s.y + t.x);  // s + i t
+  }
+  v[0] = x0;
+}
+
+template <>
+__device__ __forceinline__ void dft<3>(float2* v) { dft_odd<3>(v); }
+template <>
+__device__ __forceinline__ void dft<5>(float2* v) { dft_odd<5>(v); }
+template <>
+__device__ __forceinline__ void dft<7>(float2* v) { dft_odd<7>(v); }
+
+// Stages x[s0 - mis, s_end) of one channel into xs with 16-byte cp.async
+// from the 16-byte boundary at or below s0 (zeros outside the signal) and
+// commits the copies as one group; returns mis, the offset of s0 in xs.
+__device__ __forceinline__ int stage_window(float* xs, const float* xc, int64_t length,
+                                            int64_t s0, int64_t s_end, int tid, int nthr) {
+  const int mis = (int)((reinterpret_cast<uintptr_t>(xc + s0) >> 2) & 3);
+  const int64_t a0 = s0 - mis;
+  const int chunks = (int)((s_end - a0 + 3) >> 2);
+  for (int c = tid; c < chunks; c += nthr) {
+    const int64_t g = a0 + 4 * (int64_t)c;
+    float* dst = xs + 4 * c;
+    if (g >= 0 && g + 3 < length) {
+      cp_async16(dst, xc + g);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = (g + e >= 0 && g + e < length) ? xc[g + e] : 0.0f;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  return mis;
+}
+
+// Bin k of a frame's output row (complex64 or its power) and, where
+// `mirror`, bin n_fft - k as its conjugate (the full spectrum).
+template <bool POWER>
+__device__ __forceinline__ void put_bin(void* out, int64_t row, int k, float re, float im,
+                                        bool mirror, int n_fft) {
+  if constexpr (POWER) {
+    const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+    static_cast<float*>(out)[row + k] = p;
+    if (mirror) static_cast<float*>(out)[row + n_fft - k] = p;
+  } else {
+    static_cast<float2*>(out)[row + k] = make_float2(re, im);
+    if (mirror) static_cast<float2*>(out)[row + n_fft - k] = make_float2(re, -im);
   }
 }
 
@@ -233,25 +335,9 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   const int m0 = blockIdx.x * tile;
   const int m_end = min(num_frames, m0 + tile);
 
-  // the tile's window of x: samples [m0*stride, (m_end-1)*stride + frame),
-  // staged from the 16-byte boundary at or below its start
-  const float* xc = x + ch * length;
-  const int64_t s0 = (int64_t)m0 * stride;
-  const int64_t s_end = (int64_t)(m_end - 1) * stride + frame_length;
-  const int mis = (int)((reinterpret_cast<uintptr_t>(xc + s0) >> 2) & 3);
-  const int64_t a0 = s0 - mis;
-  const int chunks = (int)((s_end - a0 + 3) >> 2);
-  for (int c = tid; c < chunks; c += nthr) {
-    const int64_t g = a0 + 4 * (int64_t)c;
-    float* dst = xs + 4 * c;
-    if (g >= 0 && g + 3 < length) {
-      cp_async16(dst, xc + g);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = (g + e >= 0 && g + e < length) ? xc[g + e] : 0.0f;
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  // the tile's window of x: samples [m0*stride, (m_end-1)*stride + frame)
+  const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
+                               (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
   for (int i = tid; i < n_fft; i += nthr) tws[i] = tw[i];
   const int r1 = h < 8 ? h : 8;
   for (int Ns = r1, off = 0; Ns < h;) {
@@ -292,18 +378,6 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
     if (m < m_end) {
       const int64_t row = (ch * num_frames + m) * (int64_t)bins;
       const bool full = bins == n_fft;
-      auto emit = [&](int k, float re, float im) {
-        if constexpr (POWER) {
-          const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
-          static_cast<float*>(out)[row + k] = p;
-          if (full && k >= 1 && k < h) static_cast<float*>(out)[row + n_fft - k] = p;
-        } else {
-          static_cast<float2*>(out)[row + k] = make_float2(re, im);
-          if (full && k >= 1 && k < h) {
-            static_cast<float2*>(out)[row + n_fft - k] = make_float2(re, -im);
-          }
-        }
-      };
       for (int k = j0; k <= (h >> 1); k += G) {
         const float2 a = fbuf[pad_index(k & (h - 1))];        // Z[k]
         const float2 b = fbuf[pad_index((h - k) & (h - 1))];  // Z[h-k]
@@ -311,34 +385,283 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
         const float dr = a.x - b.x, di = a.y + b.y;           // Z[k] - conj Z[h-k]
         const float2 w = tws[k];
         const float pr = w.x * dr - w.y * di, pi = w.x * di + w.y * dr;
-        emit(k, 0.5f * (sr + pi), 0.5f * (si - pr));
-        if (h - k != k) emit(h - k, 0.5f * (sr - pi), -0.5f * (si + pr));
+        put_bin<POWER>(out, row, k, 0.5f * (sr + pi), 0.5f * (si - pr), full && k >= 1, n_fft);
+        if (h - k != k) {
+          put_bin<POWER>(out, row, h - k, 0.5f * (sr - pi), -0.5f * (si + pr), full && k >= 1,
+                         n_fft);
+        }
       }
     }
     frame_sync<WARP_SYNC>();  // the buffer is read before the next frame fills it
   }
 }
 
+// ---- the mixed-radix kernel (any other 7-smooth n_fft)
+
+// A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7 or 8) in the
+// low four bits, its output padding c (0..15) in the high four
+constexpr int kMaxPasses = 8;
+__host__ __device__ inline int plan_radix(uint64_t plan, int p) {
+  return (int)((plan >> (8 * p)) & 15);
+}
+__host__ __device__ inline int plan_pad(uint64_t plan, int p) {
+  return (int)((plan >> (8 * p + 4)) & 15);
+}
+
+// threads per FFT: one warp, or fewer for short FFTs (a power of two, so
+// the FFTs of a warp never straddle two warps)
+inline int mixed_threads(int L) {
+  int g = 1;
+  while (g < 32 && 8 * g < L) g *= 2;
+  return g;
+}
+
+// float2 per buffer: the largest padded output of any pass
+inline int mixed_buf_len(uint64_t plan, int L) {
+  int len = L;
+  for (int p = 0, ns = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
+    ns *= plan_radix(plan, p);
+    len = L + L / ns * plan_pad(plan, p) > len ? L + L / ns * plan_pad(plan, p) : len;
+  }
+  return len;
+}
+
+// float2 of the plan's table: post-pass twiddles (even n_fft), then Ns R
+// per pass after the first
+inline int mixed_table_len(uint64_t plan, int L, bool odd) {
+  int len = odd ? 0 : L / 2 + 1;
+  for (int p = 0, ns = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
+    ns *= plan_radix(plan, p);
+    if (p > 0) len += ns;
+  }
+  return len;
+}
+
+// Shared memory of a CTA: the table (an even count of float2, so what
+// follows stays 16-byte aligned), two buffers per FFT, the window, and the
+// staged x window of `tile` frames (+3 for the alignment offset).
+inline size_t mixed_smem_bytes(int table_len, int buf_len, int frame_length, int64_t stride,
+                               int group, int tile) {
+  return (size_t)(8 * (((int64_t)table_len + 1) / 2 * 2) + 16 * (int64_t)group * buf_len +
+                  4 * round4(frame_length) +
+                  4 * round4((int64_t)(tile - 1) * stride + frame_length + 3));
+}
+
+// Point t of the FFT input, windowed: even n_fft xw[2t] + i xw[2t+1] of
+// frame xa; odd n_fft xw_a[t] + i xw_b[t] of frames xa and xb (null: zeros).
+template <bool ODD>
+__device__ __forceinline__ float2 load_point(int t, const float* xa, const float* xb,
+                                             const float* wins, int frame_length) {
+  if constexpr (ODD) {
+    if (t >= frame_length) return make_float2(0.0f, 0.0f);
+    return make_float2(xa != nullptr ? xa[t] * wins[t] : 0.0f,
+                       xb != nullptr ? xb[t] * wins[t] : 0.0f);
+  } else {
+    const int i0 = 2 * t;
+    float re = 0.0f, im = 0.0f;
+    if (xa != nullptr && i0 < frame_length) {
+      re = xa[i0] * wins[i0];
+      if (i0 + 1 < frame_length) im = xa[i0 + 1] * wins[i0 + 1];
+    }
+    return make_float2(re, im);
+  }
+}
+
+// One Stockham pass of radix R over L points after Ns have been combined:
+// this thread's butterflies j = j0, j0 + G, ... < L/R read points j + r L/R
+// (from the staged x in the first pass, else from `in`, the previous pass's
+// output, whose index i is stored at i + (i / Ns) in_pad), take twiddle
+// twp[r Ns + j mod Ns], and write their DFT to (j / Ns) (Ns R + out_pad) +
+// j mod Ns + r Ns of out. L/R is a multiple of Ns, so point j + r L/R lies
+// in group j / Ns + r L/(R Ns); (j / Ns, j mod Ns) advance by (G / Ns,
+// G mod Ns) with a carry, one division per pass.
+template <int R, bool FIRST, bool ODD>
+__device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2* out,
+                                           int out_pad, const float2* twp, const float* xa,
+                                           const float* xb, const float* wins, int frame_length,
+                                           int L, int Ns, int G, int j0) {
+  const int span = L / R;
+  const int span_groups = span / Ns;
+  const int stride_g = Ns * R + out_pad;
+  const int dq = G / Ns, dr = G - dq * Ns;
+  int g = j0 / Ns, jm = j0 - g * Ns;
+  for (int j = j0; j < span; j += G) {
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = j + r * span;
+      if constexpr (FIRST) {
+        v[r] = load_point<ODD>(t, xa, xb, wins, frame_length);
+      } else {
+        v[r] = in[t + (g + r * span_groups) * in_pad];
+      }
+    }
+    if constexpr (!FIRST) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twp[r * Ns + jm]);
+    }
+    dft<R>(v);
+    float2* o = out + g * stride_g + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r * Ns] = v[r];
+    g += dq;
+    jm += dr;
+    if (jm >= Ns) jm -= Ns, ++g;
+  }
+}
+
+template <bool FIRST, bool ODD>
+__device__ __forceinline__ void run_mixed_pass(int R, const float2* in, int in_pad, float2* out,
+                                               int out_pad, const float2* twp, const float* xa,
+                                               const float* xb, const float* wins,
+                                               int frame_length, int L, int Ns, int G, int j0) {
+#define NX_MIXED_PASS(RADIX)                                                                    \
+  mixed_pass<RADIX, FIRST, ODD>(in, in_pad, out, out_pad, twp, xa, xb, wins, frame_length, L, Ns, \
+                                G, j0)
+  switch (R) {
+    case 8: NX_MIXED_PASS(8); break;
+    case 7: NX_MIXED_PASS(7); break;
+    case 5: NX_MIXED_PASS(5); break;
+    case 4: NX_MIXED_PASS(4); break;
+    case 3: NX_MIXED_PASS(3); break;
+    default: NX_MIXED_PASS(2); break;
+  }
+#undef NX_MIXED_PASS
+}
+
+template <bool POWER, bool ODD>
+__global__ void __launch_bounds__(kThreads)
+framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                        const float2* __restrict__ table, void* __restrict__ out, int64_t length,
+                        int stride, int frame_length, int n_fft, int num_frames, int bins,
+                        int tile, int group, uint64_t plan, int G, int buf_len, int table_len) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
+  const int L = ODD ? n_fft : n_fft / 2;
+  float2* tbl = reinterpret_cast<float2*>(smem);
+  float2* bufs = tbl + (table_len + 1) / 2 * 2;
+  float* wins = reinterpret_cast<float*>(bufs + (int64_t)group * 2 * buf_len);
+  float* xs = wins + round4(frame_length);
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int64_t ch = blockIdx.y;
+  const int m0 = blockIdx.x * tile;
+  const int m_end = min(num_frames, m0 + tile);
+  const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
+                               (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
+  for (int i = tid; i < table_len; i += nthr) tbl[i] = table[i];
+  for (int i = tid; i < frame_length; i += nthr) wins[i] = win[i];
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();  // x staged
+
+  // each FFT's G threads run it and write its bins on their own: FFT slot
+  // takes frames mg + kPer*slot (and the next, odd n_fft) of the tile
+  const int slot = tid / G;
+  const int j0 = tid - slot * G;
+  float2* const buf0 = bufs + (int64_t)slot * 2 * buf_len;
+  const bool full = bins == n_fft;
+  for (int mg = m0; mg < m_end; mg += group * kPer) {
+    const int m = mg + slot * kPer;
+    const float* xa = m < m_end ? xs + mis + (m - m0) * stride : nullptr;
+    const float* xb = ODD && m + 1 < m_end ? xa + stride : nullptr;
+    run_mixed_pass<true, ODD>(plan_radix(plan, 0), nullptr, 0, buf0, plan_pad(plan, 0), nullptr,
+                              xa, xb, wins, frame_length, L, 1, G, j0);
+    const float2* src = buf0;
+    const float2* twp = tbl + (ODD ? 0 : L / 2 + 1);
+    int ns = plan_radix(plan, 0);
+    for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
+      __syncwarp();  // the previous pass's writes are visible
+      const int R = plan_radix(plan, p);
+      float2* dst = src == buf0 ? buf0 + buf_len : buf0;
+      run_mixed_pass<false, ODD>(R, src, plan_pad(plan, p - 1), dst, plan_pad(plan, p), twp,
+                                 nullptr, nullptr, wins, frame_length, L, ns, G, j0);
+      twp += ns * R;
+      ns *= R;
+      src = dst;
+    }
+    __syncwarp();
+
+    // the post-pass from Z = src (the last pass stores unpadded);
+    // consecutive threads write consecutive bins
+    if constexpr (ODD) {
+      // frames m and m+1: X_m[k] = (Z[k] + conj Z[n-k]) / 2,
+      // X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i), k = 0..(n-1)/2
+      const int64_t row = (ch * num_frames + m) * (int64_t)bins;
+      for (int k = j0; 2 * k < L; k += G) {
+        const float2 a = src[k];
+        const float2 b = src[k == 0 ? 0 : L - k];
+        const float sr = a.x + b.x, si = a.y - b.y;  // Z[k] + conj Z[n-k]
+        const float dr = a.x - b.x, di = a.y + b.y;  // Z[k] - conj Z[n-k]
+        if (m < m_end) put_bin<POWER>(out, row, k, 0.5f * sr, 0.5f * si, full && k >= 1, n_fft);
+        if (m + 1 < m_end) {
+          put_bin<POWER>(out, row + bins, k, 0.5f * di, -0.5f * dr, full && k >= 1, n_fft);
+        }
+      }
+    } else if (m < m_end) {
+      // the split post-pass, as in framed_fft_kernel
+      const int64_t row = (ch * num_frames + m) * (int64_t)bins;
+      for (int k = j0; 2 * k <= L; k += G) {
+        const float2 a = src[k];
+        const float2 b = src[k == 0 ? 0 : L - k];
+        const float sr = a.x + b.x, si = a.y - b.y;
+        const float dr = a.x - b.x, di = a.y + b.y;
+        const float2 w = tbl[k];
+        const float pr = w.x * dr - w.y * di, pi = w.x * di + w.y * dr;
+        put_bin<POWER>(out, row, k, 0.5f * (sr + pi), 0.5f * (si - pr), full && k >= 1, n_fft);
+        if (L - k != k) {
+          put_bin<POWER>(out, row, L - k, 0.5f * (sr - pi), -0.5f * (si + pr), full && k >= 1,
+                         n_fft);
+        }
+      }
+    }
+    __syncwarp();  // the buffers are read before the next frames fill them
+  }
+}
+
+// Whether a packed plan covers L points: radices 2, 3, 4, 5, 7 or 8 whose
+// product is L, zero bytes after the last pass, no padding on the last.
+inline bool valid_plan(uint64_t plan, int L) {
+  int64_t prod = 1;
+  int passes = 0;
+  while (passes < kMaxPasses && plan_radix(plan, passes) != 0) {
+    const int r = plan_radix(plan, passes);
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) return false;
+    prod *= r;
+    ++passes;
+  }
+  return passes > 0 && prod == L && (passes == kMaxPasses || (plan >> (8 * passes)) == 0) &&
+         plan_pad(plan, passes - 1) == 0;
+}
+
 }  // namespace
 
-// x (channels, length) f32, win (frame_length) f32, tw (n_fft) float2 =
-// exp(-2 pi i t / n_fft), out (channels, num_frames, bins) complex64 (as
-// float2) or, with power, f32; all contiguous on the current device. n_fft
-// a power of two in [8, 1024], frame_length <= n_fft, bins n_fft/2 + 1 or
-// n_fft, every frame inside the signal. Launches on `stream` without
-// synchronising; returns the launch's cudaError_t.
+// x (channels, length) f32, win (frame_length) f32, out (channels,
+// num_frames, bins) complex64 (as float2) or, with power, f32; all
+// contiguous on the current device; frame_length <= n_fft, bins n_fft/2 + 1
+// or n_fft, every frame inside the signal. plan 0: n_fft a power of two in
+// [8, 1024] and tw the (n_fft) float2 table exp(-2 pi i t / n_fft) (the
+// power-of-two kernel); else plan the packed pass plan of kernels/dft.py:
+// _fft_plan for a 7-smooth n_fft in [8, 1024] (byte p: radix | pad << 4)
+// and tw its float2 table (the mixed-radix kernel). Launches on `stream`
+// without synchronising; returns the launch's cudaError_t.
 extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw, void* out,
                                  int64_t channels, int64_t length, int64_t stride,
                                  int64_t frame_length, int64_t n_fft, int64_t num_frames,
-                                 int64_t bins, int64_t power, void* stream) {
+                                 int64_t bins, int64_t plan, int64_t power, void* stream) {
   const int64_t kIntMax = 0x7fffffff;
   if (channels < 1 || stride < 1 || stride > kIntMax || n_fft < kMinFft || n_fft > kMaxFft ||
-      (n_fft & (n_fft - 1)) != 0 || frame_length < 1 || frame_length > n_fft ||
-      num_frames < 1 || num_frames > kIntMax ||
+      frame_length < 1 || frame_length > n_fft || num_frames < 1 || num_frames > kIntMax ||
       (bins != n_fft / 2 + 1 && bins != n_fft) ||
       (num_frames - 1) * stride + frame_length > length) {
     return (int)cudaErrorInvalidValue;
   }
+  const int fft = (int)n_fft, fl = (int)frame_length;
+  const bool pow2 = plan == 0;
+  const bool odd = (fft & 1) != 0;
+  const int L = odd ? fft : fft / 2;  // points of the complex FFT
+  const uint64_t packed = (uint64_t)plan;
+  if (pow2 ? (fft & (fft - 1)) != 0 : !valid_plan(packed, L)) return (int)cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -346,41 +669,61 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
 
-  // frames at once (group) and per CTA (tile, a multiple of group): up to
-  // 64 frames within the budget, fewer where the staged window needs it
-  const int fft = (int)n_fft, fl = (int)frame_length;
-  const int per_frame = threads_per_frame(fft / 2);
-  int group = kThreads / per_frame;
-  int tile = group * (kTileTarget > group ? kTileTarget / group : 1);
-  while (tile > group && smem_bytes(fft, fl, stride, group, tile) > kSmemBudget) {
-    tile = group * ((tile / group + 1) / 2);
-  }
-  while (group > 1 && smem_bytes(fft, fl, stride, group, tile) > (size_t)max_smem) {
+  // FFTs at once (group, each of `per` frames) and frames per CTA (tile, a
+  // multiple of group * per): up to kTileTarget frames within the budget,
+  // fewer where the staged window needs it
+  const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(L);
+  const int per = odd ? 2 : 1;
+  const int buf_len = pow2 ? 0 : mixed_buf_len(packed, L);
+  const int table_len = pow2 ? 0 : mixed_table_len(packed, L, odd);
+  auto bytes = [&](int group, int tile) {
+    return pow2 ? smem_bytes(fft, fl, stride, group, tile)
+                : mixed_smem_bytes(table_len, buf_len, fl, stride, group, tile);
+  };
+  int group = kThreads / per_fft;
+  int step = group * per;
+  int tile = step * (kTileTarget > step ? kTileTarget / step : 1);
+  while (tile > step && bytes(group, tile) > kSmemBudget) tile = step * ((tile / step + 1) / 2);
+  while (group > 1 && bytes(group, tile) > (size_t)max_smem) {
     group /= 2;
-    tile = group;
+    step = group * per;
+    tile = step;
   }
-  const size_t smem = smem_bytes(fft, fl, stride, group, tile);
+  const size_t smem = bytes(group, tile);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
 
-  const bool warp_sync = per_frame <= 32;
-  auto kernel = power ? (warp_sync ? framed_fft_kernel<true, true> : framed_fft_kernel<true, false>)
-                      : (warp_sync ? framed_fft_kernel<false, true>
-                                   : framed_fft_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(win);
+  const float2* tf = static_cast<const float2*>(tw);
   const size_t out_elem = power ? sizeof(float) : 2 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(group * per_frame);
-  for (int64_t c0 = 0; c0 < channels; c0 += kMaxGridY) {
-    const int64_t nc = channels - c0 < kMaxGridY ? channels - c0 : kMaxGridY;
-    const dim3 grid((unsigned)((num_frames + tile - 1) / tile), (unsigned)nc);
-    kernel<<<grid, block, smem, s>>>(
-        xf + c0 * length, static_cast<const float*>(win), static_cast<const float2*>(tw),
-        static_cast<char*>(out) + c0 * num_frames * bins * out_elem, length, (int)stride, fl,
-        fft, (int)num_frames, (int)bins, tile, group);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const dim3 block(group * per_fft);
+  // the kernel's own arguments follow the shared ones
+  auto launch = [&](auto kernel, auto... own) -> int {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    for (int64_t c0 = 0; c0 < channels; c0 += kMaxGridY) {
+      const int64_t nc = channels - c0 < kMaxGridY ? channels - c0 : kMaxGridY;
+      const dim3 grid((unsigned)((num_frames + tile - 1) / tile), (unsigned)nc);
+      kernel<<<grid, block, smem, s>>>(
+          xf + c0 * length, wf, tf, static_cast<char*>(out) + c0 * num_frames * bins * out_elem,
+          length, (int)stride, fl, fft, (int)num_frames, (int)bins, tile, group, own...);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaSuccess;
+  };
+  if (pow2) {
+    const bool warp_sync = per_fft <= 32;
+    return launch(power ? (warp_sync ? framed_fft_kernel<true, true>
+                                     : framed_fft_kernel<true, false>)
+                        : (warp_sync ? framed_fft_kernel<false, true>
+                                     : framed_fft_kernel<false, false>));
   }
-  return cudaSuccess;
+  return launch(power ? (odd ? framed_fft_mixed_kernel<true, true>
+                             : framed_fft_mixed_kernel<true, false>)
+                      : (odd ? framed_fft_mixed_kernel<false, true>
+                             : framed_fft_mixed_kernel<false, false>),
+                packed, per_fft, buf_len, table_len);
 }

@@ -29,9 +29,10 @@ the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
 'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
 and one TF32 pass (about three digits), wherever A-tc's staged window fits
 in shared memory, and kernel A elsewhere (more accurate than asked). The
-framed DFT (kernel B) splits by n_fft: B-fft for a power of two from 8 to
-1024, the dense B for any other. Kernels B, B-fft and D run f32 whatever
-the caller's precision; C is bitwise equal to the plain fold.
+framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 1024
+with no prime factor above 7, the dense B for any other. Kernels B, B-fft
+and D run f32 whatever the caller's precision; C is bitwise equal to the
+plain fold.
 """
 
 import ctypes
@@ -42,8 +43,8 @@ import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import (
-    _dft_weights, _fft_twiddles, _framed_matmul_tf32_torch, _framed_matmul_torch, _host_f64,
-    _shared_power_torch, _tf32_passes, _tf32_split)
+    _dft_weights, _fft_plan, _fft_twiddles, _framed_matmul_tf32_torch, _framed_matmul_torch,
+    _host_f64, _shared_power_torch, _tf32_passes, _tf32_split)
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
@@ -56,10 +57,13 @@ __all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_
 # side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks)
 _SHARED_MAX_COEFFS = 8
 _SHARED_MAX_BLOCKS = 64
-# Kernel B-fft's n_fft (powers of two) and kernel A-tc's weight layout: bins
-# per tile and the row multiple of its weight chunks (framed_fft.cu,
-# framed_dft_tc.cu)
+# Kernel B-fft's n_fft range and most passes of a plan, and kernels A's and
+# A-tc's weight layouts: bins per tile and the row multiple of their weight
+# chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
 _FFT_MIN, _FFT_MAX = 8, 1024
+_FFT_MAX_PASSES = 8
+_A_TILE_BINS = 64
+_A_CHUNK = 32
 _TC_TILE_BINS = 64
 _TC_CHUNK = 16
 
@@ -78,6 +82,58 @@ def _check(lib, err: int, name: str):
         raise RuntimeError(f"{name} failed: {lib.nx_error_string(err).decode()} ({err})")
 
 
+def _a_columns(bins: int, packed: bool):
+    """Kernel A's weight layout (framed_dft.cu) as indices into the columns
+    of the (krows, 2*bins) [Re | Im] weights: a (tiles, 128) array, -1 for
+    a zero column. Tile t holds, at wn*64 + part*32 + bg*4 + j (wn, part in
+    0..1, bg in 0..7, j in 0..3), the Re (part 0) or Im (part 1) column of
+    bin slot t*64 + wn*32 + bg + 8j. Slot s is bin s; `packed` drops the DC
+    bin's Im column and puts the last bin's Re column in its place, so
+    bins - 1 slots cover every bin.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import _a_columns
+    >>> cols = _a_columns(257, packed=True)
+    >>> cols.shape, cols[0, :5].tolist(), cols[0, 32], cols[3, 127]
+    ((4, 128), [0, 8, 16, 24, 1], 256, 512)
+    """
+    slots = bins - 1 if packed else bins
+    tiles = -(-slots // _A_TILE_BINS)
+    t, wn, part, bg, j = np.meshgrid(np.arange(tiles), np.arange(2), np.arange(2), np.arange(8),
+                                     np.arange(4), indexing="ij")
+    slot = t * _A_TILE_BINS + wn * 32 + bg + 8 * j
+    cols = np.where(part == 0, slot, bins + slot)
+    if packed:
+        cols[(slot == 0) & (part == 1)] = bins - 1
+    cols[slot >= slots] = -1
+    return cols.reshape(tiles, 2 * _A_TILE_BINS)
+
+
+def _a_packs(weights, bins: int) -> bool:
+    """Whether kernel A packs the weights (`_a_columns`): the DC bin's Im
+    column is exactly zero, and the last bin's Im column is below f32
+    resolution of its Re column (2^-24 of its max), as in the one-sided
+    weights of an even n_fft (sin 0, and sin(pi n) in f64). One sync."""
+    if bins < 2:
+        return False
+    last_im = weights[:, 2 * bins - 1].abs().max()
+    last_re = weights[:, bins - 1].abs().max()
+    return bool(((weights[:, bins] == 0).all() & (last_im <= last_re * 2.0 ** -24)).item())
+
+
+def _a_weights(weights, bins: int):
+    """Kernel A's weights: the (krows, 2*bins) f32 weights laid out by
+    `_a_columns` as (tiles, krows_pad, 128), zero rows up to a multiple of
+    the kernel's chunk (`_A_CHUNK` rows); returns them and whether they are
+    packed."""
+    packed = _a_packs(weights, bins)
+    cols = torch.as_tensor(_a_columns(bins, packed), device=weights.device)
+    w = torch.nn.functional.pad(weights.to(DEFAULT_FLOAT),
+                                (0, 1, 0, -weights.shape[0] % _A_CHUNK))  # column -1: zeros
+    return w[:, cols].permute(1, 0, 2).contiguous(), packed
+
+
 def _launch_framed(x, weights, *, stride, pad_left, num_frames, bins, power):
     """Launch framed_dft.cu on the (..., L) CUDA tensor x with the
     (krows, 2*bins) weights; returns (..., num_frames, bins or 2*bins)."""
@@ -90,14 +146,14 @@ def _launch_framed(x, weights, *, stride, pad_left, num_frames, bins, power):
                          f"shape={tuple(x.shape)}")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
-    w = weights.to(DEFAULT_FLOAT).contiguous()
+    w, packed = _a_weights(weights, bins)
     cols = bins if power else 2 * bins
     out = torch.empty((xf.shape[0], num_frames, cols), dtype=DEFAULT_FLOAT, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):  # the kernel launches on the current device
         err = lib.nx_framed_dft_f32(
             xf.data_ptr(), w.data_ptr(), out.data_ptr(), xf.shape[0], length, stride,
-            w.shape[0], pad_left, num_frames, bins, int(power),
+            w.shape[1], pad_left, num_frames, bins, int(packed), int(power),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "framed_dft kernel")
     return out.reshape(*batch, num_frames, cols)
@@ -213,24 +269,38 @@ fir_framed_dft_power_tc_cuda.launches = 0
 
 
 @functools.cache
-def _device_twiddles(n_fft: int, device):
-    """Kernel B-fft's twiddle table (`kernels.dft._fft_twiddles`), built
-    once per n_fft and device."""
-    return _fft_twiddles(n_fft, device=device)
+def _device_fft_plan(n_fft: int, device):
+    """Kernel B-fft's table and packed plan, built once per n_fft and
+    device: for a power of two the twiddles of `kernels.dft._fft_twiddles`
+    and plan 0 (the power-of-two kernel), else the mixed-radix kernel's plan
+    (`kernels.dft._fft_plan`; pass p in byte p as radix | pad << 4) and its
+    f64 table cast to f32."""
+    if n_fft & (n_fft - 1) == 0:
+        return _fft_twiddles(n_fft, device=device), 0
+    plan = _fft_plan(n_fft)   # at most 6 passes up to 1024, within _FFT_MAX_PASSES
+    packed = sum((r | c << 4) << 8 * p for p, (r, c) in enumerate(zip(plan.radices, plan.pads)))
+    return torch.as_tensor(plan.table.astype(np.float32), device=device), packed
+
+
+def _seven_smooth(n: int) -> bool:
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
 
 
 def fft_kernel_takes(n_fft: int) -> bool:
-    """Whether kernel B-fft serves this n_fft: a power of two from 8 to
-    1024 (what stft's default power-of-two fft_length gives any frame of 5
-    to 1024 samples). The dense kernel B serves every other n_fft.
+    """Whether kernel B-fft serves this n_fft: from 8 to 1024 with no prime
+    factor above 7 (every power of two, and the audio lengths 400, 441,
+    480, 600, 960, 1000). The dense kernel B serves every other n_fft.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
-    >>> fft_kernel_takes(512), fft_kernel_takes(600), fft_kernel_takes(4)
-    (True, False, False)
+    >>> [fft_kernel_takes(n) for n in (512, 600, 441, 572, 1021, 4)]
+    [True, True, True, False, False, False]
     """
-    return _FFT_MIN <= n_fft <= _FFT_MAX and n_fft & (n_fft - 1) == 0
+    return _FFT_MIN <= n_fft <= _FFT_MAX and _seven_smooth(n_fft)
 
 
 def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = False,
@@ -241,9 +311,11 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     n_fft samples), zero-padded to n_fft. Returns complex64 (..., M, bins),
     bins = n_fft//2 + 1 (`onesided`) or n_fft, M = (L - frame)//stride + 1,
     or with `output='power'` re^2 + im^2 f32. On a CUDA tensor n_fft must
-    be a power of two from 8 to 1024 (`fft_kernel_takes`); the kernel
-    writes the complex64 tensor directly. On a CPU tensor it returns the
-    plain version (the dense [Re | Im] contraction of `_framed_matmul_torch`)."""
+    be 7-smooth, from 8 to 1024 (`fft_kernel_takes`): a power of two runs the
+    radix-8 kernel, any other the mixed-radix kernel of `kernels.dft._fft_plan`;
+    either writes the complex64 tensor directly. On a CPU tensor it returns
+    the plain version (the dense [Re | Im] contraction of
+    `_framed_matmul_torch`)."""
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
     x = as_signal(x)
@@ -262,19 +334,19 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
                                    num_frames=num_frames, bins=bins, power=power)
         return acc if power else torch.complex(acc[..., :bins], acc[..., bins:])
     if not fft_kernel_takes(n_fft):
-        raise ValueError(f"kernel B-fft takes a power-of-two n_fft from {_FFT_MIN} to "
-                         f"{_FFT_MAX}, got {n_fft}")
+        raise ValueError(f"kernel B-fft takes an n_fft from {_FFT_MIN} to {_FFT_MAX} with "
+                         f"no prime factor above 7, got {n_fft}")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
     win = torch.as_tensor(window.astype(np.float32), device=x.device)
-    tw = _device_twiddles(n_fft, x.device)
+    tw, plan = _device_fft_plan(n_fft, x.device)
     out = torch.empty((xf.shape[0], num_frames, bins),
                       dtype=DEFAULT_FLOAT if power else torch.complex64, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.nx_framed_fft_f32(
             xf.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), xf.shape[0], length,
-            stride, frame_length, n_fft, num_frames, bins, int(power),
+            stride, frame_length, n_fft, num_frames, bins, plan, int(power),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "framed_fft kernel")
     framed_fft_cuda.launches += 1

@@ -16,7 +16,8 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for a power-of-two n_fft from 8 to 1024;
+  per frame (kernel B-fft) for every n_fft from 8 to 1024 with no prime
+  factor above 7;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -36,6 +37,7 @@ Every other path runs exact f32 at every precision.
 """
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -269,7 +271,8 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     be padded (spectral/stft.py handles the padding modes).
 
     Runs kernel B: `kernels.cuda_dft.framed_fft_cuda` (a real FFT per
-    frame in shared memory) for n_fft a power of two from 8 to 1024, and
+    frame in shared memory) for every n_fft from 8 to 1024 with no prime
+    factor above 7 (`fft_kernel_takes`), and
     `kernels.cuda_dft.framed_dft_cuda` (the dense contraction) for any
     other n_fft. Both are hand-written kernels on a CUDA tensor and the same
     plain conv1d version on a CPU one.
@@ -320,10 +323,81 @@ def _fft_twiddles(n_fft: int, *, device=None):
     >>> _fft_twiddles(8)[2].tolist()
     [0.0, -1.0]
     """
-    ang = -2.0 * np.pi * np.arange(n_fft) / n_fft
+    return torch.as_tensor(_unit_roots(np.arange(n_fft), n_fft).astype(np.float32), device=device)
+
+
+def _unit_roots(num, den):
+    """exp(-2 pi i num / den) in f64 as (..., 2) (cos, sin) pairs, num
+    reduced mod den first, exact zeros at the quarter turns."""
+    ang = -2.0 * np.pi * (np.asarray(num) % den) / den
     table = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-    table[np.abs(table) < 1e-15] = 0.0  # exact zeros at the quarter turns
-    return torch.as_tensor(table.astype(np.float32), device=device)
+    table[np.abs(table) < 1e-15] = 0.0
+    return table
+
+
+class FftPlan(NamedTuple):
+    """Kernel B-fft's plan for a 7-smooth n_fft (`_fft_plan`)."""
+
+    length: int          # points of the complex FFT: n_fft/2 (even), n_fft (odd)
+    radices: tuple       # the Stockham passes' radices, in order
+    pads: tuple          # each pass's output padding c (see `_fft_plan`)
+    table: np.ndarray    # (entries, 2) f64 twiddles, in the order the kernel reads them
+
+
+def _fft_plan(n_fft: int) -> FftPlan:
+    """The pass plan and twiddle table of kernel B-fft (framed_fft.cu) for
+    a 7-smooth n_fft (prime factors 2, 3, 5, 7 only).
+
+    A real frame of even n_fft is one complex FFT of L = n_fft/2 points
+    (even samples real, odd imaginary) and a split post-pass; two real
+    frames of odd n_fft are one complex FFT of L = n_fft points (frame m
+    real, frame m+1 imaginary) and a separation. The FFT runs Stockham
+    autosort passes of radix 8 and a 4 or 2 for the powers of two, then 7,
+    5, 3 (largest first), an order that keeps the padded buffers small.
+    Pass p, after Ns points have been combined, takes butterfly j
+    (0 <= j < L/R) from points j + r L/R, r < R, scales point r by
+    exp(-2 pi i (j mod Ns) r / (Ns R)), and writes its DFT to
+    (j // Ns) Ns R + j mod Ns + r Ns; its output index i is stored at
+    i + (i // (Ns R)) c against shared-memory bank conflicts, with c = 0
+    for an odd radix and 1 for an even one in the first pass (Ns = 1: an odd
+    store stride), c = (Ns - Ns R) mod 16 in later passes (the 16 lanes of
+    a half-warp store to distinct banks), and c = 0 in the last pass.
+
+    `table` holds, in order: for even n_fft the post-pass twiddles
+    exp(-2 pi i k / n_fft), k = 0..L/2; then for each pass after the first
+    its Ns R entries exp(-2 pi i jm r / (Ns R)) at r Ns + jm.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _fft_plan
+    >>> plan = _fft_plan(600)
+    >>> plan.length, plan.radices, plan.pads, plan.table.shape
+    (300, (4, 5, 5, 3), (1, 0, 0, 0), (571, 2))
+    """
+    length = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    rest, odd = length, []
+    for r in (7, 5, 3):
+        while rest % r == 0:
+            odd.append(r)
+            rest //= r
+    twos = rest.bit_length() - 1
+    if n_fft < 2 or rest != 1 << twos:
+        raise ValueError(f"n_fft must be 7-smooth (factors 2, 3, 5, 7), got {n_fft}")
+    radices = [8] * (twos // 3) + ([1 << twos % 3] if twos % 3 else []) + odd
+    pads, tables, ns = [], [], 1
+    for r in radices:
+        group = ns * r
+        if group == length:
+            pads.append(0)
+        elif ns == 1:
+            pads.append(1 - r % 2)
+        else:
+            pads.append((ns - group) % 16)
+        if ns > 1:
+            tables.append(_unit_roots(np.arange(r)[:, None] * np.arange(ns), group).reshape(-1, 2))
+        ns = group
+    post = _unit_roots(np.arange(length // 2 + 1), n_fft) if n_fft % 2 == 0 else np.zeros((0, 2))
+    return FftPlan(length, tuple(radices), tuple(pads), np.concatenate([post, *tables]))
 
 
 def _idft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):

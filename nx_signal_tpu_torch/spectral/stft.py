@@ -2,9 +2,9 @@
 (counterpart of nx_signal_tpu/spectral/stft.py).
 
 The forward transform runs the fused framing + window + DFT
-(kernels/dft.py:framed_dft: on a CUDA tensor the CUDA kernel B-fft, a real
-FFT per frame, for a power-of-two fft_length, the dense kernel B for other
-lengths) for real input with fft_length <= 1024, and torch.fft on explicit
+(kernels/dft.py:framed_dft: on a CUDA tensor the CUDA kernel B-fft, an FFT
+per frame, for an fft_length with no prime factor above 7, the dense kernel
+B for other lengths) for real input with fft_length <= 1024, and torch.fft on explicit
 frames otherwise.
 The inverse runs the fused inverse-DFT + synthesis-window matmul
 (kernels/dft.py:framed_idft) and the deterministic overlap-add

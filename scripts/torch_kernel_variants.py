@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Design probe of two hand-written kernels of the PyTorch/CUDA port on one
+NVIDIA GPU: the choices that `kernels/csrc/framed_dft.cu` (kernel A) and
+`kernels/csrc/framed_fft.cu` (kernel B-fft) fix, timed against the
+alternatives in one run, on one card.
+
+    python3 scripts/torch_kernel_variants.py     # from the repository root
+
+1. Kernel A's weight ring: the source compiled again with other (rows per
+   chunk, stages) pairs, each checked bitwise against the built kernel (the
+   k order of every frame is the same) and timed at the bench chain (768 x
+   480000, 255 taps, hann 512, hop 128, n_fft 512), medians of 7 CUDA-event
+   timings, two rounds.
+2. Kernel B-fft at every power of two from 8 to 1024 (64 x 480000, frame
+   n_fft, hop n_fft/4): its radix-8 kernel against the mixed-radix one
+   driven by the host plan of the same n_fft (`kernels/dft.py:_fft_plan`),
+   in turns (radix 8, mixed, mixed, radix 8), their outputs compared; then
+   both on the filtered chain's power stage (768 x 480000, n_fft 512).
+
+Prints the card's name and power limit first. Imports nothing of JAX.
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+sys.path.insert(0, os.getcwd())
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from nx_signal_tpu_torch.kernels import cuda_dft  # noqa: E402
+from nx_signal_tpu_torch.kernels._build import _CSRC, _NVCC_FLAGS, _nvcc, load_library  # noqa: E402
+from nx_signal_tpu_torch.kernels.dft import (  # noqa: E402
+    _fft_plan, _fft_twiddles, fir_dft_fold_weights)
+from nx_signal_tpu_torch.ops.filters import firwin  # noqa: E402
+from nx_signal_tpu_torch.ops.windows import hann  # noqa: E402
+
+_RING_VARIANTS = ((16, 3), (16, 2), (8, 4))   # (rows per chunk, stages) beside the built one
+
+
+def _median_ms(fn, n=7):
+    fn()
+    torch.cuda.synchronize()
+    return sorted(chip_smoke._time_ms(fn) for _ in range(n))[n // 2]
+
+
+def _ring_variant(tmp, chunk, stages):
+    """framed_dft.cu with `chunk` rows per stage and `stages` stages, built
+    into its own library."""
+    text = (_CSRC / "framed_dft.cu").read_text()
+    for name, value in (("kChunk", chunk), ("kStages", stages)):
+        line = next(ln for ln in text.splitlines() if ln.startswith(f"constexpr int {name} = "))
+        text = text.replace(line, f"constexpr int {name} = {value};")
+    src = os.path.join(tmp, f"a_{chunk}_{stages}.cu")
+    lib = os.path.join(tmp, f"a_{chunk}_{stages}.so")
+    with open(src, "w") as f:
+        f.write(text)
+    subprocess.run([_nvcc(), *_NVCC_FLAGS, "-shared", "-o", lib, src], check=True)
+    variant = ctypes.CDLL(lib)
+    variant.nx_framed_dft_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 9 + [
+        ctypes.c_void_p]
+    variant.nx_framed_dft_f32.restype = ctypes.c_int
+    return variant
+
+
+def _ring(dev, gen, tmp):
+    x = torch.randn((768, 480000), generator=gen, device=dev)
+    num_taps, frame, hop, n_fft = 255, 512, 128, 512
+    frames = (x.shape[-1] - frame) // hop + 1
+    pad_left = (num_taps - 1) - (num_taps - 1) // 2
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
+    w = fir_dft_fold_weights(taps, hann(frame).numpy(), n_fft, True, device=dev)
+    want = cuda_dft.fir_framed_dft_power_cuda(x, w, stride=hop, pad_left=pad_left,
+                                              num_frames=frames, bins=257)
+    out = torch.empty_like(want)
+
+    def call(lib, laid, packed):
+        def run():
+            err = lib.nx_framed_dft_f32(
+                x.data_ptr(), laid.data_ptr(), out.data_ptr(), x.shape[0], x.shape[-1], hop,
+                laid.shape[1], pad_left, frames, 257, int(packed), 1,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"framed_dft variant failed ({err})")
+        return run
+
+    laid, packed = cuda_dft._a_weights(w, 257)
+    runs = {f"built {cuda_dft._A_CHUNK} rows": call(load_library(), laid, packed)}
+    for chunk, stages in _RING_VARIANTS:
+        rows = -(-w.shape[0] // chunk) * chunk
+        layout = torch.nn.functional.pad(laid[:, :w.shape[0]], (0, 0, 0, rows - w.shape[0]))
+        run = call(_ring_variant(tmp, chunk, stages), layout.contiguous(), packed)
+        run()
+        torch.cuda.synchronize()
+        print(f"kernel A, {chunk} rows x {stages} stages: bitwise equal to the built kernel = "
+              f"{torch.equal(out, want)}", flush=True)
+        runs[f"{chunk} rows x {stages} stages"] = run
+    for _ in range(2):
+        print("  kernel A at 768 x 480000: " + ", ".join(
+            f"{name} {_median_ms(run):.3f} ms" for name, run in runs.items()), flush=True)
+
+
+def _fft_kernels(dev, gen):
+    lib = load_library()
+
+    def kernel(n_fft, mixed, x, hop, power):
+        win = torch.as_tensor(hann(n_fft).numpy(), device=dev)
+        if mixed:
+            plan = _fft_plan(n_fft)
+            packed = sum((r | c << 4) << 8 * p for p, (r, c) in enumerate(zip(plan.radices,
+                                                                               plan.pads)))
+            table = torch.as_tensor(plan.table.astype(np.float32), device=dev)
+        else:
+            packed, table = 0, _fft_twiddles(n_fft, device=dev)
+        frames = (x.shape[-1] - n_fft) // hop + 1
+        out = torch.empty((x.shape[0], frames, n_fft // 2 + 1),
+                          dtype=torch.float32 if power else torch.complex64, device=dev)
+
+        def run():
+            err = lib.nx_framed_fft_f32(
+                x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
+                x.shape[-1], hop, n_fft, n_fft, frames, n_fft // 2 + 1, packed, int(power),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"framed_fft failed ({err})")
+        return run, out
+
+    x = torch.randn((64, 480000), generator=gen, device=dev)
+    for n_fft in (8, 16, 32, 64, 128, 256, 512, 1024):
+        (radix8, a), (mixed, b) = (kernel(n_fft, m, x, n_fft // 4, False) for m in (False, True))
+        radix8(), mixed()
+        torch.cuda.synchronize()
+        diff = float((a - b).abs().max() / a.abs().max())
+        t = [_median_ms(f) for f in (radix8, mixed, mixed, radix8)]
+        print(f"  B-fft n_fft {n_fft} hop {n_fft // 4}: radix 8 {t[0]:.3f} / {t[3]:.3f} ms, "
+              f"mixed radix {t[1]:.3f} / {t[2]:.3f} ms, max|d| / max {diff:.2g}", flush=True)
+    del x
+    y = torch.randn((768, 480000), generator=gen, device=dev)
+    (radix8, _), (mixed, _) = (kernel(512, m, y, 128, True) for m in (False, True))
+    t = [_median_ms(f) for f in (radix8, mixed, mixed, radix8)]
+    print(f"  B-fft power at 768 x 480000, n_fft 512: radix 8 {t[0]:.3f} / {t[3]:.3f} ms, "
+          f"mixed radix {t[1]:.3f} / {t[2]:.3f} ms", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    print(chip_smoke._gpu_name_and_power_limit(), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        _ring(dev, gen, tmp)
+    _fft_kernels(dev, gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -75,7 +75,7 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    kw = dict(stride=150, n_fft=600, onesided=True, output=output)
+    kw = dict(stride=150, n_fft=572, onesided=True, output=output)   # 2^2 * 11 * 13
     before = cuda_dft.framed_dft_cuda.launches
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_dft_cuda.launches == before + 1
@@ -90,11 +90,16 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     (2, 20000, 12, 5, 16, True),
     (2, 20001, 5, 3, 8, False),
     (2, 30001, 1024, 1000, 1024, True),
+    (3, 20001, 400, 160, 400, True),    # the mixed-radix kernel: Whisper's n_fft
+    (3, 20001, 441, 147, 441, False),   # odd n_fft, two frames per FFT
+    (2, 20001, 512, 128, 600, True),    # frame < n_fft
+    (2, 30001, 1000, 250, 1000, False),
 ])
 @pytest.mark.parametrize("output", ["complex", "power"])
 def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
-    """Kernel B-fft (a real FFT per frame) against its plain version (the
-    dense contraction), per bin at 1e-4 of the bin's max."""
+    """Kernel B-fft (an FFT per frame: radix 8 for a power of two, the
+    mixed-radix plan otherwise) against its plain version (the dense
+    contraction), per bin at 1e-4 of the bin's max."""
     need_cuda()
     ch, n, frame, hop, n_fft, onesided = geometry
     x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
@@ -130,6 +135,38 @@ def test_tc_kernel_matches_plain_on_cuda(precision, geometry, rng):
             cuda_dft.fir_framed_dft_power_tc_cuda.launches) == (before[0] + 1, before[1] + 1)
     assert_close_per_bin(got, td.fir_framed_dft(x.cpu(), taps, window, precision=precision,
                                                 **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [  # channels, length, taps, frame, hop, n_fft, weights
+    (3, 20000, 255, 512, 128, 512, "fold"),     # the bench chain's shape: packed weights
+    (2, 12001, 100, 400, 150, 600, "fold"),     # a hop that is no multiple of 4: scalar x loads
+    (2, 40001, 64, 1024, 1000, 1024, "fold"),   # the 16-frame tile
+    (2, 12001, 31, 441, 147, 441, "fold"),      # odd n_fft: not packed
+    (2, 12001, 63, 384, 128, 512, "random"),    # arbitrary weights: not packed
+])
+def test_a_kernel_matches_plain_on_cuda(geometry, rng):
+    """Kernel A (the register-tiled exact-f32 contraction) against its
+    plain version per bin at 1e-4 of the bin's max, power and, through
+    kernel B's wrapper, the [Re | Im] output of the same weights."""
+    need_cuda()
+    ch, n, k, frame, hop, n_fft, kind = geometry
+    x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
+    bins = n_fft // 2 + 1
+    if kind == "fold":
+        w = td.fir_dft_fold_weights(rng.normal(size=k), hann_np(frame), n_fft, True, device="cuda")
+    else:
+        w = torch.from_numpy(rng.normal(size=(frame + k - 1, 2 * bins)).astype(np.float32)).cuda()
+    args = dict(stride=hop, pad_left=td._same_pad_left(k),
+                num_frames=(n - frame) // hop + 1, bins=bins)
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    got = cuda_dft.fir_framed_dft_power_cuda(x, w, **args)
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
+    assert_close_per_bin(got, td._framed_matmul_torch(x.cpu(), w.cpu(), power=True, **args))
+    kw = dict(stride=hop, num_frames=args["num_frames"] - 1, bins=bins)
+    acc = td._framed_matmul_torch(x.cpu(), w.cpu(), pad_left=0, power=False, **kw)
+    assert_close_per_bin(cuda_dft.framed_dft_cuda(x, w, **kw),
+                         torch.complex(acc[..., :bins], acc[..., bins:]))
 
 
 @pytest.mark.cuda

@@ -86,7 +86,11 @@ FRAMED_GEOMETRIES = [  # channels, length, frame, hop, n_fft
     (2, 4096, 512, 128, 512),
     (1, 3000, 400, 150, 512),   # hop does not divide the frame, n_fft > frame
     (3, 2048, 256, 256, 256),   # no overlap
-    (2, 3000, 512, 128, 600),   # n_fft not a power of two: the dense kernel B
+    (2, 3000, 512, 128, 600),   # 7-smooth n_fft: the mixed-radix B-fft
+    (2, 3000, 400, 160, 400),   # Whisper's frame, hop and n_fft
+    (3, 3000, 441, 147, 441),   # odd n_fft: two frames per complex FFT
+    (2, 3000, 500, 128, 1000),  # n_fft 2^3 * 5^3
+    (2, 3000, 512, 128, 572),   # 2^2 * 11 * 13: the dense kernel B
     (2, 1000, 12, 5, 16),       # the FFT kernel's small sizes
     (1, 500, 5, 3, 8),
     (1, 5000, 1000, 300, 1024),  # its largest
@@ -109,11 +113,14 @@ def test_framed_dft(geometry, onesided, output, rng):
 
 
 @pytest.mark.parametrize("n_fft,kernel", [(8, "fft"), (16, "fft"), (512, "fft"), (1024, "fft"),
-                                          (4, "dense"), (600, "dense"), (2048, "dense")])
+                                          (400, "fft"), (441, "fft"), (600, "fft"),
+                                          (1000, "fft"), (4, "dense"), (572, "dense"),
+                                          (1021, "dense"), (2048, "dense")])
 def test_framed_dft_kernel_split(n_fft, kernel, rng):
-    """framed_dft takes kernel B-fft for a power-of-two n_fft from 8 to
-    1024 and the dense kernel B for any other; on a CPU tensor both wrappers
-    are the same plain version, so their results are equal bitwise."""
+    """framed_dft takes kernel B-fft for every n_fft from 8 to 1024 with no
+    prime factor above 7 and the dense kernel B for any other; on a CPU
+    tensor both wrappers are the same plain version, so their results are
+    equal bitwise."""
     assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
     frame = min(n_fft, 400)
     x = torch.from_numpy(rng.normal(size=(2, 3 * frame + 7)).astype(np.float32))
@@ -126,6 +133,96 @@ def test_framed_dft_kernel_split(n_fft, kernel, rng):
     assert torch.equal(cuda_dft.framed_fft_cuda(x, window, stride=3, n_fft=n_fft, onesided=True),
                        dense)
     assert torch.equal(td.framed_dft(x, window, stride=3, n_fft=n_fft, onesided=True), dense)
+
+
+SEVEN_SMOOTH = [n for n in range(8, 1025) if cuda_dft._seven_smooth(n)]
+
+
+def replay_fft_plan(n_fft, frames):
+    """Kernel B-fft's mixed-radix transform in numpy f64, in the kernel's
+    order and layout (framed_fft.cu:framed_fft_mixed_kernel): the Stockham
+    passes of the plan through two padded buffers with the plan's twiddle
+    table, then the split (even n_fft, one frame) or the separation (odd,
+    two frames); returns the onesided spectrum of each frame."""
+    plan = td._fft_plan(n_fft)
+    size = plan.length
+    table = plan.table[:, 0] + 1j * plan.table[:, 1]
+    off = 0 if n_fft % 2 else size // 2 + 1
+    z = frames[0][0::2] + 1j * frames[0][1::2] if n_fft % 2 == 0 else frames[0] + 1j * frames[1]
+    src, in_group, in_pad, ns = None, 1, 0, 1
+    for p, (r, c) in enumerate(zip(plan.radices, plan.pads)):
+        span, group = size // r, ns * r
+        j = np.arange(span)
+        t = j[None, :] + np.arange(r)[:, None] * span
+        v = z[t] if p == 0 else src[t + t // in_group * in_pad]
+        jm, g = j % ns, j // ns
+        if p > 0:
+            v = v * table[off + np.arange(r)[:, None] * ns + jm]
+            off += group
+        dst = np.full(size + size // group * c, np.nan + 0j)
+        dst[g * (group + c) + jm + np.arange(r)[:, None] * ns] = np.fft.fft(v, axis=0)
+        src, in_group, in_pad, ns = dst, group, c, group
+    assert off == table.shape[0] and src.shape[0] == size   # the last pass is unpadded
+    k = np.arange(size // 2 + 1)
+    a, b = src[k], np.conj(src[(size - k) % size])
+    if n_fft % 2:
+        return [(a + b) / 2, (a - b) / 2j]
+    w = table[k]
+    out = np.empty(size + 1, complex)
+    out[size - k] = np.conj((a + b) / 2 + 1j * w * (a - b) / 2)   # X[L-k] as the kernel forms it
+    out[k] = (a + b) / 2 - 1j * w * (a - b) / 2                   # X[k]
+    return [out]
+
+
+@pytest.mark.parametrize("n_fft", SEVEN_SMOOTH)
+def test_fft_plan_replays_to_numpy(n_fft, rng):
+    """The host plan of kernel B-fft (radices, paddings, per-pass twiddle
+    tables) replayed as the kernel indexes it gives np.fft's spectrum, for
+    every 7-smooth n_fft from 8 to 1024, even and odd, at 1e-12 of the
+    max; no slot of a padded buffer is read unwritten, and the tables are
+    used up exactly."""
+    frames = rng.normal(size=(2, n_fft))
+    got = replay_fft_plan(n_fft, frames)
+    for spectrum, frame in zip(got, frames):
+        want = np.fft.rfft(frame)
+        assert np.isfinite(spectrum).all()
+        np.testing.assert_allclose(spectrum, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    plan = td._fft_plan(n_fft)
+    assert np.prod(plan.radices) == plan.length and plan.pads[-1] == 0
+    assert all(0 <= c < 16 for c in plan.pads) and len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+
+
+@pytest.mark.parametrize("num_taps,frame,n_fft,onesided", [
+    (255, 512, 512, True),    # the bench chain: 257 bins packed into 256 slots, 4 tiles
+    (100, 400, 600, True),    # 301 bins packed into 300 slots
+    (4, 441, 441, True),      # odd n_fft, no Nyquist bin: not packed
+    (1, 64, 64, False),       # the full spectrum: not packed
+])
+def test_a_weight_layout_round_trips(num_taps, frame, n_fft, onesided, rng):
+    """Kernel A's laid-out weights (`_a_weights`, `_a_columns`) scatter back
+    to the (krows, 2*bins) weights: every column once, but for the two
+    columns packing drops (the DC bin's Im, exactly zero, and the Nyquist
+    bin's Im, below f32 resolution of its Re); zeros elsewhere."""
+    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided)
+    krows, bins = w.shape[0], w.shape[1] // 2
+    laid, packed = cuda_dft._a_weights(w, bins)
+    assert packed == (onesided and n_fft % 2 == 0)
+    cols = cuda_dft._a_columns(bins, packed)
+    assert laid.shape == (cols.shape[0], -(-krows // cuda_dft._A_CHUNK) * cuda_dft._A_CHUNK,
+                          2 * cuda_dft._A_TILE_BINS)
+    used = cols >= 0
+    assert not laid[:, krows:].any() and not laid[torch.from_numpy(~used)[:, None, :]
+                                                  .expand_as(laid)].any()
+    index = cols[used]
+    dropped = {bins, 2 * bins - 1} if packed else set()
+    assert sorted(index.tolist()) == sorted(set(range(2 * bins)) - dropped)
+    back = torch.zeros_like(w)
+    back[:, torch.from_numpy(index)] = laid[:, :krows].permute(1, 0, 2)[:, torch.from_numpy(used)]
+    keep = sorted(set(range(2 * bins)) - dropped)
+    assert torch.equal(back[:, keep], w[:, keep])
+    if packed:
+        assert not w[:, bins].any()
+        assert w[:, -1].abs().max() <= 2.0 ** -24 * w[:, bins - 1].abs().max()
 
 
 @pytest.mark.parametrize("n_fft", [8, 512, 1024])
@@ -295,7 +392,9 @@ def test_ctypes_signatures_match_the_sources(name):
 
 
 @pytest.mark.parametrize("source,constants", [
-    ("framed_fft.cu", {"kMinFft": "_FFT_MIN", "kMaxFft": "_FFT_MAX"}),
+    ("framed_fft.cu", {"kMinFft": "_FFT_MIN", "kMaxFft": "_FFT_MAX",
+                       "kMaxPasses": "_FFT_MAX_PASSES"}),
+    ("framed_dft.cu", {"kTileBins": "_A_TILE_BINS", "kChunk": "_A_CHUNK"}),
     ("framed_dft_tc.cu", {"kTileBins": "_TC_TILE_BINS", "kChunk": "_TC_CHUNK"}),
 ])
 def test_kernel_constants_match_the_sources(source, constants):

@@ -56,7 +56,8 @@ def test_stft_to_mel(onesided, mel_bins, rng):
 
 @pytest.mark.parametrize("params", [dict(), dict(frame_length=256, hop_length=128,
                                                  fft_length=256, mel_bins=40,
-                                                 sampling_rate=8000.0)])
+                                                 sampling_rate=8000.0),
+                                    dict(fft_length=400)])   # Whisper's n_fft: 2^4 * 5^2
 def test_log_mel_frontend(params, rng):
     x = rng.normal(size=(2, 16000)).astype(np.float32)
     want = np.asarray(JaxLogMel(**params)(jnp.asarray(x)))

@@ -61,6 +61,12 @@ def test_stft_matches_jax(padding, scaling, onesided, rng):
     (128, 96, 128, "auto", True),                # complex input: torch.fft
     (256, 128, 256, "fft", False),
     (256, 128, 256, "matmul", False),
+    # fft_lengths with no prime factor above 7 (B-fft's mixed-radix kernel on
+    # the card): Whisper's 400 / 160, odd 441, 600 > frame, 10 ms at 48 kHz
+    (400, 240, 400, "auto", False),
+    (441, 294, 441, "auto", False),
+    (512, 384, 600, "auto", False),
+    (480, 240, 480, "auto", False),
 ])
 def test_stft_paths_match_jax(frame, overlap, fft_length, method, complex_input, rng):
     x = rng.normal(size=(2, 3000)).astype(np.float32)
