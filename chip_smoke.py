@@ -9,7 +9,9 @@ times the kernels.
 Phases (any failure raises, and the exit code is not 0):
   0. the card's name and power limit (nvidia-smi); no CUDA device is a failure.
   1. build the kernels of nx_signal_tpu_torch/kernels/csrc with nvcc (sm_90a),
-     one nvcc process per source, all at once.
+     one nvcc process per source, all at once; ptxas's report: every kernel
+     compiled without spills, the most registers a kernel uses, and any
+     ptxas performance warning (C75xx, e.g. serialised wgmma) printed.
   2. each kernel against its plain version on the same device tensors,
      each bin within 1e-4 x that bin's max|plain| (a per-bin gate, so the
      low-pass chain's small stopband bins are held as tightly as its
@@ -21,13 +23,16 @@ Phases (any failure raises, and the exit code is not 0):
      channels, against an f64 numpy reference (convolve, frame, window,
      rfft, |.|^2) at 1e-4 ('high') and 1e-2 ('default'); B-fft (an FFT per
      frame) at 64 x 480000, complex and power, at n_fft 512 (its radix-8
-     kernel) and 600 (its mixed-radix kernel), and the dense B at n_fft 572
-     (= 2^2 * 11 * 13, which B-fft does not take); C (overlap-add) on the
+     kernel), 600 and 572 (= 2^2 * 11 * 13; its mixed-radix kernel) and
+     1021 and 1018 (= 2 * 509; Bluestein's chirp-z transform on the same
+     passes), and the dense B at n_fft 1031 (past 1024, which B-fft does
+     not take); C (overlap-add) on the
      (64, 3747, 512) frames of framed_idft, bitwise; B-fft, complex and
      power, on the full spectrum at 64 x 480000, n_fft 16, 8 (frame 5) and
      1024, and the mixed-radix kernel at n_fft 400 (hop 160), 441 (odd: two
-     frames per FFT; full spectrum, and frame 300), 480, 960, 1000, 9 and
-     10 with hops that do not divide the frame; then two ragged
+     frames per FFT; full spectrum, and frame 300), 480, 960, 1000, 9, 10,
+     1001 and 143 (radices 11 and 13), 997, 17 and 34 (Bluestein) with hops
+     that do not divide the frame; then two ragged
      geometries (even taps, hop not dividing the frame, length not a
      multiple of the hop, frame 400 with n_fft 512, a hop whose window
      needs the small frame tile and where A-tc's window does not fit, so
@@ -47,10 +52,11 @@ Phases (any failure raises, and the exit code is not 0):
      channels against the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions (B-fft, C); interior reconstruction error <= 1e-5
-     x max|x|; then stft at fft_length 600 on the same signal (B-fft's
-     mixed-radix kernel, and not the dense B) and at fft_length 572 (the
-     dense B, and not B-fft), each held on two channels against the f64
-     numpy rfft per bin; then LogMelFrontend(frame_length=400,
+     x max|x|; then stft at fft_length 600 and 572 on the same signal
+     (B-fft's mixed-radix kernel) and at the prime 1021 (B-fft's Bluestein
+     transform), each B-fft and not the dense B, and framed_dft at n_fft
+     1031 (the dense B, not B-fft), each held on two channels against the
+     f64 numpy rfft per bin; then LogMelFrontend(frame_length=400,
      hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
      kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
      (reflect padding, rfft, |.|^2, the mel filters, log10, floor) within
@@ -74,10 +80,10 @@ Phases (any failure raises, and the exit code is not 0):
      the one PyTorch call that computes the same function (`library_ms`,
      never called by the port: F.conv1d of the folded weights for A and D,
      exact f32, and for A-tc in TF32 beside the exact one;
-     torch.stft(center=False) for B-fft at n_fft 512 and 600 and, its
-     window zero-padded to n_fft 572, for the dense B; F.fold as a 1-D
-     overlap-add for C), taken in turns, at the phase-2 shapes, A-tc at
-     'high' and 'default', the dense B also at n_fft 600; then of
+     torch.stft(center=False) for B-fft at n_fft 512, 600, 572, 1021 and
+     1018 and, its window zero-padded to n_fft 1031, for the dense B; F.fold
+     as a 1-D overlap-add for C), taken in turns, at the phase-2 shapes,
+     A-tc at 'high' and 'default'; then of
      the filtered chain's two stages (the direct FIR and B-fft) at 768 x
      480000. Each kernel's bound is computed from this run's shapes, for
      the least work its function needs (not the dense-matrix DFT the
@@ -100,7 +106,8 @@ Phases (any failure raises, and the exit code is not 0):
      and 64 x 480000 on (2, 2), each rank's shard within 1e-5 of its max
      against the single-device convolve(mode='same'), E launched once per
      rank; sharded_fir_framed_dft_power at the bench chain on (1, 4) at
-     precision 'highest' (kernel A) and 'high' (A-tc), each rank's frames
+     precision 'highest' (kernel A), 'high' and 'default' (A-tc), each
+     rank's frames
      bitwise equal to the single-device stft_fir_chain at the same
      precision, the kernel and E launched once per rank; sharded_stft ->
      sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
@@ -121,8 +128,9 @@ A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
-`bound_by_600` and `max_abs_err_600` at 600 beside; B's at its `n_fft`
-572, with `ms_600` beside; E's `ms`, `plain_ms` and `library_ms` are
+`bound_by_600` and `max_abs_err_600` at 600 beside, and the same keys
+with `_572`, `_1021` and `_1018` (no plain time at 1018); B's at its
+`n_fft` 1031; E's `ms`, `plain_ms` and `library_ms` are
 host-clock exchanges of all ranks at once, and its bound counts the bytes
 of all the ranks sharing the card); the last is the device line {"ok":
 true, "device": {...}}.
@@ -148,6 +156,18 @@ def _gpu_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _ptxas_summary(log):
+    """(kernels, most registers, spill bytes, C75xx performance warnings) in
+    the ptxas -v report of a build."""
+    import re
+
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(a) + int(b) for a, b in
+                 re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    warnings = [ln.strip() for ln in log.splitlines() if re.search(r"\(C75\d\d\)", ln)]
+    return log.count("Compiling entry function"), max(regs, default=0), spills, warnings
 
 
 def _max_err(a, b) -> float:
@@ -445,7 +465,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
 
     window = hann(frame)
     num_frames = (length - frame) // hop + 1
-    for precision, kernel in (("highest", A), ("high", A_tc)):
+    for precision, kernel in (("highest", A), ("high", A_tc), ("default", A_tc)):
         name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length} precision={precision}"
         run_path(name, {kernel: 1, E: 1}, lambda: out.update(p=sharded_fir_framed_dft_power(
             x, taps, window, mesh=mesh14, stride=hop, n_fft=n_fft, precision=precision)))
@@ -560,12 +580,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}", flush=True)
 
     from nx_signal_tpu_torch.kernels import cuda_dft
-    from nx_signal_tpu_torch.kernels._build import library_path, load_library
+    from nx_signal_tpu_torch.kernels._build import library_path, load_library, ptxas_log_path
     from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
     from nx_signal_tpu_torch.kernels.dft import (
         _dft_weights, _framed_matmul_tf32_torch, _framed_matmul_torch, _same_pad_left,
         _shared_power_torch, fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared,
-        framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
+        framed_dft, framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
     from nx_signal_tpu_torch.models.pipeline import (
         FIRFilterChain, LogMelFrontend, StftFirChain, stft_fir_chain)
     from nx_signal_tpu_torch.ops import windows
@@ -588,6 +608,13 @@ def main() -> int:
     load_library()
     print(f"phase 1: built {library_path().name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    kernels_built, regs, spills, warnings = _ptxas_summary(ptxas_log_path().read_text())
+    print(f"  ptxas: {kernels_built} kernels, at most {regs} registers, {spills} bytes of "
+          f"spills, {len(warnings)} performance warnings", flush=True)
+    for line in warnings:
+        print(f"  {line}", flush=True)
+    if spills or not kernels_built:
+        raise AssertionError(f"ptxas reports {spills} bytes of spills")
 
     # ---------------------------------------------------------------- 2
     channels, length, rate = 768, 480000, 48000.0
@@ -630,9 +657,10 @@ def main() -> int:
         del got
 
     # B-fft (an FFT per frame: the radix-8 kernel at n_fft 512, the
-    # mixed-radix one at 600) and the dense B at an n_fft B-fft does not
-    # take (572 = 2^2 * 11 * 13), each against the plain version, complex
-    # and power
+    # mixed-radix one at 600 and at 572 = 2^2 * 11 * 13, Bluestein's at the
+    # prime 1021 and at 1018 = 2 * 509) and the dense B at an n_fft B-fft
+    # does not take (1031, past 1024), each against the plain version,
+    # complex and power
     x64 = x[:64]
 
     def plain_dft(xr, wr, fl, hp, nf, onesided):
@@ -659,7 +687,16 @@ def main() -> int:
                                 B_fft(x64, window, **mixed_kw), want_z)
     _check_close(f"B-fft 64x{length} n_fft={n_mixed} power",
                  B_fft(x64, window, output="power", **mixed_kw), want_p)
-    n_dense = 572
+    err_bfft_more = {}
+    for nf in (572, 1021, 1018):
+        w_nf, want_z, want_p = plain_dft(x64, window, frame, hop, nf, True)
+        kw_nf = dict(stride=hop, n_fft=nf, onesided=True)
+        err_bfft_more[nf] = _check_close(f"B-fft 64x{length} n_fft={nf} complex",
+                                         B_fft(x64, window, **kw_nf), want_z)
+        _check_close(f"B-fft 64x{length} n_fft={nf} power",
+                     B_fft(x64, window, output="power", **kw_nf), want_p)
+        del w_nf, want_z, want_p
+    n_dense = 1031
     bins_dense = n_dense // 2 + 1
     args_dense = dict(stride=hop, num_frames=num_frames, bins=bins_dense)
     w_dense, want_z, want_p = plain_dft(x64, window, frame, hop, n_dense, True)
@@ -684,6 +721,13 @@ def main() -> int:
         (2, 30001, 1000, 250, 1000, True),
         (2, 20001, 9, 4, 9, True),
         (2, 20001, 10, 3, 10, False),
+        # radices 11 and 13, and Bluestein's chirp-z transform: odd (two
+        # frames per FFT, M = 2000) and even, short and ragged lengths
+        (2, 30001, 900, 333, 997, False),
+        (2, 30001, 1000, 250, 1001, True),
+        (3, 20001, 143, 50, 143, True),
+        (2, 20001, 17, 5, 17, False),
+        (2, 20001, 30, 7, 34, True),
     ]
     for ch, n, fl, hp, nf, onesided in fft_ragged:
         xr = x[:ch, :n]
@@ -875,19 +919,38 @@ def main() -> int:
                  torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_mixed)))
     del z, fr
 
-    # fft_length 572 = 2^2 * 11 * 13: the dense kernel B
-    def stft_572():
-        out["z"] = stft(x64, win_t, sampling_rate=rate, fft_length=n_dense,
-                        overlap_length=frame - hop, onesided=True).z
+    # fft_length 572 = 2^2 * 11 * 13 (B-fft's radices 2, 13, 11) and the
+    # prime 1021 (its Bluestein transform): B-fft, not the dense B
+    for nf in (572, 1021):
+        def stft_nf():
+            out["z"] = stft(x64, win_t, sampling_rate=rate, fft_length=nf,
+                            overlap_length=frame - hop, onesided=True).z
+            torch.cuda.synchronize()
+
+        counts = _run_path(f"stft at fft_length {nf}", kernels, (B_fft,), stft_nf, avoid=(B,))
+        launches = {name: launches[name] + counts[name] for name in launches}
+        z = out.pop("z")
+        if tuple(z.shape) != (64, num_frames, nf // 2 + 1) or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+        fr = np.lib.stride_tricks.sliding_window_view(xh, frame, axis=-1)[:, ::hop][:, :num_frames]
+        _check_close(f"stft at fft_length {nf} vs f64 numpy rfft (2 channels)",
+                     z[:2].cpu().to(torch.complex128),
+                     torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=nf)))
+        del z, fr
+
+    # framed_dft past B-fft's 1024 (n_fft 1031, a prime): the dense kernel B
+    def framed_1031():
+        out["z"] = framed_dft(x64, window, stride=hop, n_fft=n_dense, onesided=True)
         torch.cuda.synchronize()
 
-    counts = _run_path(f"stft at fft_length {n_dense}", kernels, (B,), stft_572, avoid=(B_fft,))
+    counts = _run_path(f"framed_dft at n_fft {n_dense}", kernels, (B,), framed_1031,
+                       avoid=(B_fft,))
     launches = {name: launches[name] + counts[name] for name in launches}
     z = out.pop("z")
     if tuple(z.shape) != (64, num_frames, bins_dense) or not bool(torch.isfinite(z).all()):
-        raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+        raise AssertionError(f"framed_dft output {tuple(z.shape)} not finite or wrong shape")
     fr = np.lib.stride_tricks.sliding_window_view(xh, frame, axis=-1)[:, ::hop][:, :num_frames]
-    _check_close(f"stft at fft_length {n_dense} vs f64 numpy rfft (2 channels)",
+    _check_close(f"framed_dft at n_fft {n_dense} vs f64 numpy rfft (2 channels)",
                  z[:2].cpu().to(torch.complex128),
                  torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_dense)))
     del z, fr
@@ -1027,6 +1090,22 @@ def main() -> int:
     dense_window = F.pad(stft_window, (0, n_dense - frame))  # zeros past the frame
     mixed_window = F.pad(stft_window, (0, n_mixed - frame))
     args_mixed = dict(stride=hop, num_frames=num_frames, bins=bins_mixed)
+
+    def fft_case(nf, plain_too):
+        """B-fft at n_fft nf on the phase-2 shape: (bound, [(label, fn)])."""
+        nb = nf // 2 + 1
+        win_nf = F.pad(stft_window, (0, nf - frame))
+        fns = [("kernel", lambda: B_fft(x64, window, stride=hop, n_fft=nf, onesided=True))]
+        if plain_too:
+            w_nf = torch.as_tensor(_dft_weights(window, frame, nf, True, np.float32), device=dev)
+            fns.append(("plain", lambda: torch.complex(*_framed_matmul_torch(
+                x64, w_nf, stride=hop, pad_left=0, num_frames=num_frames, bins=nb,
+                power=False).split(nb, dim=-1))))
+        fns.append(("library", lambda: torch.stft(x64, nf, hop_length=hop, window=win_nf,
+                                                  center=False, onesided=True,
+                                                  return_complex=True)))
+        return (_bound(_fft_route_flops(64, length, 0, frame, num_frames, nf, 0),
+                       4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * nb), fns)
     fold_in = frames.transpose(1, 2).contiguous()
     # A, A-tc and D compute the same function (the FIR + framed DFT power
     # chain): one bound, for the least work it needs, taps and window read once
@@ -1062,6 +1141,9 @@ def main() -> int:
                 x64, w_mixed, pad_left=0, power=False, **args_mixed).split(bins_mixed, dim=-1))),
             ("library", lambda: torch.stft(x64, n_mixed, hop_length=hop, window=mixed_window,
                                            center=False, onesided=True, return_complex=True))]),
+        ("B-fft 572", 64 * length, *fft_case(572, True)),    # radices 2, 13, 11
+        ("B-fft 1021", 64 * length, *fft_case(1021, True)),  # Bluestein, M = 2048
+        ("B-fft 1018", 64 * length, *fft_case(1018, False)),  # Bluestein, M = 1024
         ("B", 64 * length,
          _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_dense, 0),
                 4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_dense), [
@@ -1069,9 +1151,7 @@ def main() -> int:
             ("plain", lambda: torch.complex(*_framed_matmul_torch(
                 x64, w_dense, pad_left=0, power=False, **args_dense).split(bins_dense, dim=-1))),
             ("library", lambda: torch.stft(x64, n_dense, hop_length=hop, window=dense_window,
-                                           center=False, onesided=True, return_complex=True)),
-            # the dense B where it ran before B-fft took 600 (PRs 1-4's shape)
-            ("kernel at n_fft 600", lambda: B(x64, w_mixed, **args_mixed))]),
+                                           center=False, onesided=True, return_complex=True))]),
         ("C", 64 * out_length,
          _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length)), [
             ("kernel", lambda: C(frames, stride=hop, out_length=out_length)),
@@ -1105,7 +1185,6 @@ def main() -> int:
     del xp, blocks, fold_in
 
     # where the filtered chain's time goes: the direct FIR, then kernel B-fft
-    from nx_signal_tpu_torch.kernels.dft import framed_dft
     from nx_signal_tpu_torch.ops.convolution import convolve
 
     taps_t = torch.as_tensor(taps, device=dev).reshape(1, -1)
@@ -1175,12 +1254,19 @@ def main() -> int:
                       max_abs_err_default=err_atc["default"],
                       library_exact_ms=timings["A-tc"]["exact library"])
     # B-fft: n_fft 512 above (the radix-8 kernel); the mixed-radix kernel at
-    # n_fft 600 beside torch.stft there. B: n_fft 572 above; its time at 600
+    # n_fft 600 beside torch.stft there. B: n_fft 1031 above
     b600 = timings["B-fft 600"]
     entries[2].update(ms_600=b600["kernel"], plain_ms_600=b600["plain"],
                       library_ms_600=b600["library"], bound_ms_600=b600["bound_ms"],
                       bound_by_600=b600["bound_by"], max_abs_err_600=err_bfft_600)
-    entries[3].update(n_fft=n_dense, ms_600=timings["B"]["kernel at n_fft 600"])
+    for nf in (572, 1021, 1018):   # B-fft's radix-13/11 and Bluestein lengths
+        t_nf = timings[f"B-fft {nf}"]
+        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"library_ms_{nf}": t_nf["library"],
+                           f"bound_ms_{nf}": t_nf["bound_ms"], f"bound_by_{nf}": t_nf["bound_by"],
+                           f"max_abs_err_{nf}": err_bfft_more[nf]})
+        if "plain" in t_nf:
+            entries[2][f"plain_ms_{nf}"] = t_nf["plain"]
+    entries[3].update(n_fft=n_dense)
     entries[-1]["device_ms"] = e_device_ms
 
     # every process this run started has ended: stop any that has not, and fail

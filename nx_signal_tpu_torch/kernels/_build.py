@@ -5,7 +5,9 @@ At first use in a process, the sources are compiled with nvcc for Hopper
 into one shared library with a plain C interface, which ctypes loads. The
 library lands in `kernels/_build/`, named by a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is loaded as it
-is. No PyTorch header is compiled, which keeps a build to seconds.
+is, with ptxas's report of every kernel (registers, spills) beside it
+(`ptxas_log_path`). No PyTorch header is compiled, which keeps a build to
+seconds.
 """
 
 import ctypes
@@ -21,7 +23,7 @@ _BUILD_DIR = Path(__file__).with_name("_build")
 _SOURCES = ("framed_dft.cu", "framed_fft.cu", "framed_dft_tc.cu", "overlap_add.cu",
             "shared_dft.cu", "halo.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xcompiler", "-fPIC")
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -32,14 +34,16 @@ _SIGNATURES = {
     # device)
     "nx_framed_dft_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, win, tw, out, channels, length, stride, frame_length, n_fft,
-    # num_frames, bins, plan (0: power of two), power, stream (all on the
-    # current device)
-    "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # num_frames, bins, plan (0: power of two), points (the plan's FFT
+    # length, 0 for a power of two), power, stream (all on the current
+    # device)
+    "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # stride, krows_pad, address of the int64 frames-per-CTA it sets
     "nx_framed_dft_tc_frames": (_I, _I, _P),
-    # x, split weights, out, channels, length, stride, krows_pad, pad_left,
-    # num_frames, bins, passes, stream (all on the current device)
-    "nx_framed_dft_tc_power_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, laid-out split weights, out, channels, length, stride, krows_pad,
+    # pad_left, num_frames, bins, packed, passes, stream (all on the current
+    # device)
+    "nx_framed_dft_tc_power_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # frames, init (or null), out, channels, num_frames, frame_length,
     # stride, out_length, stream (all on the current device)
     "nx_overlap_add_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -87,6 +91,11 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libnx_signal_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_log_path() -> Path:
+    """Where the build of the current sources leaves ptxas's report."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
     path. The library is built in a temporary directory and renamed into
@@ -111,7 +120,10 @@ def build() -> Path:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
-        os.replace(os.path.join(tmp, "lib.so"), path)
+        with open(os.path.join(tmp, "ptxas.txt"), "w") as f:
+            f.write("".join(logs))
+        os.replace(os.path.join(tmp, "ptxas.txt"), ptxas_log_path())
+        os.replace(os.path.join(tmp, "lib.so"), path)   # last: the library marks a whole build
     return path
 
 

@@ -205,7 +205,9 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   // slot s = tile*64 + wn*32 + bg + 8j is bin s; where packed, slot 0's Im
-  // accumulator is the last bin's Re sum and both Im parts are dropped
+  // accumulator is the last bin's Re sum, and each dropped Im part is written
+  // as 0 times its bin's Re sum: zero for a finite frame, NaN where the frame
+  // holds an inf or a NaN, as the sum over the zero column x @ W gives
   const int64_t cols = POWER ? bins : 2 * (int64_t)bins;
 #pragma unroll
   for (int i = 0; i < FPT; ++i) {
@@ -217,14 +219,15 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int s = tile * kTileBins + wn * 32 + bg + 8 * j;
       if (s >= slots) continue;
       if (packed && s == 0) {
+        const float dc_im = __fmul_rn(0.0f, re[i][j]);
         if constexpr (POWER) {
-          orow[0] = __fmul_rn(re[i][j], re[i][j]);
+          orow[0] = __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(dc_im, dc_im));
           orow[bins - 1] = __fmul_rn(im[i][j], im[i][j]);
         } else {
           orow[0] = re[i][j];
-          orow[bins] = 0.0f;
+          orow[bins] = dc_im;
           orow[bins - 1] = im[i][j];
-          orow[2 * bins - 1] = 0.0f;
+          orow[2 * bins - 1] = __fmul_rn(0.0f, im[i][j]);
         }
       } else if constexpr (POWER) {
         orow[s] = __fadd_rn(__fmul_rn(re[i][j], re[i][j]), __fmul_rn(im[i][j], im[i][j]));

@@ -1,11 +1,10 @@
 // Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
-// shared memory, for every n_fft from 8 to 1024 whose prime factors are 2,
-// 3, 5 and 7.
+// shared memory, for every n_fft from 8 to 1024.
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
-// for those n_fft; any other n_fft keeps the dense contraction of
-// framed_dft.cu.
+// for those n_fft; an n_fft outside them, or a frame longer than n_fft,
+// keeps the dense contraction of framed_dft.cu.
 //
 // For channel c and frame m (0 <= m < num_frames), with
 //   xw[i] = x[c, m*stride + i] * win[i] for i < frame_length, 0 up to n_fft,
@@ -27,9 +26,9 @@
 //     host builds in f64. Each CTA copies it, and lays out the entries each
 //     Stockham pass after the first reads, exp(-2 pi i jm r / (Ns R)) at
 //     r*Ns + jm, so that a warp's twiddle loads hit consecutive addresses.
-//   * framed_fft_mixed_kernel, any other such n_fft, following the host's
-//     plan (kernels/dft.py:_fft_plan): Stockham passes of radix 8 and a 4
-//     or 2, then 7, 5, 3, of L points. For even n_fft, L = n/2 and the
+//   * framed_fft_mixed_kernel, any other n_fft, following the host's plan
+//     (kernels/dft.py:_fft_plan): Stockham passes of radix 8 and a 4 or 2,
+//     then 13, 11, 7, 5, 3, of L points. For even n_fft, L = n/2 and the
 //     same split post-pass. For odd n_fft, L = n and two frames share one
 //     FFT, z = xw_m + i xw_{m+1}, separated after it as
 //       X_m[k] = (Z[k] + conj Z[n-k]) / 2,  X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i).
@@ -40,6 +39,16 @@
 //     distinct banks for the radix-3, -5 and -7 strides as for the even
 //     ones. Its f64 table (post-pass twiddles, then each later pass's
 //     twiddles in the order the pass reads them) is cast to f32 on the host.
+//     An n_fft with a prime factor above 13 (1021, 997, 1018 = 2 * 509)
+//     follows kernels/dft.py:_bluestein_plan: the L-point DFT as a chirp-z
+//     transform, Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}), w_j = exp(-pi i
+//     j^2 / L), through two FFTs of a 13-smooth M >= 2L - 1 points on the
+//     same passes: the first pass loads z_t w_t (zeros past L), the second
+//     FFT's first pass conj(A[t] S[t]) with S the host's FFT of the
+//     conjugate chirp over M, and the post-pass reads Z[k] = w_k conj(.)
+//     of its output (conj, FFT, conj is the inverse; S carries the 1/M).
+//     M <= 1024 for even n_fft, <= 2048 for odd; the frames per CTA follow
+//     the shared memory the buffers take.
 //
 // What bounds it on the H100: bytes. Per input sample it moves 4 B in and
 // 8 * bins / stride B out (complex64), against about 2.5 n log2 n / stride
@@ -48,10 +57,11 @@
 //     x once with 16-byte cp.async where the alignment allows, so each
 //     sample is read from device memory about once, not once per frame.
 //   * A frame's threads (one warp or part of one for every n_fft <= 512 of
-//     the power-of-two kernel and every n_fft of the mixed one) run its
-//     passes in registers and shared memory, several frames per CTA at once;
-//     they sync with __syncwarp, so the warps of a CTA never wait for each
-//     other after the staging.
+//     the power-of-two kernel and every 13-smooth n_fft of the mixed one)
+//     run its passes in registers and shared memory, several frames per CTA
+//     at once; they sync with __syncwarp, so the warps of a CTA never wait
+//     for each other after the staging. Bluestein's FFTs of 1024 points and
+//     more take two warps each, synced on a named barrier of their own.
 //   * The output is written straight into the complex64 tensor, consecutive
 //     threads on consecutive bins (no stacked [Re | Im] and no copy).
 
@@ -139,16 +149,47 @@ __device__ __forceinline__ void dft<8>(float2* v) {
   }
 }
 
-// cos and sin of 2 pi m / R, R = 3, 5 or 7, 1 <= m <= (R - 1) / 2
+// cos and sin of 2 pi m / R, R = 3, 5, 7, 11 or 13, 1 <= m <= (R - 1) / 2
+// (R and m are compile-time constants where the butterflies call these)
 __device__ __forceinline__ float root_cos(int R, int m) {
   if (R == 3) return -0.5f;
   if (R == 5) return m == 1 ? 0.30901699437494745f : -0.8090169943749473f;
-  return m == 1 ? 0.6234898018587336f : (m == 2 ? -0.22252093395631434f : -0.900968867902419f);
+  if (R == 7) {
+    return m == 1 ? 0.6234898018587336f : (m == 2 ? -0.22252093395631434f : -0.900968867902419f);
+  }
+  if (R == 11) {
+    return m == 1 ? 0.84125353283118117f
+         : m == 2 ? 0.41541501300188643f
+         : m == 3 ? -0.14231483827328514f
+         : m == 4 ? -0.65486073394528506f
+                  : -0.95949297361449738f;
+  }
+  return m == 1 ? 0.88545602565320990f
+       : m == 2 ? 0.56806474673115580f
+       : m == 3 ? 0.12053668025532305f
+       : m == 4 ? -0.35460488704253562f
+       : m == 5 ? -0.74851074817110109f
+                : -0.97094181742605202f;
 }
 __device__ __forceinline__ float root_sin(int R, int m) {
   if (R == 3) return 0.8660254037844387f;
   if (R == 5) return m == 1 ? 0.9510565162951535f : 0.5877852522924732f;
-  return m == 1 ? 0.7818314824680298f : (m == 2 ? 0.9749279121818236f : 0.43388373911755823f);
+  if (R == 7) {
+    return m == 1 ? 0.7818314824680298f : (m == 2 ? 0.9749279121818236f : 0.43388373911755823f);
+  }
+  if (R == 11) {
+    return m == 1 ? 0.54064081745559758f
+         : m == 2 ? 0.90963199535451837f
+         : m == 3 ? 0.98982144188093273f
+         : m == 4 ? 0.75574957435425828f
+                  : 0.28173255684142970f;
+  }
+  return m == 1 ? 0.46472317204376855f
+       : m == 2 ? 0.82298386589365639f
+       : m == 3 ? 0.99270887409805399f
+       : m == 4 ? 0.93501624268541482f
+       : m == 5 ? 0.66312265824079520f
+                : 0.23931566428755777f;
 }
 
 // In-register forward DFT of an odd R points from the symmetric pairs
@@ -189,6 +230,10 @@ template <>
 __device__ __forceinline__ void dft<5>(float2* v) { dft_odd<5>(v); }
 template <>
 __device__ __forceinline__ void dft<7>(float2* v) { dft_odd<7>(v); }
+template <>
+__device__ __forceinline__ void dft<11>(float2* v) { dft_odd<11>(v); }
+template <>
+__device__ __forceinline__ void dft<13>(float2* v) { dft_odd<13>(v); }
 
 // Stages x[s0 - mis, s_end) of one channel into xs with 16-byte cp.async
 // from the 16-byte boundary at or below s0 (zeros outside the signal) and
@@ -396,11 +441,13 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
-// ---- the mixed-radix kernel (any other 7-smooth n_fft)
+// ---- the mixed-radix kernel (every other n_fft: 13-smooth ones directly,
+// the rest through Bluestein's chirp-z transform)
 
-// A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7 or 8) in the
-// low four bits, its output padding c (0..15) in the high four
+// A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7, 8, 11 or 13) in
+// the low four bits, its output padding c (0..15) in the high four
 constexpr int kMaxPasses = 8;
+constexpr int kMaxPoints = 2048;  // Bluestein's M at the longest odd n_fft
 __host__ __device__ inline int plan_radix(uint64_t plan, int p) {
   return (int)((plan >> (8 * p)) & 15);
 }
@@ -408,28 +455,41 @@ __host__ __device__ inline int plan_pad(uint64_t plan, int p) {
   return (int)((plan >> (8 * p + 4)) & 15);
 }
 
-// threads per FFT: one warp, or fewer for short FFTs (a power of two, so
-// the FFTs of a warp never straddle two warps)
-inline int mixed_threads(int L) {
+// threads per FFT of M points: one warp, or fewer for short FFTs (a power of
+// two, so the FFTs of a warp never straddle two warps); Bluestein's FFTs of
+// 1024 points and more take two warps (`cap` 64), which doubles the warps
+// an SM holds where their buffers fill its shared memory
+inline int mixed_threads(int M, int cap) {
   int g = 1;
-  while (g < 32 && 8 * g < L) g *= 2;
+  while (g < cap && 8 * g < M) g *= 2;
   return g;
 }
 
+// Waits for the G threads of this FFT slot: its warp, or its two warps on
+// named barrier 1 + slot
+__device__ __forceinline__ void slot_sync(int slot, int G) {
+  if (G <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "r"(G) : "memory");
+  }
+}
+
 // float2 per buffer: the largest padded output of any pass
-inline int mixed_buf_len(uint64_t plan, int L) {
-  int len = L;
+inline int mixed_buf_len(uint64_t plan, int M) {
+  int len = M;
   for (int p = 0, ns = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
     ns *= plan_radix(plan, p);
-    len = L + L / ns * plan_pad(plan, p) > len ? L + L / ns * plan_pad(plan, p) : len;
+    len = M + M / ns * plan_pad(plan, p) > len ? M + M / ns * plan_pad(plan, p) : len;
   }
   return len;
 }
 
-// float2 of the plan's table: post-pass twiddles (even n_fft), then Ns R
-// per pass after the first
-inline int mixed_table_len(uint64_t plan, int L, bool odd) {
-  int len = odd ? 0 : L / 2 + 1;
+// float2 of the plan's table: post-pass twiddles (even n_fft), Bluestein's
+// chirp (L) and filter spectrum (M) where M != L, then Ns R per pass after
+// the first
+inline int mixed_table_len(uint64_t plan, int L, int M, bool odd) {
+  int len = (odd ? 0 : L / 2 + 1) + (M != L ? L + M : 0);
   for (int p = 0, ns = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
     ns *= plan_radix(plan, p);
     if (p > 0) len += ns;
@@ -449,6 +509,7 @@ inline size_t mixed_smem_bytes(int table_len, int buf_len, int frame_length, int
 
 // Point t of the FFT input, windowed: even n_fft xw[2t] + i xw[2t+1] of
 // frame xa; odd n_fft xw_a[t] + i xw_b[t] of frames xa and xb (null: zeros).
+// Zero past the frame, so for every t >= L.
 template <bool ODD>
 __device__ __forceinline__ float2 load_point(int t, const float* xa, const float* xb,
                                              const float* wins, int frame_length) {
@@ -467,20 +528,27 @@ __device__ __forceinline__ float2 load_point(int t, const float* xa, const float
   }
 }
 
-// One Stockham pass of radix R over L points after Ns have been combined:
-// this thread's butterflies j = j0, j0 + G, ... < L/R read points j + r L/R
-// (from the staged x in the first pass, else from `in`, the previous pass's
-// output, whose index i is stored at i + (i / Ns) in_pad), take twiddle
-// twp[r Ns + j mod Ns], and write their DFT to (j / Ns) (Ns R + out_pad) +
-// j mod Ns + r Ns of out. L/R is a multiple of Ns, so point j + r L/R lies
-// in group j / Ns + r L/(R Ns); (j / Ns, j mod Ns) advance by (G / Ns,
-// G mod Ns) with a carry, one division per pass.
-template <int R, bool FIRST, bool ODD>
+// Where a pass takes its points: a later pass from the previous pass's
+// output (times its twiddles); a first pass from the staged signal (the
+// windowed frames), from the signal times the chirp w_t for t < L
+// (Bluestein's first FFT), or as conj(in[t] S[t]) from the unpadded output
+// of the first FFT and the filter spectrum S (Bluestein's second FFT). `tbl`
+// is the pass's twiddles, the chirp, or S.
+enum Source { kBuffer, kSignal, kChirped, kFiltered };
+
+// One Stockham pass of radix R over M points after Ns have been combined:
+// this thread's butterflies j = j0, j0 + G, ... < M/R read points j + r M/R
+// (the previous pass's output index i is stored at i + (i / Ns) in_pad),
+// take twiddle tbl[r Ns + j mod Ns] (later passes), and write their DFT to
+// (j / Ns) (Ns R + out_pad) + j mod Ns + r Ns of out. M/R is a multiple of
+// Ns, so point j + r M/R lies in group j / Ns + r M/(R Ns); (j / Ns, j mod
+// Ns) advance by (G / Ns, G mod Ns) with a carry, one division per pass.
+template <int R, int SRC, bool ODD>
 __device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2* out,
-                                           int out_pad, const float2* twp, const float* xa,
+                                           int out_pad, const float2* tbl, const float* xa,
                                            const float* xb, const float* wins, int frame_length,
-                                           int L, int Ns, int G, int j0) {
-  const int span = L / R;
+                                           int L, int M, int Ns, int G, int j0) {
+  const int span = M / R;
   const int span_groups = span / Ns;
   const int stride_g = Ns * R + out_pad;
   const int dq = G / Ns, dr = G - dq * Ns;
@@ -490,15 +558,19 @@ __device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2*
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = j + r * span;
-      if constexpr (FIRST) {
+      if constexpr (SRC == kSignal || SRC == kChirped) {
         v[r] = load_point<ODD>(t, xa, xb, wins, frame_length);
+        if (SRC == kChirped && t < L) v[r] = cmul(v[r], tbl[t]);
+      } else if constexpr (SRC == kFiltered) {
+        const float2 c = cmul(in[t], tbl[t]);
+        v[r] = make_float2(c.x, -c.y);
       } else {
         v[r] = in[t + (g + r * span_groups) * in_pad];
       }
     }
-    if constexpr (!FIRST) {
+    if constexpr (SRC == kBuffer) {
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twp[r * Ns + jm]);
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tbl[r * Ns + jm]);
     }
     dft<R>(v);
     float2* o = out + g * stride_g + jm;
@@ -510,15 +582,18 @@ __device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2*
   }
 }
 
-template <bool FIRST, bool ODD>
+template <int SRC, bool ODD>
 __device__ __forceinline__ void run_mixed_pass(int R, const float2* in, int in_pad, float2* out,
-                                               int out_pad, const float2* twp, const float* xa,
+                                               int out_pad, const float2* tbl, const float* xa,
                                                const float* xb, const float* wins,
-                                               int frame_length, int L, int Ns, int G, int j0) {
-#define NX_MIXED_PASS(RADIX)                                                                    \
-  mixed_pass<RADIX, FIRST, ODD>(in, in_pad, out, out_pad, twp, xa, xb, wins, frame_length, L, Ns, \
-                                G, j0)
+                                               int frame_length, int L, int M, int Ns, int G,
+                                               int j0) {
+#define NX_MIXED_PASS(RADIX)                                                                  \
+  mixed_pass<RADIX, SRC, ODD>(in, in_pad, out, out_pad, tbl, xa, xb, wins, frame_length, L, M, \
+                              Ns, G, j0)
   switch (R) {
+    case 13: NX_MIXED_PASS(13); break;
+    case 11: NX_MIXED_PASS(11); break;
     case 8: NX_MIXED_PASS(8); break;
     case 7: NX_MIXED_PASS(7); break;
     case 5: NX_MIXED_PASS(5); break;
@@ -529,12 +604,52 @@ __device__ __forceinline__ void run_mixed_pass(int R, const float2* in, int in_p
 #undef NX_MIXED_PASS
 }
 
-template <bool POWER, bool ODD>
+// One FFT of M points of this slot through every pass of the plan: the
+// first from SRC (`first`: its chirp or filter spectrum; `in`: the buffer it
+// reads, if any) into the other buffer of the slot's pair (buf0, buf0 +
+// buf_len), the rest between the pair with the twiddles twp; returns the
+// buffer holding the result, unpadded, in natural order.
+template <int SRC, bool ODD>
+__device__ __forceinline__ const float2* run_fft(float2* buf0, int buf_len, const float2* in,
+                                                 const float2* first, const float2* twp,
+                                                 uint64_t plan, const float* xa, const float* xb,
+                                                 const float* wins, int frame_length, int L,
+                                                 int M, int G, int j0, int slot) {
+  float2* dst = in == buf0 ? buf0 + buf_len : buf0;
+  run_mixed_pass<SRC, ODD>(plan_radix(plan, 0), in, 0, dst, plan_pad(plan, 0), first, xa, xb,
+                           wins, frame_length, L, M, 1, G, j0);
+  const float2* src = dst;
+  int ns = plan_radix(plan, 0);
+  for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
+    slot_sync(slot, G);  // the previous pass's writes are visible
+    const int R = plan_radix(plan, p);
+    float2* out = src == buf0 ? buf0 + buf_len : buf0;
+    run_mixed_pass<kBuffer, ODD>(R, src, plan_pad(plan, p - 1), out, plan_pad(plan, p), twp,
+                                 nullptr, nullptr, wins, frame_length, L, M, ns, G, j0);
+    twp += ns * R;
+    ns *= R;
+    src = out;
+  }
+  return src;
+}
+
+// Z[k] of the L-point transform from the last FFT's output: the output
+// itself, or with Bluestein w_k conj(out[k]) (the inverse FFT's last conj
+// and the chirp; the filter spectrum carries the 1/M)
+template <bool BLUE>
+__device__ __forceinline__ float2 spectrum_at(const float2* src, const float2* chirp, int k) {
+  const float2 c = src[k];
+  if constexpr (BLUE) return cmul(chirp[k], make_float2(c.x, -c.y));
+  return c;
+}
+
+template <bool POWER, bool ODD, bool BLUE>
 __global__ void __launch_bounds__(kThreads)
 framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
                         const float2* __restrict__ table, void* __restrict__ out, int64_t length,
                         int stride, int frame_length, int n_fft, int num_frames, int bins,
-                        int tile, int group, uint64_t plan, int G, int buf_len, int table_len) {
+                        int tile, int group, uint64_t plan, int G, int buf_len, int table_len,
+                        int M) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
   const int L = ODD ? n_fft : n_fft / 2;
@@ -542,6 +657,11 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
   float2* bufs = tbl + (table_len + 1) / 2 * 2;
   float* wins = reinterpret_cast<float*>(bufs + (int64_t)group * 2 * buf_len);
   float* xs = wins + round4(frame_length);
+  // the table: post-pass twiddles (even n_fft), [chirp, filter spectrum],
+  // the passes' twiddles
+  const float2* chirp = tbl + (ODD ? 0 : L / 2 + 1);
+  const float2* filt = chirp + L;
+  const float2* twp = BLUE ? filt + M : chirp;
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -565,32 +685,23 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
     const int m = mg + slot * kPer;
     const float* xa = m < m_end ? xs + mis + (m - m0) * stride : nullptr;
     const float* xb = ODD && m + 1 < m_end ? xa + stride : nullptr;
-    run_mixed_pass<true, ODD>(plan_radix(plan, 0), nullptr, 0, buf0, plan_pad(plan, 0), nullptr,
-                              xa, xb, wins, frame_length, L, 1, G, j0);
-    const float2* src = buf0;
-    const float2* twp = tbl + (ODD ? 0 : L / 2 + 1);
-    int ns = plan_radix(plan, 0);
-    for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
-      __syncwarp();  // the previous pass's writes are visible
-      const int R = plan_radix(plan, p);
-      float2* dst = src == buf0 ? buf0 + buf_len : buf0;
-      run_mixed_pass<false, ODD>(R, src, plan_pad(plan, p - 1), dst, plan_pad(plan, p), twp,
-                                 nullptr, nullptr, wins, frame_length, L, ns, G, j0);
-      twp += ns * R;
-      ns *= R;
-      src = dst;
+    const float2* src = run_fft<BLUE ? kChirped : kSignal, ODD>(
+        buf0, buf_len, nullptr, chirp, twp, plan, xa, xb, wins, frame_length, L, M, G, j0, slot);
+    if constexpr (BLUE) {
+      slot_sync(slot, G);
+      src = run_fft<kFiltered, ODD>(buf0, buf_len, src, filt, twp, plan, nullptr, nullptr, wins,
+                                    frame_length, L, M, G, j0, slot);
     }
-    __syncwarp();
+    slot_sync(slot, G);
 
-    // the post-pass from Z = src (the last pass stores unpadded);
-    // consecutive threads write consecutive bins
+    // the post-pass from Z; consecutive threads write consecutive bins
     if constexpr (ODD) {
       // frames m and m+1: X_m[k] = (Z[k] + conj Z[n-k]) / 2,
       // X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i), k = 0..(n-1)/2
       const int64_t row = (ch * num_frames + m) * (int64_t)bins;
       for (int k = j0; 2 * k < L; k += G) {
-        const float2 a = src[k];
-        const float2 b = src[k == 0 ? 0 : L - k];
+        const float2 a = spectrum_at<BLUE>(src, chirp, k);
+        const float2 b = spectrum_at<BLUE>(src, chirp, k == 0 ? 0 : L - k);
         const float sr = a.x + b.x, si = a.y - b.y;  // Z[k] + conj Z[n-k]
         const float dr = a.x - b.x, di = a.y + b.y;  // Z[k] - conj Z[n-k]
         if (m < m_end) put_bin<POWER>(out, row, k, 0.5f * sr, 0.5f * si, full && k >= 1, n_fft);
@@ -602,8 +713,8 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
       // the split post-pass, as in framed_fft_kernel
       const int64_t row = (ch * num_frames + m) * (int64_t)bins;
       for (int k = j0; 2 * k <= L; k += G) {
-        const float2 a = src[k];
-        const float2 b = src[k == 0 ? 0 : L - k];
+        const float2 a = spectrum_at<BLUE>(src, chirp, k);
+        const float2 b = spectrum_at<BLUE>(src, chirp, k == 0 ? 0 : L - k);
         const float sr = a.x + b.x, si = a.y - b.y;
         const float dr = a.x - b.x, di = a.y + b.y;
         const float2 w = tbl[k];
@@ -615,22 +726,24 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
         }
       }
     }
-    __syncwarp();  // the buffers are read before the next frames fill them
+    slot_sync(slot, G);  // the buffers are read before the next frames fill them
   }
 }
 
-// Whether a packed plan covers L points: radices 2, 3, 4, 5, 7 or 8 whose
-// product is L, zero bytes after the last pass, no padding on the last.
-inline bool valid_plan(uint64_t plan, int L) {
+// Whether a packed plan covers M points: radices 2, 3, 4, 5, 7, 8, 11 or 13
+// whose product is M, zero bytes after the last pass, no padding on the last.
+inline bool valid_plan(uint64_t plan, int M) {
   int64_t prod = 1;
   int passes = 0;
   while (passes < kMaxPasses && plan_radix(plan, passes) != 0) {
     const int r = plan_radix(plan, passes);
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) return false;
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8 && r != 11 && r != 13) {
+      return false;
+    }
     prod *= r;
     ++passes;
   }
-  return passes > 0 && prod == L && (passes == kMaxPasses || (plan >> (8 * passes)) == 0) &&
+  return passes > 0 && prod == M && (passes == kMaxPasses || (plan >> (8 * passes)) == 0) &&
          plan_pad(plan, passes - 1) == 0;
 }
 
@@ -639,16 +752,19 @@ inline bool valid_plan(uint64_t plan, int L) {
 // x (channels, length) f32, win (frame_length) f32, out (channels,
 // num_frames, bins) complex64 (as float2) or, with power, f32; all
 // contiguous on the current device; frame_length <= n_fft, bins n_fft/2 + 1
-// or n_fft, every frame inside the signal. plan 0: n_fft a power of two in
-// [8, 1024] and tw the (n_fft) float2 table exp(-2 pi i t / n_fft) (the
-// power-of-two kernel); else plan the packed pass plan of kernels/dft.py:
-// _fft_plan for a 7-smooth n_fft in [8, 1024] (byte p: radix | pad << 4)
-// and tw its float2 table (the mixed-radix kernel). Launches on `stream`
-// without synchronising; returns the launch's cudaError_t.
+// or n_fft, every frame inside the signal, n_fft in [8, 1024]. plan 0: n_fft
+// a power of two and tw the (n_fft) float2 table exp(-2 pi i t / n_fft) (the
+// power-of-two kernel; points 0). Else the mixed-radix kernel with the
+// packed pass plan of M = `points` (byte p: radix | pad << 4) and its
+// float2 table, from kernels/dft.py: _fft_plan for a 13-smooth n_fft (M =
+// L, the transform's length, n_fft/2 or odd n_fft) or _bluestein_plan for
+// any n_fft (2L - 1 <= M <= 2048). Launches on `stream` without
+// synchronising; returns the launch's cudaError_t.
 extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw, void* out,
                                  int64_t channels, int64_t length, int64_t stride,
                                  int64_t frame_length, int64_t n_fft, int64_t num_frames,
-                                 int64_t bins, int64_t plan, int64_t power, void* stream) {
+                                 int64_t bins, int64_t plan, int64_t points, int64_t power,
+                                 void* stream) {
   const int64_t kIntMax = 0x7fffffff;
   if (channels < 1 || stride < 1 || stride > kIntMax || n_fft < kMinFft || n_fft > kMaxFft ||
       frame_length < 1 || frame_length > n_fft || num_frames < 1 || num_frames > kIntMax ||
@@ -659,9 +775,15 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
   const int fft = (int)n_fft, fl = (int)frame_length;
   const bool pow2 = plan == 0;
   const bool odd = (fft & 1) != 0;
-  const int L = odd ? fft : fft / 2;  // points of the complex FFT
+  const int L = odd ? fft : fft / 2;  // points of the complex transform
+  const bool blue = !pow2 && points != L;
   const uint64_t packed = (uint64_t)plan;
-  if (pow2 ? (fft & (fft - 1)) != 0 : !valid_plan(packed, L)) return (int)cudaErrorInvalidValue;
+  if (pow2 ? (fft & (fft - 1)) != 0 || points != 0
+           : (blue && (points < 2 * L - 1 || points > kMaxPoints)) ||
+                 !valid_plan(packed, (int)points)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int M = pow2 ? L : (int)points;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -671,11 +793,11 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
 
   // FFTs at once (group, each of `per` frames) and frames per CTA (tile, a
   // multiple of group * per): up to kTileTarget frames within the budget,
-  // fewer where the staged window needs it
-  const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(L);
+  // fewer where the staged window or the FFT buffers need it
+  const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(M, blue ? 64 : 32);
   const int per = odd ? 2 : 1;
-  const int buf_len = pow2 ? 0 : mixed_buf_len(packed, L);
-  const int table_len = pow2 ? 0 : mixed_table_len(packed, L, odd);
+  const int buf_len = pow2 ? 0 : mixed_buf_len(packed, M);
+  const int table_len = pow2 ? 0 : mixed_table_len(packed, L, M, odd);
   auto bytes = [&](int group, int tile) {
     return pow2 ? smem_bytes(fft, fl, stride, group, tile)
                 : mixed_smem_bytes(table_len, buf_len, fl, stride, group, tile);
@@ -721,9 +843,13 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                         : (warp_sync ? framed_fft_kernel<false, true>
                                      : framed_fft_kernel<false, false>));
   }
-  return launch(power ? (odd ? framed_fft_mixed_kernel<true, true>
-                             : framed_fft_mixed_kernel<true, false>)
-                      : (odd ? framed_fft_mixed_kernel<false, true>
-                             : framed_fft_mixed_kernel<false, false>),
-                packed, per_fft, buf_len, table_len);
+#define NX_MIXED(POWER, ODD, BLUE) \
+  launch(framed_fft_mixed_kernel<POWER, ODD, BLUE>, packed, per_fft, buf_len, table_len, M)
+  if (blue) {
+    return power ? (odd ? NX_MIXED(true, true, true) : NX_MIXED(true, false, true))
+                 : (odd ? NX_MIXED(false, true, true) : NX_MIXED(false, false, true));
+  }
+  return power ? (odd ? NX_MIXED(true, true, false) : NX_MIXED(true, false, false))
+               : (odd ? NX_MIXED(false, true, false) : NX_MIXED(false, false, false));
+#undef NX_MIXED
 }

@@ -5,7 +5,7 @@ nx_signal_tpu/kernels/pallas_dft.py).
       wrapper                          kernel (kernels/csrc/)
 ===== ================================ ==========================================
 A     fir_framed_dft_power_cuda        framed_dft.cu, POWER, FIR fold (exact f32)
-A-tc  fir_framed_dft_power_tc_cuda     framed_dft_tc.cu (3xTF32 or one TF32 pass)
+A-tc  fir_framed_dft_power_tc_cuda     framed_dft_tc.cu (wgmma, 3xTF32 or one TF32 pass)
 B-fft framed_fft_cuda                  framed_fft.cu (a real FFT per frame)
 B     framed_dft_cuda                  framed_dft.cu, no fold (exact f32)
 C     overlap_add_cuda                 overlap_add.cu
@@ -29,10 +29,9 @@ the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
 'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
 and one TF32 pass (about three digits), wherever A-tc's staged window fits
 in shared memory, and kernel A elsewhere (more accurate than asked). The
-framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 1024
-with no prime factor above 7, the dense B for any other. Kernels B, B-fft
-and D run f32 whatever the caller's precision; C is bitwise equal to the
-plain fold.
+framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 1024,
+the dense B for any other. Kernels B, B-fft and D run f32 whatever the
+caller's precision; C is bitwise equal to the plain fold.
 """
 
 import ctypes
@@ -43,8 +42,8 @@ import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import (
-    _dft_weights, _fft_plan, _fft_twiddles, _framed_matmul_tf32_torch, _framed_matmul_torch,
-    _host_f64, _shared_power_torch, _tf32_passes, _tf32_split)
+    _bluestein_plan, _dft_weights, _fft_plan, _fft_twiddles, _framed_matmul_tf32_torch,
+    _framed_matmul_torch, _host_f64, _radices, _shared_power_torch, _tf32_passes, _tf32_split)
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
@@ -65,7 +64,7 @@ _FFT_MAX_PASSES = 8
 _A_TILE_BINS = 64
 _A_CHUNK = 32
 _TC_TILE_BINS = 64
-_TC_CHUNK = 16
+_TC_CHUNK = 32
 
 
 def _on_card(t) -> bool:
@@ -204,31 +203,72 @@ def _tc_takes(stride: int, krows: int) -> bool:
     return frames.value > 0
 
 
-def _tc_weights(weights, bins: int):
-    """Kernel A-tc's weights: the (krows, 2*bins) f32 [Re | Im] weights split
-    into TF32 (hi, lo) and laid out per tile of 64 bins as (tiles,
-    krows_pad, 128, 2), Re columns then Im columns of the tile's bins, zeros
-    past `bins` and past the last row."""
+def _tc_columns(bins: int, packed: bool):
+    """Kernel A-tc's column layout (framed_dft_tc.cu) as indices into the
+    columns of the (krows, 2*bins) [Re | Im] weights: a (tiles, 128) array,
+    -1 for a zero column. Tile t holds the Re columns of bin slots t*64 ..
+    t*64 + 63, then their Im columns. Slot s is bin s; `packed` (as for
+    kernel A, `_a_columns`) drops the DC bin's Im column and puts the last
+    bin's Re column in its place, so bins - 1 slots cover every bin.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import _tc_columns
+    >>> cols = _tc_columns(257, packed=True)
+    >>> cols.shape, cols[0, :3].tolist(), cols[0, 64], cols[0, 65], cols[3, 127]
+    ((4, 128), [0, 1, 2], 256, 258, 512)
+    """
+    slots = bins - 1 if packed else bins
+    tiles = -(-slots // _TC_TILE_BINS)
+    t, part, c = np.meshgrid(np.arange(tiles), np.arange(2), np.arange(_TC_TILE_BINS),
+                             indexing="ij")
+    slot = t * _TC_TILE_BINS + c
+    cols = np.where(part == 0, slot, bins + slot)
+    if packed:
+        cols[(slot == 0) & (part == 1)] = bins - 1
+    cols[slot >= slots] = -1
+    return cols.reshape(tiles, 2 * _TC_TILE_BINS)
+
+
+def _tc_weights(weights, bins: int, passes: int):
+    """Kernel A-tc's weights: the (krows, 2*bins) f32 [Re | Im] weights in
+    the columns of `_tc_columns`, zero rows up to krows_pad (a multiple of
+    `_TC_CHUNK`), rounded to TF32 (hi = tf32(W), lo = tf32(W - hi),
+    `kernels.dft._tf32_split`), as the (tiles, stages, 16 KB) images of the
+    kernel's shared-memory ring: per stage of `_TC_CHUNK` rows (W_hi alone,
+    passes 1) or `_TC_CHUNK`/2 rows (W_hi then W_lo, passes 3), each k-step
+    of 8 rows as W^T in wgmma's K-major core matrices (k-step, 4-row half,
+    column group of 8, column, row). Returns them, f32 (tiles, stages,
+    kStageBytes / 4) on the weights' device, and whether they are packed
+    (`_a_packs`, one sync)."""
+    packed = _a_packs(weights, bins)
+    cols = torch.as_tensor(_tc_columns(bins, packed), device=weights.device)
     krows = weights.shape[0]
-    tiles = -(-bins // _TC_TILE_BINS)
-    w = weights.to(DEFAULT_FLOAT)
-    pad_bins = tiles * _TC_TILE_BINS - bins
-    pad_rows = _tc_krows_pad(krows) - krows
-    parts = [torch.nn.functional.pad(w[:, i * bins:(i + 1) * bins], (0, pad_bins, 0, pad_rows))
-             .reshape(-1, tiles, _TC_TILE_BINS) for i in (0, 1)]
-    tiled = torch.stack(parts, dim=2).permute(1, 0, 2, 3)   # (tiles, krows_pad, 2, 64)
-    hi, lo = _tf32_split(tiled.reshape(tiles, -1, 2 * _TC_TILE_BINS))
-    return torch.stack([hi, lo], dim=-1).contiguous()
+    krows_pad = _tc_krows_pad(krows)
+    w = torch.nn.functional.pad(weights.to(DEFAULT_FLOAT),
+                                (0, 1, 0, krows_pad - krows))   # column -1: zeros
+    tiled = w[:, cols].permute(1, 0, 2)                         # (tiles, krows_pad, 128)
+    tiles = tiled.shape[0]
+    rows = _TC_CHUNK if passes == 1 else _TC_CHUNK // 2
+
+    def image(part):   # k = ((stage*steps + step)*2 + half)*4 + kk, n = group*8 + col
+        return part.reshape(tiles, krows_pad // rows, rows // 8, 2, 4, 16, 8).permute(
+            0, 1, 2, 3, 5, 6, 4)
+
+    hi, lo = _tf32_split(tiled)
+    laid = image(hi) if passes == 1 else torch.stack([image(hi), image(lo)], dim=2)
+    return laid.reshape(tiles, krows_pad // rows, -1).contiguous(), packed
 
 
 def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
                                  num_frames: int, bins: int, precision: str = "high"):
     """Kernel A-tc: kernel A's function (see `fir_framed_dft_power_cuda`) on
-    the tensor cores. x and W are split into TF32 parts (round to nearest,
-    ties away: `kernels.dft._round_tf32`); 'high' sums x_lo W_hi + x_hi W_lo
-    + x_hi W_hi (3xTF32), 'default' x_hi W_hi alone, with f32 accumulation,
-    each frame's k-steps and products in one fixed order. Returns (...,
-    num_frames, bins) f32.
+    the tensor cores (wgmma). x and W are split into TF32 parts (round to
+    nearest, ties away: `kernels.dft._round_tf32`); 'high' sums x_lo W_hi +
+    x_hi W_lo + x_hi W_hi (3xTF32), 'default' x_hi W_hi alone (and reads
+    only W_hi), with f32 accumulation, each frame's k-steps and products in
+    one fixed order. The weights are laid out by `_tc_weights`, packed where
+    `_a_packs` holds. Returns (..., num_frames, bins) f32.
 
     On a CPU tensor it returns the plain version
     (`kernels.dft._framed_matmul_tf32_torch`, the same products summed in
@@ -252,13 +292,13 @@ def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
                          "precision='highest' (kernel A)")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
-    w = _tc_weights(weights, bins)
+    w, packed = _tc_weights(weights, bins, passes)
     out = torch.empty((xf.shape[0], num_frames, bins), dtype=DEFAULT_FLOAT, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.nx_framed_dft_tc_power_f32(
             xf.data_ptr(), w.data_ptr(), out.data_ptr(), xf.shape[0], length, stride,
-            w.shape[1], pad_left, num_frames, bins, passes,
+            _tc_krows_pad(weights.shape[0]), pad_left, num_frames, bins, int(packed), passes,
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "framed_dft_tc kernel")
     fir_framed_dft_power_tc_cuda.launches += 1
@@ -268,39 +308,46 @@ def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
 fir_framed_dft_power_tc_cuda.launches = 0
 
 
+def _thirteen_smooth(n: int) -> bool:
+    """Whether n has no prime factor above 13: B-fft then runs n_fft = n on
+    its direct plan (`kernels.dft._fft_plan`), any other n on Bluestein's."""
+    return _radices(n) is not None
+
+
+def _pack_plan(plan) -> int:
+    """The plan word of nx_framed_fft_f32: pass p in byte p, radix | pad << 4."""
+    return sum((r | c << 4) << 8 * p for p, (r, c) in enumerate(zip(plan.radices, plan.pads)))
+
+
 @functools.cache
 def _device_fft_plan(n_fft: int, device):
-    """Kernel B-fft's table and packed plan, built once per n_fft and
-    device: for a power of two the twiddles of `kernels.dft._fft_twiddles`
-    and plan 0 (the power-of-two kernel), else the mixed-radix kernel's plan
-    (`kernels.dft._fft_plan`; pass p in byte p as radix | pad << 4) and its
-    f64 table cast to f32."""
+    """Kernel B-fft's table, packed plan and FFT points, built once per
+    n_fft and device: for a power of two the twiddles of
+    `kernels.dft._fft_twiddles`, plan 0 and points 0 (the power-of-two
+    kernel); else the mixed-radix kernel's plan, `kernels.dft._fft_plan`
+    for a 13-smooth n_fft and `kernels.dft._bluestein_plan` for any other,
+    its f64 table cast to f32 and its points M."""
     if n_fft & (n_fft - 1) == 0:
-        return _fft_twiddles(n_fft, device=device), 0
-    plan = _fft_plan(n_fft)   # at most 6 passes up to 1024, within _FFT_MAX_PASSES
-    packed = sum((r | c << 4) << 8 * p for p, (r, c) in enumerate(zip(plan.radices, plan.pads)))
-    return torch.as_tensor(plan.table.astype(np.float32), device=device), packed
-
-
-def _seven_smooth(n: int) -> bool:
-    for p in (2, 3, 5, 7):
-        while n % p == 0:
-            n //= p
-    return n == 1
+        return _fft_twiddles(n_fft, device=device), 0, 0
+    plan = _fft_plan(n_fft) if _thirteen_smooth(n_fft) else _bluestein_plan(n_fft)
+    return (torch.as_tensor(plan.table.astype(np.float32), device=device), _pack_plan(plan),
+            plan.points)
 
 
 def fft_kernel_takes(n_fft: int) -> bool:
-    """Whether kernel B-fft serves this n_fft: from 8 to 1024 with no prime
-    factor above 7 (every power of two, and the audio lengths 400, 441,
-    480, 600, 960, 1000). The dense kernel B serves every other n_fft.
+    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 1024 (a
+    power of two on its radix-8 kernel, a 13-smooth one such as 400, 441,
+    572 or 600 on the mixed-radix plan, any other, such as 1021 or 1018,
+    through Bluestein's chirp-z transform on the same passes). The dense
+    kernel B serves an n_fft outside that range.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
-    >>> [fft_kernel_takes(n) for n in (512, 600, 441, 572, 1021, 4)]
-    [True, True, True, False, False, False]
+    >>> [fft_kernel_takes(n) for n in (512, 600, 441, 572, 1021, 4, 2048)]
+    [True, True, True, True, True, False, False]
     """
-    return _FFT_MIN <= n_fft <= _FFT_MAX and _seven_smooth(n_fft)
+    return _FFT_MIN <= n_fft <= _FFT_MAX
 
 
 def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = False,
@@ -311,9 +358,10 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     n_fft samples), zero-padded to n_fft. Returns complex64 (..., M, bins),
     bins = n_fft//2 + 1 (`onesided`) or n_fft, M = (L - frame)//stride + 1,
     or with `output='power'` re^2 + im^2 f32. On a CUDA tensor n_fft must
-    be 7-smooth, from 8 to 1024 (`fft_kernel_takes`): a power of two runs the
-    radix-8 kernel, any other the mixed-radix kernel of `kernels.dft._fft_plan`;
-    either writes the complex64 tensor directly. On a CPU tensor it returns
+    be from 8 to 1024 (`fft_kernel_takes`): a power of two runs the radix-8
+    kernel, any other the mixed-radix kernel of `kernels.dft._fft_plan` (a
+    13-smooth n_fft) or `kernels.dft._bluestein_plan` (any other); each
+    writes the complex64 tensor directly. On a CPU tensor it returns
     the plain version (the dense [Re | Im] contraction of
     `_framed_matmul_torch`)."""
     if output not in ("complex", "power"):
@@ -334,19 +382,19 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
                                    num_frames=num_frames, bins=bins, power=power)
         return acc if power else torch.complex(acc[..., :bins], acc[..., bins:])
     if not fft_kernel_takes(n_fft):
-        raise ValueError(f"kernel B-fft takes an n_fft from {_FFT_MIN} to {_FFT_MAX} with "
-                         f"no prime factor above 7, got {n_fft}")
+        raise ValueError(f"kernel B-fft takes an n_fft from {_FFT_MIN} to {_FFT_MAX}, "
+                         f"got {n_fft}")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
     win = torch.as_tensor(window.astype(np.float32), device=x.device)
-    tw, plan = _device_fft_plan(n_fft, x.device)
+    tw, plan, points = _device_fft_plan(n_fft, x.device)
     out = torch.empty((xf.shape[0], num_frames, bins),
                       dtype=DEFAULT_FLOAT if power else torch.complex64, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.nx_framed_fft_f32(
             xf.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), xf.shape[0], length,
-            stride, frame_length, n_fft, num_frames, bins, plan, int(power),
+            stride, frame_length, n_fft, num_frames, bins, plan, points, int(power),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "framed_fft kernel")
     framed_fft_cuda.launches += 1
@@ -360,7 +408,8 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
                     output: str = "complex"):
     """Kernel B (dense): the windowed framed DFT frames(x) @ W of the
     (..., L) real signal, W the (frame, 2*bins) [Re | Im] weights of
-    `kernels.dft._dft_weights`, for an n_fft kernel B-fft does not take.
+    `kernels.dft._dft_weights`, for what kernel B-fft does not take: an
+    n_fft outside 8..1024, or a frame longer than n_fft.
     The kernel writes the stacked f32 [Re | Im]; this returns it as
     complex64 (..., num_frames, bins), or with `output='power'` the
     kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the

@@ -16,8 +16,7 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for every n_fft from 8 to 1024 with no prime
-  factor above 7;
+  per frame (kernel B-fft) for every n_fft from 8 to 1024;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -271,11 +270,11 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     be padded (spectral/stft.py handles the padding modes).
 
     Runs kernel B: `kernels.cuda_dft.framed_fft_cuda` (a real FFT per
-    frame in shared memory) for every n_fft from 8 to 1024 with no prime
-    factor above 7 (`fft_kernel_takes`), and
-    `kernels.cuda_dft.framed_dft_cuda` (the dense contraction) for any
-    other n_fft. Both are hand-written kernels on a CUDA tensor and the same
-    plain conv1d version on a CPU one.
+    frame in shared memory: mixed radix 2-13, Bluestein for a larger prime
+    factor) for every n_fft from 8 to 1024 (`fft_kernel_takes`) with
+    frame_length <= n_fft, and `kernels.cuda_dft.framed_dft_cuda` (the
+    dense contraction) for anything else. Both are hand-written kernels on a
+    CUDA tensor and the same plain conv1d version on a CPU one.
 
     Examples:
 
@@ -336,25 +335,76 @@ def _unit_roots(num, den):
 
 
 class FftPlan(NamedTuple):
-    """Kernel B-fft's plan for a 7-smooth n_fft (`_fft_plan`)."""
+    """Kernel B-fft's plan for an n_fft (`_fft_plan`, `_bluestein_plan`)."""
 
-    length: int          # points of the complex FFT: n_fft/2 (even), n_fft (odd)
-    radices: tuple       # the Stockham passes' radices, in order
+    length: int          # L, points of the transform: n_fft/2 (even), n_fft (odd)
+    points: int          # M, points of the Stockham passes: L, or Bluestein's M >= 2L - 1
+    radices: tuple       # the passes' radices, in order (product M)
     pads: tuple          # each pass's output padding c (see `_fft_plan`)
     table: np.ndarray    # (entries, 2) f64 twiddles, in the order the kernel reads them
 
 
+_ODD_RADICES = (13, 11, 7, 5, 3)
+
+
+def _radices(points: int):
+    """The Stockham radices of a 13-smooth length, in the plan's order:
+    radix 8 and a 4 or 2 for the powers of two, then 13, 11, 7, 5, 3; None
+    for a length with a larger prime factor."""
+    if points < 1:
+        return None
+    rest, odd = points, []
+    for r in _ODD_RADICES:
+        while rest % r == 0:
+            odd.append(r)
+            rest //= r
+    twos = rest.bit_length() - 1
+    if rest != 1 << twos:
+        return None
+    return [8] * (twos // 3) + ([1 << twos % 3] if twos % 3 else []) + odd
+
+
+def _passes(points: int, radices):
+    """Each pass's output padding c and the twiddle tables of the passes
+    after the first (see `_fft_plan`)."""
+    pads, tables, ns = [], [], 1
+    for r in radices:
+        group = ns * r
+        if group == points:
+            pads.append(0)
+        elif ns == 1:
+            pads.append(1 - r % 2)
+        else:
+            pads.append((ns - group) % 16)
+        if ns > 1:
+            tables.append(_unit_roots(np.arange(r)[:, None] * np.arange(ns), group).reshape(-1, 2))
+        ns = group
+    return tuple(pads), tables
+
+
+def _transform_length(n_fft: int) -> int:
+    if n_fft < 2:
+        raise ValueError(f"n_fft must be at least 2, got {n_fft}")
+    return n_fft // 2 if n_fft % 2 == 0 else n_fft
+
+
+def _post_twiddles(n_fft: int, length: int):
+    """The split post-pass's twiddles exp(-2 pi i k / n_fft), k = 0..L/2
+    (even n_fft; none for odd)."""
+    return _unit_roots(np.arange(length // 2 + 1), n_fft) if n_fft % 2 == 0 else np.zeros((0, 2))
+
+
 def _fft_plan(n_fft: int) -> FftPlan:
     """The pass plan and twiddle table of kernel B-fft (framed_fft.cu) for
-    a 7-smooth n_fft (prime factors 2, 3, 5, 7 only).
+    a 13-smooth n_fft (prime factors 2, 3, 5, 7, 11, 13 only).
 
     A real frame of even n_fft is one complex FFT of L = n_fft/2 points
     (even samples real, odd imaginary) and a split post-pass; two real
     frames of odd n_fft are one complex FFT of L = n_fft points (frame m
     real, frame m+1 imaginary) and a separation. The FFT runs Stockham
-    autosort passes of radix 8 and a 4 or 2 for the powers of two, then 7,
-    5, 3 (largest first), an order that keeps the padded buffers small.
-    Pass p, after Ns points have been combined, takes butterfly j
+    autosort passes of radix 8 and a 4 or 2 for the powers of two, then 13,
+    11, 7, 5, 3 (largest first), an order that keeps the padded buffers
+    small. Pass p, after Ns points have been combined, takes butterfly j
     (0 <= j < L/R) from points j + r L/R, r < R, scales point r by
     exp(-2 pi i (j mod Ns) r / (Ns R)), and writes its DFT to
     (j // Ns) Ns R + j mod Ns + r Ns; its output index i is stored at
@@ -373,31 +423,61 @@ def _fft_plan(n_fft: int) -> FftPlan:
     >>> plan = _fft_plan(600)
     >>> plan.length, plan.radices, plan.pads, plan.table.shape
     (300, (4, 5, 5, 3), (1, 0, 0, 0), (571, 2))
+    >>> _fft_plan(572).radices
+    (2, 13, 11)
     """
-    length = n_fft // 2 if n_fft % 2 == 0 else n_fft
-    rest, odd = length, []
-    for r in (7, 5, 3):
-        while rest % r == 0:
-            odd.append(r)
-            rest //= r
-    twos = rest.bit_length() - 1
-    if n_fft < 2 or rest != 1 << twos:
-        raise ValueError(f"n_fft must be 7-smooth (factors 2, 3, 5, 7), got {n_fft}")
-    radices = [8] * (twos // 3) + ([1 << twos % 3] if twos % 3 else []) + odd
-    pads, tables, ns = [], [], 1
-    for r in radices:
-        group = ns * r
-        if group == length:
-            pads.append(0)
-        elif ns == 1:
-            pads.append(1 - r % 2)
-        else:
-            pads.append((ns - group) % 16)
-        if ns > 1:
-            tables.append(_unit_roots(np.arange(r)[:, None] * np.arange(ns), group).reshape(-1, 2))
-        ns = group
-    post = _unit_roots(np.arange(length // 2 + 1), n_fft) if n_fft % 2 == 0 else np.zeros((0, 2))
-    return FftPlan(length, tuple(radices), tuple(pads), np.concatenate([post, *tables]))
+    length = _transform_length(n_fft)
+    radices = _radices(length)
+    if radices is None:
+        raise ValueError(f"n_fft must be 13-smooth (factors 2, 3, 5, 7, 11, 13), got {n_fft}")
+    pads, tables = _passes(length, radices)
+    return FftPlan(length, length, tuple(radices), pads,
+                   np.concatenate([_post_twiddles(n_fft, length), *tables]))
+
+
+def _bluestein_plan(n_fft: int) -> FftPlan:
+    """Kernel B-fft's plan for any n_fft as a chirp-z (Bluestein) transform:
+    the complex DFT of L points (L as in `_fft_plan`) becomes, with the
+    chirp w_j = exp(-pi i j^2 / L),
+
+        Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}),
+
+    a circular convolution of M points, M the smallest 13-smooth length >=
+    2L - 1: z_j w_j zero-padded to M, a forward FFT of M points on the plan's
+    passes, a product with the FFT of the conjugate chirp (j and M - j for
+    0 <= j < L, zeros between), divided by M, an inverse FFT of M points
+    as conj, forward FFT, conj, and a last product with w_k. Then the split
+    post-pass or the separation of `_fft_plan`.
+
+    `table` holds, in order: the post-pass twiddles (even n_fft), the
+    chirp w_j (L entries), the filter's spectrum (M entries), then the
+    passes' twiddles of the M-point plan. All are formed in f64: j^2 is
+    reduced mod 2L in integers before any angle is formed.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _bluestein_plan
+    >>> plan = _bluestein_plan(1021)
+    >>> plan.length, plan.points, plan.radices
+    (1021, 2048, (8, 8, 8, 4))
+    >>> _bluestein_plan(1018).points, _bluestein_plan(997).points
+    (1024, 2000)
+    """
+    length = _transform_length(n_fft)
+    points = 2 * length - 1
+    while _radices(points) is None:
+        points += 1
+    radices = _radices(points)
+    pads, tables = _passes(points, radices)
+    j = np.arange(length)
+    chirp = _unit_roots(j * j % (2 * length), 2 * length)
+    filt = np.zeros(points, complex)
+    filt[j] = chirp[:, 0] - 1j * chirp[:, 1]
+    filt[points - j[1:]] = filt[j[1:]]
+    spectrum = np.fft.fft(filt) / points
+    return FftPlan(length, points, tuple(radices), pads,
+                   np.concatenate([_post_twiddles(n_fft, length), chirp,
+                                   np.stack([spectrum.real, spectrum.imag], axis=-1), *tables]))
 
 
 def _idft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):

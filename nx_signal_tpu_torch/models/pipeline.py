@@ -256,6 +256,7 @@ class StftFirChain(nn.Module):
                    frame_length=window.shape[-1], n_fft=n_fft)
 
     def forward(self, x):
+        x = as_signal(x)
         if x.is_complex():
             raise ValueError("StftFirChain needs a real signal")
         if x.shape[-1] < self.frame_length:

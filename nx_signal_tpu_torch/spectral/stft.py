@@ -3,9 +3,9 @@
 
 The forward transform runs the fused framing + window + DFT
 (kernels/dft.py:framed_dft: on a CUDA tensor the CUDA kernel B-fft, an FFT
-per frame, for an fft_length with no prime factor above 7, the dense kernel
-B for other lengths) for real input with fft_length <= 1024, and torch.fft on explicit
-frames otherwise.
+per frame, at every fft_length from 8 to 1024, and the dense kernel B for a
+shorter one) for real input with fft_length <= 1024, and torch.fft on
+explicit frames otherwise.
 The inverse runs the fused inverse-DFT + synthesis-window matmul
 (kernels/dft.py:framed_idft) and the deterministic overlap-add
 (spectral/framing.py:_ola_fold, the CUDA kernel C on a CUDA tensor).

@@ -16,6 +16,12 @@ alternatives in one run, on one card.
    driven by the host plan of the same n_fft (`kernels/dft.py:_fft_plan`),
    in turns (radix 8, mixed, mixed, radix 8), their outputs compared; then
    both on the filtered chain's power stage (768 x 480000, n_fft 512).
+3. Kernel A-tc's wgmma groups (`kernels/csrc/framed_dft_tc.cu`): the
+   source compiled again with a whole weight stage per group
+   (kGroupSteps = 0) against the built one (one k-step per group),
+   each checked bitwise against the other (the same products in the same
+   order per accumulator) and timed at the bench chain at 'high' and
+   'default', in turns, two rounds.
 
 Prints the card's name and power limit first. Imports nothing of JAX.
 """
@@ -33,6 +39,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from nx_signal_tpu_torch.kernels import cuda_dft  # noqa: E402
+from nx_signal_tpu_torch.kernels.cuda_dft import _pack_plan  # noqa: E402
 from nx_signal_tpu_torch.kernels._build import _CSRC, _NVCC_FLAGS, _nvcc, load_library  # noqa: E402
 from nx_signal_tpu_torch.kernels.dft import (  # noqa: E402
     _fft_plan, _fft_twiddles, fir_dft_fold_weights)
@@ -104,6 +111,52 @@ def _ring(dev, gen, tmp):
             f"{name} {_median_ms(run):.3f} ms" for name, run in runs.items()), flush=True)
 
 
+def _tc_groups(dev, gen, tmp):
+    x = torch.randn((768, 480000), generator=gen, device=dev)
+    num_taps, frame, hop, n_fft = 255, 512, 128, 512
+    frames = (x.shape[-1] - frame) // hop + 1
+    pad_left = (num_taps - 1) - (num_taps - 1) // 2
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
+    w = fir_dft_fold_weights(taps, hann(frame).numpy(), n_fft, True, device=dev)
+    text = (_CSRC / "framed_dft_tc.cu").read_text()
+    line = next(ln for ln in text.splitlines() if ln.startswith("constexpr int kGroupSteps = "))
+    src, lib = os.path.join(tmp, "tc_stage_group.cu"), os.path.join(tmp, "tc_stage_group.so")
+    with open(src, "w") as f:
+        f.write(text.replace(line, "constexpr int kGroupSteps = 0;"))
+    subprocess.run([_nvcc(), *_NVCC_FLAGS, "-shared", "-o", lib, src], check=True)
+    variant = ctypes.CDLL(lib)
+    variant.nx_framed_dft_tc_power_f32.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64] * 9 + [ctypes.c_void_p]
+    variant.nx_framed_dft_tc_power_f32.restype = ctypes.c_int
+
+    for precision, passes in (("high", 3), ("default", 1)):
+        laid, packed = cuda_dft._tc_weights(w, 257, passes)
+        outs = {}
+
+        def call(lib, name):
+            out = outs.setdefault(name, torch.empty((768, frames, 257), device=dev))
+
+            def run():
+                err = lib.nx_framed_dft_tc_power_f32(
+                    x.data_ptr(), laid.data_ptr(), out.data_ptr(), x.shape[0], x.shape[-1],
+                    hop, cuda_dft._tc_krows_pad(w.shape[0]), pad_left, frames, 257,
+                    int(packed), passes, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"framed_dft_tc ({name}) failed ({err})")
+            return run
+
+        runs = {"a k-step per group (built)": call(load_library(), "built"),
+                "a stage per group": call(variant, "stage")}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        print(f"kernel A-tc '{precision}': the two groupings bitwise equal = "
+              f"{torch.equal(outs['built'], outs['stage'])}", flush=True)
+        for _ in range(2):
+            print(f"  kernel A-tc '{precision}' at 768 x 480000: " + ", ".join(
+                f"{name} {_median_ms(run):.3f} ms" for name, run in runs.items()), flush=True)
+
+
 def _fft_kernels(dev, gen):
     lib = load_library()
 
@@ -111,11 +164,10 @@ def _fft_kernels(dev, gen):
         win = torch.as_tensor(hann(n_fft).numpy(), device=dev)
         if mixed:
             plan = _fft_plan(n_fft)
-            packed = sum((r | c << 4) << 8 * p for p, (r, c) in enumerate(zip(plan.radices,
-                                                                               plan.pads)))
+            packed, points = _pack_plan(plan), plan.points
             table = torch.as_tensor(plan.table.astype(np.float32), device=dev)
         else:
-            packed, table = 0, _fft_twiddles(n_fft, device=dev)
+            packed, points, table = 0, 0, _fft_twiddles(n_fft, device=dev)
         frames = (x.shape[-1] - n_fft) // hop + 1
         out = torch.empty((x.shape[0], frames, n_fft // 2 + 1),
                           dtype=torch.float32 if power else torch.complex64, device=dev)
@@ -123,7 +175,8 @@ def _fft_kernels(dev, gen):
         def run():
             err = lib.nx_framed_fft_f32(
                 x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
-                x.shape[-1], hop, n_fft, n_fft, frames, n_fft // 2 + 1, packed, int(power),
+                x.shape[-1], hop, n_fft, n_fft, frames, n_fft // 2 + 1, packed, points,
+                int(power),
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"framed_fft failed ({err})")
@@ -155,6 +208,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
         _ring(dev, gen, tmp)
+        _tc_groups(dev, gen, tmp)
     _fft_kernels(dev, gen)
     return 0
 

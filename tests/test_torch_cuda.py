@@ -75,7 +75,7 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    kw = dict(stride=150, n_fft=572, onesided=True, output=output)   # 2^2 * 11 * 13
+    kw = dict(stride=150, n_fft=1031, onesided=True, output=output)   # past B-fft's 1024
     before = cuda_dft.framed_dft_cuda.launches
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_dft_cuda.launches == before + 1
@@ -94,12 +94,17 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     (3, 20001, 441, 147, 441, False),   # odd n_fft, two frames per FFT
     (2, 20001, 512, 128, 600, True),    # frame < n_fft
     (2, 30001, 1000, 250, 1000, False),
+    (3, 20001, 512, 128, 572, True),    # 2^2 * 11 * 13: radices 2, 13, 11
+    (2, 20001, 512, 128, 1021, True),   # a prime: Bluestein, M = 2048, two frames per FFT
+    (2, 20001, 1018, 128, 1018, False),  # 2 * 509: Bluestein, M = 1024
+    (3, 20001, 900, 333, 997, True),    # a prime, M = 2000
 ])
 @pytest.mark.parametrize("output", ["complex", "power"])
 def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
     """Kernel B-fft (an FFT per frame: radix 8 for a power of two, the
-    mixed-radix plan otherwise) against its plain version (the dense
-    contraction), per bin at 1e-4 of the bin's max."""
+    mixed-radix plan for a 13-smooth n_fft, Bluestein's otherwise) against
+    its plain version (the dense contraction), per bin at 1e-4 of the bin's
+    max."""
     need_cuda()
     ch, n, frame, hop, n_fft, onesided = geometry
     x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
@@ -135,6 +140,61 @@ def test_tc_kernel_matches_plain_on_cuda(precision, geometry, rng):
             cuda_dft.fir_framed_dft_power_tc_cuda.launches) == (before[0] + 1, before[1] + 1)
     assert_close_per_bin(got, td.fir_framed_dft(x.cpu(), taps, window, precision=precision,
                                                 **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("geometry", [  # channels, length, taps, frame, hop, n_fft, weights
+    (3, 20000, 255, 512, 128, 512, "fold"),     # the bench chain's shape: packed weights
+    (2, 12001, 31, 441, 147, 441, "fold"),      # odd n_fft: not packed
+    (2, 12001, 63, 384, 128, 512, "random"),    # arbitrary weights: not packed
+    (2, 40001, 64, 1024, 256, 1024, "fold"),    # 128 frames per CTA
+])
+def test_tc_kernel_layouts_match_plain_on_cuda(precision, geometry, rng):
+    """Kernel A-tc with packed (256 slots for 257 bins) and unpacked weights
+    against its plain version per bin at 1e-4 of the bin's max."""
+    need_cuda()
+    ch, n, k, frame, hop, n_fft, kind = geometry
+    x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
+    bins = n_fft // 2 + 1
+    if kind == "fold":
+        w = td.fir_dft_fold_weights(rng.normal(size=k), hann_np(frame), n_fft, True, device="cuda")
+    else:
+        w = torch.from_numpy(rng.normal(size=(frame + k - 1, 2 * bins)).astype(np.float32)).cuda()
+    assert cuda_dft._a_packs(w, bins) == (kind == "fold" and n_fft % 2 == 0)
+    assert cuda_dft._tc_takes(hop, w.shape[0])
+    args = dict(stride=hop, pad_left=td._same_pad_left(k),
+                num_frames=(n - frame) // hop + 1, bins=bins, precision=precision)
+    before = cuda_dft.fir_framed_dft_power_tc_cuda.launches
+    got = cuda_dft.fir_framed_dft_power_tc_cuda(x, w, **args)
+    assert cuda_dft.fir_framed_dft_power_tc_cuda.launches == before + 1
+    assert_close_per_bin(got, cuda_dft.fir_framed_dft_power_tc_cuda(x.cpu(), w.cpu(), **args))
+
+
+@pytest.mark.cuda
+def test_packed_kernels_nan_bins_match_plain_on_cuda(rng):
+    """One inf sample: kernels A and A-tc (packed weights) give NaN at the
+    same bins as their plain versions (the DC bin of the frames holding it,
+    where x @ W meets the zero Im column; every bin at 'high', whose x_lo =
+    inf - inf is NaN) and agree elsewhere."""
+    need_cuda()
+    x = rng.normal(size=(2, 6000)).astype(np.float32)
+    x[0, 500] = np.inf
+    x = torch.from_numpy(x)
+    w = td.fir_dft_fold_weights(rng.normal(size=31), hann_np(64), 64, True)
+    args = dict(stride=16, pad_left=td._same_pad_left(31), num_frames=(6000 - 64) // 16 + 1,
+                bins=33)
+    assert cuda_dft._a_packs(w, 33)
+    for fn, kw in ((cuda_dft.fir_framed_dft_power_cuda, {}),
+                   (cuda_dft.fir_framed_dft_power_tc_cuda, dict(precision="high")),
+                   (cuda_dft.fir_framed_dft_power_tc_cuda, dict(precision="default"))):
+        got = fn(x.cuda(), w.cuda(), **args, **kw).cpu()
+        want = fn(x, w, **args, **kw)
+        assert torch.isnan(want).any()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        finite = torch.isfinite(want)
+        assert_close_per_bin(torch.where(finite, got, 0.0), torch.where(finite, want, 0.0))
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
 from nx_signal_tpu_torch.kernels import dft as td
+from nx_signal_tpu_torch.models.pipeline import StftFirChain
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import transforms as tt
 from nx_signal_tpu_torch.spectral import framing as tf
@@ -43,7 +44,7 @@ ENTRY_POINTS = {
     "blocked_frame_matmul": (lambda s: td.blocked_frame_matmul(
         s, DFT_W, window_length=256, stride=128, num_frames=13), SIG),
     "framed_dft": (lambda s: td.framed_dft(s, WIN, stride=128, n_fft=256, onesided=True), SIG),
-    "framed_dft_dense": (lambda s: td.framed_dft(s, WIN, stride=128, n_fft=300), SIG),
+    "framed_dft_dense": (lambda s: td.framed_dft(s, WIN, stride=128, n_fft=1031), SIG),
     "framed_idft": (lambda s: td.framed_idft(s, WIN, n_fft=256, onesided=True), SPEC),
     "fir_framed_dft": (lambda s: td.fir_framed_dft(s, TAPS, WIN, stride=128, n_fft=256,
                                                    onesided=True, output="power"), SIG),
@@ -76,6 +77,8 @@ ENTRY_POINTS = {
         s, td.shared_fold_weights(TAPS, 128, 256), td.shared_twiddles(128, 256), (0.5, -0.5),
         stride=128, pad_left=1, num_frames=15, bins=129), SIG),
     "halo_extend_cuda": (lambda s: cuda_halo.halo_extend_cuda(s, 0, 0, mesh=None), SIG),
+    "StftFirChain": (lambda s: StftFirChain.from_numpy(TAPS, WIN, stride=128, n_fft=256,
+                                                       device="cpu")(s), SIG),
 }
 
 

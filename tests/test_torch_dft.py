@@ -114,11 +114,11 @@ def test_framed_dft(geometry, onesided, output, rng):
 
 @pytest.mark.parametrize("n_fft,kernel", [(8, "fft"), (16, "fft"), (512, "fft"), (1024, "fft"),
                                           (400, "fft"), (441, "fft"), (600, "fft"),
-                                          (1000, "fft"), (4, "dense"), (572, "dense"),
-                                          (1021, "dense"), (2048, "dense")])
+                                          (1000, "fft"), (4, "dense"), (572, "fft"),
+                                          (1021, "fft"), (2048, "dense")])
 def test_framed_dft_kernel_split(n_fft, kernel, rng):
-    """framed_dft takes kernel B-fft for every n_fft from 8 to 1024 with no
-    prime factor above 7 and the dense kernel B for any other; on a CPU
+    """framed_dft takes kernel B-fft for every n_fft from 8 to 1024 (572
+    and 1021 included) and the dense kernel B for any other; on a CPU
     tensor both wrappers are the same plain version, so their results are
     equal bitwise."""
     assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
@@ -135,61 +135,127 @@ def test_framed_dft_kernel_split(n_fft, kernel, rng):
     assert torch.equal(td.framed_dft(x, window, stride=3, n_fft=n_fft, onesided=True), dense)
 
 
-SEVEN_SMOOTH = [n for n in range(8, 1025) if cuda_dft._seven_smooth(n)]
+THIRTEEN_SMOOTH = [n for n in range(8, 1025) if cuda_dft._thirteen_smooth(n)]
+BLUESTEIN = [n for n in range(8, 1025) if not cuda_dft._thirteen_smooth(n)]
 
 
-def replay_fft_plan(n_fft, frames):
-    """Kernel B-fft's mixed-radix transform in numpy f64, in the kernel's
-    order and layout (framed_fft.cu:framed_fft_mixed_kernel): the Stockham
-    passes of the plan through two padded buffers with the plan's twiddle
-    table, then the split (even n_fft, one frame) or the separation (odd,
-    two frames); returns the onesided spectrum of each frame."""
-    plan = td._fft_plan(n_fft)
-    size = plan.length
-    table = plan.table[:, 0] + 1j * plan.table[:, 1]
-    off = 0 if n_fft % 2 else size // 2 + 1
-    z = frames[0][0::2] + 1j * frames[0][1::2] if n_fft % 2 == 0 else frames[0] + 1j * frames[1]
+def replay_passes(plan, first, table, off):
+    """The Stockham passes of `plan` over M points, the first pass's points
+    given by first(t) for an index array t (with any leading batch axes),
+    through two padded buffers with the plan's twiddles from table[off:],
+    in the dtype of the points; returns the unpadded output and the table
+    offset after the passes."""
+    size = plan.points
     src, in_group, in_pad, ns = None, 1, 0, 1
     for p, (r, c) in enumerate(zip(plan.radices, plan.pads)):
         span, group = size // r, ns * r
         j = np.arange(span)
         t = j[None, :] + np.arange(r)[:, None] * span
-        v = z[t] if p == 0 else src[t + t // in_group * in_pad]
+        v = first(t) if p == 0 else src[..., t + t // in_group * in_pad]
         jm, g = j % ns, j // ns
         if p > 0:
             v = v * table[off + np.arange(r)[:, None] * ns + jm]
             off += group
-        dst = np.full(size + size // group * c, np.nan + 0j)
-        dst[g * (group + c) + jm + np.arange(r)[:, None] * ns] = np.fft.fft(v, axis=0)
+        dst = np.full(v.shape[:-2] + (size + size // group * c,), np.nan + 0j, dtype=v.dtype)
+        dst[..., g * (group + c) + jm + np.arange(r)[:, None] * ns] = np.fft.fft(v, axis=-2)
         src, in_group, in_pad, ns = dst, group, c, group
-    assert off == table.shape[0] and src.shape[0] == size   # the last pass is unpadded
-    k = np.arange(size // 2 + 1)
-    a, b = src[k], np.conj(src[(size - k) % size])
+    assert src.shape[-1] == size   # the last pass is unpadded
+    return src, off
+
+
+def replay_fft_plan(n_fft, frames, bluestein=False, dtype=np.complex128):
+    """Kernel B-fft's mixed-radix transform in numpy, in the kernel's order
+    and layout (framed_fft.cu:framed_fft_mixed_kernel), in `dtype`: the
+    Stockham passes of the plan through two padded buffers with the plan's
+    twiddle table (`bluestein`: the chirp-z transform of
+    `kernels.dft._bluestein_plan`, the chirp on the first pass's points, the
+    filter spectrum and conj on the second FFT's, w_k conj(.) on its
+    output), then the split (even n_fft, one frame per FFT) or the
+    separation (odd, two frames); returns the onesided spectra of the
+    (even count of) frames, (frames, bins)."""
+    plan = td._bluestein_plan(n_fft) if bluestein else td._fft_plan(n_fft)
+    size = plan.length
+    table = (plan.table[:, 0] + 1j * plan.table[:, 1]).astype(dtype)
+    frames = frames.astype(np.dtype(dtype).type(0).real.dtype)
+    post = 0 if n_fft % 2 else size // 2 + 1
     if n_fft % 2:
-        return [(a + b) / 2, (a - b) / 2j]
+        z = frames[0::2] + 1j * frames[1::2]
+    else:
+        z = frames[:, 0::2] + 1j * frames[:, 1::2]
+    z = z.astype(dtype)
+    if bluestein:
+        chirp, filt = table[post:post + size], table[post + size:post + size + plan.points]
+        off = post + size + plan.points
+        inside = np.minimum(np.arange(plan.points), size - 1)
+        chirped = np.where(np.arange(plan.points) < size, z[..., inside] * chirp[inside], 0)
+        a, end = replay_passes(plan, lambda t: chirped[..., t], table, off)
+        b, end2 = replay_passes(plan, lambda t: np.conj(a[..., t] * filt[t]), table, off)
+        assert end == end2
+        src = chirp * np.conj(b[..., :size])
+    else:
+        src, end = replay_passes(plan, lambda t: z[..., t], table, post)
+    assert end == table.shape[0]   # the tables are used up exactly
+    k = np.arange(size // 2 + 1)
+    a, b = src[..., k], np.conj(src[..., (size - k) % size])
+    if n_fft % 2:
+        return np.stack([(a + b) / 2, (a - b) / 2j], axis=1).reshape(-1, k.shape[0])
     w = table[k]
-    out = np.empty(size + 1, complex)
-    out[size - k] = np.conj((a + b) / 2 + 1j * w * (a - b) / 2)   # X[L-k] as the kernel forms it
-    out[k] = (a + b) / 2 - 1j * w * (a - b) / 2                   # X[k]
-    return [out]
+    out = np.empty(src.shape[:-1] + (size + 1,), dtype)
+    out[..., size - k] = np.conj((a + b) / 2 + 1j * w * (a - b) / 2)   # X[L-k], as the kernel
+    out[..., k] = (a + b) / 2 - 1j * w * (a - b) / 2                   # X[k]
+    return out
 
 
-@pytest.mark.parametrize("n_fft", SEVEN_SMOOTH)
+@pytest.mark.parametrize("n_fft", THIRTEEN_SMOOTH)
 def test_fft_plan_replays_to_numpy(n_fft, rng):
     """The host plan of kernel B-fft (radices, paddings, per-pass twiddle
     tables) replayed as the kernel indexes it gives np.fft's spectrum, for
-    every 7-smooth n_fft from 8 to 1024, even and odd, at 1e-12 of the
+    every 13-smooth n_fft from 8 to 1024, even and odd, at 1e-12 of the
     max; no slot of a padded buffer is read unwritten, and the tables are
     used up exactly."""
     frames = rng.normal(size=(2, n_fft))
-    got = replay_fft_plan(n_fft, frames)
-    for spectrum, frame in zip(got, frames):
-        want = np.fft.rfft(frame)
-        assert np.isfinite(spectrum).all()
-        np.testing.assert_allclose(spectrum, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    got, want = replay_fft_plan(n_fft, frames), np.fft.rfft(frames)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
     plan = td._fft_plan(n_fft)
+    assert plan.points == plan.length
     assert np.prod(plan.radices) == plan.length and plan.pads[-1] == 0
     assert all(0 <= c < 16 for c in plan.pads) and len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+
+
+@pytest.mark.parametrize("n_fft", BLUESTEIN)
+def test_bluestein_plan_replays_to_numpy(n_fft, rng):
+    """Bluestein's plan of kernel B-fft (the chirp, M, the chirp filter's
+    spectrum, the M-point passes, the product, the inverse as conj-FFT-conj
+    and the post-pass) replayed in f64 as the kernel indexes it gives
+    np.fft's spectrum at 1e-12 of the max, for every n_fft from 8 to 1024
+    with a prime factor above 13; M is the smallest 13-smooth length >= 2L
+    - 1 and fits the kernel's limits."""
+    frames = rng.normal(size=(2, n_fft))
+    got, want = replay_fft_plan(n_fft, frames, bluestein=True), np.fft.rfft(frames)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    plan = td._bluestein_plan(n_fft)
+    assert plan.length == (n_fft // 2 if n_fft % 2 == 0 else n_fft)
+    assert plan.points >= 2 * plan.length - 1 and np.prod(plan.radices) == plan.points
+    assert not any(cuda_dft._thirteen_smooth(m) for m in range(2 * plan.length - 1, plan.points))
+    assert plan.points <= (1024 if n_fft % 2 == 0 else 2048)
+    assert plan.pads[-1] == 0 and all(0 <= c < 16 for c in plan.pads)
+    assert len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+
+
+@pytest.mark.parametrize("n_fft", BLUESTEIN)
+def test_bluestein_plan_f32_accuracy(n_fft, rng):
+    """The same replay in f32 (complex64 throughout, the tables cast as the
+    kernel's are) on 32 seeded hann-windowed noise frames: each bin within
+    1e-4 of that bin's max over the frames against the f64 rfft of the same
+    f32 frames, the per-bin gate chip_smoke.py holds the kernel to."""
+    frames = (rng.normal(size=(32, n_fft)) * np.hanning(n_fft)).astype(np.float32)
+    got = replay_fft_plan(n_fft, frames, bluestein=True, dtype=np.complex64)
+    want = np.fft.rfft(frames.astype(np.float64))
+    assert got.dtype == np.complex64 and got.shape == want.shape
+    err, scale = np.abs(got - want).max(axis=0), np.abs(want).max(axis=0)
+    assert (err <= 1e-4 * scale).all(), float((err / scale).max())
 
 
 @pytest.mark.parametrize("num_taps,frame,n_fft,onesided", [
@@ -223,6 +289,68 @@ def test_a_weight_layout_round_trips(num_taps, frame, n_fft, onesided, rng):
     if packed:
         assert not w[:, bins].any()
         assert w[:, -1].abs().max() <= 2.0 ** -24 * w[:, bins - 1].abs().max()
+
+
+@pytest.mark.parametrize("num_taps,frame,n_fft,onesided", [
+    (255, 512, 512, True),    # the bench chain: 257 bins packed into 256 slots, 4 tiles
+    (100, 400, 600, True),    # 301 bins packed into 300 slots
+    (4, 441, 441, True),      # odd n_fft, no Nyquist bin: not packed
+    (1, 64, 64, False),       # the full spectrum: not packed
+])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tc_weight_layout_round_trips(num_taps, frame, n_fft, onesided, passes, rng):
+    """Kernel A-tc's laid-out weights (`_tc_weights`, `_tc_columns`) undone
+    in numpy give back the unpacked [Re | Im] weights: W_hi = tf32(W) alone
+    at one pass ('default'), W_hi then W_lo = tf32(W - W_hi) per stage at
+    three ('high'), every column once but for the two packing drops (the DC
+    bin's Im, exactly zero, and the Nyquist bin's Im, below f32 resolution
+    of its Re), zeros elsewhere; 256 slots (4 tiles, not 5) for the bench
+    chain's 257 bins."""
+    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided)
+    krows, bins = w.shape[0], w.shape[1] // 2
+    laid, packed = cuda_dft._tc_weights(w, bins, passes)
+    assert packed == (onesided and n_fft % 2 == 0)
+    cols = cuda_dft._tc_columns(bins, packed)
+    tiles, krows_pad = cols.shape[0], -(-krows // cuda_dft._TC_CHUNK) * cuda_dft._TC_CHUNK
+    if n_fft == 512:
+        assert tiles == 4
+    rows = cuda_dft._TC_CHUNK // (1 if passes == 1 else 2)
+    assert laid.shape == (tiles, krows_pad // rows, rows * 128 * (1 if passes == 1 else 2))
+    assert laid.shape[-1] * 4 == 16384   # one stage of the kernel's ring
+    # undo the stage image: (stage, part, step, half, group, col, kk) -> (k, n)
+    img = laid.numpy().reshape(tiles, krows_pad // rows, -1 if passes == 1 else 2,
+                               rows // 8, 2, 16, 8, 4)
+    parts = img.transpose(0, 2, 1, 3, 4, 7, 5, 6).reshape(tiles, -1, krows_pad, 128)
+    hi, lo = td._tf32_split(w)
+    used = cols >= 0
+    for p, want in enumerate([hi] if passes == 1 else [hi, lo]):
+        got = parts[:, p]
+        assert not got[:, krows:].any() and not got[~used[:, None, :].repeat(krows_pad, 1)].any()
+        back = np.zeros((krows, 2 * bins), np.float32)
+        back[:, cols[used]] = got[:, :krows].transpose(1, 0, 2)[:, used]
+        dropped = {bins, 2 * bins - 1} if packed else set()
+        keep = sorted(set(range(2 * bins)) - dropped)
+        assert sorted(cols[used].tolist()) == keep
+        assert_bitwise(back[:, keep], want.numpy()[:, keep])
+
+
+@pytest.mark.parametrize("pos", [500, 3 * 16 + 1])
+def test_fir_framed_dft_power_nan_bins_match_jax(pos, rng):
+    """One inf sample: the JAX package's fir_framed_dft(output='power')
+    and the port's plain version give NaN at the same bins (the DC bin of
+    every frame whose window holds it: x @ W meets the zero DC Im column)
+    and inf at the same bins; the finite bins agree at 1e-4 x max."""
+    x = rng.normal(size=(2, 6000)).astype(np.float32)
+    x[0, pos] = np.inf
+    taps, window = rng.normal(size=31), hann_np(64)
+    kw = dict(stride=16, n_fft=64, onesided=True, output="power")
+    want = np.asarray(jd.fir_framed_dft(jnp.asarray(x), taps, window, **kw))
+    got = td.fir_framed_dft(torch.from_numpy(x), taps, window, **kw).numpy()
+    assert np.isnan(want).any() and np.isnan(want[..., 0]).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    finite = np.isfinite(want)
+    assert_close_to_max(np.where(finite, got, 0.0), np.where(finite, want, 0.0))
 
 
 @pytest.mark.parametrize("n_fft", [8, 512, 1024])

@@ -142,17 +142,24 @@ def test_tf32_passes_rejects_other_precisions():
 
 
 def test_tc_weight_layout(rng):
-    """Kernel A-tc's weights: per tile of 64 bins, rows padded to the chunk,
-    Re then Im columns of the tile's bins, each a (hi, lo) TF32 pair that
-    adds back to the f32 weight within 2^-22."""
+    """Kernel A-tc's weights at 'high' (`_tc_weights` with 3 passes; random
+    weights, so not packed): per tile of 64 bins, rows padded to the chunk,
+    Re then Im columns of the tile's bins, W_hi and W_lo of each stage's
+    rows laid out as wgmma's K-major core matrices; undone, each (hi, lo)
+    TF32 pair adds back to the f32 weight within 2^-22."""
     krows, bins = 130, 129
     w = torch.from_numpy(rng.normal(size=(krows, 2 * bins)).astype(np.float32))
-    t = cuda_dft._tc_weights(w, bins)
+    laid, packed = cuda_dft._tc_weights(w, bins, 3)
+    assert not packed and laid.is_contiguous()
     tiles = -(-bins // cuda_dft._TC_TILE_BINS)
     krows_pad = -(-krows // cuda_dft._TC_CHUNK) * cuda_dft._TC_CHUNK
-    assert t.shape == (tiles, krows_pad, 2 * cuda_dft._TC_TILE_BINS, 2) and t.is_contiguous()
-    assert not bool(t[:, krows:].any())
-    pair = t[..., 0].double() + t[..., 1].double()
+    rows = cuda_dft._TC_CHUNK // 2   # per stage: W_hi then W_lo of these rows
+    assert laid.shape == (tiles, krows_pad // rows, 2 * rows * 2 * cuda_dft._TC_TILE_BINS)
+    # (tile, stage, part, step, half, group, col, kk) -> (tile, part, k, n)
+    t = laid.reshape(tiles, krows_pad // rows, 2, rows // 8, 2, 16, 8, 4).permute(
+        0, 2, 1, 3, 4, 7, 5, 6).reshape(tiles, 2, krows_pad, 2 * cuda_dft._TC_TILE_BINS)
+    assert not bool(t[:, :, krows:].any())
+    pair = t[:, 0].double() + t[:, 1].double()
     for b in range(bins):
         tile, col = divmod(b, cuda_dft._TC_TILE_BINS)
         for part in (0, 1):
@@ -160,5 +167,5 @@ def test_tc_weight_layout(rng):
             want = w[:, part * bins + b].double()
             assert bool(((got - want).abs() <= 2.0 ** -22 * want.abs()).all())
     last = bins - (tiles - 1) * cuda_dft._TC_TILE_BINS
-    assert not bool(t[-1, :, last:cuda_dft._TC_TILE_BINS].any())
-    assert not bool(t[-1, :, cuda_dft._TC_TILE_BINS + last:].any())
+    assert not bool(t[-1, :, :, last:cuda_dft._TC_TILE_BINS].any())
+    assert not bool(t[-1, :, :, cuda_dft._TC_TILE_BINS + last:].any())
