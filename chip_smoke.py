@@ -10,8 +10,9 @@ Phases (any failure raises, and the exit code is not 0):
   0. the card's name and power limit (nvidia-smi); no CUDA device is a failure.
   1. build the kernels of nx_signal_tpu_torch/kernels/csrc with nvcc (sm_90a),
      one nvcc process per source, all at once; ptxas's report: every kernel
-     compiled without spills, the most registers a kernel uses, and any
-     ptxas performance warning (C75xx, e.g. serialised wgmma) printed.
+     compiled without spills, the most registers a kernel uses, any ptxas
+     performance warning (C75xx, e.g. serialised wgmma), and the registers
+     of each kernel's instantiations (their template arguments) printed.
   2. each kernel against its plain version on the same device tensors,
      each bin within 1e-4 x that bin's max|plain| (a per-bin gate, so the
      low-pass chain's small stopband bins are held as tightly as its
@@ -44,8 +45,10 @@ Phases (any failure raises, and the exit code is not 0):
      of the JAX package's shared-kernel tests (Blackman with 63 taps on a
      (3, 2) batch, Hamming with hop 256 and no taps, n_fft 1024 with 129
      taps) and on a length that is not a multiple of the hop with even
-     taps, a hop of 50, and a hop of 1000 (whose window needs the 16-block
-     tile), with random taps as those tests use.
+     taps, a hop of 50, a hop of 1000 (whose window needs the 16-block
+     tile), n_fft 374 at hop 34 (188 bins: the last 96-column tile ends on
+     its edge) and Blackman at n_fft 1024, with random taps as those tests
+     use.
   3. the fused chain, models.pipeline.stft_fir_chain(return_filtered=False,
      precision='high') on 768 x 480000 (kernel A-tc), then the same chain
      as the module StftFirChain, exact f32 (kernel A), each held on two
@@ -91,7 +94,12 @@ Phases (any failure raises, and the exit code is not 0):
      (the FIR as an FFT overlap-save convolution, a real FFT per frame, 2.5
      n log2 n each) over the 67 TFLOP/s f32 peak and its bytes (inputs read
      once, outputs written once) over 3.35 TB/s (H100 SXM, NVIDIA's data
-     sheet); A-tc's own route at the 495 TFLOP/s TF32 peak is printed beside.
+     sheet); A-tc's own route at the 495 TFLOP/s TF32 peak is printed beside,
+     and D's (stage A, each hop block's partial DFT once) at the f32 peak,
+     with the CTAs of D an SM holds at the bench chain (the occupancy
+     calculator; fewer than 2 fails) and the shared path's set-up per call
+     on the host clock (the f64 fold and twiddle table copied to the card,
+     then D's layout of both).
   8. the sharded layer: 4 ranks, each a fresh interpreter running this
      script with --phase8-rank (subprocess; never fork, which CUDA forbids),
      in one gloo group (FileStore in a temporary directory), on cuda:(rank %
@@ -129,13 +137,15 @@ A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
 `bound_by_600` and `max_abs_err_600` at 600 beside, and the same keys
-with `_572`, `_1021` and `_1018` (no plain time at 1018); B's at its
-`n_fft` 1031; E's `ms`, `plain_ms` and `library_ms` are
-host-clock exchanges of all ranks at once, and its bound counts the bytes
+with `_572`, `_1021` and `_1018`; B's at its `n_fft` 1031; D's with the
+shared path's set-up, `fold_ms` and `layout_ms`; E's `ms`,
+`plain_ms` and `library_ms` are host-clock exchanges of all ranks at
+once, and its bound counts the bytes
 of all the ranks sharing the card); the last is the device line {"ok":
 true, "device": {...}}.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -168,6 +178,26 @@ def _ptxas_summary(log):
                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
     warnings = [ln.strip() for ln in log.splitlines() if re.search(r"\(C75\d\d\)", ln)]
     return log.count("Compiling entry function"), max(regs, default=0), spills, warnings
+
+
+def _ptxas_registers(log):
+    """{kernel: [(template arguments, registers), ...]} of every entry
+    function in the ptxas -v report, named as its mangled name spells it."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            continue
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            kernel = re.search(r"([a-z_]+_kernel)(I(?:L[a-z]\d+E)+E)?", name)
+            args = ",".join(re.findall(r"L[a-z](\d+)E", kernel.group(2) or ""))
+            found.setdefault(kernel.group(1), []).append((args, int(used.group(1))))
+            name = None
+    return found
 
 
 def _max_err(a, b) -> float:
@@ -613,6 +643,9 @@ def main() -> int:
           f"spills, {len(warnings)} performance warnings", flush=True)
     for line in warnings:
         print(f"  {line}", flush=True)
+    for kernel, uses in sorted(_ptxas_registers(ptxas_log_path().read_text()).items()):
+        print(f"  registers of {kernel}: " + ", ".join(
+            f"<{args}> {n}" if args else str(n) for args, n in uses), flush=True)
     if spills or not kernels_built:
         raise AssertionError(f"ptxas reports {spills} bytes of spills")
 
@@ -824,6 +857,8 @@ def main() -> int:
         ((2,), 48037, 100, 128, 512, "hann"),
         ((1,), 30001, 32, 50, 400, "blackman"),
         ((1,), 50001, 64, 1000, 2000, "hann"),   # the 16-block tile
+        ((1,), 20000, 17, 34, 374, "hann"),      # 188 bins: the last tile ends on its edge
+        ((2,), 20000, 129, 128, 1024, "blackman"),  # 2 neighbour bins, J = 8
     ]
     for batch, n, k, hp, nf, wname in shared_ragged:
         xr = torch.randn((*batch, n), generator=gen, device=dev)
@@ -1091,16 +1126,15 @@ def main() -> int:
     mixed_window = F.pad(stft_window, (0, n_mixed - frame))
     args_mixed = dict(stride=hop, num_frames=num_frames, bins=bins_mixed)
 
-    def fft_case(nf, plain_too):
+    def fft_case(nf):
         """B-fft at n_fft nf on the phase-2 shape: (bound, [(label, fn)])."""
         nb = nf // 2 + 1
         win_nf = F.pad(stft_window, (0, nf - frame))
-        fns = [("kernel", lambda: B_fft(x64, window, stride=hop, n_fft=nf, onesided=True))]
-        if plain_too:
-            w_nf = torch.as_tensor(_dft_weights(window, frame, nf, True, np.float32), device=dev)
-            fns.append(("plain", lambda: torch.complex(*_framed_matmul_torch(
-                x64, w_nf, stride=hop, pad_left=0, num_frames=num_frames, bins=nb,
-                power=False).split(nb, dim=-1))))
+        w_nf = torch.as_tensor(_dft_weights(window, frame, nf, True, np.float32), device=dev)
+        fns = [("kernel", lambda: B_fft(x64, window, stride=hop, n_fft=nf, onesided=True)),
+               ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                   x64, w_nf, stride=hop, pad_left=0, num_frames=num_frames, bins=nb,
+                   power=False).split(nb, dim=-1)))]
         fns.append(("library", lambda: torch.stft(x64, nf, hop_length=hop, window=win_nf,
                                                   center=False, onesided=True,
                                                   return_complex=True)))
@@ -1141,9 +1175,9 @@ def main() -> int:
                 x64, w_mixed, pad_left=0, power=False, **args_mixed).split(bins_mixed, dim=-1))),
             ("library", lambda: torch.stft(x64, n_mixed, hop_length=hop, window=mixed_window,
                                            center=False, onesided=True, return_complex=True))]),
-        ("B-fft 572", 64 * length, *fft_case(572, True)),    # radices 2, 13, 11
-        ("B-fft 1021", 64 * length, *fft_case(1021, True)),  # Bluestein, M = 2048
-        ("B-fft 1018", 64 * length, *fft_case(1018, False)),  # Bluestein, M = 1024
+        ("B-fft 572", 64 * length, *fft_case(572)),    # radices 2, 13, 11
+        ("B-fft 1021", 64 * length, *fft_case(1021)),  # Bluestein, M = 2048
+        ("B-fft 1018", 64 * length, *fft_case(1018)),  # Bluestein, M = 1024
         ("B", 64 * length,
          _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_dense, 0),
                 4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_dense), [
@@ -1182,6 +1216,46 @@ def main() -> int:
     tc_flops = 2.0 * channels * num_frames * rows_a * 2 * bins
     print(f"  A-tc's route at the TF32 peak: 'high' {3 * tc_flops / 495e9:.3f} ms, "
           f"'default' {tc_flops / 495e9:.3f} ms", flush=True)
+    # D's own floor: stage A (each hop block's partial DFT once) at the f32
+    # peak; the CTAs an SM holds at this geometry (the occupancy calculator)
+    rows_d, j_d = w_shared.shape[0], n_fft // hop
+    d_route_ms = (2.0 * channels * (num_frames + j_d - 1) * rows_d * 2 * bins
+                  / _PEAK_F32_FLOPS * 1e3)
+    ctas = ctypes.c_int64(0)
+    cuda_dft._check(load_library(), load_library().nx_shared_dft_ctas_per_sm(
+        hop, -(-rows_d // cuda_dft._D_SUM_ROWS) * cuda_dft._D_SUM_ROWS, j_d,
+        ctypes.byref(ctas)), "shared_dft occupancy query")
+    print(f"  D's route (stage A) at the f32 peak: {d_route_ms:.3f} ms; D holds "
+          f"{ctas.value} CTAs per SM at this geometry", flush=True)
+    if ctas.value < 2:
+        raise AssertionError(f"kernel D holds {ctas.value} CTAs per SM at the bench chain, "
+                             "not 2")
+
+    # the shared path's set-up on its own (host clock, synchronised): the
+    # host fold of the weights and the twiddle table (numpy f64, copied to
+    # the card), then kernel D's layout of both (two gathers on the card)
+    def shared_fold():
+        out["fold"] = (shared_fold_weights(taps, hop, n_fft, device=dev),
+                       shared_twiddles(hop, n_fft, device=dev))
+        torch.cuda.synchronize()
+
+    def shared_layout():
+        cuda_dft._d_weights(out["fold"][0], bins, len(coeffs) - 1)
+        cuda_dft._d_twiddles(out["fold"][1], bins, len(coeffs) - 1)
+        torch.cuda.synchronize()
+
+    setup_ms = {}
+    for name, fn in (("fold", shared_fold), ("layout", shared_layout)):
+        fn()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        setup_ms[name] = sorted(times)[2]
+    out.pop("fold")
+    print(f"  the shared path's set-up per call (host clock): fold + twiddles "
+          f"{setup_ms['fold']:.3f} ms, D's layout {setup_ms['layout']:.3f} ms", flush=True)
     del xp, blocks, fold_in
 
     # where the filtered chain's time goes: the direct FIR, then kernel B-fft
@@ -1261,12 +1335,13 @@ def main() -> int:
                       bound_by_600=b600["bound_by"], max_abs_err_600=err_bfft_600)
     for nf in (572, 1021, 1018):   # B-fft's radix-13/11 and Bluestein lengths
         t_nf = timings[f"B-fft {nf}"]
-        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"library_ms_{nf}": t_nf["library"],
+        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"plain_ms_{nf}": t_nf["plain"],
+                           f"library_ms_{nf}": t_nf["library"],
                            f"bound_ms_{nf}": t_nf["bound_ms"], f"bound_by_{nf}": t_nf["bound_by"],
                            f"max_abs_err_{nf}": err_bfft_more[nf]})
-        if "plain" in t_nf:
-            entries[2][f"plain_ms_{nf}"] = t_nf["plain"]
     entries[3].update(n_fft=n_dense)
+    # D: the shared path's set-up per call
+    entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])
     entries[-1]["device_ms"] = e_device_ms
 
     # every process this run started has ended: stop any that has not, and fail

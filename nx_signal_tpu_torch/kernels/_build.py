@@ -47,9 +47,12 @@ _SIGNATURES = {
     # frames, init (or null), out, channels, num_frames, frame_length,
     # stride, out_length, stream (all on the current device)
     "nx_overlap_add_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, e, tw, wc, out, channels, length, stride, krows, pad_left,
-    # num_frames, bins, j_taps, ncoef, stream (all on the current device)
+    # x, laid-out weights, laid-out twiddles, wc, out, channels, length,
+    # stride, krows_pad, pad_left, num_frames, bins, j_taps, ncoef, stream
+    # (all on the current device)
     "nx_shared_dft_power_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # stride, krows_pad, j_taps, address of the int64 CTAs per SM it sets
+    "nx_shared_dft_ctas_per_sm": (_I, _I, _I, _P),
     # halo.cu (kernel E and its peer buffers), on the current device:
     # bytes, address of the pointer it sets
     "nx_halo_alloc": (_I, _P),

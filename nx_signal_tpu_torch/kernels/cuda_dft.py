@@ -53,9 +53,13 @@ __all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_
            "fft_kernel_takes"]
 
 # Kernel D's limits: window coefficients (so at most 7 neighbour bins each
-# side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks)
+# side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks);
+# its weight layout: bin columns per tile, and the rows of its chunk sums,
+# the row multiple of its weights (shared_dft.cu)
 _SHARED_MAX_COEFFS = 8
 _SHARED_MAX_BLOCKS = 64
+_D_SLOTS = 96
+_D_SUM_ROWS = 32
 # Kernel B-fft's n_fft range and most passes of a plan, and kernels A's and
 # A-tc's weight layouts: bins per tile and the row multiple of their weight
 # chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
@@ -94,7 +98,7 @@ def _a_columns(bins: int, packed: bool):
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import _a_columns
     >>> cols = _a_columns(257, packed=True)
-    >>> cols.shape, cols[0, :5].tolist(), cols[0, 32], cols[3, 127]
+    >>> cols.shape, cols[0, :5].tolist(), int(cols[0, 32]), int(cols[3, 127])
     ((4, 128), [0, 8, 16, 24, 1], 256, 512)
     """
     slots = bins - 1 if packed else bins
@@ -215,8 +219,8 @@ def _tc_columns(bins: int, packed: bool):
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import _tc_columns
     >>> cols = _tc_columns(257, packed=True)
-    >>> cols.shape, cols[0, :3].tolist(), cols[0, 64], cols[0, 65], cols[3, 127]
-    ((4, 128), [0, 1, 2], 256, 258, 512)
+    >>> cols.shape, cols[0, :3].tolist(), [int(c) for c in cols[0, 64:66]], int(cols[3, 127])
+    ((4, 128), [0, 1, 2], [256, 258], 512)
     """
     slots = bins - 1 if packed else bins
     tiles = -(-slots // _TC_TILE_BINS)
@@ -472,6 +476,67 @@ def overlap_add_cuda(frames, *, stride: int, out_length: int, init=None):
 overlap_add_cuda.launches = 0
 
 
+def _d_columns(bins: int, halo: int):
+    """Kernel D's column layout (shared_dft.cu) for `bins` one-sided bins
+    and `halo` neighbour bins on each side: tile t gives the 96 - 2*halo
+    bins from t*(96 - 2*halo) on, and its column s (0..95) is bin position
+    kl = t*(96 - 2*halo) - halo + s, which reads bin kl, or its mirror
+    through DC (-kl) or Nyquist (2*(bins - 1) - kl) within `halo` of them.
+    Returns the (tiles, 192) indices into the columns of the (krows,
+    2*bins) [Re | Im] weights: column s's Re at wn*64 + bg*4 + j and its Im
+    32 further, where s = wn*32 + bg + 8j (wn in 0..2, bg in 0..7, j in
+    0..3), -1 (a zero column) past the mirror range.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import _d_columns
+    >>> cols = _d_columns(257, 1)
+    >>> cols.shape, cols[0, :5].tolist(), int(cols[0, 32]), int((cols[2] < 0).sum())
+    ((3, 192), [1, 7, 15, 23, 0], 258, 50)
+    """
+    tile_k = _D_SLOTS - 2 * halo
+    tiles = -(-bins // tile_k)
+    t, s = np.meshgrid(np.arange(tiles), np.arange(_D_SLOTS), indexing="ij")
+    kl = t * tile_k - halo + s
+    kp = np.where(kl < 0, -kl, np.where(kl > bins - 1, 2 * (bins - 1) - kl, kl))
+    kp[kl > bins - 1 + halo] = -1
+    pos = (s // 32) * 64 + (s % 8) * 4 + (s // 8) % 4
+    cols = np.full((tiles, 2 * _D_SLOTS), -1)
+    cols[t, pos] = kp
+    cols[t, pos + 32] = np.where(kp >= 0, bins + kp, -1)
+    return cols
+
+
+@functools.cache
+def _d_index(bins: int, halo: int, device):
+    """`_d_columns` as an index tensor on `device`, copied there once per
+    (bins, halo, device)."""
+    return torch.as_tensor(_d_columns(bins, halo), device=device)
+
+
+def _d_weights(weights, bins: int, halo: int):
+    """Kernel D's weights: the (krows, 2*bins) [Re | Im] f32 partial-DFT
+    weights in the columns of `_d_columns`, as (tiles, krows_pad, 192),
+    zero rows up to a multiple of `_D_SUM_ROWS`; one gather on the
+    weights' device (no sync once `_d_index` holds the geometry)."""
+    cols = _d_index(bins, halo, weights.device)
+    w = torch.nn.functional.pad(weights.to(DEFAULT_FLOAT),
+                                (0, 1, 0, -weights.shape[0] % _D_SUM_ROWS))  # column -1: zeros
+    return w[:, cols].permute(1, 0, 2).contiguous()
+
+
+def _d_twiddles(twiddles, bins: int, halo: int):
+    """Kernel D's twiddles: the (2, J, bins) f32 cos and sin table of
+    `kernels.dft.shared_twiddles` as the (J, 2*bins) [cos | sin] rows, laid
+    out by the weights' columns (`_d_columns`: a column's cos where its Re
+    weights sit, its sin where its Im weights sit, zeros past the mirror
+    range), as (tiles, J, 192); one gather on the table's device."""
+    cols = _d_index(bins, halo, twiddles.device)
+    t = torch.nn.functional.pad(torch.cat([twiddles[0], twiddles[1]], dim=-1)
+                                .to(DEFAULT_FLOAT), (0, 1))   # column -1: zeros
+    return t[:, cols].permute(1, 0, 2).contiguous()
+
+
 def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, stride: int,
                                      pad_left: int, num_frames: int, bins: int):
     """Kernel D: the one-sided power spectrum of the FIR-filtered, framed,
@@ -486,7 +551,9 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
     Runs exact f32 whatever precision the caller asked for. On a CPU
     tensor it returns the plain version (a conv1d with f64 sums, then the
     combine and the spectral window as torch ops). On a CUDA tensor it
-    needs at most 8 coefficients, fewer than bins - 1, and J <= 64."""
+    needs at most 8 coefficients, fewer than bins - 1, and J <= 64; the
+    weights and twiddles are laid out per tile of 96 bin columns by
+    `_d_weights` and `_d_twiddles` (two gathers on the card)."""
     x = as_signal(x)
     coeffs = tuple(float(b) for b in window_coeffs)
     if not _on_card(x):
@@ -511,8 +578,8 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
                          f"shape={tuple(x.shape)}")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
-    w = weights.to(DEFAULT_FLOAT).contiguous()
-    tw = twiddles.to(DEFAULT_FLOAT).contiguous()
+    w = _d_weights(weights, bins, len(coeffs) - 1)
+    tw = _d_twiddles(twiddles, bins, len(coeffs) - 1)
     # the kernel's epilogue multiplies by b_0, then b_c / 2 (rounded to f32
     # as the plain version's python-float scalars are)
     wc = torch.tensor([coeffs[0]] + [b / 2.0 for b in coeffs[1:]], dtype=DEFAULT_FLOAT,
@@ -522,7 +589,7 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
     with torch.cuda.device(x.device):
         err = lib.nx_shared_dft_power_f32(
             xf.data_ptr(), w.data_ptr(), tw.data_ptr(), wc.data_ptr(), out.data_ptr(),
-            xf.shape[0], length, stride, w.shape[0], pad_left, num_frames, bins, j_taps,
+            xf.shape[0], length, stride, w.shape[1], pad_left, num_frames, bins, j_taps,
             len(coeffs), torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "shared_dft kernel")
     fir_framed_dft_power_shared_cuda.launches += 1

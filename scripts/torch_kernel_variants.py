@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Design probe of two hand-written kernels of the PyTorch/CUDA port on one
-NVIDIA GPU: the choices that `kernels/csrc/framed_dft.cu` (kernel A) and
-`kernels/csrc/framed_fft.cu` (kernel B-fft) fix, timed against the
+"""Design probe of four hand-written kernels of the PyTorch/CUDA port on one
+NVIDIA GPU: the choices that `kernels/csrc/framed_dft.cu` (kernel A),
+`kernels/csrc/framed_dft_tc.cu` (A-tc), `kernels/csrc/shared_dft.cu` (D)
+and `kernels/csrc/framed_fft.cu` (B-fft) fix, timed against the
 alternatives in one run, on one card.
 
     python3 scripts/torch_kernel_variants.py     # from the repository root
@@ -22,6 +23,17 @@ alternatives in one run, on one card.
    each checked bitwise against the other (the same products in the same
    order per accumulator) and timed at the bench chain at 'high' and
    'default', in turns, two rounds.
+4. Kernel D's tile and ring (`kernels/csrc/shared_dft.cu`): the source
+   compiled again with its `NX_D_*` macros set to other warps along the
+   blocks, blocks per CTA, rows per ring stage, stages and CTAs per SM of
+   its launch bounds (hence registers per thread), each checked bitwise against
+   the built kernel (every P element sums the same 32-row chunks in the
+   same order whatever the tile or ring); two cuts timed only (chunk sums
+   of 128 rows; stage A alone, stages B and C cut); kernel A at 'highest'
+   on the same chain. All at the bench chain (768 x 480000, 255 taps, hann
+   512, hop 128, n_fft 512), medians of 7 CUDA-event timings, in turns, two
+   rounds; then the SM clock, power draw and temperature (nvidia-smi)
+   during 3 s of back-to-back calls of D and of A.
 
 Prints the card's name and power limit first. Imports nothing of JAX.
 """
@@ -31,6 +43,8 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 sys.path.insert(0, os.getcwd())
 
@@ -42,11 +56,27 @@ from nx_signal_tpu_torch.kernels import cuda_dft  # noqa: E402
 from nx_signal_tpu_torch.kernels.cuda_dft import _pack_plan  # noqa: E402
 from nx_signal_tpu_torch.kernels._build import _CSRC, _NVCC_FLAGS, _nvcc, load_library  # noqa: E402
 from nx_signal_tpu_torch.kernels.dft import (  # noqa: E402
-    _fft_plan, _fft_twiddles, fir_dft_fold_weights)
+    _fft_plan, _fft_twiddles, fir_dft_fold_weights, shared_fold_weights, shared_twiddles)
 from nx_signal_tpu_torch.ops.filters import firwin  # noqa: E402
 from nx_signal_tpu_torch.ops.windows import hann  # noqa: E402
 
 _RING_VARIANTS = ((16, 3), (16, 2), (8, 4))   # (rows per chunk, stages) beside the built one
+# kernel D beside its built (64 blocks per CTA on 12 warps, 4 blocks x 4
+# columns per lane, a ring of 16 rows x 2 stages, 2 CTAs per SM): the
+# macros of shared_dft.cu each variant sets
+_D_VARIANTS = {
+    "6 warps, 8 blocks x 4 columns per lane": {"NX_D_WARPS_M": 2},
+    "32 blocks per CTA on 6 warps, 3 CTAs/SM": {"NX_D_WARPS_M": 2, "NX_D_BLOCKS": 32,
+                                                "NX_D_MIN_CTAS": 3},
+    "8 rows x 4 stages": {"NX_D_CHUNK": 8, "NX_D_STAGES": 4},
+    "32 rows x 2 stages, 1 CTA/SM": {"NX_D_CHUNK": 32, "NX_D_MIN_CTAS": 1},
+}
+# and two cuts that only time a part of it (their results differ): chunk
+# sums of 128 rows (a quarter of the flushes into P), and stage A alone
+_D_PROBES = {
+    "chunk sums of 128 rows (timing only)": {"NX_D_SUM_ROWS": 128},
+    "stage A alone (timing only)": {"NX_D_STAGE_A_ONLY": 1},
+}
 
 
 def _median_ms(fn, n=7):
@@ -157,6 +187,96 @@ def _tc_groups(dev, gen, tmp):
                 f"{name} {_median_ms(run):.3f} ms" for name, run in runs.items()), flush=True)
 
 
+def _shared_variant(tmp, defines):
+    """shared_dft.cu built with the macros of `defines` into its own
+    library."""
+    tag = "_".join(f"{k[5:].lower()}{v}" for k, v in defines.items())
+    lib = os.path.join(tmp, f"d_{tag}.so")
+    build = subprocess.run([_nvcc(), *_NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines.items()),
+                            "-shared", "-o", lib, str(_CSRC / "shared_dft.cu")], check=True,
+                           capture_output=True, text=True)
+    uses = chip_smoke._ptxas_registers(build.stdout + build.stderr)["shared_dft_power_kernel"]
+    print(f"kernel D {defines}: registers " + ", ".join(f"<{a}> {n}" for a, n in uses),
+          flush=True)
+    variant = ctypes.CDLL(lib)
+    variant.nx_shared_dft_power_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9 + [
+        ctypes.c_void_p]
+    variant.nx_shared_dft_power_f32.restype = ctypes.c_int
+    return variant
+
+
+def _shared_tiles(dev, gen, tmp):
+    x = torch.randn((768, 480000), generator=gen, device=dev)
+    num_taps, hop, n_fft, bins = 255, 128, 512, 257
+    frames = (x.shape[-1] - n_fft) // hop + 1
+    pad_left = (num_taps - 1) - (num_taps - 1) // 2
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
+    coeffs = (0.5, -0.5)
+    w = shared_fold_weights(taps, hop, n_fft, device=dev)
+    tw = shared_twiddles(hop, n_fft, device=dev)
+    laid, laid_tw = cuda_dft._d_weights(w, bins, 1), cuda_dft._d_twiddles(tw, bins, 1)
+    wc = torch.tensor([0.5, -0.25], device=dev)
+    want = cuda_dft.fir_framed_dft_power_shared_cuda(x, w, tw, coeffs, stride=hop,
+                                                     pad_left=pad_left, num_frames=frames,
+                                                     bins=bins)
+    out = torch.empty_like(want)
+
+    def call(lib, name):
+        def run():
+            err = lib.nx_shared_dft_power_f32(
+                x.data_ptr(), laid.data_ptr(), laid_tw.data_ptr(), wc.data_ptr(),
+                out.data_ptr(), x.shape[0], x.shape[-1], hop, laid.shape[1], pad_left, frames,
+                bins, n_fft // hop, len(coeffs), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"shared_dft ({name}) failed ({err})")
+        return run
+
+    runs = {"built": call(load_library(), "built")}
+    for name, defines in _D_VARIANTS.items():
+        run = call(_shared_variant(tmp, defines), name)
+        run()
+        torch.cuda.synchronize()
+        print(f"kernel D, {name}: bitwise equal to the built kernel = "
+              f"{torch.equal(out, want)}", flush=True)
+        runs[name] = run
+    for name, defines in _D_PROBES.items():
+        runs[name] = call(_shared_variant(tmp, defines), name)
+    wa = fir_dft_fold_weights(taps, hann(n_fft, dtype=torch.float64).numpy(), n_fft, True,
+                              device=dev)
+    runs["kernel A 'highest' (same chain)"] = lambda: cuda_dft.fir_framed_dft_power_cuda(
+        x, wa, stride=hop, pad_left=pad_left, num_frames=frames, bins=bins)
+    for _ in range(2):
+        print("  kernel D at 768 x 480000: " + ", ".join(
+            f"{name} {_median_ms(run):.3f} ms" for name, run in runs.items()), flush=True)
+    for name in ("built", "kernel A 'highest' (same chain)"):
+        print(f"  {name} under a 3 s load: clocks.sm, power.draw, temperature = "
+              f"{_clock_under_load(runs[name])}", flush=True)
+
+
+def _clock_under_load(fn, seconds=3.0):
+    """nvidia-smi's SM clock, power draw and temperature, read three times
+    from the second second of `seconds` of back-to-back calls of fn."""
+    samples = []
+
+    def read():
+        time.sleep(1.0)
+        for _ in range(3):
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                 "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+            time.sleep(0.3)
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    reader.join()
+    return samples
+
+
 def _fft_kernels(dev, gen):
     lib = load_library()
 
@@ -209,6 +329,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _ring(dev, gen, tmp)
         _tc_groups(dev, gen, tmp)
+        _shared_tiles(dev, gen, tmp)
     _fft_kernels(dev, gen)
     return 0
 

@@ -294,12 +294,16 @@ def test_filtered_chain_runs_kernels_b_and_c_on_cuda(rng):
     ((1,), 4000, 1, 256, 512, "hamming"),
     ((2,), 20000, 129, 128, 1024, "hann"),
     ((1,), 50001, 64, 1000, 2000, "hann"),   # the 16-block tile
+    ((1,), 30001, 32, 50, 400, "blackman"),  # a hop that is not a multiple of 4
+    ((1,), 20000, 17, 34, 374, "hann"),      # 188 bins: the last tile ends on its edge
+    ((2,), 20000, 129, 128, 1024, "blackman"),  # 2 neighbour bins, J = 8
 ])
 def test_shared_kernel_matches_plain_on_cuda(geometry, rng):
     """Kernel D against its plain version, per bin at 1e-4 of the bin's
-    max, on the geometries of the JAX package's shared-kernel tests and a
-    hop of 1000 (the 16-block tile); and edge='conv' / edge='pad' both run
-    kernel A, with equal results."""
+    max, on the geometries of the JAX package's shared-kernel tests, a hop
+    of 1000 (the 16-block tile), a hop of 50 (x read as scalars), bins that
+    end on a tile's edge and Blackman at n_fft 1024; and edge='conv' /
+    edge='pad' both run kernel A, with equal results."""
     need_cuda()
     batch, length, k, stride, n_fft, wname = geometry
     x = rng.normal(size=(*batch, length)).astype(np.float32)
@@ -321,6 +325,29 @@ def test_shared_kernel_matches_plain_on_cuda(geometry, rng):
     conv = td.fir_framed_dft(xc, taps, window, edge="conv", **kw)
     assert torch.equal(conv, td.fir_framed_dft(xc, taps, window, edge="pad", **kw))
     assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_shared_kernel_nan_bins_match_plain_on_cuda(rng):
+    """Kernel D on a signal holding an inf, a NaN and a sample whose power
+    overflows f32 (the bench chain's 255 taps, hann 512, hop 128): the same
+    frames and bins come out NaN and inf as in the plain version, whose
+    sums meet them in the same products, and the finite bins agree per bin
+    at 1e-4 of the bin's max."""
+    need_cuda()
+    x = rng.normal(size=(2, 8000)).astype(np.float32)
+    x[0, 1000], x[0, 5000], x[1, 3000] = np.inf, 1e25, np.nan
+    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0).numpy()
+    kw = dict(taps=taps, stride=128, n_fft=512, window_coeffs=(0.5, -0.5), onesided=True,
+              output="power")
+    before = cuda_dft.fir_framed_dft_power_shared_cuda.launches
+    got = td.fir_framed_dft_shared(torch.from_numpy(x).cuda(), **kw).cpu()
+    assert cuda_dft.fir_framed_dft_power_shared_cuda.launches == before + 1
+    want = td.fir_framed_dft_shared(torch.from_numpy(x), **kw)
+    assert want.isnan().any() and want.isinf().any()
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    finite = torch.isfinite(want)
+    assert_close_per_bin(torch.where(finite, got, 0.0), torch.where(finite, want, 0.0))
 
 
 @pytest.mark.cuda

@@ -500,7 +500,8 @@ def test_good_matmul_fft_length(n_fft):
 @pytest.mark.parametrize("name", ["nx_framed_dft_f32", "nx_framed_fft_f32",
                                   "nx_framed_dft_tc_frames", "nx_framed_dft_tc_power_f32",
                                   "nx_overlap_add_f32",
-                                  "nx_shared_dft_power_f32", "nx_halo_alloc", "nx_halo_free",
+                                  "nx_shared_dft_power_f32", "nx_shared_dft_ctas_per_sm",
+                                  "nx_halo_alloc", "nx_halo_free",
                                   "nx_ipc_get_handle", "nx_ipc_open_handle",
                                   "nx_ipc_close_handle", "nx_stream_synchronize",
                                   "nx_halo_put", "nx_halo_assemble"])
