@@ -104,12 +104,12 @@ Phases (any failure raises, and the exit code is not 0):
      script with --phase8-rank (subprocess; never fork, which CUDA forbids),
      in one gloo group (FileStore in a temporary directory), on cuda:(rank %
      device_count), so with one card all four share it and kernel E's
-     stores go through CUDA IPC. The ranks load the library phase 1 built.
-     Kernel E against its plain version (send/recv + concat), bitwise, on
-     mesh (1, 4) for 768 x 120320 blocks (the bench FIR's 'direct' block
-     rounding of 480000 / 4) with hl = hr = 127, K = 256 (128, 127) and
-     K = 2 (1, 0); then, each path with the counters zeroed before it
-     (every sharded halo is kernel E):
+     stores and signals go through CUDA IPC. The ranks load the library
+     phase 1 built. Kernel E against its plain version (send/recv +
+     concat), bitwise, on mesh (1, 4) for 768 x 120320 blocks (the bench
+     FIR's 'direct' block rounding of 480000 / 4) with hl = hr = 127, K =
+     256 (128, 127) and K = 2 (1, 0); then, each path with the counters
+     zeroed before it (every sharded halo is kernel E):
      sharded_convolve_same with the bench FIR at 768 x 480000 on (1, 4)
      and 64 x 480000 on (2, 2), each rank's shard within 1e-5 of its max
      against the single-device convolve(mode='same'), E launched once per
@@ -121,11 +121,17 @@ Phases (any failure raises, and the exit code is not 0):
      sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
      interior within 1e-5 x
      max|x|, and the seeded sharded overlap-add bitwise equal to the
-     single-device fold. Last, at the bench geometry, the whole exchange
-     through kernel E with its barriers, the plain send/recv halo and the
-     bare send/recv (all ranks together, host clock; median of 5, the
-     largest rank reported), and E's put + assemble alone, rank by rank,
-     by CUDA events (`device_ms` in the kernels line). The parent waits
+     single-device fold. Then 16 calls of kernel E back to back on fresh
+     64 x 120320 blocks, pads (127, 127), (128, 127), (1, 0), (0, 4) in
+     turn, no host sync between them and rank 1's stream delayed (about 50
+     ms) before the first and the ninth, each result bitwise equal to the
+     plain version computed afterwards. Last, at the bench geometry (all
+     ranks together, host clock; median of 5, the largest rank reported):
+     one exchange through kernel E and a sync (`ms`), 16 back to back and
+     one sync, per call (`ms_back_to_back`), issuing one call without a
+     sync (`host_ms`), the plain send/recv halo and the bare send/recv; and
+     E's put, interior and edges alone, without the waits and signals,
+     rank by rank, by CUDA events (`device_ms`). The parent waits
      for every rank with a timeout; a rank that fails or hangs fails the
      run, and the ranks still running are killed. Ranks prefix their lines
      with their rank. Last of all, a process this script started that is
@@ -139,8 +145,9 @@ kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
 `bound_by_600` and `max_abs_err_600` at 600 beside, and the same keys
 with `_572`, `_1021` and `_1018`; B's at its `n_fft` 1031; D's with the
 shared path's set-up, `fold_ms` and `layout_ms`; E's `ms`,
-`plain_ms` and `library_ms` are host-clock exchanges of all ranks at
-once, and its bound counts the bytes
+`ms_back_to_back`, `host_ms`, `plain_ms` and `library_ms` are host-clock
+times of all ranks at once, `device_ms` its kernels alone, and its bound
+counts the bytes
 of all the ranks sharing the card); the last is the device line {"ok":
 true, "device": {...}}.
 """
@@ -540,6 +547,26 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
             ref)
     del z, y, frames, folded, mine, ref
 
+    if on_card:  # kernel E, 16 calls back to back with a delayed rank
+        rows, pads = small, [(127, 127), (128, 127), (1, 0), (0, 4)]
+        gen = torch.Generator(device=dev).manual_seed(200 + rank)
+        blocks = [torch.randn((rows, block), generator=gen, device=dev) for _ in range(16)]
+        sync()
+        dist.barrier()
+        got = []
+        for i, x_blk in enumerate(blocks):  # no host sync between the calls
+            if rank == 1 and i in (0, 8):
+                torch.cuda._sleep(100_000_000)  # about 50 ms of rank 1's stream
+            got.append(E(x_blk, *pads[i % len(pads)], mesh=mesh14))
+        sync()
+        for i, (x_blk, ext) in enumerate(zip(blocks, got)):
+            hl, hr = pads[i % len(pads)]
+            err = bitwise(f"E back to back, call {i}, {rows}x{block} hl={hl} hr={hr}, rank 1 "
+                          "delayed, vs send/recv + concat",
+                          ext, _halo_extend_torch(x_blk, hl, hr, mesh=mesh14))
+            report["e_max_abs_err"] = max(report["e_max_abs_err"], err)
+        del blocks, got
+
     if on_card:  # kernel E's times at the bench geometry
         hl = hr = (num_taps - 1) // 2
         gen = torch.Generator(device=dev).manual_seed(100 + rank)
@@ -552,11 +579,16 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
                                        channels * hr * 4, dev)
         ext = torch.empty((channels, hl + block + hr), device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        last = bi + 1 == len(row)
+        right_left = None if last else bufs.slot(bi + 1, "left", 0)
+        left_right = None if bi == 0 else bufs.slot(bi - 1, "right", 0)
+        recv_left = None if bi == 0 else bufs.slot(bi, "left", 0)
+        recv_right = None if last else bufs.slot(bi, "right", 0)
 
-        def device_part():
-            cuda_halo._put(lib, x_blk, bufs, hl, hr, stream)
-            cuda_halo._assemble(lib, x_blk, ext, bufs.recv_left, bufs.recv_right, hl, hr,
-                                stream)
+        def device_part():  # put, interior and edges without the waits and signals
+            cuda_halo._put(lib, x_blk, right_left, left_right, hl, hr, stream)
+            cuda_halo._interior(lib, x_blk, ext, hl, hr, bi == 0, last, stream)
+            cuda_halo._edges(lib, x_blk, ext, recv_left, recv_right, hl, hr, stream)
 
         sync()
         for turn in range(world):  # one rank at a time on the card
@@ -567,23 +599,34 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
                 report["e_kernel_ms"] = sorted(_time_ms(device_part) for _ in range(5))[2]
         dist.barrier()
 
-        def together(fn):
+        def together(fn, calls=1, wait=True):
+            """Median of 5 of `calls` runs of fn after a barrier, then a sync
+            (inside the time where `wait`), per run, host clock."""
             times = []
             for _ in range(5):
                 dist.barrier()
                 t0 = time.perf_counter()
-                fn()
+                for _ in range(calls):
+                    fn()
+                if wait:
+                    sync()
+                times.append((time.perf_counter() - t0) * 1e3 / calls)
                 sync()
-                times.append((time.perf_counter() - t0) * 1e3)
             return sorted(times)[2]
 
-        report["e_exchange_ms"] = together(lambda: E(x_blk, hl, hr, mesh=mesh14))
+        def exchange():
+            return E(x_blk, hl, hr, mesh=mesh14)
+
+        report["e_exchange_ms"] = together(exchange)
+        report["e_back_to_back_ms"] = together(exchange, calls=16)
+        report["e_host_ms"] = together(exchange, wait=False)
         report["e_plain_ms"] = together(lambda: _halo_extend_torch(x_blk, hl, hr, mesh=mesh14))
         report["e_library_ms"] = together(lambda: (_shift_from_left(x_blk[:, -hl:], mesh14),
                                                    _shift_from_right(x_blk[:, :hr], mesh14)))
-        say(f"E put + assemble {report['e_kernel_ms']:.3f} ms, exchange "
-            f"{report['e_exchange_ms']:.3f} ms, plain {report['e_plain_ms']:.3f} ms, "
-            f"send/recv {report['e_library_ms']:.3f} ms")
+        say(f"E put + interior + edges {report['e_kernel_ms']:.3f} ms, exchange "
+            f"{report['e_exchange_ms']:.3f} ms, back to back "
+            f"{report['e_back_to_back_ms']:.3f} ms, issue {report['e_host_ms']:.3f} ms, "
+            f"plain {report['e_plain_ms']:.3f} ms, send/recv {report['e_library_ms']:.3f} ms")
         cuda_halo.close_halo_buffers()
 
     reports = [None] * world
@@ -1289,20 +1332,22 @@ def main() -> int:
     # once; its bound: every rank reads its block once and writes its ext
     # once, all on the cards the ranks share
     geo = reports[0]["e_geometry"]
-    timings["E"] = dict(zip(("kernel", "plain", "library"),
+    timings["E"] = dict(zip(("kernel", "plain", "library", "back_to_back", "host"),
                             (max(r[key] for r in reports)
-                             for key in ("e_exchange_ms", "e_plain_ms", "e_library_ms"))))
+                             for key in ("e_exchange_ms", "e_plain_ms", "e_library_ms",
+                                         "e_back_to_back_ms", "e_host_ms"))))
     timings["E"].update(zip(("bound_ms", "bound_by"), _bound(
         0.0, 4.0 * geo["c"] * (2 * geo["n"] + geo["hl"] + geo["hr"]) * _PHASE8_RANKS
         / torch.cuda.device_count())))
     e_device_ms = max(r["e_kernel_ms"] for r in reports)
     err_e = max(r["e_max_abs_err"] for r in reports)
     e = timings["E"]
-    print(f"  E: the exchange with its barriers {e['kernel']:.3f} ms, plain send/recv + "
-          f"concat {e['plain']:.3f} ms, bare send/recv {e['library']:.3f} ms (largest "
-          f"rank, host clock, all ranks at once), bound {e['bound_ms']:.3f} ms "
-          f"({e['bound_by']}, {_PHASE8_RANKS} ranks); put + assemble alone "
-          f"{e_device_ms:.3f} ms (largest rank, CUDA events, one rank at a time)", flush=True)
+    print(f"  E: one exchange {e['kernel']:.3f} ms, 16 back to back {e['back_to_back']:.3f} "
+          f"ms each, issuing one {e['host']:.3f} ms, plain send/recv + concat "
+          f"{e['plain']:.3f} ms, bare send/recv {e['library']:.3f} ms (largest rank, host "
+          f"clock, all ranks at once), bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
+          f"{_PHASE8_RANKS} ranks); put + interior + edges alone {e_device_ms:.3f} ms "
+          f"(largest rank, CUDA events, one rank at a time)", flush=True)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
@@ -1342,7 +1387,8 @@ def main() -> int:
     entries[3].update(n_fft=n_dense)
     # D: the shared path's set-up per call
     entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])
-    entries[-1]["device_ms"] = e_device_ms
+    entries[-1].update(ms_back_to_back=e["back_to_back"], host_ms=e["host"],
+                       device_ms=e_device_ms)
 
     # every process this run started has ended: stop any that has not, and fail
     left = _live_children()

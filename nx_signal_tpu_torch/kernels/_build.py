@@ -53,11 +53,19 @@ _SIGNATURES = {
     "nx_shared_dft_power_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # stride, krows_pad, j_taps, address of the int64 CTAs per SM it sets
     "nx_shared_dft_ctas_per_sm": (_I, _I, _I, _P),
-    # halo.cu (kernel E and its peer buffers), on the current device:
-    # bytes, address of the pointer it sets
+    # halo.cu (kernel E, its peer buffers and its signals), on the current
+    # device: address of the int64 flush flag it sets
+    "nx_stream_ops_init": (_P,),
+    # stream, address of a 64-bit counter of this process, value, flush
+    "nx_stream_wait_geq": (_P, _P, _I, _I),
+    # stream, address of a 64-bit counter (a neighbour's mapped one), value
+    "nx_stream_write": (_P, _P, _I),
+    # bytes, address of the pointer it sets (the buffer zeroed)
     "nx_halo_alloc": (_I, _P),
     # pointer from nx_halo_alloc
     "nx_halo_free": (_P,),
+    # device pointer, address of the int64 device ordinal it sets
+    "nx_pointer_device": (_P, _P),
     # pointer from nx_halo_alloc, address of a 64-byte handle it writes
     "nx_ipc_get_handle": (_P, _P),
     # address of a 64-byte handle of another process, address of the
@@ -65,16 +73,16 @@ _SIGNATURES = {
     "nx_ipc_open_handle": (_P, _P),
     # pointer from nx_ipc_open_handle
     "nx_ipc_close_handle": (_P,),
-    # stream
-    "nx_stream_synchronize": (_P,),
-    # x, the right neighbour's left buffer (or null), the left neighbour's
-    # right buffer (or null), rows, and in 4-byte words: block, left halo,
+    # x, the right neighbour's left slot (or null), the left neighbour's
+    # right slot (or null), rows, and in 4-byte words: block, left halo,
     # right halo; stream
     "nx_halo_put": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # x, received left halo (or null: zeros), received right halo (or null:
-    # zeros), ext, rows, and in 4-byte words: block, left halo, right halo;
-    # stream
-    "nx_halo_assemble": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, ext, rows, and in 4-byte words: block, left halo, right halo; zero
+    # the left halo, zero the right halo; stream
+    "nx_halo_interior": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # received left slot (or null), received right slot (or null), ext,
+    # rows, and in 4-byte words: block, left halo, right halo; stream
+    "nx_halo_edges": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

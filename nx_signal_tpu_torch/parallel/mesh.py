@@ -115,12 +115,22 @@ def mesh_coordinate(mesh):
     return coord[names.index(CHANNEL_AXIS)], coord[names.index(BLOCK_AXIS)]
 
 
+# id(mesh) -> (mesh, its block_row): kept per mesh, since DeviceMesh.mesh
+# rebuilds its rank tensor on every access (tens of microseconds, on every
+# halo exchange); the mesh is held so that its id stays its own
+_BLOCK_ROWS = {}
+
+
 def block_row(mesh):
     """(block group, global ranks of this rank's channel row in block
-    order, this rank's block index)."""
-    c, b = mesh_coordinate(mesh)
-    ranks = mesh.mesh if mesh.mesh_dim_names[0] == CHANNEL_AXIS else mesh.mesh.T
-    return mesh.get_group(BLOCK_AXIS), [int(r) for r in ranks[c]], b
+    order (a tuple), this rank's block index)."""
+    hit = _BLOCK_ROWS.get(id(mesh))
+    if hit is None:
+        c, b = mesh_coordinate(mesh)
+        ranks = mesh.mesh if mesh.mesh_dim_names[0] == CHANNEL_AXIS else mesh.mesh.T
+        hit = _BLOCK_ROWS[id(mesh)] = (mesh, (mesh.get_group(BLOCK_AXIS),
+                                              tuple(int(r) for r in ranks[c]), b))
+    return hit[1]
 
 
 def mesh_device(mesh) -> torch.device:

@@ -251,6 +251,22 @@ def test_halo_kernel_and_seeded_overlap_add_bitwise_on_cuda(tmp_path):
 
 
 @pytest.mark.cuda
+def test_halo_kernel_back_to_back_on_four_ranks_on_cuda(tmp_path):
+    """Four ranks sharing cuda:0, meshes (1, 4) and (2, 2): kernel E's
+    steady-state calls, back to back with fresh blocks and a delayed rank,
+    take no collective and no sync (those raise during them); f32 and f64,
+    pads (1, 0) and (0, 4), a call on a side stream and a call that grows
+    the buffers; every result bitwise equal to the send/recv halo."""
+    need_cuda()
+    from tests import torch_sharded_ranks as ranks
+
+    verdicts = ranks.spawn(ranks.cuda_halo_stream_case, ranks.WORLD, tmp_path)
+    calls = 1 + len(ranks.HALO_CALLS) + 3
+    assert len(verdicts) == 2 * calls * ranks.WORLD
+    assert [k for k, ok in verdicts.items() if not ok] == []
+
+
+@pytest.mark.cuda
 def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
     """frame_chunks only shapes the plain path: on the card the chain still
     launches kernel A, once, and agrees with the chunked plain path at

@@ -501,10 +501,11 @@ def test_good_matmul_fft_length(n_fft):
                                   "nx_framed_dft_tc_frames", "nx_framed_dft_tc_power_f32",
                                   "nx_overlap_add_f32",
                                   "nx_shared_dft_power_f32", "nx_shared_dft_ctas_per_sm",
-                                  "nx_halo_alloc", "nx_halo_free",
-                                  "nx_ipc_get_handle", "nx_ipc_open_handle",
-                                  "nx_ipc_close_handle", "nx_stream_synchronize",
-                                  "nx_halo_put", "nx_halo_assemble"])
+                                  "nx_stream_ops_init", "nx_stream_wait_geq",
+                                  "nx_stream_write", "nx_halo_alloc", "nx_halo_free",
+                                  "nx_pointer_device", "nx_ipc_get_handle",
+                                  "nx_ipc_open_handle", "nx_ipc_close_handle",
+                                  "nx_halo_put", "nx_halo_interior", "nx_halo_edges"])
 def test_ctypes_signatures_match_the_sources(name):
     """The argtypes declared for each C entry point match its prototype in
     kernels/csrc (ctypes cannot check this, and the card is not here)."""

@@ -9,6 +9,7 @@ import pytest
 #: every module of nx_signal_tpu_torch with >>> examples
 MODULES = [
     "nx_signal_tpu_torch.kernels.cuda_dft",
+    "nx_signal_tpu_torch.kernels.cuda_halo",
     "nx_signal_tpu_torch.kernels.dft",
     "nx_signal_tpu_torch.models.pipeline",
     "nx_signal_tpu_torch.ops.convolution",

@@ -207,6 +207,87 @@ def cuda_halo_case(rank, store_path, out_path):
     dist.destroy_process_group()
 
 
+# kernel E on 4 ranks of one card: (dtype, channels, block, pad_left,
+# pad_right) of each call; the first sets the buffers' size, which every
+# later one fits until GROWN
+HALO_FIRST = (torch.float64, 3, 300, 130, 130)
+HALO_CALLS = [(torch.float32, 3, 300, 127, 128), (torch.float64, 2, 77, 1, 0),
+              (torch.float32, 3, 300, 0, 4), (torch.float64, 3, 300, 5, 9),
+              (torch.float32, 1, 64, 64, 64)] * 3 + [(torch.float32, 2, 50, 7, 7)]
+HALO_GROWN = (torch.float64, 4, 600, 300, 200)
+
+
+def _raise(*_, **__):
+    raise AssertionError("a steady-state call of kernel E synchronised or took a collective")
+
+
+def cuda_halo_stream_case(rank, store_path, out_path):
+    """Four ranks on cuda:0, meshes (1, 4) and (2, 2): after a first call
+    (set-up), 16 calls of kernel E back to back, each on a fresh block, one
+    rank delayed on its stream before two of them, with
+    torch.distributed's barrier and all_gather and every stream, event and
+    device sync replaced by functions that raise; then a call on a side
+    stream, a call that grows the buffers, and one after it. Every result
+    is held bitwise against the plain halo, computed afterwards; rank 0
+    pickles {check: verdict}."""
+    from nx_signal_tpu_torch.kernels import cuda_halo
+    from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh, mesh_coordinate
+
+    _init(rank, WORLD, store_path)
+    dev = torch.device("cuda", 0)
+    verdicts = {}
+    guarded = [(dist, "barrier"), (dist, "all_gather"), (torch.cuda, "synchronize"),
+               (torch.cuda.Stream, "synchronize"), (torch.cuda.Event, "synchronize")]
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_dsp_mesh(*shape)
+        _, b = mesh_coordinate(mesh)
+
+        def block(seed, dtype, c, n):
+            x = signal(seed, (c, shape[1] * n), np.float64)
+            return torch.from_numpy(x[:, b * n:(b + 1) * n]).to(dtype).to(dev)
+
+        calls = [HALO_FIRST, *HALO_CALLS]
+        blocks = [block(30 + i, dtype, c, n) for i, (dtype, c, n, _, _) in enumerate(calls)]
+        torch.cuda.synchronize()
+        got = [cuda_halo.halo_extend_cuda(blocks[0], *HALO_FIRST[3:], mesh=mesh)]
+        saved = [(owner, name, getattr(owner, name)) for owner, name in guarded]
+        for owner, name in guarded:
+            setattr(owner, name, _raise)
+        try:
+            for i, (_, _, _, pl, pr) in enumerate(HALO_CALLS, 1):
+                if rank == 1 and i in (1, 9):
+                    torch.cuda._sleep(20_000_000)  # about 10 ms of this rank's stream
+                got.append(cuda_halo.halo_extend_cuda(blocks[i], pl, pr, mesh=mesh))
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            blk = blocks[1]
+            got.append(cuda_halo.halo_extend_cuda(blk, *HALO_CALLS[0][3:], mesh=mesh))
+            blocks.append(blk)
+            calls.append(HALO_CALLS[0])
+        for i, call in enumerate((HALO_GROWN, HALO_CALLS[3])):
+            dtype, c, n, pl, pr = call
+            blocks.append(block(60 + i, dtype, c, n))
+            got.append(cuda_halo.halo_extend_cuda(blocks[-1], pl, pr, mesh=mesh))
+            calls.append(call)
+        torch.cuda.synchronize()
+        for i, (blk, out, (dtype, c, n, pl, pr)) in enumerate(zip(blocks, got, calls)):
+            want = _halo_extend_torch(blk, pl, pr, mesh=mesh)
+            verdicts[shape, i, str(dtype), pl, pr, rank] = (
+                out.dtype == dtype and bool(torch.equal(out.cpu(), want.cpu())))
+    cuda_halo.close_halo_buffers()
+    every = [None] * WORLD
+    dist.all_gather_object(every, verdicts)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump({k: v for entries in every for k, v in entries.items()}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def spawn(fn, nprocs, tmp_dir, timeout=240):
     """Run `fn(rank, store_path, out_path)` in `nprocs` spawned processes,
     join them within `timeout` seconds (a rank that fails raises here), and
