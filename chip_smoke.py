@@ -76,7 +76,7 @@ Phases (any failure raises, and the exit code is not 0):
      f32 filtered signal has no digits for a per-bin 1e-4 at its deepest
      stopband bins); then FIRFilterChain on the same signal against
      np.convolve 'same' (within 1e-4 x max).
-     Phases 3-6 drive the main paths through their public entry points:
+     Phases 3-6 and 9 drive the main paths through their public entry points:
      the launch counters are zeroed just before each and read just after,
      and each must have launched the kernels of its path.
   7. median of 5 CUDA-event timings of each kernel, its plain version and
@@ -88,7 +88,12 @@ Phases (any failure raises, and the exit code is not 0):
      as a 1-D overlap-add for C), taken in turns, at the phase-2 shapes,
      A-tc at 'high' and 'default'; then of
      the filtered chain's two stages (the direct FIR and B-fft) at 768 x
-     480000. Each kernel's bound is computed from this run's shapes, for
+     480000; then welch at 768 x 480000 (hann 512, hop 256, detrend
+     'constant', average 'mean') end to end and by stage (B-fft through
+     stft, the detrend coefficients' exact-f32 contraction, the in-place z
+     - coefs @ wk update, the power and the mean) beside torch.stft(center=
+     False) with |z|^2 and the mean: where the time of phase 9's path goes
+     (printed lines, not a kernel row). Each kernel's bound is computed from this run's shapes, for
      the least work its function needs (not the dense-matrix DFT the
      contraction kernels run): the larger of the operations of an FFT route
      (the FIR as an FFT overlap-save convolution, a real FFT per frame, 2.5
@@ -121,7 +126,10 @@ Phases (any failure raises, and the exit code is not 0):
      sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
      interior within 1e-5 x
      max|x|, and the seeded sharded overlap-add bitwise equal to the
-     single-device fold. Then 16 calls of kernel E back to back on fresh
+     single-device fold; sharded_welch at 64 x 480000 on (1, 4) (hann 512,
+     hop 256), B-fft once and E twice per rank (the frame halo and the
+     detrend coefficients' right halo), each rank's PSD within 1e-5 of its
+     max against the single-device welch. Then 16 calls of kernel E back to back on fresh
      64 x 120320 blocks, pads (127, 127), (128, 127), (1, 0), (0, 4) in
      turn, no host sync between them and rank 1's stream delayed (about 50
      ms) before the first and the ninth, each result bitwise equal to the
@@ -134,11 +142,25 @@ Phases (any failure raises, and the exit code is not 0):
      rank by rank, by CUDA events (`device_ms`). The parent waits
      for every rank with a timeout; a rank that fails or hangs fails the
      run, and the ranks still running are killed. Ranks prefix their lines
-     with their rank. Last of all, a process this script started that is
-     still running is killed and fails the run.
+     with their rank.
+  9. spectral estimation on the card, each path with the counters zeroed
+     before it: welch (hann 512, hop 256, detrend 'constant') at 768 x
+     480000 with average 'mean' and 'median' (1874 segments: the median of
+     an even count), B-fft launched and the dense B not; csd and coherence
+     of 64 x 480000 and a filtered (3 taps), delayed (7 samples), noisy
+     copy; spectrogram (hann 512, hop 128) at 64 x 480000; each held on
+     two channels against f64 scipy.signal (welch, csd, coherence,
+     spectrogram with detrend=False) within 1e-4 of the max, the gate of
+     the CPU parity tests. Then ShortTimeFFT(hann 512, hop 128, fs 48000):
+     stft then istft at 64 x 480000, B-fft and C launched, the interior
+     reconstruction within 1e-5 x max|x|, the spectrum per bin within
+     1e-4 against the f64 torch.fft route on the CPU (two channels), and C
+     on istft's own frames bitwise equal to its plain fold.
+Last of all, a process this script started that is still running is
+killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
 A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
-8's over all ranks; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
+8's over all ranks, and phase 9's; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
@@ -416,9 +438,11 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         _halo_extend_torch, _shift_from_left, _shift_from_right)
     from nx_signal_tpu_torch.parallel.mesh import (
         block_row, make_dsp_mesh, mesh_coordinate, mesh_device)
+    from nx_signal_tpu_torch.parallel.estimation import sharded_welch
     from nx_signal_tpu_torch.parallel.sharded import (
         _local_shard, _sharded_fold, gather_blocks, sharded_convolve_same,
         sharded_fir_framed_dft_power, sharded_istft, sharded_stft)
+    from nx_signal_tpu_torch.spectral.estimation import welch
 
     mesh14 = make_dsp_mesh(1, world, device_type=device_type)
     mesh22 = make_dsp_mesh(2, world // 2, device_type=device_type)
@@ -547,6 +571,23 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
             ref)
     del z, y, frames, folded, mine, ref
 
+    # sharded_welch: B-fft for the segment spectra and E twice (the frame
+    # halo and the detrend coefficients' halo), against the single-device
+    # welch on the same card
+    welch_kw = dict(sampling_rate=rate, window="hann", segment_length=frame,
+                    overlap_length=frame // 2)
+    name = f"sharded_welch (1, 4) {small}x{length}"
+    run_path(name, {B_fft: 1, E: 2}, lambda: out.update(
+        p=sharded_welch(x_small, mesh=mesh14, **welch_kw)[1]))
+    p, single = out.pop("p"), welch(x_small, **welch_kw)[1]
+    if tuple(p.shape) != tuple(single.shape) or not bool(torch.isfinite(p).all()):
+        raise AssertionError(f"rank {rank}: {name} output {tuple(p.shape)} not finite or "
+                             "wrong shape")
+    report["welch_max_abs_err"] = _check_close(
+        f"[rank {rank}] {name} vs single-device welch, all bins (gate 1e-5 x max)",
+        p.reshape(-1, 1), single.reshape(-1, 1), rel=1e-5)
+    del p, single
+
     if on_card:  # kernel E, 16 calls back to back with a delayed rank
         rows, pads = small, [(127, 127), (128, 127), (1, 0), (0, 4)]
         gen = torch.Generator(device=dev).manual_seed(200 + rank)
@@ -635,7 +676,143 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         with open(os.path.join(tmp, "phase8.json"), "w") as f:
             json.dump(reports, f)
     dist.barrier()
-    dist.destroy_process_group()
+    # leave without the gloo teardown: a CPU rank whose work was done died
+    # there with SIGABRT under load (tests/torch_sharded_ranks.py:_exit_rank)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _phase9(kernels, launches, dev, channels, length, rate):
+    """Phase 9 (see the module docstring); returns the launch counts with
+    this phase's paths added."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    from nx_signal_tpu_torch.kernels import cuda_dft
+    from nx_signal_tpu_torch.ops.convolution import convolve
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.spectral.estimation import coherence, csd, welch
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+    from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
+    from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
+
+    B_fft, B, C = cuda_dft.framed_fft_cuda, cuda_dft.framed_dft_cuda, cuda_dft.overlap_add_cuda
+    seg, out = 512, {}
+
+    def add(counts):
+        merged = dict(launches)  # phase 8 added kernel E's counts
+        for name, n in counts.items():
+            merged[name] = merged.get(name, 0) + n
+        return merged
+
+    def close_all(name, got, want, rel=1e-4):
+        """Gate every value at rel x the global max|want| (one 'bin')."""
+        return _check_close(name, got.reshape(-1, 1), want.reshape(-1, 1), rel=rel)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((channels, length), generator=gen, device=dev)
+    xh = x[:2].double().cpu().numpy()
+    welch_kw = dict(sampling_rate=rate, window="hann", segment_length=seg,
+                    overlap_length=seg // 2, detrend="constant")
+    scipy_kw = dict(fs=rate, window="hann", nperseg=seg, noverlap=seg // 2, detrend="constant")
+    for average in ("mean", "median"):
+        def welch_path():
+            out["p"] = welch(x, average=average, **welch_kw)[1]
+            torch.cuda.synchronize()
+
+        launches = add(_run_path(f"welch average={average!r} {channels}x{length}", kernels,
+                                 (B_fft,), welch_path, avoid=(B,)))
+        p = out.pop("p")
+        if tuple(p.shape) != (channels, seg // 2 + 1) or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"welch output {tuple(p.shape)} not finite or wrong shape")
+        _, want = ss.welch(xh, average=average, **scipy_kw)
+        close_all(f"welch average={average!r} vs f64 scipy.signal.welch (2 channels)",
+                  p[:2].double().cpu(), torch.as_tensor(want))
+        del p
+
+    # csd and coherence of 64 channels and a filtered (3 taps), delayed (7
+    # samples), noisy copy, held against scipy on two channels
+    x64 = x[:64]
+    gen_y = torch.Generator(device=dev).manual_seed(1)
+    y64 = torch.roll(convolve(x64, torch.tensor([[0.5, 0.3, 0.2]], device=dev), mode="same"),
+                     7, dims=-1) + 0.5 * torch.randn(x64.shape, generator=gen_y, device=dev)
+    yh = y64[:2].double().cpu().numpy()
+    pair_kw = {k: v for k, v in welch_kw.items()}
+
+    def csd_coherence():
+        out["pxy"] = csd(x64, y64, **pair_kw)[1]
+        out["coh"] = coherence(x64, y64, **pair_kw)[1]
+        torch.cuda.synchronize()
+
+    launches = add(_run_path(f"csd and coherence 64x{length}", kernels, (B_fft,),
+                             csd_coherence, avoid=(B,)))
+    pxy, coh = out.pop("pxy"), out.pop("coh")
+    for name, got in (("csd", pxy), ("coherence", coh)):
+        if tuple(got.shape) != (x64.shape[0], seg // 2 + 1) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} output {tuple(got.shape)} not finite or wrong shape")
+    close_all("csd vs f64 scipy.signal.csd (2 channels)", pxy[:2].cpu().to(torch.complex128),
+              torch.as_tensor(ss.csd(xh, yh, **scipy_kw)[1]))
+    close_all("coherence vs f64 scipy.signal.coherence (2 channels)", coh[:2].double().cpu(),
+              torch.as_tensor(ss.coherence(xh, yh, **scipy_kw)[1]))
+    del pxy, coh, y64
+
+    xh64 = x64[:2].double().cpu().numpy()
+
+    def spectrogram_path():
+        out["s"] = spectrogram(x64, rate, window="hann", window_length=seg,
+                               overlap_length=seg - 128)[2]
+        torch.cuda.synchronize()
+
+    launches = add(_run_path(f"spectrogram 64x{length}", kernels, (B_fft,), spectrogram_path,
+                             avoid=(B,)))
+    sxx = out.pop("s")
+    n_frames = (length - seg) // 128 + 1
+    if tuple(sxx.shape) != (x64.shape[0], seg // 2 + 1, n_frames) or not bool(torch.isfinite(sxx).all()):
+        raise AssertionError(f"spectrogram output {tuple(sxx.shape)} not finite or wrong shape")
+    _, _, want = ss.spectrogram(xh64, fs=rate, window="hann", nperseg=seg,
+                                noverlap=seg - 128, detrend=False)
+    close_all("spectrogram vs f64 scipy.signal.spectrogram (2 channels)",
+              sxx[:2].double().cpu(), torch.as_tensor(want))
+    del sxx
+
+    # ShortTimeFFT: stft (B-fft) then istft (kernel C); the interior of the
+    # reconstruction within 1e-5 x max|x|, the spectrum per bin against the
+    # f64 torch.fft route on the CPU, and the fold bitwise against C's plain
+    # version on the same frames
+    hop = 128
+    sft = ShortTimeFFT(hann(seg, dtype=torch.float64).numpy(), hop, rate)
+
+    def sft_round_trip():
+        out["z"] = sft.stft(x64)
+        out["y"] = sft.istft(out["z"], k1=length)
+        torch.cuda.synchronize()
+
+    launches = add(_run_path(f"ShortTimeFFT stft -> istft 64x{length}", kernels, (B_fft, C),
+                             sft_round_trip, avoid=(B,)))
+    z, y = out.pop("z"), out.pop("y")
+    if tuple(y.shape) != (x64.shape[0], length) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"ShortTimeFFT.istft output {tuple(y.shape)} not finite or "
+                             "wrong shape")
+    err = _max_err(y[:, seg:-seg], x64[:, seg:-seg])
+    scale = float(x64.abs().max())
+    print(f"  ShortTimeFFT interior reconstruction max|d| = {err:.6g} (gate 1e-5 x "
+          f"{scale:.6g})", flush=True)
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"ShortTimeFFT round trip error {err} > 1e-5 x {scale}")
+    want_z = sft.stft(x64[:2].double().cpu())
+    _check_close("ShortTimeFFT.stft vs the f64 torch.fft route (2 channels)",
+                 z[:2].cpu().to(torch.complex128).transpose(-1, -2), want_z.transpose(-1, -2))
+    frames = sft._synthesis_frames(z).contiguous()
+    full_len = (z.shape[-1] - 1) * hop + seg
+    _check_bitwise(f"C on ShortTimeFFT's frames {tuple(frames.shape)}",
+                   C(frames, stride=hop, out_length=full_len),
+                   _ola_fold_torch(frames, hop, full_len))
+    del z, y, frames, x, x64
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1317,6 +1494,51 @@ def main() -> int:
               f"{sorted(_time_ms(fn) for _ in range(5))[2]:.3f} ms", flush=True)
     del y
 
+    # where welch's time goes at 768 x 480000 (hann 512, hop 256, detrend
+    # 'constant', average 'mean'): end to end, its stages, and torch.stft
+    # with |z|^2 and the mean as the comparison; median of 5, in turns
+    from nx_signal_tpu_torch.kernels.dft import blocked_frame_matmul
+    from nx_signal_tpu_torch.spectral import estimation as est
+
+    seg = 512
+    n_seg = (length - seg) // (seg // 2) + 1
+    w_seg = hann(seg, device=dev)
+    cols = torch.as_tensor(est._detrend_columns(seg, "constant"), dtype=torch.float32,
+                           device=dev)
+    wk = torch.as_tensor(est._detrend_basis_spectra(w_seg, seg, True, "constant"), device=dev)
+    seg_kw = dict(sampling_rate=1.0, fft_length=seg, overlap_length=seg // 2, onesided=True)
+    z_seg = stft(x, w_seg, **seg_kw).z
+    coefs = blocked_frame_matmul(x, cols, window_length=seg, stride=seg // 2, num_frames=n_seg)
+
+    def torch_stft_power_mean():
+        z = torch.stft(x, seg, hop_length=seg // 2, window=w_seg, center=False, onesided=True,
+                       return_complex=True)
+        return torch.view_as_real(z).square().sum(-1).mean(-1)
+
+    welch_stages = [
+        ("welch end to end", lambda: est.welch(x, sampling_rate=rate, window="hann",
+                                               segment_length=seg, overlap_length=seg // 2)),
+        ("B-fft (stft, 'valid')", lambda: stft(x, w_seg, **seg_kw)),
+        ("detrend coefficients (blocked_frame_matmul, exact f32)",
+         lambda: blocked_frame_matmul(x, cols, window_length=seg, stride=seg // 2,
+                                      num_frames=n_seg)),
+        ("z - coefs @ wk (in place)", lambda: est._subtract_trend(z_seg, coefs, wk)),
+        ("power and mean", lambda: est._segment_average(z_seg, z_seg, "mean")),
+        ("torch.stft(center=False) + |z|^2 + mean", torch_stft_power_mean),
+    ]
+    for _, fn in welch_stages:
+        fn()
+    torch.cuda.synchronize()
+    stage_times = {name: [] for name, _ in welch_stages}
+    for _ in range(5):
+        for name, fn in welch_stages:
+            stage_times[name].append(_time_ms(fn))
+    welch_ms = {name: sorted(t)[2] for name, t in stage_times.items()}
+    for name, ms in welch_ms.items():
+        print(f"  welch at {channels}x{length} ({n_seg} segments of {seg}), {name}: "
+              f"{ms:.3f} ms", flush=True)
+    del z_seg, coefs
+
     # ---------------------------------------------------------------- 8
     del x, x64, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
     torch.cuda.synchronize()
@@ -1348,6 +1570,11 @@ def main() -> int:
           f"clock, all ranks at once), bound {e['bound_ms']:.3f} ms ({e['bound_by']}, "
           f"{_PHASE8_RANKS} ranks); put + interior + edges alone {e_device_ms:.3f} ms "
           f"(largest rank, CUDA events, one rank at a time)", flush=True)
+
+    # ---------------------------------------------------------------- 9
+    print("phase 9: spectral estimation on the card (welch, csd, coherence, spectrogram, "
+          "ShortTimeFFT)", flush=True)
+    launches = _phase9(kernels, launches, dev, channels, length, rate)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

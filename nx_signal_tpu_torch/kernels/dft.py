@@ -53,6 +53,7 @@ __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights"
 
 _MAX_MATMUL_FFT = 1024
 _PRECISIONS = ("highest", "high", "default")
+_FEW_COLUMNS = 16  # blocked_frame_matmul: out_cols x C up to this is one matmul
 
 
 def _check_precision(precision):
@@ -129,7 +130,12 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
     * 'conv' (default): the (blocks, stride) view of the signal is the
       input of one conv1d with C taps, w[o, i, r] = weights[r*stride + i, o]
       (both conv1d and the frame product are cross-correlations: no flip).
-      The frame matrix is never built.
+      With few output columns (out_cols x C <= 16, e.g. the per-segment
+      detrend coefficients of spectral/estimation.py) it is one matmul of
+      the (blocks, stride) view against the weights' C row blocks, and
+      each frame adds its C block products: a conv1d with one or two
+      output channels runs far below the bytes it reads. The frame matrix
+      is never built.
     * 'materialize': build the (num_frames, window_length) frames and run
       one matmul.
 
@@ -160,6 +166,17 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
         if strategy == "conv":
             pad_rows = c_blocks * stride - window_length
             w = F.pad(weights, (0, 0, 0, pad_rows)) if pad_rows else weights
+            if out_cols * c_blocks <= _FEW_COLUMNS:
+                # (N, blocks, stride) @ (stride, C * O): block b's product with
+                # row block c, then frame m = sum over c of block m + c's
+                blocks = x.reshape(-1, num_frames + c_blocks - 1, stride)
+                w_cols = w.reshape(c_blocks, stride, out_cols).permute(1, 0, 2)
+                part = torch.matmul(blocks, w_cols.reshape(stride, c_blocks * out_cols))
+                part = part.view(-1, num_frames + c_blocks - 1, c_blocks, out_cols)
+                out = part[:, :num_frames, 0]
+                for c in range(1, c_blocks):
+                    out = out + part[:, c:c + num_frames, c]
+                return out.reshape(*batch, num_frames, out_cols)
             kernel = w.reshape(c_blocks, stride, out_cols).permute(2, 1, 0)  # (O, I, C)
             blocks = x.reshape(-1, num_frames + c_blocks - 1, stride).transpose(1, 2)
             out = F.conv1d(blocks, kernel.contiguous())                 # (N, O, M)

@@ -416,3 +416,84 @@ def test_public_functions_run_on_cuda(rng):
     fb = tm.mel_filters(512, 80, 16000.0, device="cuda")
     assert fb.device.type == "cuda"
     assert_close_to_max(fb.cpu(), tm.mel_filters(512, 80, 16000.0), rel=1e-5)
+
+
+def _launches_of(fn, *kernels):
+    """(fn's result, how many times each kernel launched in it)."""
+    before = [k.launches for k in kernels]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [k.launches - b for k, b in zip(kernels, before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("average", ["mean", "median"])
+@pytest.mark.parametrize("detrend", ["constant", "linear"])
+def test_welch_runs_kernel_b_fft_on_cuda(average, detrend, rng):
+    """welch on the card launches B-fft once (not the dense B) and agrees
+    with its CPU run (the plain versions) at 1e-4 x max."""
+    need_cuda()
+    from nx_signal_tpu_torch.spectral.estimation import welch
+
+    x = torch.from_numpy(rng.normal(size=(3, 30000)).astype(np.float32))
+    kw = dict(sampling_rate=48000.0, segment_length=512, overlap_length=256, detrend=detrend,
+              average=average)
+    (_, got), counts = _launches_of(lambda: welch(x.cuda(), **kw), cuda_dft.framed_fft_cuda,
+                                    cuda_dft.framed_dft_cuda)
+    assert counts == [1, 0] and got.device.type == "cuda"
+    assert_close_to_max(got.cpu(), welch(x, **kw)[1])
+
+
+@pytest.mark.cuda
+def test_csd_coherence_and_spectrogram_run_kernel_b_fft_on_cuda(rng):
+    """csd (two spectra), coherence (two welch and one csd) and spectrogram
+    launch B-fft on the card and agree with their CPU runs at 1e-4 x max."""
+    need_cuda()
+    from nx_signal_tpu_torch.spectral.estimation import coherence, csd
+    from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
+
+    x = torch.from_numpy(rng.normal(size=(2, 20000)).astype(np.float32))
+    y = torch.roll(x, 5, dims=-1) + 0.3 * torch.from_numpy(
+        rng.normal(size=(2, 20000)).astype(np.float32))
+    kw = dict(segment_length=400, overlap_length=240, fft_length=512)
+    for fn, n_fft_calls in ((lambda a, b: csd(a, b, **kw)[1], 2),
+                            (lambda a, b: coherence(a, b, **kw)[1], 4),
+                            (lambda a, b: spectrogram(a, 8000.0, window_length=400)[2], 1)):
+        got, counts = _launches_of(lambda: fn(x.cuda(), y.cuda()), cuda_dft.framed_fft_cuda)
+        assert counts == [n_fft_calls]
+        assert_close_to_max(got.cpu(), fn(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_mode,mfft", [("onesided", 512), ("onesided2X", 600),
+                                           ("twosided", 512)])
+def test_short_time_fft_runs_kernels_b_fft_and_c_on_cuda(fft_mode, mfft, rng):
+    """ShortTimeFFT.stft on the card runs B-fft in the one-sided modes
+    (torch.fft in the others), istft folds with kernel C (real frames, or
+    the real and imaginary parts apart); both agree with their CPU runs at
+    1e-4 x max and the round trip returns the signal."""
+    need_cuda()
+    from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
+
+    x = torch.from_numpy(rng.normal(size=(2, 20000)).astype(np.float32))
+    sft = ShortTimeFFT(hann_np(512), 128, 48000.0, fft_mode=fft_mode, mfft=mfft,
+                       scale_to="psd" if fft_mode == "onesided2X" else None)
+    z, counts = _launches_of(lambda: sft.stft(x.cuda()), cuda_dft.framed_fft_cuda)
+    assert counts == [1 if fft_mode != "twosided" else 0]
+    z_cpu = sft.stft(x)
+    assert_close_to_max(z.cpu(), z_cpu)
+    y, counts = _launches_of(lambda: sft.istft(z, k1=20000), cuda_dft.overlap_add_cuda)
+    assert counts == [1 if fft_mode != "twosided" else 2]
+    assert_close_to_max(y.cpu(), sft.istft(z_cpu, k1=20000))
+    assert_close_to_max(y.real.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_sharded_welch_runs_kernels_b_fft_and_e_on_cuda(tmp_path):
+    """Two ranks sharing cuda:0: sharded_welch launches B-fft once and
+    kernel E twice (the frame halo and the coefficients' halo) on each rank,
+    and each rank's PSD is within 1e-5 x max of the single-device welch."""
+    need_cuda()
+    from tests import torch_sharded_ranks as ranks
+
+    assert ranks.spawn(ranks.cuda_welch_case, 2, tmp_path) == [True, True]

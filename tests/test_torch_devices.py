@@ -16,10 +16,14 @@ from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
 from nx_signal_tpu_torch.kernels import dft as td
 from nx_signal_tpu_torch.models.pipeline import StftFirChain
 from nx_signal_tpu_torch.ops import convolution as tc
+from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import transforms as tt
+from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
 from nx_signal_tpu_torch.spectral import mel as tm
 from nx_signal_tpu_torch.spectral import stft as ts
+from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
+from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
 
 _RNG = np.random.default_rng(0)
 SIG = _RNG.normal(size=(2, 2048)).astype(np.float32)
@@ -32,6 +36,10 @@ KER2 = np.ones((3, 2), np.float32)
 WIN = np.hanning(256)
 FOLD = td.fir_dft_fold_weights(TAPS, WIN, 256, True)
 DFT_W = torch.as_tensor(td._dft_weights(WIN, 256, 256, True, np.float32))
+SFT = ShortTimeFFT(WIN, 64, 1000.0)
+SFT_SPEC = (_RNG.normal(size=(2, 129, 36)) + 1j * _RNG.normal(size=(2, 129, 36))).astype(
+    np.complex64)
+TIMES = np.sort(_RNG.uniform(0, 10, size=64))
 
 # name -> (function of the signal, the signal as numpy)
 ENTRY_POINTS = {
@@ -79,6 +87,24 @@ ENTRY_POINTS = {
     "halo_extend_cuda": (lambda s: cuda_halo.halo_extend_cuda(s, 0, 0, mesh=None), SIG),
     "StftFirChain": (lambda s: StftFirChain.from_numpy(TAPS, WIN, stride=128, n_fft=256,
                                                        device="cpu")(s), SIG),
+    "median": (lambda s: tfilt.median(s, kernel_shape=(2, 4)), IMG),
+    "wiener": (lambda s: tfilt.wiener(s, kernel_size=3), IMG),
+    "order_filter": (lambda s: tfilt.order_filter(s, np.ones((3, 3)), 2), IMG),
+    "medfilt": (lambda s: tfilt.medfilt(s, 3), IMG),
+    "medfilt2d": (lambda s: tfilt.medfilt2d(s, 3), IMG),
+    "savgol_filter": (lambda s: tfilt.savgol_filter(s, 7, 2), SIG),
+    "detrend": (lambda s: tfilt.detrend(s), SIG),
+    "spectrogram": (lambda s: spectrogram(s, 8000.0)[2], SIG),
+    "welch": (lambda s: te.welch(s, segment_length=256)[1], SIG),
+    "csd": (lambda s: te.csd(s, SIG[::-1].copy(), segment_length=256)[1], SIG),
+    "periodogram": (lambda s: te.periodogram(s)[1], SIG),
+    "coherence": (lambda s: te.coherence(s, SIG[::-1].copy(), segment_length=256)[1], SIG),
+    "lombscargle": (lambda s: te.lombscargle(s, np.cos(TIMES), [1.0, 2.0]), TIMES),
+    "vectorstrength": (lambda s: te.vectorstrength(s, 0.5)[0], TIMES),
+    "ShortTimeFFT.stft": (lambda s: SFT.stft(s), SIG),
+    "ShortTimeFFT.stft_detrend": (lambda s: SFT.stft_detrend(s, "linear"), SIG),
+    "ShortTimeFFT.spectrogram": (lambda s: SFT.spectrogram(s), SIG),
+    "ShortTimeFFT.istft": (lambda s: SFT.istft(s), SFT_SPEC),
 }
 
 

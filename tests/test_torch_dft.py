@@ -70,9 +70,10 @@ def test_fir_dft_fold_weights_bitwise(num_taps, frame, n_fft, onesided, rng):
 @pytest.mark.parametrize("strategy", ["conv", "materialize"])
 @pytest.mark.parametrize("window,stride,length", [(300, 128, 3000), (256, 100, 2000),
                                                   (128, 128, 1000)])
-def test_blocked_frame_matmul(strategy, window, stride, length, rng):
+@pytest.mark.parametrize("cols", [10, 2])  # 'conv': a conv1d, or few columns: one matmul
+def test_blocked_frame_matmul(strategy, window, stride, length, cols, rng):
     x = rng.normal(size=(2, length)).astype(np.float32)
-    w = rng.normal(size=(window, 10)).astype(np.float32)
+    w = rng.normal(size=(window, cols)).astype(np.float32)
     m = (length - window) // stride + 1
     want = jd.blocked_frame_matmul(jnp.asarray(x), jnp.asarray(w), window_length=window,
                                    stride=stride, num_frames=m)

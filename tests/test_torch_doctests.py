@@ -14,13 +14,18 @@ MODULES = [
     "nx_signal_tpu_torch.models.pipeline",
     "nx_signal_tpu_torch.ops.convolution",
     "nx_signal_tpu_torch.ops.filters",
+    "nx_signal_tpu_torch.ops.ltisys",
     "nx_signal_tpu_torch.ops.transforms",
     "nx_signal_tpu_torch.ops.waveforms",
     "nx_signal_tpu_torch.ops.windows",
+    "nx_signal_tpu_torch.parallel.estimation",
     "nx_signal_tpu_torch.parallel.mesh",
     "nx_signal_tpu_torch.parallel.sharded",
+    "nx_signal_tpu_torch.spectral.estimation",
     "nx_signal_tpu_torch.spectral.framing",
     "nx_signal_tpu_torch.spectral.mel",
+    "nx_signal_tpu_torch.spectral.short_time_fft",
+    "nx_signal_tpu_torch.spectral.spectrogram",
     "nx_signal_tpu_torch.spectral.stft",
     "nx_signal_tpu_torch.utils.devices",
     "nx_signal_tpu_torch.utils.dtypes",

@@ -73,7 +73,7 @@ def test_general_cosine_and_unknown_window():
     np.testing.assert_allclose(
         tw.general_cosine(10, [0.5, 0.3, 0.2]).numpy(),
         np.asarray(jw.general_cosine(10, [0.5, 0.3, 0.2])), rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown window 'kaiser'"):
         tw.get_window("kaiser", 8)
 
 

@@ -1,9 +1,9 @@
 """Parity of the sharded port (nx_signal_tpu_torch/parallel/) with the JAX
 package's sharded layer.
 
-One gloo group of 4 CPU ranks, spawned once for the module
-(tests/torch_sharded_ranks.py, which imports no JAX), runs every case and
-returns the gathered results; the tests here hold them against the JAX
+One gloo group of 4 CPU ranks, spawned once per test process and shared
+with tests/test_torch_sharded_estimation.py (tests/torch_sharded_ranks.py,
+which imports no JAX), runs every case and returns the gathered results; the tests here hold them against the JAX
 functions on a 4-device slice of the CPU mesh of tests/conftest.py.
 
 Tolerances, those of the port's single-device parity tests for the same
@@ -34,7 +34,7 @@ from tests import torch_sharded_ranks as ranks
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    return ranks.spawn(ranks.cpu_cases, ranks.WORLD, tmp_path_factory.mktemp("sharded"))
+    return ranks.cpu_results(tmp_path_factory)
 
 
 def mesh4(shape):

@@ -1,13 +1,17 @@
 """Rank programs of the sharded port's tests: each runs in a process of its
-own, spawned by tests/test_torch_sharded.py (a gloo group of CPU ranks) or
-tests/test_torch_cuda.py (ranks sharing one CUDA device). This module
+own, spawned by tests/test_torch_sharded.py and
+tests/test_torch_sharded_estimation.py (one gloo group of CPU ranks per test
+process, `cpu_results`) or tests/test_torch_cuda.py (ranks sharing one CUDA
+device). This module
 imports no JAX: the spawned ranks must start without it.
 
 Each case makes its inputs with numpy from a seed (`signal`), so the
 parent process rebuilds the same inputs for the JAX package.
 """
 
+import os
 import pickle
+import sys
 
 import numpy as np
 import torch
@@ -28,6 +32,19 @@ CHAIN_CASES = [((1, 4), (4, 8192, 255, 512, 128, 512)), ((2, 2), (4, 8192, 255, 
 STFT_CASES = [((1, 4), 4, 4096, 256, 192, True), ((2, 2), 4, 4096, 256, 192, False),
               ((1, 4), 2, 4099, 256, 128, True)]
 OA_CASES = [((1, 4), 4096, 255), ((2, 2), 4099, 64)]
+# the sharded Welch family: (mesh, function, channels, length, options); 4099
+# samples pad the last block, overlap 192 of 256 needs a 3-hop halo
+EST_CASES = [
+    ((1, 4), "welch", 4, 4096, dict(segment_length=256, overlap_length=128)),
+    ((2, 2), "welch", 4, 4099, dict(segment_length=256, overlap_length=192, detrend="linear",
+                                    average="median")),
+    ((1, 4), "welch", 2, 4096, dict(segment_length=128, detrend=False, scaling="spectrum",
+                                    average="median", window=("kaiser", 6.0))),
+    ((4, 1), "welch", 4, 3000, dict(segment_length=200, overlap_length=50, fft_length=256)),
+    ((1, 4), "csd", 2, 4096, dict(segment_length=256, fft_length=300, detrend="linear")),
+    ((2, 2), "csd", 2, 4099, dict(segment_length=128, onesided=False, complex_input=True)),
+    ((2, 2), "coherence", 4, 4096, dict(segment_length=256, overlap_length=192)),
+]
 HALO_PADS = [(5, 3), (1, 0), (0, 4), (16, 16), (0, 0)]  # on 16-sample blocks
 
 
@@ -35,9 +52,31 @@ def signal(seed, shape, dtype=np.float32):
     return np.random.default_rng(seed).normal(size=shape).astype(dtype)
 
 
+def est_signals(channels, length, complex_input=False):
+    """x and a delayed, noisy copy y of it for the Welch-family cases."""
+    x = signal(20, (channels, length), np.float64) + np.sin(0.2 * np.arange(length))
+    y = np.roll(x, 5, axis=-1) * 0.5 + signal(21, (channels, length), np.float64) * 0.2
+    if complex_input:
+        x, y = x + 1j * signal(22, (channels, length)), y + 1j * signal(23, (channels, length))
+        return x.astype(np.complex64), y.astype(np.complex64)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
 def _init(rank, world, store_path):
     store = dist.FileStore(store_path, world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+
+
+def _exit_rank():
+    """End a CPU rank once the group's last barrier has passed: flush and
+    leave with code 0 at once. The gloo teardown (destroy_process_group and
+    the interpreter's exit) is skipped: under the load of the parallel test
+    run a rank whose results were already gathered and written died there
+    with SIGABRT ("terminate called without an active exception"), which
+    failed the module's fixture."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _error(fn):
@@ -62,6 +101,8 @@ def cpu_cases(rank, store_path, out_path):
     from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh, mesh_coordinate
     from nx_signal_tpu_torch.spectral.framing import _ola_fold
 
+    # WORLD ranks share the cores (the parallel test run shares them further)
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // WORLD))
     _init(rank, WORLD, store_path)
     meshes = {shape: make_dsp_mesh(*shape, device_type="cpu") for shape in MESHES}
     out = {}
@@ -144,6 +185,22 @@ def cpu_cases(rank, store_path, out_path):
         y = ts.sharded_oaconvolve_same(torch.from_numpy(x), torch.from_numpy(taps), mesh=mesh)
         out["oa", mesh_shape, length, k] = gather(y, mesh, length)
 
+    from nx_signal_tpu_torch.parallel import estimation as te
+
+    for i, (mesh_shape, fn, channels, length, kw) in enumerate(EST_CASES):
+        mesh = meshes[mesh_shape]
+        kw = dict(kw)
+        x, y = est_signals(channels, length, kw.pop("complex_input", False))
+        before = cuda_halo.halo_extend_cuda.launches
+        if fn == "welch":
+            f, p = te.sharded_welch(torch.from_numpy(x), mesh=mesh, sampling_rate=100.0, **kw)
+        else:
+            f, p = getattr(te, f"sharded_{fn}")(torch.from_numpy(x), torch.from_numpy(y),
+                                                mesh=mesh, sampling_rate=100.0, **kw)
+        per_rank["est", i, rank] = (mesh_coordinate(mesh), p.numpy(),
+                                    cuda_halo.halo_extend_cuda.launches - before)
+        out["est_freqs", i] = f.numpy()
+
     mesh = meshes[(1, 4)]
     out["errors"] = {
         "halo": _error(lambda: ts.sharded_convolve_same(
@@ -158,6 +215,10 @@ def cpu_cases(rank, store_path, out_path):
         "frame_halo": _error(lambda: ts.sharded_stft(
             torch.zeros(1, 1024), hann(512), mesh=mesh, overlap_length=448)),
         "mesh": _error(lambda: make_dsp_mesh(3, device_type="cpu")),
+        "est_detrend": _error(lambda: te.sharded_welch(
+            torch.zeros(4, 4096), mesh=mesh, detrend=lambda f: f)),
+        "est_channels": _error(lambda: te.sharded_welch(
+            torch.zeros(3, 4096), mesh=meshes[(2, 2)])),
     }
     every = [None] * WORLD
     dist.all_gather_object(every, per_rank)
@@ -167,7 +228,7 @@ def cpu_cases(rank, store_path, out_path):
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
     dist.barrier()
-    dist.destroy_process_group()
+    _exit_rank()
 
 
 def cuda_halo_case(rank, store_path, out_path):
@@ -203,6 +264,36 @@ def cuda_halo_case(rank, store_path, out_path):
     if rank == 0:
         with open(out_path, "wb") as f:
             pickle.dump(verdicts, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def cuda_welch_case(rank, store_path, out_path):
+    """Two ranks on cuda:0: sharded_welch launches B-fft once and kernel E
+    twice on each rank, and each rank's PSD is within 1e-5 x max of the
+    single-device welch; rank 0 pickles the verdicts."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.parallel.estimation import sharded_welch
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    from nx_signal_tpu_torch.spectral.estimation import welch
+
+    _init(rank, 2, store_path)
+    mesh = make_dsp_mesh(1, 2)
+    x = torch.from_numpy(signal(13, (4, 48000))).to("cuda:0")
+    kw = dict(sampling_rate=48000.0, segment_length=512, overlap_length=256)
+    before = (cuda_dft.framed_fft_cuda.launches, cuda_halo.halo_extend_cuda.launches)
+    _, p = sharded_welch(x, mesh=mesh, **kw)
+    counts = (cuda_dft.framed_fft_cuda.launches - before[0],
+              cuda_halo.halo_extend_cuda.launches - before[1])
+    _, want = welch(x, **kw)
+    err = float((p - want).abs().max())
+    verdict = counts == (1, 2) and err <= 1e-5 * float(want.abs().max())
+    cuda_halo.close_halo_buffers()
+    every = [None] * 2
+    dist.all_gather_object(every, verdict)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(every, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -286,6 +377,17 @@ def cuda_halo_stream_case(rank, store_path, out_path):
             pickle.dump({k: v for entries in every for k, v in entries.items()}, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+_CPU_RESULTS = {}
+
+
+def cpu_results(tmp_path_factory):
+    """What `cpu_cases` returns, spawned once per test process (the files
+    that hold these results share one group)."""
+    if "out" not in _CPU_RESULTS:
+        _CPU_RESULTS["out"] = spawn(cpu_cases, WORLD, tmp_path_factory.mktemp("sharded"))
+    return _CPU_RESULTS["out"]
 
 
 def spawn(fn, nprocs, tmp_dir, timeout=240):
