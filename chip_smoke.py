@@ -156,6 +156,19 @@ Phases (any failure raises, and the exit code is not 0):
      reconstruction within 1e-5 x max|x|, the spectrum per bin within
      1e-4 against the f64 torch.fft route on the CPU (two channels), and C
      on istft's own frames bitwise equal to its plain fold.
+ 10. IIR filtering on the card (plain PyTorch: no TPU kernel lies on this
+     path, and none of the kernels may launch), on 768 x 480000 f32 from
+     the seed: sosfilt with butter(8, 0.1) and ellip(8, 0.5, 60, 0.15) as
+     sos (4 biquads each, the chunked order-2 form), lfilter with butter(2,
+     0.1) (order 2, chunked) and butter(8, 0.1) as ba (order 8, one f64
+     step per sample), then sosfiltfilt and filtfilt once each; each held
+     per row within 1e-4 of the row's max against f64 scipy.signal on 8
+     channels, timed as the median of 5 CUDA-event timings (filtfilt and
+     sosfiltfilt: their one checked call, host clock), with its peak memory
+     above the input (torch.cuda.max_memory_allocated) beside the card's
+     name and power limit. Phase 8 also holds sharded_sosfilt (no halo:
+     kernel E must not launch) on its ranks against the single-device
+     sosfilt at 1e-5 of the max.
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
@@ -438,10 +451,12 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         _halo_extend_torch, _shift_from_left, _shift_from_right)
     from nx_signal_tpu_torch.parallel.mesh import (
         block_row, make_dsp_mesh, mesh_coordinate, mesh_device)
+    from nx_signal_tpu_torch.ops.iir import sosfilt
+    from nx_signal_tpu_torch.ops.iir_design import butter
     from nx_signal_tpu_torch.parallel.estimation import sharded_welch
     from nx_signal_tpu_torch.parallel.sharded import (
         _local_shard, _sharded_fold, gather_blocks, sharded_convolve_same,
-        sharded_fir_framed_dft_power, sharded_istft, sharded_stft)
+        sharded_fir_framed_dft_power, sharded_istft, sharded_sosfilt, sharded_stft)
     from nx_signal_tpu_torch.spectral.estimation import welch
 
     mesh14 = make_dsp_mesh(1, world, device_type=device_type)
@@ -587,6 +602,25 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         f"[rank {rank}] {name} vs single-device welch, all bins (gate 1e-5 x max)",
         p.reshape(-1, 1), single.reshape(-1, 1), rel=1e-5)
     del p, single
+
+    # sharded_sosfilt: no halo (E must not launch), one all-gather of the
+    # blocks' final states; against the single-device sosfilt on the same
+    # card at 1e-5 of the max (tests/test_sharded.py:276-277)
+    sos = butter(8, 0.1, output="sos")
+    name = f"sharded_sosfilt (1, 4) {small}x{length} butter(8, 0.1) sos"
+    run_path(name, {E: 0}, lambda: out.update(y=sharded_sosfilt(sos, x_small, mesh=mesh14)))
+    y = out.pop("y")
+    start = b * y.shape[-1]
+    stop = min(start + y.shape[-1], length)
+    single = sosfilt(sos, x_small)[:, start:stop]
+    got = y[:, :stop - start]
+    err, scale = float((got - single).abs().max()), float(single.abs().max())
+    say(f"{name} samples {start}:{stop} vs single-device sosfilt: max|d| = {err:.6g}, "
+        f"max = {scale:.6g} (gate 1e-5 x max)")
+    if not (bool(torch.isfinite(y).all()) and err <= 1e-5 * scale):
+        raise AssertionError(f"rank {rank}: {name} off the single-device sosfilt by {err}")
+    report["sos_max_abs_err"] = err
+    del y, single, got
 
     if on_card:  # kernel E, 16 calls back to back with a delayed rank
         rows, pads = small, [(127, 127), (128, 127), (1, 0), (0, 4)]
@@ -813,6 +847,76 @@ def _phase9(kernels, launches, dev, channels, length, rate):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return launches
+
+
+def _phase10(kernels, dev, channels, length):
+    """Phase 10 (see the module docstring): the IIR filters on the card,
+    each against f64 scipy.signal on 8 channels, timed, with its peak
+    memory."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    from nx_signal_tpu_torch.ops.iir import filtfilt, lfilter, sosfilt, sosfiltfilt
+    from nx_signal_tpu_torch.ops.iir_design import butter, ellip
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((channels, length), generator=gen, device=dev)
+    xh = x[:8].double().cpu().numpy()
+    sos_b, sos_e = butter(8, 0.1, output="sos"), ellip(8, 0.5, 60.0, 0.15, output="sos")
+    ba2, ba8 = butter(2, 0.1), butter(8, 0.1)
+    paths = [  # (name, the port's call, scipy's f64 call on 8 rows, timed)
+        ("sosfilt butter(8, 0.1) sos (4 biquads)", lambda: sosfilt(sos_b, x),
+         lambda: ss.sosfilt(sos_b, xh), True),
+        ("sosfilt ellip(8, 0.5, 60, 0.15) sos (4 biquads)", lambda: sosfilt(sos_e, x),
+         lambda: ss.sosfilt(sos_e, xh), True),
+        ("lfilter butter(2, 0.1) ba (order 2: chunked)", lambda: lfilter(*ba2, x),
+         lambda: ss.lfilter(*ba2, xh), True),
+        ("lfilter butter(8, 0.1) ba (order 8: per sample, f64)", lambda: lfilter(*ba8, x),
+         lambda: ss.lfilter(*ba8, xh), True),
+        ("sosfiltfilt butter(8, 0.1) sos", lambda: sosfiltfilt(sos_b, x),
+         lambda: ss.sosfiltfilt(sos_b, xh), False),
+        ("filtfilt butter(2, 0.1) ba", lambda: filtfilt(*ba2, x),
+         lambda: ss.filtfilt(*ba2, xh), False),
+    ]
+    card = _gpu_name_and_power_limit()
+    bytes_ms = 2 * 4 * channels * length / _PEAK_BYTES * 1e3
+    results = {}
+    for name, fn, ref, timed in paths:
+        out = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _run_path(f"{name} {channels}x{length}", kernels, (),
+                  lambda: out.update(y=fn()) or torch.cuda.synchronize())
+        first_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        y = out.pop("y")
+        if tuple(y.shape) != (channels, length) or y.dtype != torch.float32 \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: output {tuple(y.shape)} {y.dtype} not finite, not "
+                                 "float32 or of the wrong shape")
+        got, want = y[:8].double().cpu(), torch.as_tensor(np.ascontiguousarray(ref()))
+        err_row = (got - want).abs().amax(dim=-1)
+        scale_row = want.abs().amax(dim=-1)
+        worst = float((err_row / scale_row).max())
+        print(f"  {name}: largest per-row max|d| / max|scipy f64| = {worst:.3g} over 8 rows "
+              f"(gate 1e-4)", flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError(f"{name}: a row is off f64 scipy by {worst} of its max")
+        del y, got
+        ms = sorted(_time_ms(fn) for _ in range(5))[2] if timed else None
+        results[name] = dict(ms=ms, first_s=first_s, peak_gib=peak, rel_err=worst)
+        timing = f"{ms:.3f} ms (median of 5, CUDA events)" if timed else \
+            f"{first_s * 1e3:.1f} ms once (host clock, with a sync)"
+        print(f"  {name} at {channels}x{length} f32: {timing}, peak memory {peak:.3f} GiB "
+              f"above the input (torch.cuda.max_memory_allocated); bytes bound of reading x "
+              f"and writing y once {bytes_ms:.3f} ms; {card}", flush=True)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -1524,6 +1628,8 @@ def main() -> int:
                                       num_frames=n_seg)),
         ("z - coefs @ wk (in place)", lambda: est._subtract_trend(z_seg, coefs, wk)),
         ("power and mean", lambda: est._segment_average(z_seg, z_seg, "mean")),
+        ("power and mean without the finite check (one reduction, no sync)",
+         lambda: torch.linalg.vector_norm(z_seg, dim=-2) ** 2 / n_seg),
         ("torch.stft(center=False) + |z|^2 + mean", torch_stft_power_mean),
     ]
     for _, fn in welch_stages:
@@ -1575,6 +1681,11 @@ def main() -> int:
     print("phase 9: spectral estimation on the card (welch, csd, coherence, spectrogram, "
           "ShortTimeFFT)", flush=True)
     launches = _phase9(kernels, launches, dev, channels, length, rate)
+
+    # ---------------------------------------------------------------- 10
+    print("phase 10: IIR filtering on the card (sosfilt, lfilter, sosfiltfilt, filtfilt)",
+          flush=True)
+    _phase10(kernels, dev, channels, length)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

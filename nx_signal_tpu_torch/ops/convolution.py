@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32, blocked_frame_matmul, toeplitz_band
+from nx_signal_tpu_torch.ops.iir import lfilter
 from nx_signal_tpu_torch.ops.transforms import fft_nd, ifft_nd, irfft_nd, rfft_nd
 from nx_signal_tpu_torch.spectral.framing import _ola_fold
 from nx_signal_tpu_torch.utils.devices import as_signal
@@ -506,8 +507,8 @@ def deconvolve(signal, divisor):
     """Polynomial deconvolution, scipy.signal.deconvolve's contract:
     (quotient, remainder) with signal = convolve(divisor, quotient) +
     remainder. The quotient is the impulse response of the filter
-    b=signal, a=divisor over N - D + 1 samples, computed on the host in
-    f64 (scipy.signal.lfilter) and cast to the operands' float dtype.
+    b=signal, a=divisor over N - D + 1 samples (`ops.iir.lfilter`, as the
+    JAX package computes it), in the operands' float dtype.
 
     Examples:
 
@@ -519,8 +520,6 @@ def deconvolve(signal, divisor):
     >>> q, r
     (tensor([1., 2., 1.]), tensor([0., 0., 0., 0.]))
     """
-    from scipy.signal import lfilter
-
     num = torch.atleast_1d(as_signal(signal))
     den = torch.atleast_1d(torch.as_tensor(divisor, device=num.device))
     if num.ndim != 1 or den.ndim != 1:
@@ -528,12 +527,9 @@ def deconvolve(signal, divisor):
     n = num.shape[0] - den.shape[0] + 1
     if n <= 0:
         return torch.zeros((0,), dtype=num.dtype, device=num.device), num
-    dtype = torch.promote_types(torch.promote_types(num.dtype, den.dtype), torch.float32)
-    host = torch.complex128 if dtype.is_complex else torch.float64
-    impulse = np.zeros(n)
-    impulse[0] = 1.0
-    quot = lfilter(num.cpu().to(host).numpy(), den.cpu().to(host).numpy(), impulse)
-    quot = torch.as_tensor(quot, device=num.device).to(dtype)
+    impulse = torch.zeros((n,), dtype=num.dtype, device=num.device)
+    impulse[0] = 1
+    quot = lfilter(num, den, impulse)
     return quot, num - convolve(den, quot, mode="full")
 
 

@@ -248,18 +248,37 @@ def _spectral_params(window, segment_length, overlap_length, fft_length, scaling
 
 
 def _cross_power(zx, zy):
-    """conj(zx) zy per segment; |zx|^2, real, when zy is zx (the same
-    values as the complex product's real part)."""
+    """conj(zx) zy per segment, NaN + NaN j where a part is not finite;
+    |zx|^2, real, when zy is zx (`_auto_power`). The reference forms the
+    complex product and multiplies it by reals promoted to complex (the
+    scale, the one-sided factor, the mean's division, the median's 1j), so
+    a non-finite part spreads into NaN in both parts."""
     if zy is zx:
-        vr = torch.view_as_real(zx)
-        return (vr * vr).sum(-1)
-    return torch.conj(zx) * zy
+        return _auto_power(zx)
+    p = torch.conj(zx) * zy
+    return torch.where(torch.isfinite(p.real) & torch.isfinite(p.imag), p,
+                       p.new_tensor(complex(torch.nan, torch.nan)))
+
+
+def _auto_power(z):
+    """|z|^2 per segment, NaN where it is not finite, as the reference's
+    complex power gives it: conj(z) z has the im part ab - ba, NaN for an
+    inf or overflowing ab, and an inf re part meets a 0 im part in the
+    later products (`_cross_power`)."""
+    vr = torch.view_as_real(z)
+    power = (vr * vr).sum(-1)
+    return torch.where(torch.isfinite(power), power, torch.nan)
 
 
 def _power_sum(z):
     """sum over the segment axis (-2) of |z|^2, as one reduction that reads
-    the spectra once (the 2-norm, squared; no power tensor is built)."""
-    return torch.linalg.vector_norm(z, dim=-2) ** 2
+    the spectra once (the 2-norm, squared; no power tensor is built), NaN
+    where it is not finite: a segment whose power is NaN, inf or overflows
+    makes the reference's bin NaN (`_auto_power`). No sync and no second
+    pass. One case differs: every segment finite but their sum past the
+    float range, where the reference's mean is inf and this NaN."""
+    total = torch.linalg.vector_norm(z, dim=-2) ** 2
+    return torch.where(torch.isfinite(total), total, torch.nan)
 
 
 def _median_average(pxy):

@@ -47,7 +47,9 @@ def spectrogram(x, sampling_rate, *, window="hann", window_length: int = 256,
     if mode == "complex":
         out = z
     elif mode == "magnitude":
-        out = z.abs()
+        # NaN wherever a part is NaN, as jnp.abs gives it (torch's complex
+        # abs is inf for an inf part beside a NaN one)
+        out = torch.where(torch.isnan(z.real) | torch.isnan(z.imag), torch.nan, z.abs())
     else:
         scale = 1.0 / (sampling_rate * torch.sum(w.to(DEFAULT_FLOAT) ** 2))
         out = (z.real ** 2 + z.imag ** 2) * scale

@@ -17,6 +17,7 @@ from nx_signal_tpu_torch.kernels import dft as td
 from nx_signal_tpu_torch.models.pipeline import StftFirChain
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import filters as tfilt
+from nx_signal_tpu_torch.ops import iir as tiir
 from nx_signal_tpu_torch.ops import transforms as tt
 from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
@@ -40,6 +41,8 @@ SFT = ShortTimeFFT(WIN, 64, 1000.0)
 SFT_SPEC = (_RNG.normal(size=(2, 129, 36)) + 1j * _RNG.normal(size=(2, 129, 36))).astype(
     np.complex64)
 TIMES = np.sort(_RNG.uniform(0, 10, size=64))
+BA = ([0.2, 0.4, 0.2], [1.0, -0.4, 0.2])
+SOS = np.array([[0.2, 0.4, 0.2, 1.0, -0.4, 0.2], [1.0, 0.0, -1.0, 1.0, 0.1, 0.3]])
 
 # name -> (function of the signal, the signal as numpy)
 ENTRY_POINTS = {
@@ -105,6 +108,12 @@ ENTRY_POINTS = {
     "ShortTimeFFT.stft_detrend": (lambda s: SFT.stft_detrend(s, "linear"), SIG),
     "ShortTimeFFT.spectrogram": (lambda s: SFT.spectrogram(s), SIG),
     "ShortTimeFFT.istft": (lambda s: SFT.istft(s), SFT_SPEC),
+    "lfilter": (lambda s: tiir.lfilter(*BA, s), SIG),
+    "lfilter_order3": (lambda s: tiir.lfilter([0.1, 0.2, 0.2, 0.1], [1.0, -0.5, 0.2, -0.1], s),
+                       SIG),
+    "filtfilt": (lambda s: tiir.filtfilt(*BA, s), SIG),
+    "sosfilt": (lambda s: tiir.sosfilt(SOS, s), SIG),
+    "sosfiltfilt": (lambda s: tiir.sosfiltfilt(SOS, s), SIG),
 }
 
 

@@ -14,6 +14,9 @@ MODULES = [
     "nx_signal_tpu_torch.models.pipeline",
     "nx_signal_tpu_torch.ops.convolution",
     "nx_signal_tpu_torch.ops.filters",
+    "nx_signal_tpu_torch.ops.fir_design",
+    "nx_signal_tpu_torch.ops.iir",
+    "nx_signal_tpu_torch.ops.iir_design",
     "nx_signal_tpu_torch.ops.ltisys",
     "nx_signal_tpu_torch.ops.transforms",
     "nx_signal_tpu_torch.ops.waveforms",

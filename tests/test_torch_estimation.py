@@ -166,3 +166,27 @@ def test_vectorstrength_matches_jax(rng):
         te.vectorstrength(torch.zeros(2, 2), 1.0)
     with pytest.raises(ValueError, match="same length"):
         te.lombscargle(torch.zeros(3), torch.zeros(4), torch.ones(2))
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, 1e30])
+@pytest.mark.parametrize("fn,kw", [
+    ("welch", dict(detrend=False)), ("welch", {}), ("welch", dict(average="median")),
+    ("welch", dict(detrend="linear", average="median")),
+    ("welch", dict(onesided=False, detrend=False)), ("csd", dict(average="median")),
+    ("periodogram", {})])
+def test_non_finite_bins_match_jax(fn, kw, bad, rng):
+    """2000 f32 samples with one NaN, inf or overflowing sample at index
+    700: the bins the JAX package's complex conj(z) z makes NaN (its NaN im
+    part spreads through the products by real scalars promoted to complex)
+    are NaN here too, not +inf; the median propagates the NaN. Every bin is
+    NaN for these inputs, as the JAX package gives them."""
+    x = rng.normal(size=2000).astype(np.float32)
+    x[700] = bad
+    args = (x, x) if fn == "csd" else (x,)
+    want = np.asarray(getattr(je, fn)(*(jnp.asarray(a) for a in args), **kw)[1])
+    got = getattr(te, fn)(*(torch.from_numpy(a) for a in args), **kw)[1].numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert np.isnan(want.real).all()
+

@@ -1,0 +1,61 @@
+"""The port's top level: every name of the JAX package's `__all__` that the
+port defines somewhere (a public name of one of its modules, or one of its
+submodules) imports from `nx_signal_tpu_torch`, as it does from
+`nx_signal_tpu`. The seed of a registry meta-test for the port's exports.
+"""
+
+import importlib
+import pkgutil
+
+import pytest
+
+import nx_signal_tpu
+import nx_signal_tpu_torch
+
+
+def _port_definitions():
+    """name -> the port object: the names in each module's __all__, the
+    public functions and classes each module defines, then the modules."""
+    defined, modules = {}, {}
+    for info in pkgutil.walk_packages(nx_signal_tpu_torch.__path__, "nx_signal_tpu_torch."):
+        module = importlib.import_module(info.name)
+        modules.setdefault(info.name.rsplit(".", 1)[-1], module)
+        for name in getattr(module, "__all__", ()):
+            defined.setdefault(name, getattr(module, name))
+        for name, obj in vars(module).items():
+            if not name.startswith("_") and getattr(obj, "__module__", None) == info.name:
+                defined.setdefault(name, obj)
+    for name, module in modules.items():
+        defined.setdefault(name, module)
+    return defined
+
+
+DEFINED = _port_definitions()
+SHARED = sorted(set(nx_signal_tpu.__all__) & set(DEFINED))
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_ported_name_imports_from_the_top_level(name):
+    assert name in nx_signal_tpu_torch.__all__
+    exported = getattr(nx_signal_tpu_torch, name)
+    if name in ("windows", "waveforms", "transforms", "convolution", "filters", "iir",
+                "iir_design", "ltisys"):
+        assert exported is importlib.import_module(f"nx_signal_tpu_torch.ops.{name}")
+    else:
+        assert exported is DEFINED[name]
+
+
+def test_the_faults_names_are_exported():
+    """The 15 names that were defined but not exported (boxcar, triang and
+    kaiser_bessel_derived are imported at the JAX package's top level,
+    outside its __all__), and the IIR slice's."""
+    for name in ("check_COLA", "check_NOLA", "correlation_lags", "deconvolve",
+                 "choose_conv_method", "findfreqs", "sinc", "windows", "waveforms",
+                 "transforms", "convolution", "filters", "lfilter", "sosfiltfilt", "butter",
+                 "band_stop_obj", "iirdesign", "remez", "normalize", "BadCoefficients", "iir",
+                 "iir_design", "ltisys"):
+        assert name in SHARED
+    for name in ("boxcar", "triang", "kaiser_bessel_derived"):
+        assert getattr(nx_signal_tpu_torch, name) is DEFINED[name]
+        assert hasattr(nx_signal_tpu, name)
+    from nx_signal_tpu_torch import deconvolve  # noqa: F401

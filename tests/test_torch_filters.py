@@ -47,6 +47,21 @@ def test_median_matches_jax(shape, kernel, rng):
     close(got, want, 0.0)
 
 
+@pytest.mark.parametrize("values,kernel", [([1.0, np.nan, 3.0, 4.0, 5.0], (3,)),
+                                           ([1.0, 2.0, np.nan, 4.0, 5.0, 6.0], (4,)),
+                                           ([np.inf, 1.0, -np.inf, 2.0], (2,))])
+def test_median_propagates_nan_as_jax(values, kernel):
+    """A window that holds a NaN gives NaN (torch.sort puts NaN last, so the
+    middle values alone would hide it); [1, nan, 3, 4, 5] over 3 is
+    [nan nan 4 4 4], as the JAX package gives it."""
+    t = np.asarray(values, np.float32)
+    want = np.asarray(jf.median(jnp.asarray(t), kernel_shape=kernel))
+    got = tf.median(T(t), kernel_shape=kernel)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kernel == (3,):
+        np.testing.assert_array_equal(got.numpy(), [np.nan, np.nan, 4.0, 4.0, 4.0])
+
+
 def test_median_even_count_is_the_mean_of_the_middle_pair():
     got = tf.median(torch.tensor([1.0, 4.0, 2.0, 8.0]), kernel_shape=(4,))
     assert got.tolist() == [3.0, 3.0, 3.0, 3.0]   # torch.median would give 2.0

@@ -133,7 +133,55 @@ def test_sharded_oaconvolve_same_matches_jax(case, results):
     assert_close_to_max(results["oa", mesh_shape, length, k], want, 1e-5)
 
 
+@pytest.mark.parametrize("case", ranks.SOS_CASES, ids=str)
+def test_sharded_sosfilt_matches_jax(case, results):
+    """At the JAX package's gate (tests/test_sharded.py:276-277), 1e-5 of
+    the max, against the port's single-device sosfilt in every case, and
+    against the JAX sharded_sosfilt on the 4-device mesh for the 2-section
+    cases, the uneven 1-D one included (each call of the JAX function
+    compiles its scans anew: 50-60 s a case on a CPU for 2 sections, about
+    110 s for ellip8's 4); every case also 1e-4 of the max against scipy
+    f64 (tests/test_sharded.py:286, :296)."""
+    import scipy.signal as sps
+
+    mesh_shape, design, channels, length = case
+    sos, x = ranks.sos_design(design), ranks.sos_signal(channels, length)
+    got = results["sos", mesh_shape, design, length]
+    assert_close_to_max(got, results["sos_single", mesh_shape, design, length], 1e-5)
+    assert_close_to_max(got, sps.sosfilt(sos, x.astype(np.float64)), 1e-4)
+    if sos.shape[0] == 2:
+        want = np.asarray(js.sharded_sosfilt(sos, x, mesh=mesh4(mesh_shape)))
+        assert_close_to_max(got, want, 1e-5)
+
+
+def test_sos_state_space_impulse_response():
+    """The host (A, B, C, D) reproduces the sos impulse response
+    (tests/test_sharded.py:298-312), and equals the JAX package's."""
+    import scipy.signal as sps
+
+    from nx_signal_tpu_torch.parallel import sharded as ts
+
+    sos = sps.cheby1(6, 1.0, 0.25, output="sos")
+    a_mat, b_vec, c_vec, d = ts._sos_state_space(sos)
+    for got, want in zip((a_mat, b_vec, c_vec, d), js._sos_state_space(sos)):
+        np.testing.assert_array_equal(got, want)
+    imp = np.zeros(64)
+    imp[0] = 1.0
+    z, out = np.zeros(a_mat.shape[0]), np.empty(64)
+    for i in range(64):
+        out[i] = c_vec @ z + d * imp[i]
+        z = a_mat @ z + b_vec * imp[i]
+    np.testing.assert_allclose(out, sps.sosfilt(sos, imp), atol=1e-12, rtol=1e-10)
+    obs = ts._observability(a_mat, c_vec, 100)
+    row = c_vec
+    for i in range(100):
+        np.testing.assert_allclose(obs[i], row, atol=1e-14, rtol=1e-12)
+        row = row @ a_mat
+
+
 @pytest.mark.parametrize("name,pattern", [
+    ("sos_shape", r"sos array must be shape \(n_sections, 6\)"),
+    ("sos_channels", r"channels \(3\) must be divisible by 2"),
     ("halo", r"filter halo \(32\) exceeds the per-device block \(8\)"),
     ("chain_halo", r"chain halo \(left 150, right 534\) exceeds the per-device block \(512\)"),
     ("channels", r"channels \(3\) must be divisible by 2"),

@@ -39,3 +39,17 @@ def test_spectrogram_matches_jax(mode, window, length, overlap, fft_length, ones
 def test_spectrogram_errors():
     with pytest.raises(ValueError, match="mode must be one of"):
         spectrogram(torch.zeros(512), 1.0, mode="power")
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, 1e30])
+@pytest.mark.parametrize("mode", ["psd", "magnitude"])
+def test_non_finite_bins_match_jax(mode, bad, rng):
+    """One NaN, inf or overflowing sample: the NaN and inf bins of the JAX
+    package (its complex abs is NaN where a part is NaN, torch's is inf
+    beside an inf part)."""
+    x = rng.normal(size=2000).astype(np.float32)
+    x[700] = bad
+    want = np.asarray(js.spectrogram(jnp.asarray(x), 1.0, mode=mode)[2])
+    got = spectrogram(torch.from_numpy(x), 1.0, mode=mode)[2].numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))

@@ -46,6 +46,25 @@ EST_CASES = [
     ((2, 2), "coherence", 4, 4096, dict(segment_length=256, overlap_length=192)),
 ]
 HALO_PADS = [(5, 3), (1, 0), (0, 4), (16, 16), (0, 0)]  # on 16-sample blocks
+# sharded_sosfilt (tests/test_sharded.py:267-296): mesh, design, channels,
+# length (1-D when channels is None; 5001 and 4099 pad the last block)
+SOS_DESIGNS = {"butter6": (6, 0.2), "ellip8": (8, 0.5, 60.0, 0.15), "butter4": (4, 0.3)}
+SOS_CASES = [((1, 4), "butter4", None, 5001), ((2, 2), "butter4", 4, 4096),
+             ((2, 2), "ellip8", 4, 4096), ((4, 1), "butter6", 4, 4099)]
+
+
+def sos_design(name):
+    """The case's (sections, 6) f64 design (the port's, numpy, no JAX)."""
+    from nx_signal_tpu_torch.ops import iir_design
+
+    args = SOS_DESIGNS[name]
+    if name.startswith("ellip"):
+        return iir_design.ellip(*args, output="sos")
+    return iir_design.butter(*args, output="sos")
+
+
+def sos_signal(channels, length):
+    return signal(30, (length,) if channels is None else (channels, length))
 
 
 def signal(seed, shape, dtype=np.float32):
@@ -201,6 +220,17 @@ def cpu_cases(rank, store_path, out_path):
                                     cuda_halo.halo_extend_cuda.launches - before)
         out["est_freqs", i] = f.numpy()
 
+    from nx_signal_tpu_torch.ops.iir import sosfilt
+
+    for mesh_shape, design, channels, length in SOS_CASES:
+        mesh = meshes[mesh_shape]
+        sos, x = sos_design(design), sos_signal(channels, length)
+        y = ts.sharded_sosfilt(sos, torch.from_numpy(x), mesh=mesh)
+        y2d = y[None] if channels is None else y
+        got = gather(y2d, mesh, length)
+        out["sos", mesh_shape, design, length] = got[0] if channels is None else got
+        out["sos_single", mesh_shape, design, length] = sosfilt(sos, torch.from_numpy(x)).numpy()
+
     mesh = meshes[(1, 4)]
     out["errors"] = {
         "halo": _error(lambda: ts.sharded_convolve_same(
@@ -219,6 +249,10 @@ def cpu_cases(rank, store_path, out_path):
             torch.zeros(4, 4096), mesh=mesh, detrend=lambda f: f)),
         "est_channels": _error(lambda: te.sharded_welch(
             torch.zeros(3, 4096), mesh=meshes[(2, 2)])),
+        "sos_shape": _error(lambda: ts.sharded_sosfilt(
+            np.zeros((2, 5)), torch.zeros(4, 4096), mesh=mesh)),
+        "sos_channels": _error(lambda: ts.sharded_sosfilt(
+            sos_design("butter4"), torch.zeros(3, 4096), mesh=meshes[(2, 2)])),
     }
     every = [None] * WORLD
     dist.all_gather_object(every, per_rank)
