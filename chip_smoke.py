@@ -168,7 +168,36 @@ Phases (any failure raises, and the exit code is not 0):
      above the input (torch.cuda.max_memory_allocated) beside the card's
      name and power limit. Phase 8 also holds sharded_sosfilt (no halo:
      kernel E must not launch) on its ranks against the single-device
-     sosfilt at 1e-5 of the max.
+     sosfilt at 1e-5 of the max, and the polyphase functions at 64 x 480000
+     on (1, 4), each launching kernel E once per rank, each rank's shard
+     against the single-device call at the JAX package's gates:
+     sharded_upfirdn (31 taps, up 2, down 3; float32, and complex64, whose
+     8-byte elements E moves whole) at rtol 2e-5, atol 2e-5 x max;
+     sharded_resample_poly (1/3: a left and a right halo) at rtol = atol =
+     1e-5; sharded_pfb_analyze (64 bands, tpc 8: a right halo of 448) at
+     rtol = atol = 1e-6 x max (each rank prints the error it reads).
+ 11. resampling, the polyphase filterbank and mixing on the card (plain
+     PyTorch: no TPU kernel lies on these paths, and none of A-D may
+     launch), from the seed in f32, each held on 4 rows against an f64
+     oracle per row at 1e-5 of the row's max (decimate 'sos' and 'iir' at
+     1e-4 against scipy.signal.decimate), timed as the median of 5
+     CUDA-event timings, with its peak memory above the input and the
+     card's name and power limit: the config-4 chain
+     resample_poly(mix_down(x, 8000, 48000).real, 1, 3) at 64 x 2880000
+     (60 s at 48 kHz; the oracle mixes with the port's f32 phase argument
+     in f64, then scipy's resample_poly); upfirdn (31 taps, up 2, down 3)
+     on float32 and complex64 input ('materialize': frames of 2 hop
+     blocks), and with 2047 taps at 8 x 2880000 ('conv': 17 blocks;
+     against scipy's f64 fftconvolve);
+     demodulate_channel(x, 12000, 48000, bandwidth=4000, decimation=6);
+     resample (the Fourier method) to a third; decimate(q=3) 'fir' and
+     'sos', all at 64 x 2880000, and 'iir' at 8 x 48000 (order 8 one f64
+     step per sample: the checked call on the host clock); pfb_analyze at
+     8 x 4194304 with 64 and 1024 bands ('auto': 'factored') and 16 bands
+     ('matmul'), and 1024 bands on one stream of 100 000 000 samples, each
+     against an f64 numpy einsum and FFT, its peak beside
+     pfb_footprint_bytes; last, resample_poly(x, 1, 3) at 64 x 28800000 (10
+     min at 48 kHz), its reckoned peak printed first.
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
@@ -454,9 +483,11 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
     from nx_signal_tpu_torch.ops.iir import sosfilt
     from nx_signal_tpu_torch.ops.iir_design import butter
     from nx_signal_tpu_torch.parallel.estimation import sharded_welch
+    from nx_signal_tpu_torch.ops.resample import pfb_analyze, resample_poly, upfirdn
     from nx_signal_tpu_torch.parallel.sharded import (
         _local_shard, _sharded_fold, gather_blocks, sharded_convolve_same,
-        sharded_fir_framed_dft_power, sharded_istft, sharded_sosfilt, sharded_stft)
+        sharded_fir_framed_dft_power, sharded_istft, sharded_pfb_analyze,
+        sharded_resample_poly, sharded_sosfilt, sharded_stft, sharded_upfirdn)
     from nx_signal_tpu_torch.spectral.estimation import welch
 
     mesh14 = make_dsp_mesh(1, world, device_type=device_type)
@@ -621,6 +652,50 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         raise AssertionError(f"rank {rank}: {name} off the single-device sosfilt by {err}")
     report["sos_max_abs_err"] = err
     del y, single, got
+
+    # the polyphase functions, every halo through kernel E (resample_poly's
+    # group delay gives a right halo too; a complex64 shard goes through E
+    # whole): each rank's shard against the single-device call on the same
+    # card at the JAX package's gates (tests/test_sharded_resample.py:43-44,
+    # :72-73; tests/test_sharded.py:221-242), as (rtol, atol, atol relative
+    # to the single-device max)
+    h31 = torch.randn(31, generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    x_c = torch.complex(x_small, x_small.flip(-1))
+    report["polyphase_rel_err"] = {}
+    polyphase = [
+        ("sharded_upfirdn 2/3 31 taps", -1, (2e-5, 2e-5, True),
+         lambda: sharded_upfirdn(h31.float(), x_small, 2, 3, mesh=mesh14),
+         lambda: upfirdn(h31.float(), x_small, 2, 3)),
+        ("sharded_upfirdn 2/3 31 taps complex64", -1, (2e-5, 2e-5, True),
+         lambda: sharded_upfirdn(h31.float(), x_c, 2, 3, mesh=mesh14),
+         lambda: upfirdn(h31.float(), x_c, 2, 3)),
+        ("sharded_resample_poly 1/3", -1, (1e-5, 1e-5, False),
+         lambda: sharded_resample_poly(x_small, 1, 3, mesh=mesh14),
+         lambda: resample_poly(x_small, 1, 3)),
+        ("sharded_pfb_analyze 64 bands tpc 8", -2, (1e-6, 1e-6, True),
+         lambda: sharded_pfb_analyze(x_small, 64, mesh=mesh14, taps_per_channel=8),
+         lambda: pfb_analyze(x_small, 64, taps_per_channel=8)),
+    ]
+    for label, axis, (rtol, atol, of_max), sharded_fn, single_fn in polyphase:
+        name = f"{label} (1, 4) {small}x{length}"
+        run_path(name, {E: 1}, lambda: out.update(y=sharded_fn()))
+        y, single = out.pop("y"), single_fn()
+        start = b * y.shape[axis]
+        stop = min(start + y.shape[axis], single.shape[axis])
+        got, want = y.narrow(axis, 0, stop - start), single.narrow(axis, start, stop - start)
+        scale = float(single.abs().max())
+        limit = (atol * scale if of_max else atol) + rtol * want.abs()
+        worst = float(((got - want).abs() / limit).max())
+        err = float((got - want).abs().max())
+        say(f"{name} vs the single-device call, {'frames' if axis == -2 else 'samples'} "
+            f"{start}:{stop}: max|d| = {err:.6g}, max|d| / max = {err / scale:.3g}, dtype "
+            f"{y.dtype}; largest |d| / (atol + rtol |want|) = {worst:.3g} (gate 1: rtol "
+            f"{rtol:g}, atol {atol:g}{' x max' if of_max else ''})")
+        if not (y.dtype == single.dtype and bool(torch.isfinite(y).all()) and worst <= 1):
+            raise AssertionError(f"rank {rank}: {name} off the single-device call: "
+                                 f"max|d| {err} (max {scale}), {worst} of its gate")
+        report["polyphase_rel_err"][label] = err / scale
+        del y, single, got, want, limit
 
     if on_card:  # kernel E, 16 calls back to back with a delayed rank
         rows, pads = small, [(127, 127), (128, 127), (1, 0), (0, 4)]
@@ -914,6 +989,183 @@ def _phase10(kernels, dev, channels, length):
               f"above the input (torch.cuda.max_memory_allocated); bytes bound of reading x "
               f"and writing y once {bytes_ms:.3f} ms; {card}", flush=True)
     del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+def _phase11(kernels, dev):
+    """Phase 11 (see the module docstring): resampling, the polyphase
+    filterbank and mixing on the card, each against an f64 oracle on 4
+    rows, timed, with its peak memory above the input."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    from nx_signal_tpu_torch.ops.filters import firwin
+    from nx_signal_tpu_torch.ops.mixing import demodulate_channel, mix_down
+    from nx_signal_tpu_torch.ops.resample import (
+        decimate, pfb_analyze, pfb_footprint_bytes, resample, resample_poly, upfirdn)
+
+    card = _gpu_name_and_power_limit()
+    rate, rows = 48000.0, 4
+
+    def randn(seed, shape):
+        return torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+    def host(t):
+        return t[:rows].cpu().numpy().astype(np.complex128 if t.is_complex() else np.float64)
+
+    def lo_f64(n, fc):
+        """The port's oscillator: its float32 argument (the f32 product of
+        the f32 scalar -2 pi fc/fs and an f32 index), exp taken in f64."""
+        arg = np.float32(-2.0 * math.pi * (fc / rate)) * np.arange(n, dtype=np.float32)
+        return np.exp(1j * arg.astype(np.float64))
+
+    def pfb_f64(xh, m, tpc, proto):
+        frames = np.lib.stride_tricks.sliding_window_view(xh, m * tpc, axis=-1)[..., ::m, :]
+        blocks = frames.reshape(*frames.shape[:-1], tpc, m)
+        return np.fft.fft(np.einsum("...jc,jc->...c", blocks, proto.reshape(tpc, m)), axis=-1)
+
+    def bound_text(flops, nbytes):
+        ms, by = _bound(flops, nbytes)
+        return f"bound {ms:.3f} ms ({by})"
+
+    results = {}
+
+    def run(label, fn, oracle, *, rel, timed=True, bound=(0.0, 0.0), model=None, note=""):
+        """Drive `fn` once (counters zeroed, no kernel may launch), hold its
+        first 4 rows per row within rel x the row's max against `oracle()`
+        (f64, rows flattened), then time it (median of 5 CUDA-event
+        timings, or the checked call on the host clock) and print its peak
+        memory above the input."""
+        out = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _run_path(label, kernels, (), lambda: out.update(y=fn()) or torch.cuda.synchronize(),
+                  avoid=kernels)
+        first_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        y = out.pop("y")
+        if not bool(torch.isfinite(y.abs()).all()):
+            raise AssertionError(f"{label}: output {tuple(y.shape)} not finite")
+        got = host(y).reshape(min(rows, y.shape[0]), -1)
+        want = np.asarray(oracle()).reshape(got.shape[0], -1)
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: shape {got.shape} != the oracle's {want.shape}")
+        worst = float((np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)).max())
+        print(f"  {label}: largest per-row max|d| / max|oracle| = {worst:.3g} over "
+              f"{got.shape[0]} rows (gate {rel:g}); output {tuple(y.shape)} {y.dtype}",
+              flush=True)
+        if not worst <= rel:
+            raise AssertionError(f"{label}: a row is off its f64 oracle by {worst} of its max")
+        del y, got
+        ms = sorted(_time_ms(fn) for _ in range(5))[2] if timed else None
+        timing = (f"{ms:.3f} ms (median of 5, CUDA events)" if timed else
+                  f"{first_s * 1e3:.1f} ms once (host clock, the checked call){note}")
+        extra = f", model (pfb_footprint_bytes) {model / 2**30:.3f} GiB" if model else ""
+        print(f"  {label}: {timing}, peak memory {peak:.3f} GiB above the input "
+              f"(torch.cuda.max_memory_allocated){extra}; {bound_text(*bound)}; {card}",
+              flush=True)
+        results[label] = dict(ms=ms, first_s=first_s, peak_gib=peak, rel_err=worst)
+
+    # BASELINE.json config 4 at 60 s (scripts/configs_bench.py:74-84): the
+    # mixdown and the 48 kHz -> 16 kHz polyphase resample on 64 channels
+    n60 = 2_880_000
+    x = randn(11, (64, n60))
+    xh = host(x)
+    out_len = n60 // 3
+    run(f"config-4 chain resample_poly(mix_down(x, 8000, 48000).real, 1, 3) 64x{n60}",
+        lambda: resample_poly(mix_down(x, 8000.0, rate).real, 1, 3),
+        lambda: ss.resample_poly((xh * lo_f64(n60, 8000.0)).real, 1, 3, axis=-1), rel=1e-5,
+        bound=(64 * out_len * 61 * 2.0, 4.0 * 64 * (n60 + out_len)))
+    h31 = torch.from_numpy(np.random.default_rng(31).normal(size=31).astype(np.float32))
+    n_up = -(-((n60 - 1) * 2 + 31) // 3)
+    run(f"upfirdn 31 taps, up 2, down 3, float32 64x{n60} ('materialize', C = 2)",
+        lambda: upfirdn(h31, x, 2, 3),
+        lambda: ss.upfirdn(h31.double().numpy(), xh, 2, 3), rel=1e-5,
+        bound=(64 * n_up * 16 * 2.0, 4.0 * 64 * (n60 + n_up)))
+    xc = torch.complex(x, x.flip(-1))
+    xch = host(xc)
+    run(f"upfirdn 31 taps, up 2, down 3, complex64 64x{n60} ('materialize')",
+        lambda: upfirdn(h31, xc, 2, 3),
+        lambda: ss.upfirdn(h31.double().numpy(), xch, 2, 3), rel=1e-5,
+        bound=(64 * n_up * 16 * 4.0, 8.0 * 64 * (n60 + n_up)))
+    del xc, xch
+    # a frame of more hop blocks than _MATERIALIZE_MAX_BLOCKS: the banded 'conv'
+    h2047 = torch.from_numpy(np.random.default_rng(2047).normal(size=2047).astype(np.float32))
+    x8 = x[:8]
+    run(f"upfirdn 2047 taps, up 1, down 1, float32 8x{n60} ('conv', C = 17)",
+        lambda: upfirdn(h2047, x8, 1, 1),
+        lambda: ss.fftconvolve(xh, h2047.double().numpy()[None], axes=-1), rel=1e-5,
+        bound=(8 * (n60 + 2046) * 2047 * 2.0, 4.0 * 8 * (2 * n60 + 2046)))
+    del x8
+    taps = firwin(129, [2000.0], sampling_rate=rate).double().numpy()
+    run(f"demodulate_channel(x, 12000, 48000, bandwidth=4000, decimation=6) 64x{n60}",
+        lambda: demodulate_channel(x, 12000.0, rate, bandwidth=4000.0, decimation=6),
+        lambda: ss.resample_poly(xh * lo_f64(n60, 12000.0), 1, 6, window=taps, axis=-1),
+        rel=1e-5, bound=(64 * (n60 // 6) * 129 * 4.0, 4.0 * 64 * n60 + 8.0 * 64 * n60 // 6))
+    run(f"resample (Fourier) to a third, 64x{n60}", lambda: resample(x, out_len),
+        lambda: ss.resample(xh, out_len, axis=-1), rel=1e-5,
+        bound=(64 * (5.0 * n60 * math.log2(n60) + 5.0 * out_len * math.log2(out_len)),
+               4.0 * 64 * (n60 + out_len)))
+    run(f"decimate(x, 3, ftype='fir') 64x{n60}", lambda: decimate(x, 3, ftype="fir"),
+        lambda: ss.decimate(xh, 3, ftype="fir", axis=-1), rel=1e-5,
+        bound=(64 * out_len * 61 * 2.0, 4.0 * 64 * (n60 + out_len)))
+    run(f"decimate(x, 3, ftype='sos') 64x{n60} (cheby1(8) as 4 biquads, sosfiltfilt)",
+        lambda: decimate(x, 3, ftype="sos"), lambda: ss.decimate(xh, 3, axis=-1), rel=1e-4,
+        bound=(0.0, 4.0 * 64 * (n60 + out_len)))
+    del x, xh
+    xi = randn(12, (8, 48000))
+    run("decimate(x, 3, ftype='iir') 8x48000 (cheby1(8) 'ba' through filtfilt)",
+        lambda: decimate(xi, 3), lambda: ss.decimate(host(xi), 3, axis=-1), rel=1e-4,
+        timed=False, bound=(0.0, 4.0 * 8 * (48000 + 16000)),
+        note="; the port runs order 8 one f64 step per sample, host-bound")
+    del xi
+
+    # BASELINE.json config 5 (scripts/configs_bench.py:87-93): the PFB at
+    # 8 x 4 194 304, and 1 s of its 100 Msample/s stream at 1024 bands
+    n5 = 4_194_304
+    xp = randn(13, (8, n5))
+    xph = host(xp)
+    for m, tpc, strategy, used in ((64, 8, "auto", "factored"), (1024, 8, "auto", "factored"),
+                                   (16, 8, "matmul", "matmul")):
+        proto = firwin(m * tpc, [1.0 / m], window=("kaiser", 5.0)).double().numpy()
+        frames = (n5 - m * tpc) // m + 1
+        run(f"pfb_analyze {m} bands, tpc {tpc}, strategy={strategy!r} ('{used}') 8x{n5}",
+            lambda: pfb_analyze(xp, m, taps_per_channel=tpc, strategy=strategy),
+            lambda: pfb_f64(xph, m, tpc, proto), rel=1e-5,
+            model=pfb_footprint_bytes(used, 8, n5, m, tpc),
+            bound=(8 * frames * (2.0 * m * tpc + 5.0 * m * math.log2(m)),
+                   4.0 * 8 * n5 + 8.0 * 8 * frames * m))
+    del xp, xph
+    n_stream = 100_000_000
+    xs = randn(14, (1, n_stream))
+    proto = firwin(8192, [1.0 / 1024], window=("kaiser", 5.0)).double().numpy()
+    frames = (n_stream - 8192) // 1024 + 1
+    run(f"pfb_analyze 1024 bands, tpc 8 ('factored') on one stream of {n_stream} samples",
+        lambda: pfb_analyze(xs, 1024), lambda: pfb_f64(host(xs), 1024, 8, proto), rel=1e-5,
+        model=pfb_footprint_bytes("factored", 1, n_stream, 1024, 8),
+        bound=(frames * (2.0 * 8192 + 5.0 * 1024 * 10), 4.0 * n_stream + 8.0 * frames * 1024))
+    del xs
+
+    # resample_poly alone at config 4's full size: 10 min at 48 kHz on 64
+    # channels (7.4 GB in, 2.5 GB out), its peak reckoned first
+    n10 = 28_800_000
+    s_in = 4.0 * 64 * n10
+    reckoned = (2 + 442 / 384 + 1 / 3) * s_in
+    print(f"  resample_poly 1/3 at 64x{n10}: reckoned peak above the input "
+          f"{reckoned / 2**30:.1f} GiB (F.pad's extended copy and blocked_frame_matmul's padded "
+          f"copy, S = {s_in / 2**30:.2f} GiB each; the frames of 442 samples at stride 384, "
+          "442/384 S; the output, S / 3)", flush=True)
+    xl = randn(15, (64, n10))
+    run(f"resample_poly(x, 1, 3) 64x{n10} (10 min at 48 kHz)", lambda: resample_poly(xl, 1, 3),
+        lambda: ss.resample_poly(host(xl), 1, 3, axis=-1), rel=1e-5,
+        bound=(64 * (n10 // 3) * 61 * 2.0, 4.0 * 64 * (n10 + n10 // 3)))
+    del xl
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
@@ -1686,6 +1938,12 @@ def main() -> int:
     print("phase 10: IIR filtering on the card (sosfilt, lfilter, sosfiltfilt, filtfilt)",
           flush=True)
     _phase10(kernels, dev, channels, length)
+
+    # ---------------------------------------------------------------- 11
+    print("phase 11: resampling, the polyphase filterbank and mixing on the card "
+          "(upfirdn, resample_poly, resample, decimate, pfb_analyze, mix_down, "
+          "demodulate_channel)", flush=True)
+    _phase11(kernels, dev)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

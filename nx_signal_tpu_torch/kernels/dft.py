@@ -137,9 +137,11 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
       output channels runs far below the bytes it reads. The frame matrix
       is never built.
     * 'materialize': build the (num_frames, window_length) frames and run
-      one matmul.
+      one matmul (complex signals and weights: `conv1d` takes real ones).
 
-    Both run exact f32 (TF32 off on CUDA) whatever `precision` says.
+    The signal and weights meet in their promoted dtype. Both strategies
+    run exact f32 (TF32 off on CUDA, complex matmuls included) whatever
+    `precision` says.
 
     Examples:
 
@@ -155,6 +157,8 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
         raise ValueError(f"strategy must be 'conv' or 'materialize', got {strategy!r}")
     x = as_signal(x)
     weights = torch.as_tensor(weights, device=x.device)
+    dtype = torch.promote_types(x.dtype, weights.dtype)  # e.g. a complex signal, real weights
+    x, weights = x.to(dtype), weights.to(dtype)
     c_blocks = len(_frame_block_widths(window_length, stride))
     needed = (num_frames + c_blocks - 1) * stride
     batch = x.shape[:-1]

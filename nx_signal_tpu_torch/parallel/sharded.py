@@ -51,6 +51,15 @@ from nx_signal_tpu_torch.ops.convolution import (
     oaconvolve,
 )
 from nx_signal_tpu_torch.ops.iir import sosfilt
+from nx_signal_tpu_torch.ops.resample import (
+    _pfb_prototype,
+    _phase_bank,
+    _resample_poly_design,
+    _upfirdn_dtype,
+    _upfirdn_out_len,
+    _upfirdn_phase_outputs,
+    pfb_analyze,
+)
 from nx_signal_tpu_torch.parallel.halo import _shift_from_left, _staged
 from nx_signal_tpu_torch.parallel.mesh import block_row, mesh_coordinate, mesh_device, mesh_shape
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
@@ -63,7 +72,8 @@ from nx_signal_tpu_torch.spectral.stft import (
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["sharded_convolve_same", "sharded_fir_framed_dft_power", "sharded_oaconvolve_same",
-           "sharded_stft", "sharded_istft", "sharded_sosfilt", "gather_blocks"]
+           "sharded_stft", "sharded_istft", "sharded_pfb_analyze", "sharded_sosfilt",
+           "sharded_upfirdn", "sharded_resample_poly", "gather_blocks"]
 
 def _block_all_reduce(t, mesh):
     """Sum of `t` over the block axis of this rank's channel row."""
@@ -551,4 +561,167 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     ext = halo_extend_cuda(x_blk, pad_left, halo_right, mesh=mesh)
     out = fir_framed_dft_power_cuda(ext, weights, stride=stride, pad_left=0,
                                     num_frames=frames_per_block, bins=bins, precision=precision)
+    return out[0] if squeeze else out
+
+
+def sharded_pfb_analyze(x, n_channels: int, *, mesh, taps_per_channel: int = 8,
+                        window=("kaiser", 5.0), taps=None, shift: bool = False):
+    """Block+channel-sharded polyphase filterbank channelizer
+    (`ops.resample.pfb_analyze`); returns this rank's (channels /
+    n_channel, block_len / n_channels, n_channels) shard of frames.
+
+    Geometry of `sharded_stft`: a frame at stride n_channels spans
+    n_channels*taps_per_channel samples, so each rank takes the right halo
+    of n_channels*(taps_per_channel - 1) samples from its neighbour (kernel
+    E on a CUDA tensor) and channelizes its own frames wholly locally; the
+    frame slots past the true count (the last block's padding) are cut by
+    `gather_blocks(p, mesh=mesh, length=frames, axis=-2)`. Each frame is
+    the single-device call's frame, up to the order of the local
+    contraction's sums.
+
+    Examples (with a process group initialised, every rank runs):
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> from nx_signal_tpu_torch.parallel.sharded import gather_blocks, sharded_pfb_analyze
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> p = sharded_pfb_analyze(torch.ones(4, 4096), 16, mesh=mesh, taps_per_channel=4)
+    >>> tuple(gather_blocks(p, mesh=mesh, length=253, axis=-2).shape), p.dtype
+    ((4, 253, 16), torch.complex64)
+    >>> dist.destroy_process_group()
+    """
+    x, squeeze, device = _norm_2d(x, mesh)
+    m = n_channels
+    if taps is None:
+        taps = _pfb_prototype(m, taps_per_channel,
+                              tuple(window) if isinstance(window, list) else window)
+    taps = torch.as_tensor(taps).detach().cpu()
+    window_length = taps.shape[0]
+    if window_length % m != 0:
+        raise ValueError(
+            f"prototype length ({window_length}) must be a multiple of "
+            f"n_channels ({m})")
+    n_channel, n_block = mesh_shape(mesh)
+    _check_divisible("channels", x.shape[0], n_channel)
+    block_len, _, _, halo = _stft_frame_geometry(x.shape[1], window_length, m, n_block)
+    ext = halo_extend_cuda(_local_shard(x, mesh, block_len, -1, device), 0, halo, mesh=mesh)
+    out = pfb_analyze(ext, m, taps=taps, shift=shift)
+    return out[0] if squeeze else out
+
+
+def _sharded_upfirdn_body(x, bank, t_taps, up, down, *, mesh, n_offset, out_total, device,
+                          dtype):
+    """Shared per-rank body of sharded_upfirdn / sharded_resample_poly;
+    returns this rank's out_block = block_in*up/down outputs.
+
+    Geometry (the JAX package's): the input is cut into n_block equal
+    blocks with block_in % down == 0, so block b's outputs start at
+    b*out_block with b*out_block*down = b*block_in*up == 0 (mod up): the
+    polyphase pattern ((n_offset + l)*down) % up is the same on every rank.
+    Output l's window ends at own-block input index q'_l = ((n_offset +
+    l)*down)//up, so each rank needs a (T-1)-sample left halo and a right
+    halo of max(0, q'_last + 1 - block_in) samples (nonzero only when
+    n_offset > 0: resample_poly's group delay). Both come through kernel E
+    in one call (its plain send/recv on a CPU tensor), zeros at the stream
+    edges: upfirdn's zero padding."""
+    n_channel, n_block = mesh_shape(mesh)
+    _check_divisible("channels", x.shape[0], n_channel)
+    length = x.shape[1]
+    # the blocks cover every output: upfirdn's run T-1 filter-tail samples
+    # past the input end, so size them by the input extent the last output
+    # reads; the zeros past the signal are upfirdn's right padding
+    required_in = max(length, -(-(n_offset + out_total) * down // up))
+    block_in = -(-required_in // (n_block * down)) * down
+    out_block = block_in * up // down
+    halo_left = t_taps - 1
+    q_last = ((n_offset + out_block - 1) * down) // up
+    halo_right = max(0, q_last + 1 - block_in)
+    if max(halo_left, halo_right) > block_in:
+        raise ValueError(
+            f"polyphase halo ({max(halo_left, halo_right)}) exceeds the "
+            f"per-device block ({block_in}); use fewer blocks or a shorter "
+            "filter")
+    x_blk = _local_shard(x, mesh, block_in, -1, device).to(dtype)
+    ext = halo_extend_cuda(x_blk, halo_left, halo_right, mesh=mesh)
+    return _upfirdn_phase_outputs(ext, bank, up, down, n_offset=n_offset, n_count=out_block)
+
+
+def sharded_upfirdn(h, x, up: int = 1, down: int = 1, *, mesh):
+    """Block+channel-sharded `ops.resample.upfirdn` over a ('channel',
+    'block') mesh; returns this rank's (channels / n_channel, out_block)
+    shard, cut to the true output count by `gather_blocks(y, mesh=mesh,
+    length=n_out)`. Every output is the same T-tap phase dot over the same
+    input values as the single-device call (the left halo supplies the
+    cross-block context; `_sharded_upfirdn_body`), equal to it up to the
+    order of the local contraction's sums.
+
+    A complex64 shard goes through kernel E whole: E copies 4-byte words
+    and takes elements of 8 bytes, so the real and imaginary parts travel
+    together.
+
+    Examples (with a process group initialised, every rank runs):
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> from nx_signal_tpu_torch.parallel.sharded import gather_blocks, sharded_upfirdn
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> y = sharded_upfirdn(torch.ones(31), torch.ones(4, 4096), 2, 3, mesh=mesh)
+    >>> tuple(gather_blocks(y, mesh=mesh, length=2741).shape)
+    (4, 2741)
+    >>> dist.destroy_process_group()
+    """
+    x, squeeze, device = _norm_2d(x, mesh)
+    h = torch.as_tensor(h).detach().cpu()
+    if h.ndim != 1:
+        raise ValueError(f"h must be 1-D, got rank {h.ndim}")
+    if up < 1 or down < 1:
+        raise ValueError(f"up and down must be >= 1, got: up={up}, down={down}")
+    dtype = _upfirdn_dtype(h, x)
+    bank, t_taps = _phase_bank(h.to(dtype), up)
+    n_out = _upfirdn_out_len(x.shape[1], h.shape[0], up, down)
+    out = _sharded_upfirdn_body(x, bank, t_taps, up, down, mesh=mesh, n_offset=0,
+                                out_total=n_out, device=device, dtype=dtype)
+    return out[0] if squeeze else out
+
+
+def sharded_resample_poly(x, up: int, down: int, *, mesh, window=("kaiser", 5.0), taps=None):
+    """Block+channel-sharded `ops.resample.resample_poly`; returns this
+    rank's (channels / n_channel, out_block) shard, cut to the true output
+    count by `gather_blocks(y, mesh=mesh, length=ceil(L*up/down))` (up ==
+    down: this rank's input block, unchanged). The group-delay slice
+    [n_pre_remove, n_pre_remove + n_out) becomes the polyphase output
+    offset (n_offset), which keeps the per-rank phase pattern the same on
+    every rank and makes the right halo nonzero (`_sharded_upfirdn_body`).
+
+    Examples (with a process group initialised, every rank runs):
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> from nx_signal_tpu_torch.parallel.sharded import gather_blocks, sharded_resample_poly
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> y = sharded_resample_poly(torch.ones(4, 4096), 1, 2, mesh=mesh)  # decimate by 2
+    >>> tuple(gather_blocks(y, mesh=mesh, length=2048).shape)
+    (4, 2048)
+    >>> dist.destroy_process_group()
+    """
+    x, squeeze, device = _norm_2d(x, mesh)
+    if up < 1 or down < 1:
+        raise ValueError(f"up and down must be >= 1, got: up={up}, down={down}")
+    n_channel, n_block = mesh_shape(mesh)
+    if int(up) == int(down):
+        _check_divisible("channels", x.shape[0], n_channel)
+        out = _local_shard(x, mesh, -(-x.shape[1] // n_block), -1, device)
+        return out[0] if squeeze else out
+    up, down, h, n_pre_remove = _resample_poly_design(up, down, window, taps)
+    dtype = _upfirdn_dtype(h, x)
+    bank, t_taps = _phase_bank(h.to(dtype), up)
+    n_out = -(-x.shape[1] * up // down)
+    out = _sharded_upfirdn_body(x, bank, t_taps, up, down, mesh=mesh, n_offset=n_pre_remove,
+                                out_total=n_out, device=device, dtype=dtype)
     return out[0] if squeeze else out

@@ -242,12 +242,13 @@ def test_overlap_add_kernel_bitwise_on_cuda(rng):
 def test_halo_kernel_and_seeded_overlap_add_bitwise_on_cuda(tmp_path):
     """Two ranks sharing cuda:0 (a gloo group; CUDA IPC between the
     processes): kernel E against the send/recv halo, bitwise, for f32 with
-    hl = 128, hr = 127, for hl = 1, hr = 0, and for f64; kernel C with a
+    hl = 128, hr = 127, for hl = 1, hr = 0, for f64, and for complex64 (8-byte
+    elements, the two parts moved together); kernel C with a
     seed (some of it -0.0) against the plain seeded fold, bitwise."""
     need_cuda()
     from tests import torch_sharded_ranks as ranks
 
-    assert ranks.spawn(ranks.cuda_halo_case, 2, tmp_path) == [True] * 4
+    assert ranks.spawn(ranks.cuda_halo_case, 2, tmp_path) == [True] * 5
 
 
 @pytest.mark.cuda

@@ -18,6 +18,8 @@ from nx_signal_tpu_torch.models.pipeline import StftFirChain
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import iir as tiir
+from nx_signal_tpu_torch.ops import mixing as tmix
+from nx_signal_tpu_torch.ops import resample as tres
 from nx_signal_tpu_torch.ops import transforms as tt
 from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
@@ -114,6 +116,17 @@ ENTRY_POINTS = {
     "filtfilt": (lambda s: tiir.filtfilt(*BA, s), SIG),
     "sosfilt": (lambda s: tiir.sosfilt(SOS, s), SIG),
     "sosfiltfilt": (lambda s: tiir.sosfiltfilt(SOS, s), SIG),
+    "upfirdn": (lambda s: tres.upfirdn(TAPS, s, 2, 3), SIG),
+    "resample_poly": (lambda s: tres.resample_poly(s, 1, 3), SIG),
+    "resample": (lambda s: tres.resample(s, 1000), SIG),
+    "decimate": (lambda s: tres.decimate(s, 3, ftype="fir"), SIG),
+    "pfb_analyze": (lambda s: tres.pfb_analyze(s, 16, taps_per_channel=4), SIG),
+    "mix_down": (lambda s: tmix.mix_down(s, 1000.0, 8000.0), SIG),
+    "demodulate_channel": (lambda s: tmix.demodulate_channel(
+        s, 1000.0, 8000.0, bandwidth=500.0, decimation=4), SIG),
+    "hilbert": (lambda s: tt.hilbert(s), SIG),
+    "hilbert2": (lambda s: tt.hilbert2(s), IMG),
+    "envelope": (lambda s: tt.envelope(s), SIG),
 }
 
 

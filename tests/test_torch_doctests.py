@@ -18,6 +18,8 @@ MODULES = [
     "nx_signal_tpu_torch.ops.iir",
     "nx_signal_tpu_torch.ops.iir_design",
     "nx_signal_tpu_torch.ops.ltisys",
+    "nx_signal_tpu_torch.ops.mixing",
+    "nx_signal_tpu_torch.ops.resample",
     "nx_signal_tpu_torch.ops.transforms",
     "nx_signal_tpu_torch.ops.waveforms",
     "nx_signal_tpu_torch.ops.windows",

@@ -59,3 +59,21 @@ def test_the_faults_names_are_exported():
         assert getattr(nx_signal_tpu_torch, name) is DEFINED[name]
         assert hasattr(nx_signal_tpu, name)
     from nx_signal_tpu_torch import deconvolve  # noqa: F401
+
+
+def test_the_resampling_slice_names_are_exported():
+    """The six names of the JAX `ops/resample.py` `__all__`, the two of
+    `mixing.py`, hilbert / hilbert2 / envelope and the three sharded
+    polyphase functions import from the port's top level (the JAX top level
+    has all but `pfb_footprint_bytes` and the sharded ones in its
+    `__all__`)."""
+    from nx_signal_tpu.ops import mixing, resample
+
+    names = [*resample.__all__, *mixing.__all__, "hilbert", "hilbert2", "envelope",
+             "sharded_upfirdn", "sharded_resample_poly", "sharded_pfb_analyze"]
+    for name in names:
+        assert name in nx_signal_tpu_torch.__all__
+        assert getattr(nx_signal_tpu_torch, name) is DEFINED[name]
+    assert set(names) - set(SHARED) == {"pfb_footprint_bytes", "sharded_upfirdn",
+                                        "sharded_resample_poly", "sharded_pfb_analyze"}
+    assert nx_signal_tpu_torch.mixing is importlib.import_module("nx_signal_tpu_torch.ops.mixing")

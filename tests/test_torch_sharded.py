@@ -179,7 +179,65 @@ def test_sos_state_space_impulse_response():
         row = row @ a_mat
 
 
+@pytest.mark.parametrize("case", ranks.UPFIRDN_CASES + [ranks.UPFIRDN_COMPLEX], ids=str)
+def test_sharded_upfirdn_matches_jax(case, results):
+    """Against the JAX sharded_upfirdn on the 4-device mesh at the f32
+    parity gate (1e-5 of the max), and against the port's single-device
+    upfirdn at the JAX package's sharded gate (rtol 2e-5, atol 2e-5 of the
+    max; tests/test_sharded_resample.py:43-44); 1-D input stays 1-D, and a
+    complex64 signal stays complex64 through the halo."""
+    mesh_shape, channels, length, (up, down, k) = case
+    complex_input = case == ranks.UPFIRDN_COMPLEX
+    x = ranks.polyphase_signal(channels, length, complex_input)
+    h = ranks.upfirdn_taps(k)
+    key = mesh_shape, length, up, down, complex_input
+    got, single = results["upfirdn", key], results["upfirdn_single", key]
+    want = np.asarray(js.sharded_upfirdn(h, x, up, down, mesh=mesh4(mesh_shape)))
+    assert got.dtype == (np.complex64 if complex_input else np.float32)
+    assert_close_to_max(got, want, 1e-5)
+    assert got.shape == single.shape
+    np.testing.assert_allclose(got, single, rtol=2e-5, atol=2e-5 * np.abs(single).max())
+
+
+@pytest.mark.parametrize("case", ranks.RESAMPLE_CASES, ids=str)
+def test_sharded_resample_poly_matches_jax(case, results):
+    """halo_right > 0 (the group delay in n_offset), an uneven length and
+    the 160/441 ratio: against the JAX sharded_resample_poly at 1e-5 of
+    the max, and against the port's single-device resample_poly at the JAX
+    package's gate (rtol = atol = 1e-5; tests/test_sharded_resample.py:72-73)."""
+    mesh_shape, channels, length, (up, down) = case
+    x = ranks.polyphase_signal(channels, length)
+    got = results["resample_poly", mesh_shape, length, up, down]
+    single = results["resample_poly_single", mesh_shape, length, up, down]
+    want = np.asarray(js.sharded_resample_poly(x, up, down, mesh=mesh4(mesh_shape)))
+    assert_close_to_max(got, want, 1e-5)
+    assert got.shape == single.shape
+    np.testing.assert_allclose(got, single, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ranks.PFB_SHARDED_CASES, ids=str)
+def test_sharded_pfb_analyze_matches_jax(case, results):
+    """Against the JAX sharded_pfb_analyze at 1e-5 of the max, and against
+    the port's single-device pfb_analyze at the JAX package's gate
+    (rel_close, 1e-6; tests/test_sharded.py:221-242)."""
+    mesh_shape, channels, length, (m, tpc) = case
+    x = ranks.polyphase_signal(channels, length).astype(np.float32)
+    got = results["pfb", mesh_shape, length, m]
+    single = results["pfb_single", mesh_shape, length, m]
+    want = np.asarray(js.sharded_pfb_analyze(x, m, mesh=mesh4(mesh_shape),
+                                             taps_per_channel=tpc))
+    assert got.dtype == np.complex64
+    assert_close_to_max(got, want, 1e-5)
+    assert got.shape == single.shape
+    scale = np.abs(single).max()
+    np.testing.assert_allclose(got, single, rtol=1e-6, atol=1e-6 * scale)
+
+
 @pytest.mark.parametrize("name,pattern", [
+    ("polyphase_halo", r"polyphase halo \(599\) exceeds the per-device block \(278\); use "
+                       r"fewer blocks or a shorter filter"),
+    ("pfb_halo", r"frame halo \(448\) exceeds the per-device block \(256\)"),
+    ("pfb_taps", r"prototype length \(100\) must be a multiple of n_channels \(16\)"),
     ("sos_shape", r"sos array must be shape \(n_sections, 6\)"),
     ("sos_channels", r"channels \(3\) must be divisible by 2"),
     ("halo", r"filter halo \(32\) exceeds the per-device block \(8\)"),
@@ -203,6 +261,21 @@ def test_jax_raises_the_same_errors():
     with pytest.raises(ValueError, match=r"channels \(3\) must be divisible by 2"):
         js.sharded_convolve_same(np.zeros((3, 4096), np.float32), np.zeros(5, np.float32),
                                  mesh=mesh4((2, 2)))
+
+
+def test_jax_raises_the_same_polyphase_errors():
+    """The JAX package's messages for the polyphase errors the ranks hit."""
+    mesh = mesh4((1, 4))
+    with pytest.raises(ValueError, match=r"polyphase halo \(599\) exceeds the per-device "
+                                         r"block \(278\); use fewer blocks or a shorter filter"):
+        js.sharded_upfirdn(np.ones(600, np.float32), np.zeros((1, 512), np.float32), 1, 1,
+                           mesh=mesh)
+    with pytest.raises(ValueError, match=r"frame halo \(448\) exceeds the per-device block"):
+        js.sharded_pfb_analyze(np.zeros((1, 1024), np.float32), 64, mesh=mesh,
+                               taps_per_channel=8)
+    with pytest.raises(ValueError, match=r"prototype length \(100\) must be a multiple"):
+        js.sharded_pfb_analyze(np.zeros((1, 4096), np.float32), 16, mesh=mesh,
+                               taps=np.ones(100))
 
 
 def test_mesh_needs_a_group_and_the_card_unless_asked(monkeypatch):

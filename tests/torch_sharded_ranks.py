@@ -52,6 +52,27 @@ SOS_DESIGNS = {"butter6": (6, 0.2), "ellip8": (8, 0.5, 60.0, 0.15), "butter4": (
 SOS_CASES = [((1, 4), "butter4", None, 5001), ((2, 2), "butter4", 4, 4096),
              ((2, 2), "ellip8", 4, 4096), ((4, 1), "butter6", 4, 4099)]
 
+# the polyphase functions (tests/test_sharded_resample.py, tests/test_sharded.py:221-242):
+# mesh, channels (None: 1-D), length, and (up, down, taps) / (up, down) / (bands, tpc);
+# 4099 and 50000 pad the last block, resample_poly's group delay makes halo_right > 0
+UPFIRDN_CASES = [((1, 4), 8, 4096, (2, 3, 31)), ((2, 2), 4, 4099, (3, 2, 31)),
+                 ((4, 1), 4, 4096, (1, 4, 31)), ((1, 4), None, 4096, (3, 2, 19))]
+UPFIRDN_COMPLEX = ((2, 2), 4, 2050, (2, 3, 31))
+RESAMPLE_CASES = [((1, 4), 8, 8820, (1, 3)), ((2, 2), 4, 4099, (2, 3)),
+                  ((4, 1), 4, 3000, (3, 1)), ((1, 4), 2, 8820, (160, 441))]
+PFB_SHARDED_CASES = [((2, 2), 2, 65536, (64, 8)), ((1, 4), None, 50000, (32, 4))]
+
+
+def polyphase_signal(channels, length, complex_input=False):
+    x = signal(40, (length,) if channels is None else (channels, length))
+    if complex_input:
+        x = (x + 1j * signal(41, x.shape)).astype(np.complex64)
+    return x
+
+
+def upfirdn_taps(k):
+    return signal(42, k)
+
 
 def sos_design(name):
     """The case's (sections, 6) f64 design (the port's, numpy, no JAX)."""
@@ -231,8 +252,45 @@ def cpu_cases(rank, store_path, out_path):
         out["sos", mesh_shape, design, length] = got[0] if channels is None else got
         out["sos_single", mesh_shape, design, length] = sosfilt(sos, torch.from_numpy(x)).numpy()
 
+    from nx_signal_tpu_torch.ops import resample as tr
+
+    for mesh_shape, channels, length, (up, down, k) in UPFIRDN_CASES + [UPFIRDN_COMPLEX]:
+        mesh = meshes[mesh_shape]
+        complex_input = (mesh_shape, channels, length, (up, down, k)) == UPFIRDN_COMPLEX
+        x = torch.from_numpy(polyphase_signal(channels, length, complex_input))
+        h = torch.from_numpy(upfirdn_taps(k))
+        y = ts.sharded_upfirdn(h, x, up, down, mesh=mesh)
+        n_out = tr._upfirdn_out_len(length, k, up, down)
+        got = gather(y[None] if channels is None else y, mesh, n_out)
+        key = mesh_shape, length, up, down, complex_input
+        out["upfirdn", key] = got[0] if channels is None else got
+        out["upfirdn_single", key] = tr.upfirdn(h, x, up, down).numpy()
+    for mesh_shape, channels, length, (up, down) in RESAMPLE_CASES:
+        mesh = meshes[mesh_shape]
+        x = torch.from_numpy(polyphase_signal(channels, length))
+        y = ts.sharded_resample_poly(x, up, down, mesh=mesh)
+        out["resample_poly", mesh_shape, length, up, down] = gather(y, mesh,
+                                                                    -(-length * up // down))
+        out["resample_poly_single", mesh_shape, length, up, down] = tr.resample_poly(
+            x, up, down).numpy()
+    for mesh_shape, channels, length, (m, tpc) in PFB_SHARDED_CASES:
+        mesh = meshes[mesh_shape]
+        x = torch.from_numpy(polyphase_signal(channels, length))
+        p = ts.sharded_pfb_analyze(x, m, mesh=mesh, taps_per_channel=tpc)
+        frames = (length - m * tpc) // m + 1
+        got = gather(p[None] if channels is None else p, mesh, frames, -2)
+        out["pfb", mesh_shape, length, m] = got[0] if channels is None else got
+        out["pfb_single", mesh_shape, length, m] = tr.pfb_analyze(
+            x, m, taps_per_channel=tpc).numpy()
+
     mesh = meshes[(1, 4)]
     out["errors"] = {
+        "polyphase_halo": _error(lambda: ts.sharded_upfirdn(
+            torch.ones(600), torch.zeros(1, 512), 1, 1, mesh=mesh)),
+        "pfb_halo": _error(lambda: ts.sharded_pfb_analyze(
+            torch.zeros(1, 1024), 64, mesh=mesh, taps_per_channel=8)),
+        "pfb_taps": _error(lambda: ts.sharded_pfb_analyze(
+            torch.zeros(1, 4096), 16, mesh=mesh, taps=np.ones(100))),
         "halo": _error(lambda: ts.sharded_convolve_same(
             torch.zeros(1, 32), torch.zeros(33), mesh=mesh, method="conv")),
         "chain_halo": _error(lambda: ts.sharded_fir_framed_dft_power(
@@ -280,8 +338,11 @@ def cuda_halo_case(rank, store_path, out_path):
     verdicts = []
     for dtype, (c, n, pl, pr) in [(torch.float32, (3, 1000, 128, 127)),
                                   (torch.float32, (2, 64, 1, 0)),
-                                  (torch.float64, (2, 77, 5, 9))]:
+                                  (torch.float64, (2, 77, 5, 9)),
+                                  (torch.complex64, (2, 300, 30, 31))]:
         x = torch.from_numpy(signal(10, (c, 2 * n), np.float64)).to(dtype)
+        if dtype.is_complex:  # 8-byte elements: E moves the two parts together
+            x = x + 1j * torch.from_numpy(signal(14, (c, 2 * n), np.float64)).to(dtype)
         blk = x[:, rank * n:(rank + 1) * n].to(dev)
         before = cuda_halo.halo_extend_cuda.launches
         got = cuda_halo.halo_extend_cuda(blk, pl, pr, mesh=mesh)
