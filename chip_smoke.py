@@ -28,7 +28,9 @@ Phases (any failure raises, and the exit code is not 0):
      1021 and 1018 (= 2 * 509; Bluestein's chirp-z transform on the same
      passes), and the dense B at n_fft 1031 (past 1024, which B-fft does
      not take); C (overlap-add) on the
-     (64, 3747, 512) frames of framed_idft, bitwise; B-fft, complex and
+     (64, 3747, 512) frames of framed_idft, bitwise, and on complex64
+     frames with a complex seed through spectral.framing._ola_fold (C once
+     per part: two launches), bitwise the plain per-part fold; B-fft, complex and
      power, on the full spectrum at 64 x 480000, n_fft 16, 8 (frame 5) and
      1024, and the mixed-radix kernel at n_fft 400 (hop 160), 441 (odd: two
      frames per FFT; full spectrum, and frame 300), 480, 960, 1000, 9, 10,
@@ -55,7 +57,10 @@ Phases (any failure raises, and the exit code is not 0):
      channels against the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions (B-fft, C); interior reconstruction error <= 1e-5
-     x max|x|; then stft at fft_length 600 and 572 on the same signal
+     x max|x|; then istft(onesided=False) of the two-sided spectrum (C
+     exactly three times: the real and imaginary parts of the complex64
+     frames and the envelope), the same gate, and its fold bitwise the plain
+     per-part fold; then stft at fft_length 600 and 572 on the same signal
      (B-fft's mixed-radix kernel) and at the prime 1021 (B-fft's Bluestein
      transform), each B-fft and not the dense B, and framed_dft at n_fft
      1031 (the dense B, not B-fft), each held on two channels against the
@@ -198,11 +203,42 @@ Phases (any failure raises, and the exit code is not 0):
      against an f64 numpy einsum and FFT, its peak beside
      pfb_footprint_bytes; last, resample_poly(x, 1, 3) at 64 x 28800000 (10
      min at 48 kHz), its reckoned peak printed first.
+ 12. the streaming slice on the card (parallel/streaming.py, models/
+     pipeline.py, io/, parallel/failure.py), each path with the counters
+     zeroed before it: StreamingFIR (firwin 255 taps) and StreamingIIR
+     (butter(8, 0.1) as 4 sections) at 768 x 480000 in chunks of 48000, per
+     row at 1e-5 of the row's max against convolve(x, taps, 'full')[..., :n]
+     and sosfilt of the whole rows; StreamingSTFT (hann 512, hop 128, the
+     full spectrum; B-fft exactly once a chunk) at 64 x 480000 in chunks of
+     48000, per bin at 1e-4 against stft of the signal with 384 zeros
+     prepended, and StreamingISTFT of its spectra (C exactly twice a chunk)
+     within 1e-5 x max|x| of the delayed signal past the first 512 samples;
+     StreamingPFB (1024 bands, tpc 8) at 8 x 4194304 in chunks of 2^20
+     against pfb_analyze after lead_frames at 1e-5 of the max;
+     StreamingResamplePoly 1/3 at 64 x 2880000 in chunks of 288000 against
+     resample_poly after lead_out, per row at 1e-5. Each processor then
+     runs half its chunks, save_state, load_state and the other half: the
+     tail bitwise the uninterrupted run's. Each is timed (ms per chunk of
+     one streaming run, the batch call beside it; medians of 3, CUDA
+     events). Then BASELINE.json config 5 from a capture: a seeded i16
+     capture of 8 blocks of 2^24 frames (the JAX script's 24 cut to 8 for
+     the time limit) written with write_raw, read by
+     PrefetchingRawReader(depth_blocks=4) through channelize_power_stream
+     (1024 bands, tpc 8), its power within 1e-4 of the max of the batch
+     pfb_analyze of the zero-prepended stream, end-to-end Msamples/s (host
+     clock) and compute-only ms per block (CUDA events); WidebandReceiver
+     (1024 bands, tpc 8, frame 128, hop 64) on 1 x 2^26 samples, 4 bands
+     within 1e-4 of each band's max against an f64 numpy evaluation with
+     scipy's prototype (firwin) and periodic Hann window; 60 s
+     of stereo 44.1 kHz PCM16 written, read whole, streamed and read by
+     PrefetchingWavReader, all bitwise equal, in MB/s, failing unless the
+     native library is the one loaded; heartbeat on the card within its
+     deadline; the phase's seconds.
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
 A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
-8's over all ranks, and phase 9's; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
+8's over all ranks, and phases 9's and 12's; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
@@ -1171,6 +1207,350 @@ def _phase11(kernels, dev):
     return results
 
 
+def _bits(t):
+    """The bit pattern of a float32 or complex64 tensor, as int32."""
+    import torch
+
+    t = t.contiguous()
+    return (torch.view_as_real(t) if t.is_complex() else t).view(torch.int32)
+
+
+def _same_bits(name, got, want):
+    """Fail unless every chunk of `got` is bitwise the chunk of `want`."""
+    import torch
+
+    same = len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+        for g, w in zip(got, want))
+    print(f"  {name}: bitwise equal = {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: not bitwise equal to the uninterrupted run")
+
+
+def _gate_rows(name, got, want, rel):
+    """Gate each row (all leading axes) at rel x that row's max|want|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = (got - want).abs().flatten(0, -2).amax(dim=-1)
+    scale = want.abs().flatten(0, -2).amax(dim=-1)
+    worst = float((err / scale).max())
+    print(f"  {name}: largest per-row max|d| / max|batch| = {worst:.3g} over "
+          f"{err.shape[0]} rows (gate {rel:g})", flush=True)
+    if not worst <= rel:
+        raise AssertionError(f"{name}: a row is off by {worst} of its max")
+
+
+def _phase12(kernels, dev):
+    """Phase 12 (see the module docstring): the streaming processors, the
+    wideband receiver, config 5 from a raw capture, the native IO and the
+    heartbeat on the card. Returns the launch counts of its paths."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    from nx_signal_tpu_torch.io import checkpoint, raw, wav
+    from nx_signal_tpu_torch.kernels import cuda_dft
+    from nx_signal_tpu_torch.models.pipeline import WidebandReceiver, channelize_power_stream
+    from nx_signal_tpu_torch.ops.convolution import convolve
+    from nx_signal_tpu_torch.ops.filters import firwin
+    from nx_signal_tpu_torch.ops.iir import sosfilt
+    from nx_signal_tpu_torch.ops.iir_design import butter
+    from nx_signal_tpu_torch.ops.resample import pfb_analyze, resample_poly
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel import streaming
+    from nx_signal_tpu_torch.parallel.failure import heartbeat
+    from nx_signal_tpu_torch.spectral.stft import istft, stft
+
+    t_phase = time.perf_counter()
+    B_fft, C = cuda_dft.framed_fft_cuda, cuda_dft.overlap_add_cuda
+    card = _gpu_name_and_power_limit()
+    launches = {k.__name__: 0 for k in kernels}
+    out = {}
+
+    def randn(seed, shape):
+        return torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+    def run(proc, state, chunks):
+        outs = []
+        for c in chunks:
+            state, y = proc.process(state, c)
+            outs.append(y)
+        return state, outs
+
+    def stream_ms(proc, state, chunks):
+        """ms per chunk of one streaming run (CUDA events), median of 3."""
+        return sorted(_time_ms(lambda: run(proc, state, chunks)) for _ in range(3))[1] / len(
+            chunks)
+
+    def main_path(name, proc, state, chunks, expect=(), exact=None):
+        """The uninterrupted run, the launch counters zeroed before it and
+        read after; returns its chunk outputs."""
+        def path():
+            out["ys"] = run(proc, state, chunks)[1]
+            torch.cuda.synchronize()
+
+        counts = _run_path(name, kernels, expect, path)
+        for kernel, n in (exact or {}).items():
+            if counts[kernel.__name__] != n:
+                raise AssertionError(f"{name}: {kernel.__name__} launched "
+                                     f"{counts[kernel.__name__]} times, not {n}")
+        for k, n in counts.items():
+            launches[k] += n
+        return out.pop("ys")
+
+    def resume(name, proc, state, chunks, full, tmp):
+        """Half the chunks, save_state, load_state (numpy leaves), the other
+        half: the tail bitwise the uninterrupted run's."""
+        half = len(chunks) // 2
+        mid, _ = run(proc, state, chunks[:half])
+        path = os.path.join(tmp, f"{name}.npz")
+        checkpoint.save_state(path, mid, meta={"chunk": half})
+        restored, meta = checkpoint.load_state(path)
+        if meta != {"chunk": half} or not isinstance(restored, np.ndarray):
+            raise AssertionError(f"{name}: checkpoint read back {type(restored)}, {meta}")
+        _, tail = run(proc, restored, chunks[half:])
+        _same_bits(f"{name} resumed from a checkpoint after {half} of {len(chunks)} chunks",
+                   tail, full[half:])
+
+    def report(name, proc, state, chunks, batch):
+        ms = stream_ms(proc, state, chunks)
+        batch_ms = sorted(_time_ms(batch) for _ in range(3))[1]
+        print(f"  {name}: {ms:.3f} ms per chunk of {tuple(chunks[0].shape)} ({len(chunks)} "
+              f"chunks, {ms * len(chunks):.3f} ms in all), the batch call {batch_ms:.3f} ms "
+              f"(medians of 3, CUDA events); {card}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # StreamingFIR and StreamingIIR at 768 x 480000, chunks of 48000
+        x = randn(12, (768, 480000))
+        chunks = list(x.split(48000, dim=-1))
+        taps = firwin(255, [2000.0], sampling_rate=48000.0)
+        fir = streaming.StreamingFIR(taps)
+        full = main_path("StreamingFIR 768x480000", fir, fir.init_state((768,)), chunks)
+        want = convolve(x, taps.to(dev).reshape(1, -1), mode="full")[..., :480000]
+        _gate_rows("StreamingFIR vs convolve(x, taps, 'full')[..., :n]", torch.cat(full, -1),
+                   want, 1e-5)
+        del want
+        resume("StreamingFIR", fir, fir.init_state((768,)), chunks, full, tmp)
+        del full
+        report(
+            "StreamingFIR, firwin 255 taps", fir, fir.init_state((768,)), chunks,
+            lambda: convolve(x, taps.to(dev).reshape(1, -1), mode="full"))
+
+        sos = butter(8, 0.1, output="sos")
+        iir = streaming.StreamingIIR(sos)
+        full = main_path("StreamingIIR 768x480000", iir, iir.init_state((768,)), chunks)
+        want = sosfilt(sos, x)
+        _gate_rows("StreamingIIR vs sosfilt of the whole rows", torch.cat(full, -1), want, 1e-5)
+        del want
+        resume("StreamingIIR", iir, iir.init_state((768,)), chunks, full, tmp)
+        del full
+        report("StreamingIIR, butter(8, 0.1) as 4 sections", iir,
+                                         iir.init_state((768,)), chunks,
+                                         lambda: sosfilt(sos, x))
+        del x, chunks
+
+        # StreamingSTFT -> StreamingISTFT at 64 x 480000, chunks of 48000,
+        # hann 512, hop 128, the full spectrum
+        x = randn(13, (64, 480000))
+        chunks = list(x.split(48000, dim=-1))
+        w, hop, lead = hann(512), 128, 512 - 128
+        enc, dec = streaming.StreamingSTFT(w, hop=hop), streaming.StreamingISTFT(w, hop=hop)
+        zs = main_path("StreamingSTFT 64x480000", enc, enc.init_state((64,)), chunks, (B_fft,),
+                       exact={B_fft: len(chunks)})
+        xp = torch.nn.functional.pad(x, (lead, 0))
+        _check_close("StreamingSTFT vs stft of the zero-prepended signal (per bin)",
+                     torch.cat(zs, -2), stft(xp, w.to(dev), fft_length=512, overlap_length=lead,
+                                             onesided=False).z)
+        resume("StreamingSTFT", enc, enc.init_state((64,)), chunks, zs, tmp)
+        ys = main_path("StreamingISTFT 64x480000", dec, dec.init_state((64,)), zs, (C,),
+                       exact={C: 2 * len(zs)})
+        y = torch.cat(ys, -1)
+        err = _max_err(y[:, 512:], xp[:, 512:480000])
+        scale = float(x.abs().max())
+        print(f"  StreamingISTFT interior reconstruction max|d| = {err:.6g} (gate 1e-5 x "
+              f"{scale:.6g})", flush=True)
+        if tuple(y.shape) != (64, 480000) or not err <= 1e-5 * scale:
+            raise AssertionError(f"StreamingISTFT {tuple(y.shape)}: error {err} > 1e-5 x "
+                                 f"{scale}")
+        resume("StreamingISTFT", dec, dec.init_state((64,)), zs, ys, tmp)
+        del y, ys
+        report(
+            "StreamingSTFT, hann 512, hop 128 (B-fft once a chunk)", enc, enc.init_state((64,)),
+            chunks, lambda: stft(xp, w.to(dev), fft_length=512, overlap_length=lead,
+                                 onesided=False))
+        z_batch = torch.cat(zs, -2)
+        report(
+            "StreamingISTFT (C twice a chunk)", dec, dec.init_state((64,)), zs,
+            lambda: istft(z_batch, w.to(dev), fft_length=512, overlap_length=lead,
+                          onesided=False))
+        del x, xp, zs, z_batch, chunks
+
+        # StreamingPFB at 8 x 4194304, chunks of 2^20, 1024 bands, tpc 8
+        x = randn(14, (8, 4194304))
+        chunks = list(x.split(1 << 20, dim=-1))
+        pfb = streaming.StreamingPFB(1024, taps_per_channel=8)
+        full = main_path("StreamingPFB 8x4194304", pfb, pfb.init_state((8,)), chunks)
+        got = torch.cat(full, -2)[:, pfb.lead_frames:]
+        want = pfb_analyze(x, 1024, taps_per_channel=8)
+        err, top = _max_err(got, want), float(want.abs().max())
+        print(f"  StreamingPFB vs batch pfb_analyze after {pfb.lead_frames} lead frames: max|d| "
+              f"= {err:.6g} (gate 1e-5 x {top:.6g})", flush=True)
+        if got.shape != want.shape or not err <= 1e-5 * top:
+            raise AssertionError(f"StreamingPFB {tuple(got.shape)}: error {err} > 1e-5 x {top}")
+        del got, want
+        resume("StreamingPFB", pfb, pfb.init_state((8,)), chunks, full, tmp)
+        del full
+        report(
+            "StreamingPFB, 1024 bands, tpc 8", pfb, pfb.init_state((8,)), chunks,
+            lambda: pfb_analyze(x, 1024, taps_per_channel=8))
+        del x, chunks
+
+        # StreamingResamplePoly 1/3 at 64 x 2880000, chunks of 288000
+        x = randn(15, (64, 2880000))
+        chunks = list(x.split(288000, dim=-1))
+        srp = streaming.StreamingResamplePoly(1, 3)
+        full = main_path("StreamingResamplePoly 64x2880000", srp, srp.init_state((64,)), chunks)
+        got = torch.cat(full, -1)[:, srp.lead_out:]
+        want = resample_poly(x, 1, 3)[:, :got.shape[-1]]
+        _gate_rows(f"StreamingResamplePoly vs resample_poly after {srp.lead_out} lead samples",
+                   got, want, 1e-5)
+        del got, want
+        resume("StreamingResamplePoly", srp, srp.init_state((64,)), chunks, full, tmp)
+        del full
+        report(
+            "StreamingResamplePoly 1/3", srp, srp.init_state((64,)), chunks,
+            lambda: resample_poly(x, 1, 3))
+        del x, chunks
+        torch.cuda.empty_cache()
+
+        # BASELINE.json config 5 end to end from a raw capture: a seeded i16
+        # capture written with write_raw, read through the native
+        # prefetching reader, channelized by channelize_power_stream. Its
+        # depth is cut from 24 blocks (scripts/config5_pipeline_r5.py) to 8
+        # of 2^24 frames to fit the time limit.
+        m, tpc, blocks, block = 1024, 8, 8, 1 << 24
+        rng = np.random.default_rng(16)
+        cap = rng.uniform(-0.9, 0.9, size=(1, blocks * block)).astype(np.float32)
+        path = os.path.join(tmp, "capture.i16")
+        raw.write_raw(path, cap, dtype="i16")
+        del cap
+        if raw._load() is None or wav._native_failed:
+            raise AssertionError("the native IO library is not the one loaded")
+
+        def config5():
+            with raw.PrefetchingRawReader(path, dtype="i16", channels=1, block_frames=block,
+                                          depth_blocks=4) as pf:
+                out["p"] = channelize_power_stream(pf, m, taps_per_channel=tpc)
+            torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        _run_path(f"channelize_power_stream, {blocks} blocks of 2^24 i16 frames", kernels, (),
+                  config5)
+        seconds = time.perf_counter() - t0
+        power, frames = out.pop("p")
+        decoded = torch.from_numpy(raw.read_raw(path, dtype="i16", channels=1)).to(dev)
+        ref = pfb_analyze(torch.nn.functional.pad(decoded, ((tpc - 1) * m, 0)), m,
+                          taps_per_channel=tpc)
+        ref_p = (ref.real.double() ** 2 + ref.imag.double() ** 2).sum(dim=-2)
+        del ref
+        err, top = _max_err(power.double(), ref_p), float(ref_p.max())
+        print(f"  config 5 power vs batch pfb_analyze of the zero-prepended stream: max|d| = "
+              f"{err:.6g} (gate 1e-4 x {top:.6g}), {frames} frames", flush=True)
+        if frames != blocks * block // m or not err <= 1e-4 * top:
+            raise AssertionError(f"config 5: {frames} frames, error {err} > 1e-4 x {top}")
+        proc = streaming.StreamingPFB(m, taps_per_channel=tpc)
+        dev_blocks = list(decoded.split(block, dim=-1))
+
+        def compute_only():
+            state = proc.init_state((1,))
+            acc = torch.zeros((1, m), dtype=torch.float64, device=dev)
+            for b in dev_blocks:
+                state, z = proc.process(state, b)
+                acc += torch.sum(z.real ** 2 + z.imag ** 2, dim=-2, dtype=torch.float64)
+
+        compute_ms = sorted(_time_ms(compute_only) for _ in range(3))[1] / blocks
+        t0 = time.perf_counter()
+        with raw.PrefetchingRawReader(path, dtype="i16", channels=1, block_frames=block,
+                                      depth_blocks=4) as pf:
+            read = sum(b.shape[1] for b in pf)
+        read_s = time.perf_counter() - t0
+        msps = blocks * block / seconds / 1e6
+        print(f"  config 5 (depth cut from 24 to {blocks} blocks of 2^24 frames): end to end "
+              f"{msps:.1f} Msamples/s ({seconds:.3f} s, host clock, native decode + copy + "
+              f"PFB + power); the reader alone {read / read_s / 1e6:.1f} Msamples/s "
+              f"({read_s:.3f} s); compute only {compute_ms:.3f} ms per block (median of 3, "
+              f"CUDA events, blocks already on the card); {card}", flush=True)
+        del decoded, dev_blocks, ref_p
+
+        # WidebandReceiver: 1024 bands, tpc 8, frame 128, hop 64 on 1 x 2^26
+        # samples, 4 bands against an f64 numpy evaluation with scipy's
+        # prototype and window (a wrong design on the card fails the gate)
+        x = randn(17, (1, 1 << 26))
+        rx = WidebandReceiver(n_channels=1024, taps_per_channel=8, frame_length=128, hop=64)
+        p_rx = rx(x)
+        torch.cuda.synchronize()
+        rx_ms = sorted(_time_ms(lambda: rx(x)) for _ in range(3))[1]
+        xh = x[0].double().cpu().numpy()
+        proto = ss.firwin(8192, 1 / 1024, window=("kaiser", 5.0))
+        hop_blocks = xh.reshape(-1, 1024)
+        nf = hop_blocks.shape[0] - 8 + 1
+        summed = sum(proto[j * 1024:(j + 1) * 1024] * hop_blocks[j:j + nf] for j in range(8))
+        win = ss.get_window("hann", 128)
+        bands = (0, 1, 333, 1023)
+        worst = 0.0
+        for k in bands:
+            sub = summed @ np.exp(-2j * np.pi * k * np.arange(1024) / 1024)
+            fr = np.lib.stride_tricks.sliding_window_view(sub, 128)[::64]
+            want = np.abs(np.fft.fft(fr * win, axis=-1)) ** 2
+            got = p_rx[0, k].double().cpu().numpy()
+            if got.shape != want.shape:
+                raise AssertionError(f"WidebandReceiver band {k}: {got.shape} != {want.shape}")
+            worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+        print(f"  WidebandReceiver 1x2^26, 1024 bands: output {tuple(p_rx.shape)}; bands "
+              f"{bands} vs f64 numpy (polyphase sum, DFT, Hann STFT): largest max|d| / band max "
+              f"= {worst:.3g} (gate 1e-4); {rx_ms:.3f} ms a call (median of 3, CUDA events); "
+              f"{card}", flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError(f"WidebandReceiver: a band is off by {worst} of its max")
+        del x, p_rx, summed, hop_blocks
+
+        # the native IO: 60 s of stereo 44.1 kHz PCM16 (config 3's audio)
+        pcm = np.round(rng.uniform(-0.9, 0.9, size=(2, 60 * 44100)) * 32767) / 32767
+        pcm = pcm.astype(np.float32)
+        wpath = os.path.join(tmp, "audio.wav")
+        t0 = time.perf_counter()
+        wav.write_wav(wpath, pcm, 44100)
+        io_s = {"write": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        whole, rate = wav.read_wav(wpath)
+        io_s["read"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed = np.concatenate(list(wav.stream_wav(wpath, 1 << 16)), axis=1)
+        io_s["stream"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with wav.PrefetchingWavReader(wpath, block_frames=1 << 16, depth_blocks=4) as pf:
+            prefetched = np.concatenate(list(pf), axis=1)
+        io_s["prefetch"] = time.perf_counter() - t0
+        if rate != 44100 or not (np.array_equal(whole, streamed)
+                                 and np.array_equal(whole, prefetched)):
+            raise AssertionError("the WAV reads are not bitwise equal")
+        if wav._load() is None or wav._native_failed:
+            raise AssertionError("the native IO library is not the one loaded")
+        mb = os.path.getsize(wpath) / 1e6
+        print("  native IO, 60 s stereo 44.1 kHz PCM16 (" + f"{mb:.1f} MB): " + ", ".join(
+            f"{k} {mb / s:.1f} MB/s" for k, s in io_s.items()) + " (host clock); reads "
+            f"bitwise equal; library {wav.library_path().name}; {card}", flush=True)
+
+    hb = heartbeat(timeout=30.0)
+    print(f"  heartbeat on the card: {hb * 1e3:.3f} ms (deadline 30 s); {card}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 12: {seconds:.1f} s; {card}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1197,7 +1577,7 @@ def main() -> int:
     from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
-    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold, _ola_fold_torch
     from nx_signal_tpu_torch.spectral.mel import mel_filters
     from nx_signal_tpu_torch.spectral.stft import istft, stft
 
@@ -1353,7 +1733,21 @@ def main() -> int:
     err_c = _check_bitwise(f"C {tuple(frames.shape)}",
                            C(frames, stride=hop, out_length=out_length),
                            _ola_fold_torch(frames, hop, out_length))
-    del z_plain
+    # complex64 frames: C once per part (spectral.framing._ola_fold), with
+    # a complex seed whose real parts hold -0.0, bitwise the plain per-part
+    # fold (signed zeros included)
+    cframes = torch.complex(frames, frames.flip(-2)).contiguous()
+    seed_re = -frames[..., 0, :].abs().repeat(1, out_length // frame + 1)
+    seed_re[..., ::7] = -0.0
+    cseed = torch.complex(seed_re, frames[..., 1, :].repeat(1, out_length // frame + 1))
+    before = C.launches
+    got_c = _ola_fold(cframes, hop, out_length, init=cseed)
+    if C.launches != before + 2:
+        raise AssertionError(f"complex fold launched C {C.launches - before} times, not 2")
+    want_c = _ola_fold_torch(cframes, hop, out_length, init=cseed)
+    _check_bitwise(f"C on complex64 frames {tuple(cframes.shape)}, seeded (two launches)",
+                   torch.view_as_real(got_c), torch.view_as_real(want_c))
+    del z_plain, cframes, cseed, got_c, want_c
 
     ragged = [  # channels, length, taps, frame, hop, n_fft, B onesided
         (4, 48037, 100, 400, 150, 512, True),
@@ -1511,6 +1905,38 @@ def main() -> int:
     if not err <= 1e-5 * scale:
         raise AssertionError(f"round trip error {err} > 1e-5 x {scale}")
     del y
+
+    # the two-sided round trip: istft(onesided=False) folds its complex64
+    # frames through C once per part and the envelope once (three
+    # launches); its fold bitwise the plain per-part fold
+    z2 = stft(x64, win_t, sampling_rate=rate, fft_length=n_fft, overlap_length=frame - hop,
+              onesided=False).z
+
+    def two_sided():
+        out["y"] = istft(z2, win_t, fft_length=n_fft, overlap_length=frame - hop,
+                         onesided=False, sampling_rate=rate)
+        torch.cuda.synchronize()
+
+    counts = _run_path("istft(onesided=False)", kernels, (C,), two_sided)
+    if counts[C.__name__] != 3:
+        raise AssertionError(f"istft(onesided=False) launched C {counts[C.__name__]} times, "
+                             "not 3 (real part, imaginary part, envelope)")
+    launches = {name: launches[name] + counts[name] for name in launches}
+    y = out.pop("y")
+    if tuple(y.shape) != (64, out_length) or not y.is_complex() or not bool(
+            torch.isfinite(torch.view_as_real(y)).all()):
+        raise AssertionError(f"two-sided istft output {tuple(y.shape)} {y.dtype} not finite, "
+                             "not complex or of the wrong shape")
+    err = _max_err(y[:, frame:-frame], x64[:, frame:out_length - frame])
+    print(f"  two-sided interior reconstruction max|d| = {err:.6g} (gate 1e-5 x {scale:.6g})",
+          flush=True)
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"two-sided round trip error {err} > 1e-5 x {scale}")
+    frames2 = framed_idft(z2, win_t, n_fft=n_fft, onesided=False)
+    _check_bitwise(f"the two-sided fold of {tuple(frames2.shape)} complex64 frames",
+                   torch.view_as_real(_ola_fold(frames2, hop, out_length)),
+                   torch.view_as_real(_ola_fold_torch(frames2, hop, out_length)))
+    del y, z2, frames2
 
     # fft_length 600 = 2^3 * 3 * 5^2: the mixed-radix kernel B-fft, not the
     # dense B
@@ -1944,6 +2370,12 @@ def main() -> int:
           "(upfirdn, resample_poly, resample, decimate, pfb_analyze, mix_down, "
           "demodulate_channel)", flush=True)
     _phase11(kernels, dev)
+
+    # ---------------------------------------------------------------- 12
+    print("phase 12: streaming, the wideband receiver and config 5 from a raw capture, native "
+          "IO, checkpoints and the heartbeat on the card", flush=True)
+    counts = _phase12(kernels, dev)
+    launches = {name: n + counts.get(name, 0) for name, n in launches.items()}
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

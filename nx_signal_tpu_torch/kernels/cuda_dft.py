@@ -359,7 +359,8 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     """Kernel B-fft: the windowed framed DFT of the (..., L) real signal as
     a real FFT per frame (framed_fft.cu): frame m is x[m*stride : ... +
     frame_length] times `window` (a host array or tensor of frame_length <=
-    n_fft samples), zero-padded to n_fft. Returns complex64 (..., M, bins),
+    n_fft samples; a tensor already on x's device is used with no copy
+    from the host), zero-padded to n_fft. Returns complex64 (..., M, bins),
     bins = n_fft//2 + 1 (`onesided`) or n_fft, M = (L - frame)//stride + 1,
     or with `output='power'` re^2 + im^2 f32. On a CUDA tensor n_fft must
     be from 8 to 1024 (`fft_kernel_takes`): a power of two runs the radix-8
@@ -371,7 +372,7 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
     x = as_signal(x)
-    window = _host_f64(window).reshape(-1)
+    window = (window if isinstance(window, torch.Tensor) else _host_f64(window)).reshape(-1)
     frame_length = window.shape[0]
     num_frames = (x.shape[-1] - frame_length) // stride + 1
     bins = n_fft // 2 + 1 if onesided else n_fft
@@ -381,7 +382,7 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
                          f"n_fft={n_fft}, shape={tuple(x.shape)}")
     if not _on_card(x):
         weights = torch.as_tensor(
-            _dft_weights(window, frame_length, n_fft, onesided, np.float32))
+            _dft_weights(_host_f64(window), frame_length, n_fft, onesided, np.float32))
         acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=0,
                                    num_frames=num_frames, bins=bins, power=power)
         return acc if power else torch.complex(acc[..., :bins], acc[..., bins:])
@@ -390,7 +391,7 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
                          f"got {n_fft}")
     batch, length = x.shape[:-1], x.shape[-1]
     xf = x.to(DEFAULT_FLOAT).reshape(-1, length).contiguous()
-    win = torch.as_tensor(window.astype(np.float32), device=x.device)
+    win = torch.as_tensor(window, device=x.device).to(DEFAULT_FLOAT).contiguous()
     tw, plan, points = _device_fft_plan(n_fft, x.device)
     out = torch.empty((xf.shape[0], num_frames, bins),
                       dtype=DEFAULT_FLOAT if power else torch.complex64, device=x.device)

@@ -318,7 +318,8 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     x = as_signal(x)
     if x.is_complex():
         raise ValueError("framed_dft needs a real signal")
-    window = _host_f64(window)
+    if not isinstance(window, torch.Tensor):
+        window = _host_f64(window)
     frame_length = window.shape[-1]
     num_frames = (x.shape[-1] - frame_length) // stride + 1
     if num_frames < 1:
@@ -328,7 +329,8 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
         return framed_fft_cuda(x, window, stride=stride, n_fft=n_fft, onesided=onesided,
                                output=output)
     weights = torch.as_tensor(
-        _dft_weights(window, frame_length, n_fft, onesided, np.float32), device=x.device)
+        _dft_weights(_host_f64(window), frame_length, n_fft, onesided, np.float32),
+        device=x.device)
     return framed_dft_cuda(x, weights, stride=stride, num_frames=num_frames,
                            bins=n_fft // 2 + 1 if onesided else n_fft, output=output)
 

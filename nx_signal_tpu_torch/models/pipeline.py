@@ -17,7 +17,15 @@ and spectral layers.
 * `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
 * `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B-fft), then dBFS or
   Whisper's log-mel normalization.
+* `WidebandReceiver`: the polyphase channelizer (`ops.resample.pfb_analyze`)
+  then a Hann STFT of each complex sub-band stream (torch.fft: the framed
+  DFT kernels take real input only) and |z|^2.
+* `channelize_power_stream`: a block stream (e.g. `io.raw.
+  PrefetchingRawReader` decoding a capture) through `parallel.streaming.
+  StreamingPFB`, band power accumulated on the device in float64.
 """
+
+import collections
 
 from dataclasses import dataclass
 
@@ -35,6 +43,7 @@ from nx_signal_tpu_torch.kernels.dft import (
 )
 from nx_signal_tpu_torch.ops.convolution import convolve, oaconvolve
 from nx_signal_tpu_torch.ops.filters import firwin
+from nx_signal_tpu_torch.ops.resample import pfb_analyze
 from nx_signal_tpu_torch.ops.windows import hann
 from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
 from nx_signal_tpu_torch.spectral.stft import stft
@@ -42,7 +51,7 @@ from nx_signal_tpu_torch.utils.devices import as_signal, card_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
-           "LogMelFrontend"]
+           "LogMelFrontend", "WidebandReceiver", "channelize_power_stream"]
 
 
 @dataclass(frozen=True)
@@ -266,3 +275,166 @@ class StftFirChain(nn.Module):
         return fir_framed_dft_power_cuda(x, self.weights, stride=self.stride,
                                          pad_left=self.pad_left, num_frames=num_frames,
                                          bins=self.bins)
+
+
+@dataclass(frozen=True)
+class WidebandReceiver:
+    """SDR-style wideband front end: polyphase-channelize the (..., L)
+    stream into `n_channels` sub-bands, then Hann-STFT each complex
+    sub-band stream over its full spectrum; returns the
+    (..., n_channels, frames, frame_length) power |z|^2.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.models.pipeline import WidebandReceiver
+    >>> x = torch.randn(1 << 14, generator=torch.Generator().manual_seed(0))
+    >>> WidebandReceiver(n_channels=32, frame_length=64, hop=32)(x).shape
+    torch.Size([32, 14, 64])
+    """
+
+    n_channels: int = 64
+    taps_per_channel: int = 8
+    frame_length: int = 128
+    hop: int = 64
+    sampling_rate: float = 100e6
+
+    def __call__(self, x):
+        x = as_signal(x)
+        channels = pfb_analyze(x, self.n_channels, taps_per_channel=self.taps_per_channel)
+        sub_streams = channels.transpose(-1, -2)  # (..., n_channels, frames)
+        z = stft(sub_streams, hann(self.frame_length, device=x.device),
+                 sampling_rate=self.sampling_rate / self.n_channels,
+                 fft_length=self.frame_length,
+                 overlap_length=self.frame_length - self.hop).z
+        return z.abs() ** 2
+
+
+class _Stager:
+    """Host chunks to the device, each copied there once: on a CUDA device
+    through two pinned buffers, each copy asynchronous, and a buffer is
+    written again only after its last copy has finished (its event); on the
+    CPU a fresh array per chunk."""
+
+    def __init__(self, device, rows: int, length: int, dtype):
+        self.device, self.dtype, self.slot = device, dtype, 0
+        self.pinned = self.events = None
+        if device.type == "cuda":
+            dt = torch.from_numpy(np.zeros(0, dtype)).dtype
+            self.pinned = [torch.empty(rows * length, dtype=dt, pin_memory=True)
+                           for _ in range(2)]
+            self.events = [None, None]
+
+    def __call__(self, pieces):
+        rows = pieces[0].shape[0]
+        n = sum(p.shape[1] for p in pieces)
+        if self.pinned is None:
+            return torch.from_numpy(np.concatenate(pieces, axis=1).astype(self.dtype, copy=False))
+        slot, self.slot = self.slot, 1 - self.slot
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        buf = self.pinned[slot][:rows * n].view(rows, n)
+        host, at = buf.numpy(), 0
+        for p in pieces:
+            host[:, at:at + p.shape[1]] = p
+            at += p.shape[1]
+        out = buf.to(self.device, non_blocking=True)
+        self.events[slot] = torch.cuda.Event()
+        self.events[slot].record()
+        return out
+
+
+def channelize_power_stream(blocks, n_channels: int, *, taps_per_channel: int = 8,
+                            window=("kaiser", 5.0), taps=None, strategy: str = "auto",
+                            precision="highest", drop_tail: bool = False, device=None):
+    """Consume an iterator of (channels, block_frames) host blocks - e.g.
+    `io.raw.PrefetchingRawReader` decoding a live SDR capture - through a
+    `StreamingPFB` channelizer, accumulating per-band power on `device`
+    (None: the card) in float64; the complex spectra never leave it.
+    Returns (power (channels, n_channels) float32, frames_accumulated int).
+
+    Blocks are queued on the host and cut into chunks of one fixed length
+    (the first block's length rounded down to a multiple of n_channels),
+    read through a cursor: every sample is copied once, into its chunk, and
+    each chunk goes to the device once. A shorter multiple-of-m tail is
+    processed too unless `drop_tail=True`. The accumulated power equals
+    `pfb_analyze` of the zero-prepended stream summed over frames - the
+    `StreamingPFB.lead_frames` warm-up frames are included (their windows
+    taper into the zero lead).
+
+    Examples:
+
+    >>> import numpy as np, torch
+    >>> from nx_signal_tpu_torch.models.pipeline import channelize_power_stream
+    >>> from nx_signal_tpu_torch.ops.resample import pfb_analyze
+    >>> x = np.random.default_rng(0).normal(size=(1, 4096)).astype(np.float32)
+    >>> blocks = [x[:, :1536], x[:, 1536:3072], x[:, 3072:]]  # ragged tail
+    >>> power, frames = channelize_power_stream(blocks, 16, taps_per_channel=4,
+    ...                                         device='cpu')
+    >>> ref = pfb_analyze(torch.from_numpy(np.pad(x, [(0, 0), (48, 0)])), 16,
+    ...                   taps_per_channel=4)
+    >>> ref_p = (ref.real ** 2 + ref.imag ** 2).sum(dim=-2)
+    >>> tuple(power.shape), frames, bool((power - ref_p).abs().max() < 1e-4 * ref_p.max())
+    ((1, 16), 256, True)
+    """
+    from nx_signal_tpu_torch.parallel.streaming import StreamingPFB
+
+    m = n_channels
+    pfb = StreamingPFB(m, taps_per_channel=taps_per_channel, window=window, taps=taps,
+                       strategy=strategy, precision=precision)
+    it = iter(blocks)
+    try:
+        first = np.asarray(next(it))
+    except StopIteration:
+        raise ValueError("empty block stream") from None
+    if first.ndim != 2:
+        raise ValueError(f"blocks must be (channels, frames), got shape {first.shape}")
+    n_streams = first.shape[0]
+    chunk_len = (first.shape[1] // m) * m
+    if chunk_len == 0:
+        raise ValueError(
+            f"block length ({first.shape[1]}) is shorter than one "
+            f"n_channels ({m}) stride")
+    dev = card_device() if device is None else torch.device(device)
+    kinds = (np.float32, np.float64, np.complex64, np.complex128)
+    stage = _Stager(dev, n_streams, chunk_len,
+                    first.dtype if first.dtype in kinds else np.float32)
+    state = pfb.init_state(batch_shape=(n_streams,), device=dev)
+    acc = torch.zeros((n_streams, m), dtype=torch.float64, device=dev)
+    frames = 0
+    fifo, cursor, buffered = collections.deque([first]), 0, first.shape[1]
+
+    def take(n):
+        """The next n queued samples of every stream, as pieces of blocks."""
+        nonlocal cursor, buffered
+        pieces = []
+        while n:
+            head = fifo[0]
+            k = min(n, head.shape[1] - cursor)
+            pieces.append(head[:, cursor:cursor + k])
+            cursor, n, buffered = cursor + k, n - k, buffered - k
+            if cursor == head.shape[1]:
+                fifo.popleft()
+                cursor = 0
+        return pieces
+
+    def step(pieces):
+        nonlocal state, acc, frames
+        state, z = pfb.process(state, stage(pieces))
+        acc += torch.sum(z.real ** 2 + z.imag ** 2, dim=-2, dtype=torch.float64)
+        frames += z.shape[-2]
+
+    while True:
+        while buffered >= chunk_len:
+            step(take(chunk_len))
+        block = next(it, None)
+        if block is None:
+            break
+        block = np.asarray(block)
+        if block.shape[1]:
+            fifo.append(block)
+            buffered += block.shape[1]
+    tail_len = (buffered // m) * m
+    if tail_len and not drop_tail:
+        step(take(tail_len))
+    return acc.to(DEFAULT_FLOAT), frames

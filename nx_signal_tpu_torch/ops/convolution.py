@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.kernels.dft import _exact_f32, blocked_frame_matmul, toeplitz_band
+from nx_signal_tpu_torch.kernels.dft import _exact_f32, blocked_frame_matmul
 from nx_signal_tpu_torch.ops.iir import lfilter
 from nx_signal_tpu_torch.ops.transforms import fft_nd, ifft_nd, irfft_nd, rfft_nd
 from nx_signal_tpu_torch.spectral.framing import _ola_fold
@@ -248,6 +248,18 @@ def _fir_block_size(k: int) -> int:
     return max(512, -(-k // 128) * 128)
 
 
+def _toeplitz_band_on(taps, block: int):
+    """`kernels.dft.toeplitz_band(taps, block)` gathered from the 1-D taps
+    tensor where it lies: taps already on the card (a streaming FIR's)
+    cost no host-to-device copy."""
+    k = taps.shape[0]
+    t = torch.arange(block + k - 1, device=taps.device)[:, None]
+    j = torch.arange(block, device=taps.device)[None, :]
+    m = j + (k - 1) - t
+    zero = torch.zeros((), dtype=taps.dtype, device=taps.device)
+    return torch.where((m >= 0) & (m < k), taps[m.clamp(0, k - 1)], zero)
+
+
 def fir_convolve_1d(x, taps, mode="full", *, origin: int = 0):
     """1-D convolution over the last axis as a blocked Toeplitz contraction:
     y_full[n] = sum_m taps[m] x[n-m] evaluated as (frames @ W), the frames
@@ -278,8 +290,8 @@ def fir_convolve_1d(x, taps, mode="full", *, origin: int = 0):
     total = num_frames * block + k - 1
     out_dtype = torch.promote_types(x.dtype, taps.dtype)
     xp = F.pad(x.to(out_dtype), (k - 1 + shift, total - (k - 1 + shift) - length))
-    weights = toeplitz_band(taps.to(out_dtype).detach().cpu().resolve_conj().numpy(), block)
-    y = blocked_frame_matmul(xp, torch.as_tensor(weights, device=x.device),
+    weights = _toeplitz_band_on(taps.to(out_dtype).detach(), block)
+    y = blocked_frame_matmul(xp, weights,
                              window_length=block + k - 1, stride=block,
                              num_frames=num_frames)
     y = y.reshape(*batch, num_frames * block)[..., shift:shift + full_len]

@@ -118,6 +118,15 @@ def _chunk_constants(a_tail: tuple, length: int):
     return toeplitz, toeplitz[:, last], g[last], g
 
 
+@functools.lru_cache(maxsize=64)
+def _chunk_constants_on(a_tail: tuple, length: int, device: torch.device):
+    """`_chunk_constants` as tensors on `device` (G transposed), copied there
+    once per denominator, chunk length and device: a stream filtered chunk
+    by chunk reuses them with no host-to-device copy."""
+    toeplitz, ends_cols, t_mat, g = _chunk_constants(a_tail, length)
+    return tuple(torch.as_tensor(c, device=device) for c in (toeplitz, ends_cols, t_mat, g.T))
+
+
 def _chained_states(ends, t_mat):
     """The state entering every chunk, from each chunk's zero-state end
     state (..., K, N): s_0 = 0, s_{k+1} = T s_k + ends_k, by a doubling
@@ -143,17 +152,17 @@ def _recurrence_chunked(v, a_tail):
     length = _CHUNK
     lead, t = v.shape[:-1], v.shape[-1]
     chunks = -(-t // length)
-    toeplitz, ends_cols, t_mat, g = _chunk_constants(tuple(a_tail.tolist()), length)
+    toeplitz, ends_cols, t_mat, g_t = _chunk_constants_on(tuple(a_tail.tolist()), length,
+                                                          v.device)
     wide = torch.complex128 if v.is_complex() or np.iscomplexobj(a_tail) else torch.float64
-    dev, dtype = v.device, v.dtype
+    dtype = v.dtype
     vp = F.pad(v, (0, chunks * length - t)) if chunks * length != t else v
     vp = vp.reshape(-1, chunks, length)
     with _exact_f32():
-        y = vp @ torch.as_tensor(toeplitz, device=dev).to(dtype)
-        ends = (vp @ torch.as_tensor(ends_cols, device=dev).to(dtype)).to(wide)
-        states = _chained_states(ends, torch.as_tensor(t_mat, device=dev).to(wide))
-        y.reshape(-1, length).addmm_(states.reshape(-1, n).to(dtype),
-                                     torch.as_tensor(g.T, device=dev).to(dtype))
+        y = vp @ toeplitz.to(dtype)
+        ends = (vp @ ends_cols.to(dtype)).to(wide)
+        states = _chained_states(ends, t_mat.to(wide))
+        y.reshape(-1, length).addmm_(states.reshape(-1, n).to(dtype), g_t.to(dtype))
     return y.reshape(*lead, chunks * length)[..., :t]
 
 

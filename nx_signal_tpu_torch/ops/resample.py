@@ -96,8 +96,15 @@ def _upfirdn_phase_outputs(ext, bank, up: int, down: int, *, n_offset: int, n_co
     `down`). A frame of at most _MATERIALIZE_MAX_BLOCKS hop blocks, and
     any complex signal or taps, takes 'materialize' (the frames, then one
     GEMM); a longer one the banded 'conv', which builds no frames."""
+    w, geometry = _phase_plan(bank, up, down, n_offset=n_offset, n_count=n_count)
+    return _phase_outputs(ext, torch.as_tensor(w, device=ext.device), geometry, n_count)
+
+
+def _phase_plan(bank, up: int, down: int, *, n_offset: int, n_count: int):
+    """The host banded weight (window_length, R) of `_upfirdn_phase_outputs`
+    and its frame geometry (o_min, window_length, stride, num_frames): a
+    stream whose chunks all have n_count outputs plans once."""
     t_taps = bank.shape[1]
-    batch = ext.shape[:-1]
     r_tile = -(-_TILE_OUTPUTS // up) * up
     est_window = t_taps + (r_tile // up) * down
     if r_tile > up and est_window * r_tile > _TILE_MAX_WEIGHTS:
@@ -114,11 +121,18 @@ def _upfirdn_phase_outputs(ext, bank, up: int, down: int, *, n_offset: int, n_co
         # partial tile (n_classes == n_count, not a multiple of up):
         # num_frames == 1, so the stride only sizes the single frame
         stride = down
-    w_np = np.zeros((window_length, n_classes), dtype=bank.dtype)
+    w = np.zeros((window_length, n_classes), dtype=bank.dtype)
     for r in range(n_classes):
         s = offsets[r] - o_min
-        w_np[s:s + t_taps, r] = bank[phases[r]]
-    w = torch.as_tensor(w_np, device=ext.device)
+        w[s:s + t_taps, r] = bank[phases[r]]
+    return w, (o_min, window_length, stride, num_frames)
+
+
+def _phase_outputs(ext, w, geometry, n_count: int):
+    """`_upfirdn_phase_outputs` with the plan of `_phase_plan`, its weight
+    `w` already on ext's device."""
+    o_min, window_length, stride, num_frames = geometry
+    batch, n_classes = ext.shape[:-1], w.shape[1]
     c_blocks = -(-window_length // stride)
     strategy = ("materialize" if c_blocks <= _MATERIALIZE_MAX_BLOCKS or ext.is_complex()
                 or w.is_complex() else "conv")
@@ -274,21 +288,39 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
     x = as_signal(x)
     _check_precision(precision)
     m = n_channels
-    if taps is None:
-        proto = _pfb_prototype(m, taps_per_channel,
-                               tuple(window) if isinstance(window, list) else window)
-    else:
-        proto = torch.as_tensor(taps).detach().cpu()
-        if proto.shape[0] % m != 0:
-            raise ValueError(
-                f"prototype length ({proto.shape[0]}) must be a multiple of "
-                f"n_channels ({m})")
-        taps_per_channel = proto.shape[0] // m
+    proto = _pfb_proto(m, taps_per_channel, window, taps)
+    taps_per_channel = proto.shape[0] // m
+    dtype, strategy = _pfb_route(x.dtype, proto.dtype, m, strategy)
+    x = x.to(dtype)
+    window_length = m * taps_per_channel
+    if x.shape[-1] < window_length:
+        raise ValueError(
+            f"signal length {x.shape[-1]} is shorter than the prototype "
+            f"({window_length} taps)")
+    weights = _pfb_weights(proto, m, strategy, dtype, x.device)
+    return _pfb_channels(x, weights, m, strategy, precision, shift)
 
-    dtype = torch.promote_types(x.dtype, proto.dtype)
+
+def _pfb_proto(m: int, taps_per_channel: int, window, taps):
+    """The host prototype of `pfb_analyze`: the designed default or the
+    given `taps`, whose length must be a multiple of m."""
+    if taps is None:
+        return _pfb_prototype(m, taps_per_channel,
+                              tuple(window) if isinstance(window, list) else window)
+    proto = torch.as_tensor(taps).detach().cpu()
+    if proto.shape[0] % m != 0:
+        raise ValueError(
+            f"prototype length ({proto.shape[0]}) must be a multiple of "
+            f"n_channels ({m})")
+    return proto
+
+
+def _pfb_route(x_dtype, proto_dtype, m: int, strategy: str):
+    """The compute dtype and the strategy 'auto' resolves to, checked (and
+    a warning where f32 weights meet float64 input)."""
+    dtype = torch.promote_types(x_dtype, proto_dtype)
     if not (dtype.is_floating_point or dtype.is_complex):
         dtype = DEFAULT_FLOAT
-    x = x.to(dtype)
     complex_in = dtype.is_complex
 
     if strategy not in ("auto", "matmul", "factored", "einsum"):
@@ -310,21 +342,34 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
             f"pfb_analyze strategy={strategy!r} computes in float32 "
             "(stacked-real weights); float64 input is downcast. Use "
             "strategy='einsum' (or 'auto') to keep f64 accuracy.",
-            UserWarning, stacklevel=2)
+            UserWarning, stacklevel=3)
+    return dtype, strategy
 
-    window_length = m * taps_per_channel
-    if x.shape[-1] < window_length:
-        raise ValueError(
-            f"signal length {x.shape[-1]} is shorter than the prototype "
-            f"({window_length} taps)")
 
+def _pfb_weights(proto, m: int, strategy: str, dtype, device):
+    """The weights of `strategy` on `device`, from the host prototype:
+    'matmul' the (m*tpc, 2m) f32 [Re | Im] band of `_pfb_matmul`, else the
+    (tpc, m) polyphase prototype (f32 for 'factored', `dtype` for
+    'einsum'). A stream applies the same weights to every chunk."""
     if strategy == "matmul":
-        channels = _pfb_matmul(x, proto, m, window_length, precision)
+        proto_np = proto.numpy().astype(np.float64)
+        return torch.as_tensor(
+            _dft_weights(proto_np, proto.shape[0], m, False, np.float64).astype(np.float32),
+            device=device)
+    w = proto.reshape(-1, m)
+    return w.to(dtype=DEFAULT_FLOAT if strategy == "factored" else dtype, device=device)
+
+
+def _pfb_channels(x, weights, m: int, strategy: str, precision, shift: bool):
+    """`pfb_analyze` of `x` (already of the compute dtype) with the device
+    weights of `_pfb_weights`."""
+    if strategy == "matmul":
+        channels = _pfb_matmul(x, weights, m, weights.shape[0], precision)
     elif strategy == "factored":
-        channels = _pfb_factored(x, proto, m, taps_per_channel)
+        channels = _pfb_factored(x, weights, m, weights.shape[0])
     else:
-        weights = proto.reshape(taps_per_channel, m).to(dtype=dtype, device=x.device)
-        frames = as_windowed(x, window_length=window_length, stride=m)
+        taps_per_channel = weights.shape[0]
+        frames = as_windowed(x, window_length=m * taps_per_channel, stride=m)
         blocks = frames.reshape(*frames.shape[:-1], taps_per_channel, m)
         # y[t, c] = sum_j w[j, c] * x[t*m + j*m + c]  (filter-and-decimate)
         with _exact_f32():
@@ -373,16 +418,12 @@ def pfb_footprint_bytes(strategy: str, batch_elems: int, length: int,
     return mults[strategy] * s
 
 
-def _pfb_matmul(x, proto, m, window_length, precision):
+def _pfb_matmul(x, weights, m, window_length, precision):
     """PFB as one banded framed-DFT contraction: Y[t, k] = frame_t @ W with
-    W[n, k] = proto[n] e^(-2i*pi*k*n/m), built in f64 on the host (the DFT
-    phase wraps mod m exactly as `_dft_weights` computes it for n_fft <
-    frame) and cast to f32."""
+    W[n, k] = proto[n] e^(-2i*pi*k*n/m), the f32 weights of `_pfb_weights`
+    (built in f64 on the host: the DFT phase wraps mod m exactly as
+    `_dft_weights` computes it for n_fft < frame)."""
     num_frames = (x.shape[-1] - window_length) // m + 1
-    proto_np = proto.detach().cpu().numpy().astype(np.float64)
-    weights = torch.as_tensor(
-        _dft_weights(proto_np, window_length, m, False, np.float64).astype(np.float32),
-        device=x.device)
     acc = blocked_frame_matmul(x.to(DEFAULT_FLOAT), weights, window_length=window_length,
                                stride=m, num_frames=num_frames, precision=precision)
     return torch.complex(acc[..., :m], acc[..., m:])

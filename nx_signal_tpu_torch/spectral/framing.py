@@ -104,6 +104,15 @@ def _ola_seed(init, batch, length: int, dtype):
     return F.pad(init, (0, length - init.shape[-1]))
 
 
+def _part_seeds(init):
+    """The (real part, imaginary part) seeds of a complex fold: a complex
+    seed's parts, a real seed for the real part only, or none."""
+    if init is None:
+        return None, None
+    init = torch.as_tensor(init)
+    return (init.real, init.imag) if init.is_complex() else (init, None)
+
+
 def _ola_fold_torch(frames, stride: int, out_length: int, init=None):
     """Plain deterministic overlap-add: a left fold of the C shifted blocks,
     j descending, so sample p = q*stride + s receives frames[q - j,
@@ -118,10 +127,7 @@ def _ola_fold_torch(frames, stride: int, out_length: int, init=None):
     complex add computes a + 1*b, and the complex product 1*b turns a real
     part of -0.0 into +0.0 where the imaginary part is negative."""
     if frames.is_complex():
-        seeds = (None, None)
-        if init is not None:
-            init = torch.as_tensor(init)
-            seeds = (init.real, init.imag) if init.is_complex() else (init, None)
+        seeds = _part_seeds(init)
         re = _ola_fold_torch(frames.real, stride, out_length, init=seeds[0])
         im = _ola_fold_torch(frames.imag, stride, out_length, init=seeds[1])
         return torch.complex(re, im)
@@ -152,12 +158,20 @@ def _ola_fold(frames, stride: int, out_length: int, init=None):
     (parallel/sharded.py:sharded_istft) needs to stay bitwise.
 
     float32 frames go through `kernels.cuda_dft.overlap_add_cuda` (the
-    hand-written kernel on a CUDA tensor, its plain version on a CPU one);
-    other dtypes take the plain fold."""
-    if frames.dtype == DEFAULT_FLOAT:
-        from nx_signal_tpu_torch.kernels.cuda_dft import overlap_add_cuda
+    hand-written kernel on a CUDA tensor, its plain version on a CPU one),
+    and complex64 frames through it once per part, seeded by the seed's
+    parts (a real seed seeds the real part only), as `_ola_fold_torch`
+    folds them; other dtypes take the plain fold."""
+    if frames.dtype in (DEFAULT_FLOAT, torch.complex64):
+        from nx_signal_tpu_torch.kernels import cuda_dft
 
-        return overlap_add_cuda(frames, stride=stride, out_length=out_length, init=init)
+        if frames.dtype == DEFAULT_FLOAT:
+            return cuda_dft.overlap_add_cuda(frames, stride=stride, out_length=out_length,
+                                             init=init)
+        re, im = (cuda_dft.overlap_add_cuda(part.contiguous(), stride=stride,
+                                            out_length=out_length, init=seed)
+                  for part, seed in zip((frames.real, frames.imag), _part_seeds(init)))
+        return torch.complex(re, im)
     return _ola_fold_torch(frames, stride, out_length, init=init)
 
 

@@ -629,11 +629,7 @@ class ShortTimeFFT:
         frames = self._synthesis_frames(s)
         # overlap-add of every slice on the full grid, then samples [k0, k1)
         full_len = (s.shape[-1] - 1) * self._hop + self.m_num
-        if frames.is_complex():
-            acc = torch.complex(_ola_fold(frames.real.contiguous(), self._hop, full_len),
-                                _ola_fold(frames.imag.contiguous(), self._hop, full_len))
-        else:
-            acc = _ola_fold(frames.contiguous(), self._hop, full_len)
+        acc = _ola_fold(frames, self._hop, full_len)
         grid0 = self.p_min * self._hop - self.m_num_mid  # the sample of acc[0]
         out = acc[..., k0 - grid0: k1 - grid0]
         if moved:

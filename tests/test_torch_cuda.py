@@ -498,3 +498,110 @@ def test_sharded_welch_runs_kernels_b_fft_and_e_on_cuda(tmp_path):
     from tests import torch_sharded_ranks as ranks
 
     assert ranks.spawn(ranks.cuda_welch_case, 2, tmp_path) == [True, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", ["none", "complex", "real"])
+def test_overlap_add_kernel_on_complex_frames_bitwise_on_cuda(seed, rng):
+    """complex64 frames fold through kernel C once per part (seeded by the
+    seed's parts), bitwise equal to the plain per-part fold, signed zeros
+    included."""
+    need_cuda()
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold
+
+    frames = (rng.normal(size=(3, 40, 400)) + 1j * rng.normal(size=(3, 40, 400))).astype(
+        np.complex64)
+    frames.real[:, :, :8] = -0.0
+    out_length = 40 * 150 + 250
+    init = {"none": None,
+            "complex": (rng.normal(size=(3, out_length))
+                        + 1j * rng.normal(size=(3, out_length))).astype(np.complex64),
+            "real": rng.normal(size=(3, out_length)).astype(np.float32)}[seed]
+    t_init = None if init is None else torch.from_numpy(init)
+    got, counts = _launches_of(
+        lambda: _ola_fold(torch.from_numpy(frames).cuda(), 150, out_length,
+                          init=None if t_init is None else t_init.cuda()),
+        cuda_dft.overlap_add_cuda)
+    assert counts == [2]
+    want = _ola_fold_torch(torch.from_numpy(frames), 150, out_length, init=t_init)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_streaming_stft_istft_launch_counts_and_resume_on_cuda(rng, tmp_path):
+    """On the card StreamingSTFT launches B-fft once per chunk and
+    StreamingISTFT kernel C twice per chunk (the real and imaginary parts);
+    the chunks agree with their CPU runs at 1e-4 x max, and a resume of
+    StreamingISTFT from a checkpoint is bitwise equal to the uninterrupted
+    run."""
+    need_cuda()
+    from nx_signal_tpu_torch.io.checkpoint import load_state, save_state
+    from nx_signal_tpu_torch.parallel.streaming import StreamingISTFT, StreamingSTFT
+
+    w, hop = tw.hann(512), 128
+    enc, dec = StreamingSTFT(w, hop=hop), StreamingISTFT(w, hop=hop)
+    x = torch.from_numpy(rng.normal(size=(4, 8 * 4096)).astype(np.float32))
+    chunks = list(x.split(4096, dim=-1))
+    es, ds = enc.init_state((4,)), dec.init_state((4,))
+    zs, ys = [], []
+    for i, c in enumerate(chunks):
+        (es, z), counts = _launches_of(lambda: enc.process(es, c.numpy()),
+                                       cuda_dft.framed_fft_cuda)
+        assert counts == [1] and z.device.type == "cuda"
+        (ds, y), counts = _launches_of(lambda: dec.process(ds, z), cuda_dft.overlap_add_cuda)
+        assert counts == [2]
+        zs.append(z)
+        ys.append(y)
+        if i == 3:
+            save_state(str(tmp_path / "istft.npz"), ds)
+    es_cpu, ds_cpu = enc.init_state((4,), device="cpu"), dec.init_state((4,), device="cpu")
+    for c, z, y in zip(chunks, zs, ys):
+        es_cpu, z_cpu = enc.process(es_cpu, c)
+        ds_cpu, y_cpu = dec.process(ds_cpu, z.cpu())
+        assert_close_to_max(z.cpu(), z_cpu)
+        assert_close_to_max(y.cpu(), y_cpu)
+    state, _ = load_state(str(tmp_path / "istft.npz"))
+    for z, y in zip(zs[4:], ys[4:]):
+        state, y2 = dec.process(state, z)
+        assert y2.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_streaming_chunks_make_no_host_to_device_copy_on_cuda(rng):
+    """After a first chunk (which copies each processor's constants to the
+    card once), a chunk of every streaming processor on a device tensor
+    issues no host-to-device copy (each would wait for the stream): the
+    profiler's memcpy events of the second chunk are all device to device
+    or device to host."""
+    need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from nx_signal_tpu_torch.ops.iir_design import butter
+    from nx_signal_tpu_torch.parallel import streaming as ts
+
+    procs = [
+        (ts.StreamingFIR(tfilt.firwin(255, [0.1])), 4800),
+        (ts.StreamingIIR(butter(8, 0.1, output="sos")), 4800),
+        (ts.StreamingSTFT(tw.hann(512), hop=128), 4864),
+        (ts.StreamingPFB(1024, taps_per_channel=8), 8192),
+        (ts.StreamingResamplePoly(1, 3), 4800),
+    ]
+    for proc, n in procs:
+        state = proc.init_state((4,))
+        for i in range(2):
+            chunk = torch.from_numpy(rng.normal(size=(4, n)).astype(np.float32)).cuda()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, y = proc.process(state, chunk)
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        assert not [m for m in names if "HtoD" in m], (type(proc).__name__, names)
+    istft = ts.StreamingISTFT(tw.hann(512), hop=128)
+    state = istft.init_state((4,))
+    for i in range(2):
+        z = torch.randn((4, 38, 512), dtype=torch.complex64, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, y = istft.process(state, z)
+            torch.cuda.synchronize()
+    assert not [e.name for e in prof.events() if "HtoD" in e.name]

@@ -14,13 +14,15 @@ import torch
 
 from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
 from nx_signal_tpu_torch.kernels import dft as td
-from nx_signal_tpu_torch.models.pipeline import StftFirChain
+from nx_signal_tpu_torch.models.pipeline import (StftFirChain, WidebandReceiver,
+                                                 channelize_power_stream)
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import iir as tiir
 from nx_signal_tpu_torch.ops import mixing as tmix
 from nx_signal_tpu_torch.ops import resample as tres
 from nx_signal_tpu_torch.ops import transforms as tt
+from nx_signal_tpu_torch.parallel import streaming as tstream
 from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
 from nx_signal_tpu_torch.spectral import mel as tm
@@ -45,6 +47,15 @@ SFT_SPEC = (_RNG.normal(size=(2, 129, 36)) + 1j * _RNG.normal(size=(2, 129, 36))
 TIMES = np.sort(_RNG.uniform(0, 10, size=64))
 BA = ([0.2, 0.4, 0.2], [1.0, -0.4, 0.2])
 SOS = np.array([[0.2, 0.4, 0.2, 1.0, -0.4, 0.2], [1.0, 0.0, -1.0, 1.0, 0.1, 0.3]])
+# the streaming processors, each with a CPU state for a (2, ...) chunk
+PROCESSORS = {
+    "StreamingFIR": (tstream.StreamingFIR(TAPS), (2,), SIG),
+    "StreamingIIR": (tstream.StreamingIIR(SOS), (2,), SIG),
+    "StreamingSTFT": (tstream.StreamingSTFT(WIN, hop=128), (2,), SIG),
+    "StreamingISTFT": (tstream.StreamingISTFT(np.hanning(129), hop=64), (2, 13), SPEC),
+    "StreamingPFB": (tstream.StreamingPFB(16, taps_per_channel=4), (2,), SIG),
+    "StreamingResamplePoly": (tstream.StreamingResamplePoly(1, 2), (2,), SIG),
+}
 
 # name -> (function of the signal, the signal as numpy)
 ENTRY_POINTS = {
@@ -127,7 +138,12 @@ ENTRY_POINTS = {
     "hilbert": (lambda s: tt.hilbert(s), SIG),
     "hilbert2": (lambda s: tt.hilbert2(s), IMG),
     "envelope": (lambda s: tt.envelope(s), SIG),
+    "WidebandReceiver": (lambda s: WidebandReceiver(n_channels=16, frame_length=32, hop=16)(s),
+                         SIG),
 }
+for _name, (_proc, _batch, _chunk) in PROCESSORS.items():
+    ENTRY_POINTS[f"{_name}.process"] = (
+        lambda s, p=_proc, b=_batch: p.process(p.init_state(b[:1], device="cpu"), s)[1], _chunk)
 
 
 @pytest.fixture
@@ -144,3 +160,19 @@ def test_entry_point_puts_a_numpy_signal_on_the_card(name, no_card):
         fn(signal.tolist())
     out = fn(torch.from_numpy(signal))
     assert out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", sorted(PROCESSORS))
+def test_init_state_makes_its_zeros_on_the_card_unless_asked_for_the_cpu(name, no_card):
+    proc, batch, _ = PROCESSORS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        proc.init_state(batch[:1])
+    state = proc.init_state(batch[:1], device="cpu")
+    assert state.device.type == "cpu" and not state.any()
+
+
+def test_channelize_power_stream_puts_its_chunks_on_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        channelize_power_stream([SIG], 16, taps_per_channel=4)
+    power, frames = channelize_power_stream([SIG], 16, taps_per_channel=4, device="cpu")
+    assert power.device.type == "cpu" and frames == 2048 // 16

@@ -8,6 +8,9 @@ import pytest
 
 #: every module of nx_signal_tpu_torch with >>> examples
 MODULES = [
+    "nx_signal_tpu_torch.io.checkpoint",
+    "nx_signal_tpu_torch.io.raw",
+    "nx_signal_tpu_torch.io.wav",
     "nx_signal_tpu_torch.kernels.cuda_dft",
     "nx_signal_tpu_torch.kernels.cuda_halo",
     "nx_signal_tpu_torch.kernels.dft",
@@ -24,8 +27,10 @@ MODULES = [
     "nx_signal_tpu_torch.ops.waveforms",
     "nx_signal_tpu_torch.ops.windows",
     "nx_signal_tpu_torch.parallel.estimation",
+    "nx_signal_tpu_torch.parallel.failure",
     "nx_signal_tpu_torch.parallel.mesh",
     "nx_signal_tpu_torch.parallel.sharded",
+    "nx_signal_tpu_torch.parallel.streaming",
     "nx_signal_tpu_torch.spectral.estimation",
     "nx_signal_tpu_torch.spectral.framing",
     "nx_signal_tpu_torch.spectral.mel",

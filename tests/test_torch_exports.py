@@ -77,3 +77,26 @@ def test_the_resampling_slice_names_are_exported():
     assert set(names) - set(SHARED) == {"pfb_footprint_bytes", "sharded_upfirdn",
                                         "sharded_resample_poly", "sharded_pfb_analyze"}
     assert nx_signal_tpu_torch.mixing is importlib.import_module("nx_signal_tpu_torch.ops.mixing")
+
+
+@pytest.mark.parametrize("module", ["io", "io.checkpoint", "io.wav", "io.raw",
+                                    "parallel.streaming", "parallel.failure"])
+def test_the_streaming_slice_modules_have_the_jax_names(module):
+    """The modules of the streaming, IO, checkpoint and recovery slice export
+    the JAX modules' `__all__`, each name defined by the port."""
+    jax_module = importlib.import_module(f"nx_signal_tpu.{module}")
+    port_module = importlib.import_module(f"nx_signal_tpu_torch.{module}")
+    assert port_module.__all__ == jax_module.__all__
+    for name in port_module.__all__:
+        assert getattr(port_module, name).__module__.startswith("nx_signal_tpu_torch.")
+
+
+def test_the_pipeline_slice_names():
+    """WidebandReceiver and channelize_power_stream complete the JAX
+    `models/pipeline.py` `__all__` in the port."""
+    from nx_signal_tpu.models import pipeline as jax_pipeline
+    from nx_signal_tpu_torch.models import pipeline as port_pipeline
+
+    assert set(port_pipeline.__all__) == set(jax_pipeline.__all__) | {"StftFirChain"}
+    for name in ("WidebandReceiver", "channelize_power_stream"):
+        assert DEFINED[name] is getattr(port_pipeline, name)

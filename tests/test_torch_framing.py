@@ -124,6 +124,46 @@ def test_ola_fold_with_init_bitwise(m, n, stride, extra, seed_length, rng):
                                 init=torch.from_numpy(cinit)), want)
 
 
+@pytest.mark.parametrize("seed", ["none", "complex", "real"])
+@pytest.mark.parametrize("m,n,stride,extra", [(6, 16, 16, 0), (9, 12, 5, 3)])
+def test_ola_fold_complex64_goes_through_kernel_c_per_part(seed, m, n, stride, extra, rng,
+                                                           monkeypatch):
+    """complex64 frames reach kernel C's wrapper twice, real part then
+    imaginary part (each seeded by its part of the seed; a real seed seeds
+    the real part only), and the result is bitwise the plain per-part fold,
+    signed zeros included: with no overlap a -0.0 seed under -0.0 frames
+    stays -0.0 in the real part beside a negative imaginary part, which a
+    complex add would turn into +0.0."""
+    calls = []
+    wrapper = cuda_dft.overlap_add_cuda
+
+    def counting(frames, **kw):
+        calls.append((frames.dtype, kw["init"] is not None))
+        return wrapper(frames, **kw)
+
+    monkeypatch.setattr(cuda_dft, "overlap_add_cuda", counting)
+    frames = (rng.normal(size=(2, m, n)) + 1j * rng.normal(size=(2, m, n))).astype(np.complex64)
+    frames.real[:, :, :4] = -0.0
+    frames.imag[:, :, :4] = -1.5
+    out_length = m * stride + max(n - stride, 0) + extra
+    init = {"none": None,
+            "complex": (rng.normal(size=(2, out_length))
+                        + 1j * rng.normal(size=(2, out_length))).astype(np.complex64),
+            "real": rng.normal(size=(2, out_length)).astype(np.float32)}[seed]
+    if init is not None:
+        init.real[:, :4] = -0.0
+    t_init = None if init is None else torch.from_numpy(init)
+    got = tf._ola_fold(torch.from_numpy(frames), stride, out_length, init=t_init)
+    assert calls == [(torch.float32, seed != "none"),
+                     (torch.float32, seed == "complex")]
+    want = tf._ola_fold_torch(torch.from_numpy(frames), stride, out_length, init=t_init)
+    assert_bitwise(got, want)
+    j_init = None if init is None else jnp.asarray(init)
+    assert_bitwise(got, jf._ola_fold(jnp.asarray(frames), stride, out_length, init=j_init))
+    if seed != "none" and stride == n:
+        assert np.signbit(got.real.numpy()[:, :4]).all()
+
+
 def test_ola_fold_init_batch_must_match():
     with pytest.raises(ValueError, match="batch shape"):
         tf._ola_fold(torch.zeros(2, 3, 8), 4, 16, init=torch.zeros(3, 16))

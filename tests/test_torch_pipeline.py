@@ -12,6 +12,12 @@ Tolerances:
   10^(dB/20), at 1e-5 absolute (f32 DFT sums; in dB a weak bin's rounding
   is magnified, 3e-3 dB at -70 dB).
 * the folded weights held by StftFirChain: bitwise (the same numpy f64 fold).
+* WidebandReceiver: 1e-4 x each band's max power against the JAX receiver
+  (f32 PFB and FFT sums in other orders).
+* channelize_power_stream: 1e-4 of the max (the JAX test's gate) against
+  the JAX function and against pfb_analyze of the zero-prepended stream;
+  2e-6 of each band's power where an f32 accumulator stalls (the f64
+  accumulator reads ~1e-7 there, the JAX package's f32 one 8e-6 to 2e-5).
 """
 
 import os
@@ -31,12 +37,18 @@ from nx_signal_tpu.models.pipeline import stft_fir_chain as jax_chain
 from nx_signal_tpu.ops import filters as jfilt
 from nx_signal_tpu.ops import waveforms as jwave
 from nx_signal_tpu.ops import windows as jw
+from nx_signal_tpu.models.pipeline import WidebandReceiver as JaxWidebandReceiver
+from nx_signal_tpu.models.pipeline import channelize_power_stream as jax_channelize
+from nx_signal_tpu_torch.models import pipeline as tpipe
 from nx_signal_tpu_torch.models.pipeline import (
     FIRFilterChain,
     SpectrogramPipeline,
     StftFirChain,
+    WidebandReceiver,
+    channelize_power_stream,
     stft_fir_chain,
 )
+from nx_signal_tpu_torch.ops.resample import pfb_analyze
 from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import waveforms as twave
 from nx_signal_tpu_torch.ops import windows as tw
@@ -235,6 +247,114 @@ def test_spectrogram_pipeline_matches_jax(params, rng):
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=1e-6)
 
 
+@pytest.mark.parametrize("params,n", [
+    (dict(n_channels=32, frame_length=64, hop=32, sampling_rate=3.2e6), 1 << 16),
+    (dict(n_channels=64, taps_per_channel=4, frame_length=32, hop=8), 1 << 15),
+])
+def test_wideband_receiver_matches_jax(params, n, rng):
+    x = rng.normal(size=(2, n)).astype(np.float32)
+    got = WidebandReceiver(**params)(torch.from_numpy(x)).numpy()
+    want = np.asarray(JaxWidebandReceiver(**params)(jnp.asarray(x)))
+    assert got.shape == want.shape and got.shape[1] == params["n_channels"]
+    assert np.isfinite(got).all()
+    scale = np.abs(want).max(axis=(-2, -1), keepdims=True)
+    assert (np.abs(got - want) <= 1e-4 * scale).all()
+
+
+def _offline_power(x, m, tpc):
+    """pfb_analyze of the zero-prepended stream, power summed over frames
+    in f64 (the einsum route in f64)."""
+    lead = (tpc - 1) * m
+    full = torch.from_numpy(np.pad(x.astype(np.float64), [(0, 0), (lead, 0)]))
+    ref = pfb_analyze(full, m, taps_per_channel=tpc, strategy="einsum")
+    return (ref.real ** 2 + ref.imag ** 2).sum(dim=-2).numpy()
+
+
+class TestChannelizePowerStream:
+    def test_matches_jax_and_offline_power(self, rng):
+        m, tpc = 32, 4
+        x = rng.normal(size=(2, 8192)).astype(np.float32)
+        blocks = [x[:, :3000], x[:, 3000:5050], x[:, 5050:]]  # ragged
+        power, frames = channelize_power_stream(blocks, m, taps_per_channel=tpc, device="cpu")
+        assert frames == 8192 // m and power.dtype == torch.float32
+        want, want_frames = jax_channelize(blocks, m, taps_per_channel=tpc)
+        assert frames == want_frames
+        assert_close_to_max(power, np.asarray(want))
+        assert_close_to_max(power, _offline_power(x, m, tpc))
+
+    def test_from_prefetching_raw_reader(self, rng, tmp_path):
+        from nx_signal_tpu_torch.io.raw import PrefetchingRawReader, write_raw
+
+        m, tpc = 64, 8
+        x = rng.uniform(-0.9, 0.9, size=(1, 50000)).astype(np.float32)
+        p = str(tmp_path / "cap.i16")
+        write_raw(p, x, dtype="i16")
+        with PrefetchingRawReader(p, dtype="i16", channels=1, block_frames=8192) as pf:
+            power, frames = channelize_power_stream(pf, m, taps_per_channel=tpc,
+                                                    device="cpu")
+        assert frames == 50000 // m
+        decoded = (np.round(np.clip(x * 32768, -32768, 32767)) / 32768).astype(np.float32)
+        assert_close_to_max(power, _offline_power(decoded[:, :(50000 // m) * m], m, tpc))
+
+    def test_drop_tail_and_validation(self, rng):
+        x = rng.normal(size=(1, 1000)).astype(np.float32)
+        power, frames = channelize_power_stream([x[:, :640], x[:, 640:]], 16,
+                                                taps_per_channel=4, drop_tail=True,
+                                                device="cpu")
+        assert frames == 40   # one 640-sample chunk; the 352-sample tail dropped
+        _, kept = channelize_power_stream([x[:, :640], x[:, 640:]], 16, taps_per_channel=4,
+                                          device="cpu")
+        assert kept == 62
+        with pytest.raises(ValueError, match="empty block stream"):
+            channelize_power_stream([], 16, device="cpu")
+        with pytest.raises(ValueError, match="shorter than one"):
+            channelize_power_stream([np.zeros((1, 8), np.float32)], 16, device="cpu")
+        with pytest.raises(ValueError, match="channels, frames"):
+            channelize_power_stream([np.zeros(64, np.float32)], 16, device="cpu")
+
+    def test_read_cursor_small_first_block_then_large_blocks(self, rng, monkeypatch):
+        """A 64-sample first block fixes the chunk at 64; the 8192-sample
+        blocks that follow are read through the cursor: every chunk is
+        staged once, from views of the queued blocks, and every sample
+        once (no re-concatenation of the queue per chunk)."""
+        m, tpc = 16, 4
+        x = rng.normal(size=(2, 64 + 3 * 8192 + 40)).astype(np.float32)
+        blocks = [x[:, :64]] + [x[:, 64 + i * 8192:64 + (i + 1) * 8192] for i in range(3)]
+        blocks.append(x[:, 64 + 3 * 8192:])
+        staged = []
+        stage = tpipe._Stager.__call__
+
+        def counting(self, pieces):
+            staged.append(sum(p.shape[1] for p in pieces))
+            assert all(any(np.shares_memory(p, b) for b in blocks) for p in pieces)
+            return stage(self, pieces)
+
+        monkeypatch.setattr(tpipe._Stager, "__call__", counting)
+        power, frames = channelize_power_stream(blocks, m, taps_per_channel=tpc, device="cpu")
+        assert staged == [64] * ((x.shape[1] - 40) // 64) + [32]
+        assert sum(staged) == frames * m == x.shape[1] - 8
+        want, want_frames = jax_channelize(blocks, m, taps_per_channel=tpc)
+        assert frames == want_frames
+        assert_close_to_max(power, np.asarray(want))
+
+    def test_float64_accumulator_holds_where_float32_stalls(self):
+        """A loud first chunk (amplitude 2^13) then 1024 quiet ones: each
+        quiet chunk adds less than half an f32 ulp of the running sum, so an
+        f32 accumulator (the JAX package's) drops them, 8e-6 to 2e-5 of the
+        band power; the f64 one keeps them."""
+        m, tpc = 16, 4
+        rng = np.random.default_rng(5)
+        x = np.concatenate([rng.normal(size=(1, 64)) * 2.0 ** 13,
+                            rng.normal(size=(1, 64 * 1024))], axis=1).astype(np.float32)
+        blocks = [x[:, i:i + 64] for i in range(0, x.shape[1], 64)]
+        power, _ = channelize_power_stream(blocks, m, taps_per_channel=tpc, device="cpu")
+        want = _offline_power(x, m, tpc)
+        rel = np.abs(power.numpy() - want) / want
+        assert rel.max() < 2e-6
+        jax_power, _ = jax_channelize(blocks, m, taps_per_channel=tpc)
+        assert (np.abs(np.asarray(jax_power) - want) / want).max() > 5e-6
+
+
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, rng):
     """A signal that is not a tensor goes to the CUDA device, and
     from_numpy builds there by default: with no card both raise (never a
@@ -247,7 +367,9 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, rng):
                  lambda: stft_fir_chain(x.tolist(), taps, window, **kw),
                  lambda: SpectrogramPipeline(frame_length=256, fft_length=256)(x[0]),
                  lambda: FIRFilterChain(num_taps=31)(x),
-                 lambda: StftFirChain.from_numpy(taps, window, stride=64, n_fft=256)):
+                 lambda: StftFirChain.from_numpy(taps, window, stride=64, n_fft=256),
+                 lambda: WidebandReceiver(n_channels=16, frame_length=32, hop=16)(x[0]),
+                 lambda: channelize_power_stream([x], 16)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     got = stft_fir_chain(torch.from_numpy(x), taps, window, return_filtered=False, **kw)
