@@ -234,6 +234,32 @@ Phases (any failure raises, and the exit code is not 0):
      PrefetchingWavReader, all bitwise equal, in MB/s, failing unless the
      native library is the one loaded; heartbeat on the card within its
      deadline; the phase's seconds.
+ 13. the signal-facing long tail of ops/ on the card (plain PyTorch: no TPU
+     kernel lies on these paths, and none of A-D may launch), each path
+     with the counters zeroed before it, each against an f64 oracle and
+     timed (median of 3 CUDA-event timings) beside the card's name and
+     power limit: chirp (linear, logarithmic), sawtooth and square at 28 800
+     000 samples (10 min at 48 kHz) against an f64 evaluation of the same
+     float32 argument (numpy's float32 ops in the port's order) at 1e-5, the
+     logarithmic chirp with 8 ulps of its float32 power (the card's powf
+     and the host's differ there) and of its argument added to the gate,
+     each chirp's drift from scipy's f64 chirp printed; argrelmax order 5 at
+     64 x 480000, scipy's indices; cwt (ricker, widths 1-128) on 480000
+     samples, 8 widths per row at 1e-4 against scipy's f64 convolve 'same'
+     with the conjugated reversed wavelet; find_peaks on a 2^22-sample
+     random walk plus noise (height, distance 50, prominence, width):
+     scipy's indices, the x-valued properties at 1e-5 of max|x|, the
+     positions at float32 resolution, the distance filter's rounds printed;
+     find_peaks_cwt (host f64) at 2^14, widths 1-16, scipy's indices;
+     zoom_fft at 64 x 480000 (1-2 kHz at 48 kHz, m 8192: Bluestein) and czt
+     at 768 x 1024, m 1024 on each route, 4 rows each at 1e-4 of scipy's,
+     then both CZT routes timed at n = m, n*m from 2^18 to 2^23, 768 rows;
+     lambert_w on 2^22 complex128 points, branches 0 and -1, at atol
+     1e-13, rtol 1e-10 against scipy.special.lambertw; cspline1d and
+     symiirorder2 at 768 x 480000 (4 rows), cspline2d, qspline2d and
+     spline_filter at 2048 x 2048, sepfir2d (7 taps) at 4096 x 4096, each per
+     row at 1e-4 of scipy's f64 (the smoothing boundary sums at precision
+     1e-14, where scipy's truncated sums meet the full ones).
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
@@ -1551,6 +1577,336 @@ def _phase12(kernels, dev):
     return launches
 
 
+_PHASE13_SIZES = dict(wave=28_800_000, rows=64, length=480_000, cwt_n=480_000, cwt_widths=128,
+                      peaks_n=1 << 22, cwt_peaks_n=1 << 14, czt_rows=768, czt_n=1024,
+                      lw_n=1 << 22, spline_rows=768, image=2048, sep_image=4096,
+                      route_rows=768, route_log2=(18, 23), check_rows=4)
+
+
+def _find_peaks_f64(x, *, height, distance, prominence, width):
+    """scipy.signal.find_peaks(x, height=, distance=, prominence=, width=)
+    in f64 in scipy's order of conditions, its distance filter in plain
+    numpy with the JAX package's order among equal heights (the larger
+    index first) where scipy's follows its unstable sort; returns (peaks,
+    properties) as scipy does."""
+    import numpy as np
+    import scipy.signal as ss
+
+    peaks, props = ss.find_peaks(x, height=height)
+    heights = props["peak_heights"]
+    reach = math.ceil(float(np.float32(distance))) - 1
+    lo = np.searchsorted(peaks, peaks - reach, side="left")
+    hi = np.searchsorted(peaks, peaks + reach, side="right")
+    keep = np.ones(peaks.size, dtype=bool)
+    for i in np.argsort(heights, kind="stable")[::-1]:
+        if keep[i]:
+            keep[lo[i]:i] = False
+            keep[i + 1:hi[i]] = False
+    peaks, props = peaks[keep], {"peak_heights": heights[keep]}
+    prom, lb, rb = ss.peak_prominences(x, peaks)
+    sel = prom >= prominence
+    peaks, props = peaks[sel], {k: v[sel] for k, v in props.items()}
+    props.update(prominences=prom[sel], left_bases=lb[sel], right_bases=rb[sel])
+    w, wh, lip, rip = ss.peak_widths(x, peaks, rel_height=0.5, prominence_data=(
+        props["prominences"], props["left_bases"], props["right_bases"]))
+    sel = w >= width
+    peaks, props = peaks[sel], {k: v[sel] for k, v in props.items()}
+    props.update(widths=w[sel], width_heights=wh[sel], left_ips=lip[sel], right_ips=rip[sel])
+    return peaks, props
+
+
+def _phase13(kernels, dev, sizes=_PHASE13_SIZES):
+    """Phase 13 (see the module docstring): waveforms, relative extrema,
+    cwt, find_peaks, czt / zoom_fft, lambert_w and the splines on the card,
+    each against its f64 oracle, timed by CUDA events (median of 3), and
+    the CZT routes timed against each other. No kernel may launch. Returns
+    {label: ms} and the CZT route times."""
+    import numpy as np
+    import scipy.signal as ss
+    import scipy.special as ssp
+    import torch
+
+    import nx_signal_tpu_torch.ops.czt as czt_mod
+    import nx_signal_tpu_torch.ops.find_peaks as fp_mod
+    from nx_signal_tpu_torch.ops import splines, waveforms
+    from nx_signal_tpu_torch.ops.lambert_w import lambert_w
+    from nx_signal_tpu_torch.ops.peak_finding import argrelmax
+    from nx_signal_tpu_torch.ops.wavelets import _ricker_np, cwt, ricker
+
+    t_phase = time.perf_counter()
+    card = _gpu_name_and_power_limit()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sz = dict(sizes)
+    rows = sz["check_rows"]
+    times = {}
+
+    def randn(seed, shape, dtype=torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def drive(label, fn, timed=True):
+        """Drive fn once with the launch counters zeroed (no kernel of A-E
+        may launch), then time it: the median of 3 CUDA-event timings."""
+        out = {}
+        _run_path(label, kernels, (), lambda: out.update(y=fn()) or sync(), avoid=kernels)
+        if timed:
+            times[label] = sorted(_time_ms(fn) for _ in range(3))[1]
+        return out.pop("y")
+
+    def gate_rows(label, got, want, rel):
+        """Each row (last axis) within rel x that row's max|want|."""
+        got, want = np.atleast_2d(got), np.atleast_2d(want)
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: shape {got.shape} != the oracle's {want.shape}")
+        worst = float((np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)).max())
+        print(f"  {label}: largest per-row max|d| / max|f64| = {worst:.3g} over "
+              f"{got.shape[0]} rows (gate {rel:g}); {times.get(label, float('nan')):.3f} ms "
+              f"(median of 3, CUDA events); {card}", flush=True)
+        if not worst <= rel:
+            raise AssertionError(f"{label}: a row is off its f64 oracle by {worst} of its max")
+
+    def host(t, r=None):
+        t = t if r is None else t[:r]
+        return t.cpu().numpy().astype(np.complex128 if t.is_complex() else np.float64)
+
+    # ------------------------------------------------------- waveforms
+    n = sz["wave"]
+    t = torch.arange(n, dtype=torch.float32, device=dev) / 48000.0
+    # the oracles start from the card's float32 times and redo the port's
+    # float32 ops in numpy in its order; torch divides by a scalar on the
+    # card as a product with the scalar's float32 reciprocal
+    th = t.cpu().numpy()
+    seconds = n / 48000.0
+    f0, f1 = 100.0, 8000.0
+    y = drive(f"chirp linear {n}", lambda: waveforms.chirp(t, f0, seconds, f1))
+    beta = (f1 - f0) / seconds
+    arg = np.float32(2.0 * math.pi) * (np.float32(f0) * th + np.float32(0.5 * beta) * th * th)
+    gate_rows(f"chirp linear {n}", host(y), np.cos(arg.astype(np.float64)), 1e-5)
+    drift = float(np.abs(host(y) - ss.chirp(np.arange(n) / 48000.0, f0, seconds, f1)).max())
+    print(f"  chirp linear {n}: drift from the f64 chirp (scipy.signal.chirp of f64 times) "
+          f"{drift:.4g} (the f32 phase, kept)", flush=True)
+    del arg
+
+    y = drive(f"chirp logarithmic {n}",
+              lambda: waveforms.chirp(t, f0, seconds, f1, method="logarithmic"))
+    beta = seconds / math.log(f1 / f0)
+    scale = np.float32(2.0 * math.pi * beta * f0)
+    power = np.power(np.float32(f1 / f0),
+                     th * (np.float32(1.0) / np.float32(seconds)) if dev.type == "cuda"
+                     else th / np.float32(seconds))
+    arg = scale * (power - np.float32(1.0))
+    # the card's powf and the host's differ by a few ulps of the power, which
+    # the scale carries into the argument: the gate adds 8 ulps of each
+    slack = 8.0 * (float(scale) * np.spacing(power).astype(np.float64)
+                   + np.spacing(np.abs(arg)).astype(np.float64))
+    d = np.abs(host(y) - np.cos(arg.astype(np.float64)))
+    worst = float((d / (1e-5 + slack)).max())
+    drift = float(np.abs(host(y) - ss.chirp(np.arange(n) / 48000.0, f0, seconds, f1,
+                                             method="logarithmic")).max())
+    print(f"  chirp logarithmic {n}: max|d| {float(d.max()):.4g}, largest |d| / (1e-5 + 8 ulps "
+          f"of the power x scale + 8 ulps of the argument) = {worst:.3g} (gate 1), "
+          f"{int((d > 1e-5).sum())} samples past 1e-5; drift from the f64 chirp {drift:.4g}; "
+          f"{times[f'chirp logarithmic {n}']:.3f} ms (median of 3, CUDA events); {card}",
+          flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"chirp logarithmic: off the f32 argument by {worst} x its slack")
+    del arg, power, slack, d
+
+    wt = (2.0 * math.pi * 440.0) * t
+    wth = wt.cpu().numpy()
+    tmod = np.remainder(wth, np.float32(2.0 * math.pi)).astype(np.float64)
+    y = drive(f"sawtooth width 0.3 {n}", lambda: waveforms.sawtooth(wt, width=0.3))
+    want = np.where(tmod < 2.0 * math.pi * 0.3, tmod / (math.pi * 0.3) - 1.0,
+                    (math.pi * 1.3 - tmod) / (math.pi * 0.7))
+    gate_rows(f"sawtooth width 0.3 {n}", host(y), want, 1e-5)
+    y = drive(f"square duty 0.3 {n}", lambda: waveforms.square(wt, duty=0.3))
+    want = np.where(tmod < 2.0 * math.pi * 0.3, 1, -1)
+    edge = tmod == float(np.float32(2.0 * math.pi * 0.3))  # the f32 threshold itself
+    wrong = int(((y.cpu().numpy() != want) & ~edge).sum())
+    print(f"  square duty 0.3 {n}: {wrong} samples differ from the f64 comparison off the "
+          f"f32 threshold ({int(edge.sum())} on it); {times[f'square duty 0.3 {n}']:.3f} ms "
+          f"(median of 3, CUDA events); {card}", flush=True)
+    if wrong:
+        raise AssertionError(f"square: {wrong} samples differ from the f64 comparison")
+    del t, wt, y, th, wth, tmod, want, edge
+
+    # ------------------------------------------- relative extrema, cwt
+    x = randn(131, (sz["rows"], sz["length"]))
+    ext = drive(f"argrelmax order 5 {tuple(x.shape)}", lambda: argrelmax(x, axis=1, order=5))
+    count = int(ext.valid_indices)
+    found = ext.indices[:count].cpu().numpy()
+    want = np.stack(ss.argrelmax(host(x), axis=1, order=5), axis=1)
+    same = found.shape == want.shape and bool((found == want).all())
+    print(f"  argrelmax order 5 {tuple(x.shape)}: {count} maxima, indices equal to scipy's = "
+          f"{same}; {times[f'argrelmax order 5 {tuple(x.shape)}']:.3f} ms (median of 3, CUDA "
+          f"events); {card}", flush=True)
+    if not same:
+        raise AssertionError("argrelmax: not scipy's indices")
+    del x, ext
+
+    x = randn(132, (sz["cwt_n"],))
+    widths = np.arange(1, sz["cwt_widths"] + 1, dtype=np.float64)
+    y = drive(f"cwt ricker widths 1-{widths.size} {sz['cwt_n']}", lambda: cwt(x, ricker, widths))
+    xh = host(x)
+    check = np.linspace(0, widths.size - 1, 8).astype(int)
+    want = np.stack([ss.convolve(xh, np.conj(_ricker_np(min(10 * w, xh.size), w)[::-1]),
+                                 mode="same") for w in widths[check]])
+    gate_rows(f"cwt ricker widths 1-{widths.size} {sz['cwt_n']}", host(y[check]), want, 1e-4)
+    del x, y
+
+    # ------------------------------------------------------ find_peaks
+    n = sz["peaks_n"]
+    x = torch.cumsum(randn(133, (n,)), 0) + 2.0 * randn(134, (n,))
+    xh = host(x)
+    kwargs = dict(height=float(np.median(xh)), distance=50, prominence=1.0, width=1.0)
+    rounds = []
+    build = fp_mod._range_max_tables
+    fp_mod._range_max_tables = lambda r: rounds.append(1) or build(r)
+    try:
+        pk = drive(f"find_peaks {n}", lambda: fp_mod.find_peaks(x, **kwargs), timed=False)
+    finally:
+        fp_mod._range_max_tables = build
+    times[f"find_peaks {n}"] = sorted(_time_ms(lambda: fp_mod.find_peaks(x, **kwargs))
+                                      for _ in range(3))[1]
+    want, props = _find_peaks_f64(xh, **kwargs)
+    scipys = ss.find_peaks(xh, **kwargs)[0]
+    count = int(pk.valid_count)
+    got = pk.indices[:count].cpu().numpy()
+    if got.shape != want.shape or not (got == want).all():
+        raise AssertionError(f"find_peaks: {count} peaks, the f64 oracle {want.size}; not its "
+                             f"indices ({np.setxor1d(got, want)[:8]})")
+    amax, errs = float(np.abs(xh).max()), {}
+    for key, w in props.items():
+        g = pk.properties[key][:count].cpu().numpy().astype(np.float64)
+        if key in ("widths", "left_ips", "right_ips"):  # positions, float32
+            errs[key] = float((np.abs(g - w) / np.maximum(np.abs(w), 1.0)).max())
+            bad = errs[key] > 2.0 ** -23
+        elif key in ("left_bases", "right_bases"):
+            errs[key] = float(np.abs(g - w).max())
+            bad = errs[key] != 0
+        else:
+            errs[key] = float(np.abs(g - w).max()) / amax
+            bad = errs[key] > 1e-5
+        if bad:
+            raise AssertionError(f"find_peaks: {key} off scipy by {errs[key]}")
+    print(f"  find_peaks {n} (height, distance 50, prominence, width): {count} peaks, indices "
+          f"equal to the f64 oracle's (scipy's own find_peaks breaks equal heights by its "
+          f"unstable sort: {np.setxor1d(scipys, want).size} indices differ from it); "
+          f"properties off the oracle by " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()) + " (x-valued / max|x|, gate 1e-5; "
+          f"positions relative, gate 2^-23; bases exact); distance filter {len(rounds)} "
+          f"rounds; {times[f'find_peaks {n}']:.3f} ms (median of 3, CUDA events, its syncs "
+          f"included); {card}", flush=True)
+    del x, pk
+
+    m = sz["cwt_peaks_n"]
+    xs = torch.sin(2 * math.pi * torch.arange(m, device=dev) / 200.0) + 0.3 * randn(135, (m,))
+    t0 = time.perf_counter()
+    got = fp_mod.find_peaks_cwt(xs, np.arange(1, 17))
+    cwt_s = time.perf_counter() - t0
+    want = ss.find_peaks_cwt(host(xs), np.arange(1, 17))
+    if not np.array_equal(got, want):
+        raise AssertionError("find_peaks_cwt: not scipy's indices")
+    print(f"  find_peaks_cwt {m}, widths 1-16 (host f64, from a tensor on the card): "
+          f"{got.size} peaks, equal to scipy's; {cwt_s * 1e3:.1f} ms once (host clock); {card}",
+          flush=True)
+
+    # -------------------------------------------------- czt, zoom_fft
+    x = randn(136, (sz["rows"], sz["length"]))
+    y = drive(f"zoom_fft {tuple(x.shape)} 1-2 kHz m 8192",
+              lambda: czt_mod.zoom_fft(x, [1000.0, 2000.0], 8192, fs=48000.0))
+    want = ss.zoom_fft(host(x, rows), [1000.0, 2000.0], 8192, fs=48000.0)
+    gate_rows(f"zoom_fft {tuple(x.shape)} 1-2 kHz m 8192", host(y, rows), want, 1e-4)
+    # the function builds its host f64 chirp tables on every call; the
+    # object keeps them, and its device copies
+    plan = czt_mod.ZoomFFT(x.shape[-1], [1000.0, 2000.0], 8192, fs=48000.0)
+    y = drive(f"ZoomFFT {tuple(x.shape)} 1-2 kHz m 8192 (tables built once)", lambda: plan(x))
+    gate_rows(f"ZoomFFT {tuple(x.shape)} 1-2 kHz m 8192 (tables built once)", host(y, rows),
+              want, 1e-4)
+    del x, y, plan
+
+    x = randn(137, (sz["czt_rows"], sz["czt_n"]))
+    saved = czt_mod._MAX_MATMUL_NM
+    try:
+        for route, cut in (("matmul", 1 << 62), ("bluestein", 0)):
+            czt_mod._MAX_MATMUL_NM = cut
+            label = f"czt {tuple(x.shape)} m {sz['czt_n']} ({route}, tables built per call)"
+            y = drive(label, lambda: czt_mod.czt(x, sz["czt_n"]))
+            gate_rows(label, host(y, rows), ss.czt(host(x, rows), sz["czt_n"]), 1e-4)
+        route_ms = {}
+        for log2 in range(sz["route_log2"][0], sz["route_log2"][1] + 1):
+            side = round(2.0 ** (log2 / 2.0))
+            xr = randn(138, (sz["route_rows"], side))
+            for route, cut in (("matmul", 1 << 62), ("bluestein", 0)):
+                czt_mod._MAX_MATMUL_NM = cut
+                plan = czt_mod.CZT(side, side)
+                plan(xr)
+                route_ms[(side, route)] = sorted(_time_ms(lambda: plan(xr)) for _ in range(5))[2]
+            print(f"  czt route at n = m = {side} (n*m ~ 2^{log2}), {sz['route_rows']} rows: "
+                  f"matmul {route_ms[(side, 'matmul')]:.3f} ms, Bluestein "
+                  f"{route_ms[(side, 'bluestein')]:.3f} ms (median of 5, CUDA events); {card}",
+                  flush=True)
+    finally:
+        czt_mod._MAX_MATMUL_NM = saved
+    print(f"  czt's cut _MAX_MATMUL_NM = {saved} (2^{int(math.log2(saved))}): czt "
+          f"{sz['czt_rows']} x {sz['czt_n']}, m {sz['czt_n']} takes the "
+          f"{'matmul' if sz['czt_n'] ** 2 <= saved else 'Bluestein'} route", flush=True)
+    del x, y
+
+    # ------------------------------------------------------- lambert_w
+    z = torch.complex(3.0 * randn(139, (sz["lw_n"],), torch.float64),
+                      3.0 * randn(140, (sz["lw_n"],), torch.float64))
+    zh = host(z)
+    for k in (0, -1):
+        label = f"lambert_w k={k} {sz['lw_n']}"
+        y = drive(label, lambda: lambert_w(z, k))
+        want = ssp.lambertw(zh, k)
+        d = np.abs(host(y) - want)
+        worst = float((d / (1e-13 + 1e-10 * np.abs(want))).max())
+        print(f"  {label} complex128: max|d| {float(d.max()):.3g}, largest |d| / (1e-13 + "
+              f"1e-10 |scipy|) = {worst:.3g} (gate 1); {times[label]:.3f} ms (median of 3, "
+              f"CUDA events); {card}", flush=True)
+        if not worst <= 1.0:
+            raise AssertionError(f"lambert_w k={k}: off scipy.special.lambertw")
+    del z, y
+
+    # --------------------------------------------------------- splines
+    x = randn(141, (sz["spline_rows"], sz["length"]))
+    r, omega = 0.5, 0.3
+    for label, fn, oracle in (
+            ("cspline1d", lambda: splines.cspline1d(x), lambda row: ss.cspline1d(row)),
+            ("symiirorder2 r 0.5 omega 0.3", lambda: splines.symiirorder2(x, r, omega),
+             lambda row: ss.symiirorder2(row, r, omega, precision=1e-14))):
+        label = f"{label} {tuple(x.shape)}"
+        y = drive(label, fn)
+        gate_rows(label, host(y, rows), np.stack([oracle(row) for row in host(x, rows)]), 1e-4)
+    del x, y
+    img = randn(142, (sz["image"], sz["image"]))
+    imh = host(img)
+    hcol = np.array([1.0, 4.0, 1.0]) / 6.0
+    for label, fn, oracle in (
+            ("cspline2d", lambda: splines.cspline2d(img),
+             lambda: ss.cspline2d(imh, 0.0, precision=1e-14)),
+            ("qspline2d", lambda: splines.qspline2d(img),
+             lambda: ss.qspline2d(imh, 0.0, precision=1e-14)),
+            ("spline_filter lmbda 5", lambda: splines.spline_filter(img),
+             lambda: ss.sepfir2d(ss.cspline2d(imh, 5.0, precision=1e-14), hcol, hcol))):
+        label = f"{label} {tuple(img.shape)}"
+        y = drive(label, fn)
+        gate_rows(label, host(y), oracle(), 1e-4)
+    del img, y
+    img = randn(143, (sz["sep_image"], sz["sep_image"]))
+    taps = np.array([1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0]) / 16.0
+    label = f"sepfir2d 7 taps {tuple(img.shape)}"
+    y = drive(label, lambda: splines.sepfir2d(img, taps, taps))
+    gate_rows(label, host(y), ss.sepfir2d(host(img), taps, taps), 1e-4)
+    del img, y
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return times, route_ms
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2376,6 +2732,11 @@ def main() -> int:
           "IO, checkpoints and the heartbeat on the card", flush=True)
     counts = _phase12(kernels, dev)
     launches = {name: n + counts.get(name, 0) for name, n in launches.items()}
+
+    # ---------------------------------------------------------------- 13
+    print("phase 13: waveforms, relative extrema, cwt, find_peaks, czt / zoom_fft, lambert_w "
+          "and the splines on the card", flush=True)
+    _phase13(kernels, dev)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

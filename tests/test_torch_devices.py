@@ -6,6 +6,8 @@ Each function that takes a signal or spectrum runs it through
 that is a RuntimeError naming device='cpu', never a quiet run on the CPU.
 Here the card is hidden (torch.cuda.is_available() is False): every entry
 point raises on a numpy signal and keeps a CPU tensor on the CPU.
+`find_peaks_cwt` is not among them: it is the JAX package's host f64
+computation, so it takes a numpy signal on the host.
 """
 
 import numpy as np
@@ -17,11 +19,18 @@ from nx_signal_tpu_torch.kernels import dft as td
 from nx_signal_tpu_torch.models.pipeline import (StftFirChain, WidebandReceiver,
                                                  channelize_power_stream)
 from nx_signal_tpu_torch.ops import convolution as tc
+from nx_signal_tpu_torch.ops import czt as tczt
 from nx_signal_tpu_torch.ops import filters as tfilt
+from nx_signal_tpu_torch.ops import find_peaks as tfp
 from nx_signal_tpu_torch.ops import iir as tiir
+from nx_signal_tpu_torch.ops import lambert_w as tlw
 from nx_signal_tpu_torch.ops import mixing as tmix
+from nx_signal_tpu_torch.ops import peak_finding as tpk
 from nx_signal_tpu_torch.ops import resample as tres
+from nx_signal_tpu_torch.ops import splines as tspl
 from nx_signal_tpu_torch.ops import transforms as tt
+from nx_signal_tpu_torch.ops import waveforms as tw
+from nx_signal_tpu_torch.ops import wavelets as twav
 from nx_signal_tpu_torch.parallel import streaming as tstream
 from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
@@ -32,10 +41,12 @@ from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
 
 _RNG = np.random.default_rng(0)
 SIG = _RNG.normal(size=(2, 2048)).astype(np.float32)
+SIG1 = SIG[0].copy()
 SPEC = (_RNG.normal(size=(2, 13, 129))
         + 1j * _RNG.normal(size=(2, 13, 129))).astype(np.complex64)
 FRAMES = _RNG.normal(size=(2, 13, 256)).astype(np.float32)
 IMG = _RNG.normal(size=(12, 10)).astype(np.float32)
+IMG64 = _RNG.normal(size=(64, 64)).astype(np.float32)
 TAPS = np.array([0.25, 0.5, 0.25])
 KER2 = np.ones((3, 2), np.float32)
 WIN = np.hanning(256)
@@ -138,6 +149,41 @@ ENTRY_POINTS = {
     "hilbert": (lambda s: tt.hilbert(s), SIG),
     "hilbert2": (lambda s: tt.hilbert2(s), IMG),
     "envelope": (lambda s: tt.envelope(s), SIG),
+    "sinc": (lambda s: tw.sinc(s), SIG),
+    "sawtooth": (lambda s: tw.sawtooth(s, width=0.3), SIG),
+    "square": (lambda s: tw.square(s, duty=0.3), SIG),
+    "gaussian_pulse": (lambda s: tw.gaussian_pulse(s).quadrature, SIG),
+    "gausspulse": (lambda s: tw.gausspulse(s), SIG),
+    "chirp": (lambda s: tw.chirp(s, 1.0, 10.0, 5.0), SIG),
+    "polynomial_sweep": (lambda s: tw.polynomial_sweep(s, [0.1, 2.0, 1.0]), TIMES),
+    "sweep_poly": (lambda s: tw.sweep_poly(s, [0.1, 2.0, 1.0]), TIMES),
+    "argrelmin": (lambda s: tpk.argrelmin(s, axis=1).indices, SIG),
+    "argrelmax": (lambda s: tpk.argrelmax(s, axis=1, order=3).indices, SIG),
+    "argrelextrema": (lambda s: tpk.argrelextrema(s, torch.less_equal).indices, SIG),
+    "cwt": (lambda s: twav.cwt(s, twav.ricker, [1.0, 4.0]), SIG1),
+    "find_peaks": (lambda s: tfp.find_peaks(s, distance=5, width=1.0).indices, SIG1),
+    "peak_prominences": (lambda s: tfp.peak_prominences(s, [3, 10])[0], SIG1),
+    "peak_widths": (lambda s: tfp.peak_widths(s, [3, 10])[0], SIG1),
+    "czt": (lambda s: tczt.czt(s, 64), SIG),
+    "czt_bluestein": (lambda s: tczt.czt(s, 2048), SIG),
+    "zoom_fft": (lambda s: tczt.zoom_fft(s, [0.1, 0.3], 32), SIG),
+    "CZT": (lambda s: tczt.CZT(2048, 16)(s), SIG),
+    "ZoomFFT": (lambda s: tczt.ZoomFFT(2048, [0.1, 0.3], 16)(s), SIG),
+    "lambert_w": (lambda s: tlw.lambert_w(s, -1), SIG),
+    "gauss_spline": (lambda s: tspl.gauss_spline(s, 3), SIG),
+    "cubic_bspline": (lambda s: tspl.cubic_bspline(s), SIG),
+    "quadratic_bspline": (lambda s: tspl.quadratic_bspline(s), SIG),
+    "symiirorder1": (lambda s: tspl.symiirorder1(s, 0.5, 0.3), SIG),
+    "symiirorder2": (lambda s: tspl.symiirorder2(s, 0.5, 0.3), SIG),
+    "cspline1d": (lambda s: tspl.cspline1d(s), SIG),
+    "cspline1d_smooth": (lambda s: tspl.cspline1d(s, 2.0), SIG),
+    "qspline1d": (lambda s: tspl.qspline1d(s), SIG),
+    "cspline1d_eval": (lambda s: tspl.cspline1d_eval(s, np.linspace(-5, 2100, 64)), SIG1),
+    "qspline1d_eval": (lambda s: tspl.qspline1d_eval(s, np.linspace(-5, 2100, 64)), SIG1),
+    "cspline2d": (lambda s: tspl.cspline2d(s, 3.0), IMG64),
+    "qspline2d": (lambda s: tspl.qspline2d(s), IMG),
+    "sepfir2d": (lambda s: tspl.sepfir2d(s, [1.0, 4.0, 1.0], [1.0, 2.0, 4.0, 2.0, 1.0]), IMG),
+    "spline_filter": (lambda s: tspl.spline_filter(s), IMG64),
     "WidebandReceiver": (lambda s: WidebandReceiver(n_channels=16, frame_length=32, hop=16)(s),
                          SIG),
 }

@@ -16,15 +16,21 @@ MODULES = [
     "nx_signal_tpu_torch.kernels.dft",
     "nx_signal_tpu_torch.models.pipeline",
     "nx_signal_tpu_torch.ops.convolution",
+    "nx_signal_tpu_torch.ops.czt",
     "nx_signal_tpu_torch.ops.filters",
+    "nx_signal_tpu_torch.ops.find_peaks",
     "nx_signal_tpu_torch.ops.fir_design",
     "nx_signal_tpu_torch.ops.iir",
     "nx_signal_tpu_torch.ops.iir_design",
+    "nx_signal_tpu_torch.ops.lambert_w",
     "nx_signal_tpu_torch.ops.ltisys",
     "nx_signal_tpu_torch.ops.mixing",
+    "nx_signal_tpu_torch.ops.peak_finding",
     "nx_signal_tpu_torch.ops.resample",
+    "nx_signal_tpu_torch.ops.splines",
     "nx_signal_tpu_torch.ops.transforms",
     "nx_signal_tpu_torch.ops.waveforms",
+    "nx_signal_tpu_torch.ops.wavelets",
     "nx_signal_tpu_torch.ops.windows",
     "nx_signal_tpu_torch.parallel.estimation",
     "nx_signal_tpu_torch.parallel.failure",

@@ -5,6 +5,7 @@ submodules) imports from `nx_signal_tpu_torch`, as it does from
 """
 
 import importlib
+import pathlib
 import pkgutil
 
 import pytest
@@ -100,3 +101,40 @@ def test_the_pipeline_slice_names():
     assert set(port_pipeline.__all__) == set(jax_pipeline.__all__) | {"StftFirChain"}
     for name in ("WidebandReceiver", "channelize_power_stream"):
         assert DEFINED[name] is getattr(port_pipeline, name)
+
+
+def test_every_jax_name_but_the_rest_of_ltisys_is_exported():
+    """After the long tail of `ops/` (waveforms, peak_finding, wavelets,
+    find_peaks, czt, lambert_w, splines), every name of the JAX `__all__`
+    has a counterpart at the port's top level but the 28 of `ltisys` still
+    to port; `peak_finding` is the module, `__version__` the JAX package's."""
+    from nx_signal_tpu.ops import ltisys
+
+    missing = set(nx_signal_tpu.__all__) - set(nx_signal_tpu_torch.__all__)
+    assert missing == set(ltisys.__all__) - set(nx_signal_tpu_torch.__all__)
+    assert len(missing) == 28
+    assert nx_signal_tpu_torch.__version__ == nx_signal_tpu.__version__
+    assert nx_signal_tpu_torch.peak_finding is importlib.import_module(
+        "nx_signal_tpu_torch.ops.peak_finding")
+    for module in ("waveforms", "peak_finding", "wavelets", "find_peaks", "czt", "lambert_w",
+                   "splines"):
+        jax_module = importlib.import_module(f"nx_signal_tpu.ops.{module}")
+        port_module = importlib.import_module(f"nx_signal_tpu_torch.ops.{module}")
+        assert port_module.__all__ == jax_module.__all__
+        for name in port_module.__all__:
+            assert name in nx_signal_tpu_torch.__all__ or name == "Extrema"
+            assert getattr(port_module, name).__module__ == port_module.__name__
+
+
+def test_port_sources_import_no_jax_scipy_or_the_jax_package():
+    """The port imports torch and numpy (and the standard library) only."""
+    root = pathlib.Path(nx_signal_tpu_torch.__file__).parent
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 10
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.strip().replace(",", " ").split()
+            if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+                continue
+            top = words[1].split(".")[0]
+            assert top not in ("jax", "jaxlib", "scipy", "nx_signal_tpu"), (path, line)
