@@ -103,8 +103,8 @@ Phases (any failure raises, and the exit code is not 0):
      contraction kernels run): the larger of the operations of an FFT route
      (the FIR as an FFT overlap-save convolution, a real FFT per frame, 2.5
      n log2 n each) over the 67 TFLOP/s f32 peak and its bytes (inputs read
-     once, outputs written once) over 3.35 TB/s (H100 SXM, NVIDIA's data
-     sheet); A-tc's own route at the 495 TFLOP/s TF32 peak is printed beside,
+     once, outputs written once) over the card's data-sheet rate
+     (utils/profiling.py:device_hbm_bandwidth, 3.35 TB/s on the H100 SXM); A-tc's own route at the 495 TFLOP/s TF32 peak is printed beside,
      and D's (stage A, each hop block's partial DFT once) at the f32 peak,
      with the CTAs of D an SM holds at the bench chain (the occupancy
      calculator; fewer than 2 fails) and the shared path's set-up per call
@@ -112,10 +112,15 @@ Phases (any failure raises, and the exit code is not 0):
      then D's layout of both).
   8. the sharded layer: 4 ranks, each a fresh interpreter running this
      script with --phase8-rank (subprocess; never fork, which CUDA forbids),
-     in one gloo group (FileStore in a temporary directory), on cuda:(rank %
+     each starting its process group through parallel.multihost.initialize(
+     coordinator_address="127.0.0.1:<free port>", num_processes=4,
+     process_id=rank) (one gloo group: the ranks share the card) and making
+     its meshes (1, 4) and (2, 2) with make_pod_mesh, on cuda:(rank %
      device_count), so with one card all four share it and kernel E's
-     stores and signals go through CUDA IPC. The ranks load the library
-     phase 1 built. Kernel E against its plain version (send/recv +
+     stores and signals go through CUDA IPC. Each rank reports its
+     process_block_range(480000) on mesh (1, 4), and the parent fails
+     unless the four ranges tile [0, 480000) in block order. The ranks load
+     the library phase 1 built. Kernel E against its plain version (send/recv +
      concat), bitwise, on mesh (1, 4) for 768 x 120320 blocks (the bench
      FIR's 'direct' block rounding of 480000 / 4) with hl = hr = 127, K =
      256 (128, 127) and K = 2 (1, 0); then, each path with the counters
@@ -260,11 +265,29 @@ Phases (any failure raises, and the exit code is not 0):
      spline_filter at 2048 x 2048, sepfir2d (7 taps) at 4096 x 4096, each per
      row at 1e-4 of scipy's f64 (the smoothing boundary sums at precision
      1e-14, where scipy's truncated sums meet the full ones).
+ 14. the state-space simulation and the utils on the card (plain PyTorch:
+     no TPU kernel lies on these paths, and none of A-E may launch), each
+     path with the counters zeroed before it, timed (median of 3 CUDA-event
+     timings, with the cost of a step) beside the card's name and power
+     limit: dlsim of tf2ss(butter(8, 0.1)) (8 states) with x0 set on 48 000
+     f64 samples given as numpy, y and x against scipy.signal.dlsim at 1e-9
+     of their max; dlsim of a MIMO system (4 states, 2 inputs, 2 outputs)
+     on a (100 000, 2) float32 CUDA tensor, y at 1e-5; lsim of the analog
+     butter(4, 2 pi 1000) over linspace(0, 1, 48 001) with a random input,
+     interp True and False, y and x against scipy.signal.lsim at 1e-9;
+     impulse, step, dimpulse and dstep at their defaults and the outputs of
+     lti, dlti and StateSpace, each at 1e-8 of scipy's. Then the utils on
+     x * 2.0 over 2^28 float32 (1 GiB in, 1 GiB out): benchmark (host
+     clock) and timed_median (CUDA events), each reading 105% or less of
+     device_hbm_bandwidth(); slope_rate between 2^27 and 2^28; trace writes
+     a Chrome trace holding at least one CUDA kernel event; count_nonfinite
+     of a 2^28 tensor with 3 infs gives 3, and assert_all_finite raises.
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
 A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
-8's over all ranks, and phases 9's and 12's; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
+8's over all ranks, and phases 9's and 12's; phases 13 and 14 launch
+none; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
@@ -283,14 +306,15 @@ import json
 import math
 import os
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM f32 peak outside the tensor cores (NVIDIA's data sheet); the
+# device-memory rate comes from the port's table (_peak_bytes)
 _PEAK_F32_FLOPS = 67e12
-_PEAK_BYTES = 3.35e12
 _PHASE8_RANKS = 4
 _PHASE8_TIMEOUT_S = 600
 
@@ -404,10 +428,18 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def _peak_bytes() -> float:
+    """The card's device-memory rate in bytes/s, from NVIDIA's data sheet
+    (`utils.profiling.device_hbm_bandwidth`, which phase 14 reads too)."""
+    from nx_signal_tpu_torch.utils.profiling import device_hbm_bandwidth
+
+    return device_hbm_bandwidth()
+
+
 def _bound(flops, nbytes):
     """(least ms, what bounds it) for `flops` f32 operations and `nbytes`
     of device-memory traffic at the card's published peaks."""
-    ops_ms, bytes_ms = flops / _PEAK_F32_FLOPS * 1e3, nbytes / _PEAK_BYTES * 1e3
+    ops_ms, bytes_ms = flops / _PEAK_F32_FLOPS * 1e3, nbytes / _peak_bytes() * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -465,21 +497,31 @@ def _numpy_power(y2, window, *, hop, num_frames, n_fft):
     return np.abs(np.fft.rfft(fr[:, ::hop][:, :num_frames] * window, n=n_fft)) ** 2
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _phase8(world, device_type, sizes):
     """Start `world` ranks, each a fresh interpreter running this script's
-    `_phase8_rank`, wait for them within _PHASE8_TIMEOUT_S, and return every
-    rank's report. A rank that fails or hangs fails the run; every rank
-    still running is then killed, and each is reaped before this returns.
-    The ranks are plain subprocesses, not multiprocessing's, whose 'spawn'
-    leaves its resource-tracker process running until the interpreter
-    exits."""
+    `_phase8_rank` and starting its process group through
+    `parallel.multihost.initialize` at 127.0.0.1 on a free port, wait for
+    them within _PHASE8_TIMEOUT_S, check that their process_block_range
+    tiles the stream in block order, and return every rank's report. A
+    rank that fails or hangs fails the run; every rank still running is
+    then killed, and each is reaped before this returns. The ranks are
+    plain subprocesses, not multiprocessing's, whose 'spawn' leaves its
+    resource-tracker process running until the interpreter exits."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, os.path.abspath(__file__), "--phase8-rank"]
+        address = f"127.0.0.1:{_free_port()}"
         procs = []
         try:
             for rank in range(world):
                 procs.append(subprocess.Popen(
-                    [*cmd, str(rank), str(world), tmp, device_type, json.dumps(sizes)]))
+                    [*cmd, str(rank), str(world), tmp, device_type, json.dumps(sizes),
+                     address]))
             deadline = time.monotonic() + _PHASE8_TIMEOUT_S
             while True:
                 codes = [proc.poll() for proc in procs]
@@ -498,7 +540,15 @@ def _phase8(world, device_type, sizes):
                     proc.kill()
                 proc.wait()
         with open(os.path.join(tmp, "phase8.json")) as f:
-            return json.load(f)
+            reports = json.load(f)
+    spans = [tuple(r["block_range"]) for r in sorted(reports, key=lambda r: r["block"])]
+    print(f"  phase 8: the ranks started through multihost.initialize({address!r}, {world}, "
+          f"rank); process_block_range({sizes['length']}) in block order: {spans}", flush=True)
+    if spans[0][0] != 0 or spans[-1][1] != sizes["length"] or any(
+            a[1] != b[0] for a, b in zip(spans, spans[1:])):
+        raise AssertionError(f"phase 8: the ranks' block ranges {spans} do not tile "
+                             f"[0, {sizes['length']})")
+    return reports
 
 
 def _live_children():
@@ -518,8 +568,10 @@ def _live_children():
     return found
 
 
-def _phase8_rank(rank, world, tmp, device_type, sizes):
-    """One rank of phase 8 (see the module docstring). `device_type`
+def _phase8_rank(rank, world, tmp, device_type, sizes, address):
+    """One rank of phase 8 (see the module docstring), its process group
+    started by `parallel.multihost.initialize` at `address` (rank 0
+    listens there) and its meshes made by `make_pod_mesh`. `device_type`
     'cpu' runs the same program on the CPU at a small `sizes`, with the
     plain versions and without the launch gates and timings."""
     import numpy as np
@@ -529,8 +581,9 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
     def say(msg):
         print(f"[rank {rank}] {msg}", flush=True)
 
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
-                            rank=rank, world_size=world)
+    from nx_signal_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=address, num_processes=world, process_id=rank)
     from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
     from nx_signal_tpu_torch.kernels._build import load_library
     from nx_signal_tpu_torch.kernels.dft import framed_idft
@@ -540,8 +593,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
     from nx_signal_tpu_torch.ops.windows import hann
     from nx_signal_tpu_torch.parallel.halo import (
         _halo_extend_torch, _shift_from_left, _shift_from_right)
-    from nx_signal_tpu_torch.parallel.mesh import (
-        block_row, make_dsp_mesh, mesh_coordinate, mesh_device)
+    from nx_signal_tpu_torch.parallel.mesh import block_row, mesh_coordinate, mesh_device
     from nx_signal_tpu_torch.ops.iir import sosfilt
     from nx_signal_tpu_torch.ops.iir_design import butter
     from nx_signal_tpu_torch.parallel.estimation import sharded_welch
@@ -552,11 +604,11 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
         sharded_resample_poly, sharded_sosfilt, sharded_stft, sharded_upfirdn)
     from nx_signal_tpu_torch.spectral.estimation import welch
 
-    mesh14 = make_dsp_mesh(1, world, device_type=device_type)
-    mesh22 = make_dsp_mesh(2, world // 2, device_type=device_type)
+    mesh14 = multihost.make_pod_mesh(1, device_type=device_type)
+    mesh22 = multihost.make_pod_mesh(2, device_type=device_type)
     dev = mesh_device(mesh14)
     on_card = dev.type == "cuda"
-    say(f"on {dev}")
+    say(f"on {dev}, {dist.get_backend()} group of {dist.get_world_size()}")
 
     def sync():
         if on_card:
@@ -566,7 +618,9 @@ def _phase8_rank(rank, world, tmp, device_type, sizes):
     B_fft, B = cuda_dft.framed_fft_cuda, cuda_dft.framed_dft_cuda
     C, E = cuda_dft.overlap_add_cuda, cuda_halo.halo_extend_cuda
     kernels = (A, A_tc, B_fft, B, C, E)
-    report = {"rank": rank, "launches": {k.__name__: 0 for k in kernels}}
+    report = {"rank": rank, "launches": {k.__name__: 0 for k in kernels},
+              "block": mesh_coordinate(mesh14)[1],
+              "block_range": multihost.process_block_range(sizes["length"], mesh14)}
     out = {}
 
     def run_path(name, expect, fn):
@@ -1017,7 +1071,7 @@ def _phase10(kernels, dev, channels, length):
          lambda: ss.filtfilt(*ba2, xh), False),
     ]
     card = _gpu_name_and_power_limit()
-    bytes_ms = 2 * 4 * channels * length / _PEAK_BYTES * 1e3
+    bytes_ms = 2 * 4 * channels * length / _peak_bytes() * 1e3
     results = {}
     for name, fn, ref, timed in paths:
         out = {}
@@ -1907,6 +1961,182 @@ def _phase13(kernels, dev, sizes=_PHASE13_SIZES):
     return times, route_ms
 
 
+_PHASE14_SIZES = dict(dlsim_n=48_000, mimo_n=100_000, lsim_n=48_001, big_log2=28)
+
+
+def _phase14(kernels, dev, sizes=_PHASE14_SIZES):
+    """Phase 14 (see the module docstring): the state-space simulation and
+    the LTI classes' responses on the card, each against scipy.signal in
+    f64, then the utils (benchmark, timed_median, slope_rate, trace,
+    count_nonfinite, assert_all_finite). No kernel of A-E may launch.
+    Returns {label: ms}."""
+    import shutil
+
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    from nx_signal_tpu_torch.ops import ltisys
+    from nx_signal_tpu_torch.ops.iir_design import butter
+    from nx_signal_tpu_torch.utils import checks, profiling
+
+    t_phase = time.perf_counter()
+    card = _gpu_name_and_power_limit()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # a numpy signal goes to the card; the CPU rehearsal passes CPU tensors
+    # and asks for the CPU where a call has no signal
+    signal = (lambda v: v) if on_card else torch.from_numpy
+    where = {} if on_card else {"device": "cpu"}
+    sz = dict(sizes)
+    rng = np.random.default_rng(14)
+    times = {}
+
+    def drive(label, fn):
+        """Drive fn once with the launch counters zeroed (no kernel of A-E
+        may launch), then time it: the median of 3 CUDA-event timings."""
+        out = {}
+        _run_path(label, kernels, (), lambda: out.update(y=fn()) or sync(), avoid=kernels)
+        times[label] = sorted(_time_ms(fn) for _ in range(3))[1]
+        return out.pop("y")
+
+    def gate(label, parts, rel, steps=None):
+        """Each (name, got, want) of `parts` within rel x max|want|."""
+        for name, got, want in parts:
+            if got.device.type != dev.type:
+                raise AssertionError(f"{label}: {name} on {got.device}, not on {dev}")
+            got = got.cpu().numpy().astype(np.float64)
+            want = np.asarray(want, dtype=np.float64)
+            if got.shape != want.shape:
+                raise AssertionError(f"{label}: {name} {got.shape} != scipy's {want.shape}")
+            worst = float(np.abs(got - want).max() / np.abs(want).max())
+            step = (f", {times[label] / steps * 1e3:.2f} us a step" if steps else "")
+            print(f"  {label}: {name} max|d| / max|scipy| = {worst:.3g} (gate {rel:g}); "
+                  f"{times[label]:.3f} ms (median of 3, CUDA events){step}; {card}", flush=True)
+            if not worst <= rel:
+                raise AssertionError(f"{label}: {name} off scipy.signal by {worst} of its max")
+
+    # ---------------------------------------------------------- dlsim
+    b8, a8 = butter(8, 0.1)
+    sys8 = (*ltisys.tf2ss(b8, a8), 1.0)
+    n = sz["dlsim_n"]
+    u = rng.standard_normal(n)
+    x0 = rng.standard_normal(8)
+    label = f"dlsim tf2ss(butter(8, 0.1)), x0 set, {n} f64 samples"
+    _, y, x = drive(label, lambda: ltisys.dlsim(sys8, signal(u), x0=x0))
+    _, yw, xw = ss.dlsim(sys8, u, x0=x0)
+    gate(label, [("y", y, yw), ("x", x, xw)], 1e-9, steps=n)
+
+    m = sz["mimo_n"]
+    a4 = rng.standard_normal((4, 4))
+    a4 *= 0.95 / np.abs(np.linalg.eigvals(a4)).max()
+    mimo = (a4, rng.standard_normal((4, 2)), rng.standard_normal((2, 4)),
+            rng.standard_normal((2, 2)), 1.0)
+    u2 = torch.from_numpy(rng.standard_normal((m, 2)).astype(np.float32)).to(dev)
+    label = f"dlsim MIMO (4 states, 2 in, 2 out), {m} x 2 float32 tensor"
+    y = drive(label, lambda: ltisys.dlsim(mimo, u2))[1]
+    if y.dtype != torch.float32:
+        raise AssertionError(f"{label}: y is {y.dtype}, not float32")
+    gate(label, [("y", y, ss.dlsim(mimo, u2.cpu().numpy().astype(np.float64))[1])], 1e-5,
+         steps=m)
+
+    # ---------------------------------------------------------- lsim
+    bc, ac = butter(4, 2.0 * math.pi * 1000.0, analog=True)
+    t = np.linspace(0.0, 1.0, sz["lsim_n"])
+    uc = rng.standard_normal(t.shape[0])
+    for interp in (True, False):
+        label = (f"lsim butter(4, 2 pi 1000, analog=True), interp={interp}, "
+                 f"{t.shape[0]} f64 samples")
+        _, y, x = drive(label, lambda: ltisys.lsim((bc, ac), signal(uc), t, interp=interp))
+        _, yw, xw = ss.lsim((bc, ac), uc, t, interp=interp)
+        gate(label, [("y", y, yw), ("x", x, xw)], 1e-9, steps=t.shape[0] - 1)
+
+    # ---------------------------- the responses at their defaults, the classes
+    k = t.shape[0] - 1
+    for label, fn, oracle in (
+            ("impulse butter(4, 2 pi 1000, analog=True), defaults",
+             lambda: ltisys.impulse((bc, ac), **where)[1], lambda: ss.impulse((bc, ac))[1]),
+            ("step butter(4, 2 pi 1000, analog=True), defaults",
+             lambda: ltisys.step((bc, ac), **where)[1], lambda: ss.step((bc, ac))[1]),
+            ("dimpulse butter(8, 0.1), defaults",
+             lambda: ltisys.dimpulse((b8, a8, 1.0), **where)[1][0],
+             lambda: ss.dimpulse((b8, a8, 1.0))[1][0]),
+            ("dstep butter(8, 0.1), defaults",
+             lambda: ltisys.dstep((b8, a8, 1.0), **where)[1][0],
+             lambda: ss.dstep((b8, a8, 1.0))[1][0]),
+            (f"lti(butter(4, 2 pi 1000, analog=True)).output, {k} steps",
+             lambda: ltisys.lti(bc, ac).output(signal(uc), t)[1],
+             lambda: ss.lsim((bc, ac), uc, t)[1]),
+            (f"dlti(butter(8, 0.1)).output, {n} steps",
+             lambda: ltisys.dlti(b8, a8, dt=1.0).output(signal(u))[1],
+             lambda: ss.dlsim((b8, a8, 1.0), u)[1]),
+            (f"StateSpace(tf2ss(butter(4, 2 pi 1000, analog=True))).output, {k} steps",
+             lambda: ltisys.StateSpace(*ltisys.tf2ss(bc, ac)).output(signal(uc), t)[1],
+             lambda: ss.lsim(ss.StateSpace(*ss.tf2ss(bc, ac)), uc, t)[1])):
+        gate(label, [("y", drive(label, fn), oracle())], 1e-8)
+
+    # ---------------------------------------------------------- the utils
+    bw = profiling.device_hbm_bandwidth(dev)
+    big = 1 << sz["big_log2"]
+    x = torch.ones(big, device=dev)
+    label = f"x * 2.0 on 2^{sz['big_log2']} float32"
+    res = {}
+
+    def utils_path():
+        res["bench"] = profiling.benchmark(lambda v: v * 2.0, x, iters=10,
+                                           samples_per_call=big, min_bytes_per_sample=8.0)
+        res["large"] = profiling.timed_median(lambda v: v * 2.0, x)
+        res["small"] = profiling.timed_median(lambda v: v * 2.0, x[:big // 2])
+
+    _run_path(label, kernels, (), utils_path, avoid=kernels)
+    bench, large, small = res["bench"], res["large"], res["small"]
+    tm_fraction = 8.0 * big / large / bw
+    rate = profiling.slope_rate(8.0 * (big - big // 2), small, large)
+    print(f"  {label}: benchmark {bench} (host clock, 10 calls); timed_median "
+          f"{large * 1e3:.4f} ms, {tm_fraction * 100:.1f}% of {bw / 1e12:.2f} TB/s "
+          f"(device_hbm_bandwidth); at 2^{sz['big_log2'] - 1} {small * 1e3:.4f} ms; slope_rate "
+          f"{rate / 1e12:.3f} TB/s ({rate / bw * 100:.1f}%); {card}", flush=True)
+    for name, fraction in (("benchmark", bench.hbm_fraction), ("timed_median", tm_fraction)):
+        if not 0.0 < fraction <= 1.05:
+            raise AssertionError(f"{label}: {name} reads {fraction * 100:.1f}% of the card's "
+                                 "device-memory bandwidth")
+
+    path = tempfile.mkdtemp()
+    try:
+        with profiling.trace(path):
+            x[:1 << 20] * 2.0
+            sync()
+        with open(os.path.join(path, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    device_events = [e for e in events if e.get("cat") == "kernel"]
+    print(f"  trace: {len(events)} events in the Chrome trace, {len(device_events)} CUDA kernel "
+          f"events ({sorted({e['name'] for e in device_events})[:3]})", flush=True)
+    if on_card and not device_events:
+        raise AssertionError("trace: the Chrome trace holds no CUDA kernel event")
+
+    z = torch.zeros(big, device=dev)
+    z[[5, big // 2, big - 1]] = float("inf")
+    label = f"count_nonfinite 2^{sz['big_log2']} float32, 3 infs"
+    count = drive(label, lambda: checks.count_nonfinite(z))
+    print(f"  {label}: {int(count)} ({count.dtype} on {count.device}); {times[label]:.3f} ms "
+          f"(median of 3, CUDA events); {card}", flush=True)
+    if int(count) != 3 or count.device.type != dev.type or count.dtype != torch.int64:
+        raise AssertionError(f"{label}: {count!r}, not 3")
+    try:
+        checks.assert_all_finite(z, "phase 14")
+    except FloatingPointError as exc:
+        print(f"  assert_all_finite raised: {exc}", flush=True)
+    else:
+        raise AssertionError("assert_all_finite did not raise on 3 infs")
+    del x, z
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2738,6 +2968,11 @@ def main() -> int:
           "and the splines on the card", flush=True)
     _phase13(kernels, dev)
 
+    # ---------------------------------------------------------------- 14
+    print("phase 14: the state-space simulation (dlsim, lsim, their responses, the LTI "
+          "classes) and the utils on the card", flush=True)
+    _phase14((*kernels, halo_extend_cuda), dev)
+
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),
         (A_tc, "framed_dft_tc.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_atc["high"],
@@ -2795,7 +3030,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase8-rank"]:  # one rank of phase 8, started by _phase8
-        rank, world, tmp, device_type, sizes = sys.argv[2:]
-        _phase8_rank(int(rank), int(world), tmp, device_type, json.loads(sizes))
+        rank, world, tmp, device_type, sizes, address = sys.argv[2:]
+        _phase8_rank(int(rank), int(world), tmp, device_type, json.loads(sizes), address)
         sys.exit(0)
     sys.exit(main())

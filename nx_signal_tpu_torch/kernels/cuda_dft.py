@@ -174,7 +174,18 @@ def fir_framed_dft_power_cuda(x, weights, *, stride: int, pad_left: int,
     version, conv1d + re^2 + im^2). 'high' and 'default' are
     `fir_framed_dft_power_tc_cuda` (kernel A-tc) on a CPU tensor and on a
     CUDA one whose geometry A-tc takes (`_tc_takes`); on a CUDA tensor
-    outside it they run exact f32 as 'highest' does."""
+    outside it they run exact f32 as 'highest' does.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
+    >>> from nx_signal_tpu_torch.kernels.dft import fir_dft_fold_weights
+    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True)
+    >>> fir_framed_dft_power_cuda(torch.ones(2, 512), w, stride=16, pad_left=1,
+    ...                           num_frames=29, bins=33).shape
+    torch.Size([2, 29, 33])
+    """
     x = as_signal(x)
     if precision != "highest" and (not _on_card(x) or _tc_takes(stride, weights.shape[0])):
         return fir_framed_dft_power_tc_cuda(x, weights, stride=stride, pad_left=pad_left,
@@ -277,7 +288,18 @@ def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
     On a CPU tensor it returns the plain version
     (`kernels.dft._framed_matmul_tf32_torch`, the same products summed in
     f64). On a CUDA tensor it raises where the staged window of x does not
-    fit in shared memory (`_tc_takes`)."""
+    fit in shared memory (`_tc_takes`).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_tc_cuda
+    >>> from nx_signal_tpu_torch.kernels.dft import fir_dft_fold_weights
+    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True)
+    >>> fir_framed_dft_power_tc_cuda(torch.ones(2, 512), w, stride=16, pad_left=1,
+    ...                              num_frames=29, bins=33).shape
+    torch.Size([2, 29, 33])
+    """
     passes = _tf32_passes(precision)
     x = as_signal(x)
     if not _on_card(x):
@@ -368,7 +390,17 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     13-smooth n_fft) or `kernels.dft._bluestein_plan` (any other); each
     writes the complex64 tensor directly. On a CPU tensor it returns
     the plain version (the dense [Re | Im] contraction of
-    `_framed_matmul_torch`)."""
+    `_framed_matmul_torch`).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import framed_fft_cuda
+    >>> z = framed_fft_cuda(torch.ones(2, 512), torch.hann_window(64), stride=16, n_fft=64,
+    ...                     onesided=True)
+    >>> z.shape, z.dtype
+    (torch.Size([2, 29, 33]), torch.complex64)
+    """
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
     x = as_signal(x)
@@ -418,7 +450,17 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
     The kernel writes the stacked f32 [Re | Im]; this returns it as
     complex64 (..., num_frames, bins), or with `output='power'` the
     kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the
-    plain version."""
+    plain version.
+
+    Examples:
+
+    >>> import math, torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import framed_dft_cuda
+    >>> angle = 2 * math.pi * torch.arange(64.0)[:, None] * torch.arange(33.0) / 64
+    >>> w = torch.cat([torch.cos(angle), -torch.sin(angle)], dim=1)   # [Re | Im]
+    >>> framed_dft_cuda(torch.ones(2, 512), w, stride=16, num_frames=29, bins=33).shape
+    torch.Size([2, 29, 33])
+    """
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
     x = as_signal(x)
@@ -444,7 +486,15 @@ def overlap_add_cuda(frames, *, stride: int, out_length: int, init=None):
     increasing frame order — bitwise equal to the plain fold. Any hop >= 1.
     `init` (..., any length), cut to out_length and zero-padded, seeds each
     sample's sum (`spectral.framing._ola_fold`). On a CPU tensor it returns
-    the plain fold."""
+    the plain fold.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import overlap_add_cuda
+    >>> overlap_add_cuda(torch.ones(1, 3, 4), stride=2, out_length=8)
+    tensor([[1., 1., 2., 2., 2., 2., 1., 1.]])
+    """
     frames = as_signal(frames)
     if frames.dtype != DEFAULT_FLOAT or frames.ndim < 2:
         raise ValueError(f"expected float32 frames of rank >= 2, got {frames.dtype} "
@@ -554,7 +604,20 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
     combine and the spectral window as torch ops). On a CUDA tensor it
     needs at most 8 coefficients, fewer than bins - 1, and J <= 64; the
     weights and twiddles are laid out per tile of 96 bin columns by
-    `_d_weights` and `_d_twiddles` (two gathers on the card)."""
+    `_d_weights` and `_d_twiddles` (two gathers on the card).
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_shared_cuda
+    >>> from nx_signal_tpu_torch.kernels.dft import shared_fold_weights, shared_twiddles
+    >>> taps = [0.25, 0.5, 0.25]
+    >>> p = fir_framed_dft_power_shared_cuda(
+    ...     torch.ones(2, 512), shared_fold_weights(taps, 16, 64), shared_twiddles(16, 64),
+    ...     (0.5, -0.5), stride=16, pad_left=1, num_frames=29, bins=33)
+    >>> p.shape
+    torch.Size([2, 29, 33])
+    """
     x = as_signal(x)
     coeffs = tuple(float(b) for b in window_coeffs)
     if not _on_card(x):

@@ -165,18 +165,17 @@ class _PeerBuffers:
         handle = ctypes.create_string_buffer(_HANDLE_BYTES)
         _check(lib, lib.nx_ipc_get_handle(self.base[b], ctypes.addressof(handle)),
                "cudaIpcGetMemHandle")
-        mine = torch.cat([torch.frombuffer(bytearray(handle.raw), dtype=torch.int64),
-                          torch.tensor([self.left_bytes, self.right_bytes])])
-        gathered = [torch.empty_like(mine) for _ in row]
-        dist.all_gather(gathered, mine, group=group)
+        # as objects: the group's backend may take only CUDA tensors (NCCL)
+        mine = (handle.raw, self.left_bytes, self.right_bytes)
+        gathered = [None] * len(row)
+        dist.all_gather_object(gathered, mine, group=group)
         by_block = [gathered[dist.get_group_rank(group, rank)] for rank in row]
-        if any(not torch.equal(g[-2:], mine[-2:]) for g in by_block):
+        if any(g[1:] != mine[1:] for g in by_block):
             raise ValueError(f"kernel E: the ranks of a block row asked for receive buffers of "
-                             f"different sizes ({[g[-2:].tolist() for g in by_block]})")
+                             f"different sizes ({[list(g[1:]) for g in by_block]})")
         for j in (b - 1, b + 1):
             if 0 <= j < len(row):
-                raw = ctypes.create_string_buffer(by_block[j][:-2].numpy().tobytes(),
-                                                  _HANDLE_BYTES)
+                raw = ctypes.create_string_buffer(by_block[j][0], _HANDLE_BYTES)
                 peer = ctypes.c_void_p()
                 _check(lib, lib.nx_ipc_open_handle(ctypes.addressof(raw),
                                                    ctypes.addressof(peer)),
@@ -253,7 +252,13 @@ def _peer_buffers(lib, group, row, b, left_bytes, right_bytes, device):
 def close_halo_buffers():
     """Release kernel E's buffers and mappings in this process. Collective:
     every rank that called `halo_extend_cuda` calls it, before the process
-    group is destroyed."""
+    group is destroyed.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_halo import close_halo_buffers
+    >>> close_halo_buffers()   # none open in this process: nothing to release
+    """
     while _BUFFERS:
         _, (_, bufs) = _BUFFERS.popitem()
         with torch.cuda.device(bufs.device):
@@ -266,7 +271,20 @@ def halo_extend_cuda(x_blk, pad_left: int, pad_right: int, *, mesh):
     `x_blk` itself when both pads are 0. Raises when a pad exceeds n. On a
     CUDA tensor (any element of 4 or 8 bytes) it issues the operations of
     `halo_plan` on the current stream, bitwise equal to the plain version;
-    on a CPU tensor it returns the plain version."""
+    on a CPU tensor it returns the plain version.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
+    >>> halo_extend_cuda(torch.arange(4.0).reshape(1, 4), 2, 1, mesh=mesh)  # no neighbour: zeros
+    tensor([[0., 0., 0., 1., 2., 3., 0.]])
+    >>> dist.destroy_process_group()
+    """
     x_blk = as_signal(x_blk)
     if pad_left == 0 and pad_right == 0:
         return x_blk

@@ -138,6 +138,9 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
       is never built.
     * 'materialize': build the (num_frames, window_length) frames and run
       one matmul (complex signals and weights: `conv1d` takes real ones).
+    * 'blocked': C partial matmuls, hop block r of every frame times rows
+      r*stride onward of the weights, added in increasing r: no frame
+      matrix and no banded kernel, the least peak memory.
 
     The signal and weights meet in their promoted dtype. Both strategies
     run exact f32 (TF32 off on CUDA, complex matmuls included) whatever
@@ -153,13 +156,15 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
     torch.Size([13, 8])
     """
     _check_precision(precision)
-    if strategy not in ("conv", "materialize"):
-        raise ValueError(f"strategy must be 'conv' or 'materialize', got {strategy!r}")
+    if strategy not in ("conv", "materialize", "blocked"):
+        raise ValueError(
+            f"strategy must be 'conv', 'materialize' or 'blocked', got {strategy!r}")
     x = as_signal(x)
     weights = torch.as_tensor(weights, device=x.device)
     dtype = torch.promote_types(x.dtype, weights.dtype)  # e.g. a complex signal, real weights
     x, weights = x.to(dtype), weights.to(dtype)
-    c_blocks = len(_frame_block_widths(window_length, stride))
+    widths = _frame_block_widths(window_length, stride)
+    c_blocks = len(widths)
     needed = (num_frames + c_blocks - 1) * stride
     batch = x.shape[:-1]
     if needed > x.shape[-1]:
@@ -185,6 +190,14 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
             blocks = x.reshape(-1, num_frames + c_blocks - 1, stride).transpose(1, 2)
             out = F.conv1d(blocks, kernel.contiguous())                 # (N, O, M)
             return out.transpose(1, 2).reshape(*batch, num_frames, out_cols)
+        if strategy == "blocked":
+            acc = None
+            for r, w_r in enumerate(widths):
+                block = x[..., r * stride:(r + num_frames) * stride]
+                block = block.reshape(*batch, num_frames, stride)[..., :w_r]
+                part = torch.matmul(block, weights[r * stride:r * stride + w_r])
+                acc = part if acc is None else acc + part
+            return acc
         frames = x.unfold(-1, window_length, stride)[..., :num_frames, :]
         return torch.matmul(frames, weights)
 

@@ -58,7 +58,9 @@ def make_dsp_mesh(n_channel: int = 1, n_block: int = None, *, device_type: str =
     `torch.distributed.init_process_group('gloo', store=FileStore(path,
     world), rank=rank, world_size=world)`. Ranks sharing one card need the
     gloo backend (NCCL refuses two ranks on one device); the sharded ops
-    stage what they exchange through host memory on it.
+    stage what they exchange through host memory on it. Ranks with a card
+    each may take NCCL, with gloo beside it for host tensors
+    ('cpu:gloo,cuda:nccl', as `parallel.multihost.initialize` starts it).
 
     Examples:
 
@@ -132,5 +134,18 @@ def block_row(mesh):
 
 def mesh_device(mesh) -> torch.device:
     """The device this rank computes on: `cuda:(local_rank %
-    device_count)` on a 'cuda' mesh, the CPU on a 'cpu' one."""
+    device_count)` on a 'cuda' mesh, the CPU on a 'cpu' one.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.parallel.mesh import mesh_device
+    >>> mesh_device(mesh)
+    device(type='cpu')
+    >>> dist.destroy_process_group()
+    """
     return _rank_device(mesh.device_type)

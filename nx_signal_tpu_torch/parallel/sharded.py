@@ -249,7 +249,22 @@ def sharded_stft(x, window, *, mesh, sampling_rate=100, fft_length="power_of_two
     (kernels/dft.py:framed_dft) for real input with frame_length <=
     fft_length <= 1024, torch.fft otherwise. Frame slots past the true
     frame count (the last block's padding) are cut by `gather_blocks(z,
-    mesh=mesh, length=len(times), axis=-2)`."""
+    mesh=mesh, length=len(times), axis=-2)`.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.parallel.sharded import sharded_stft
+    >>> res = sharded_stft(torch.ones(1, 256), torch.hann_window(64), mesh=mesh,
+    ...                    overlap_length=48, onesided=True)
+    >>> res.z.shape
+    torch.Size([1, 16, 33])
+    >>> dist.destroy_process_group()
+    """
     x, squeeze, device = _norm_2d(x, mesh)
     window = torch.as_tensor(window, device=device)
     (frame_length,) = window.shape
@@ -323,7 +338,24 @@ def sharded_istft(z, window, *, mesh, fft_length=None, overlap_length=None, scal
     when the window spans it, torch.fft otherwise), folds them in two
     phases, the second seeded with its left neighbour's tail
     (`_sharded_fold`), and divides by its folded window envelope (1e-10
-    guard). Needs the overlap <= a block's sample range."""
+    guard). Needs the overlap <= a block's sample range.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.parallel.sharded import gather_blocks, sharded_istft, sharded_stft
+    >>> x, win = torch.rand(1, 256), torch.hann_window(64)
+    >>> z = sharded_stft(x, win, mesh=mesh, overlap_length=48, onesided=True).z
+    >>> y = gather_blocks(sharded_istft(z, win, mesh=mesh, overlap_length=48, onesided=True),
+    ...                   mesh=mesh, length=256)
+    >>> bool(torch.allclose(y[:, 64:-64], x[:, 64:-64], atol=1e-5))
+    True
+    >>> dist.destroy_process_group()
+    """
     z, device = _as_global(z, mesh)
     squeeze = z.ndim == 2
     if squeeze:
@@ -497,7 +529,21 @@ def sharded_oaconvolve_same(x, taps, *, mesh):
     `ops.convolution.oaconvolve`, whose overlap-add is kernel C on a CUDA
     tensor. Agrees with the single-device `oaconvolve(x, taps, mode='same')`
     to FFT accuracy, not bitwise: the overlap-add block phase differs per
-    block."""
+    block.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.parallel.sharded import gather_blocks, sharded_oaconvolve_same
+    >>> y = sharded_oaconvolve_same(torch.arange(8.0).reshape(1, 8), torch.ones(3), mesh=mesh)
+    >>> gather_blocks(y, mesh=mesh, length=8).round()
+    tensor([[ 1.,  3.,  6.,  9., 12., 15., 18., 13.]])
+    >>> dist.destroy_process_group()
+    """
     x, squeeze, device = _norm_2d(x, mesh)
     taps = torch.as_tensor(taps, device=device)
     (k,) = taps.shape
@@ -533,7 +579,22 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     A (kernels/cuda_dft.py:fir_framed_dft_power_cuda, pad_left=0, at the
     caller's `precision`: kernel A-tc for 'high' and 'default') on a CUDA
     tensor, its plain version on a CPU one. The filtered signal is never
-    built."""
+    built.
+
+    Examples:
+
+    >>> import tempfile, torch, torch.distributed as dist
+    >>> from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+    >>> store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+    >>> dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    >>> mesh = make_dsp_mesh(1, 1, device_type="cpu")
+    >>> from nx_signal_tpu_torch.parallel.sharded import sharded_fir_framed_dft_power
+    >>> p = sharded_fir_framed_dft_power(torch.ones(2, 512), torch.tensor([0.25, 0.5, 0.25]),
+    ...                                  torch.hann_window(64), mesh=mesh, stride=16, n_fft=64)
+    >>> p.shape   # the shard is padded to whole blocks of frames
+    torch.Size([2, 32, 33])
+    >>> dist.destroy_process_group()
+    """
     _check_precision(precision)
     x, squeeze, device = _norm_2d(x, mesh)
     taps = torch.as_tensor(taps).reshape(-1)

@@ -14,6 +14,8 @@ chip_smoke.py); the overlap-add (C, with and without a seed) and the halo
 exchange (E) bitwise.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -265,6 +267,33 @@ def test_halo_kernel_back_to_back_on_four_ranks_on_cuda(tmp_path):
     calls = 1 + len(ranks.HALO_CALLS) + 3
     assert len(verdicts) == 2 * calls * ranks.WORLD
     assert [k for k, ok in verdicts.items() if not ok] == []
+
+
+@pytest.mark.cuda
+def test_four_ranks_started_through_multihost_on_cuda(tmp_path):
+    """Four ranks started through `multihost.initialize(address, 4, rank)`
+    and `make_pod_mesh(1)`: gloo where they share one card, NCCL for CUDA
+    tensors with gloo for host ones where each has its own. Kernel E
+    bitwise against the send/recv halo (f32, f64), sharded_welch through B-fft
+    and E within 1e-5 x max of welch, and an all-reduce of a host tensor,
+    on every rank."""
+    need_cuda()
+    import socket
+
+    from tests import torch_sharded_ranks as ranks
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    reports = ranks.spawn(functools.partial(ranks.cuda_multihost_case, port), ranks.WORLD,
+                          tmp_path)
+    own = torch.cuda.device_count() >= ranks.WORLD
+    assert [r["rank"] for r in reports] == list(range(ranks.WORLD))
+    assert [r["device"] for r in reports] == (list(range(ranks.WORLD)) if own
+                                              else [0] * ranks.WORLD)
+    assert {r["backend"] for r in reports} == {"cpu:gloo,cuda:nccl" if own else "gloo"}
+    assert [(r["rank"], k) for r in reports for k, ok in r["verdicts"].items() if not ok] == []
+    assert all(len(r["verdicts"]) == 4 for r in reports)
 
 
 @pytest.mark.cuda
@@ -605,3 +634,17 @@ def test_streaming_chunks_make_no_host_to_device_copy_on_cuda(rng):
             state, y = istft.process(state, z)
             torch.cuda.synchronize()
     assert not [e.name for e in prof.events() if "HtoD" in e.name]
+
+
+@pytest.mark.cuda
+def test_lsim_returns_every_array_on_the_signal_device():
+    """A signal on the card and a host time vector: tout, yout and xout all
+    come back on the card."""
+    need_cuda()
+    from nx_signal_tpu_torch.ops.ltisys import lsim
+
+    t = torch.linspace(0.0, 1.0, 101, dtype=torch.float64)
+    u = torch.ones(101, dtype=torch.float64, device="cuda")
+    tout, y, x = lsim(([1.0], [1.0, 1.0]), u, t)
+    assert {tout.device.type, y.device.type, x.device.type} == {"cuda"}
+    assert torch.equal(tout.cpu(), t)

@@ -10,6 +10,8 @@ point raises on a numpy signal and keeps a CPU tensor on the CPU.
 computation, so it takes a numpy signal on the host.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import find_peaks as tfp
 from nx_signal_tpu_torch.ops import iir as tiir
 from nx_signal_tpu_torch.ops import lambert_w as tlw
+from nx_signal_tpu_torch.ops import ltisys as tlti
 from nx_signal_tpu_torch.ops import mixing as tmix
 from nx_signal_tpu_torch.ops import peak_finding as tpk
 from nx_signal_tpu_torch.ops import resample as tres
@@ -35,9 +38,11 @@ from nx_signal_tpu_torch.parallel import streaming as tstream
 from nx_signal_tpu_torch.spectral import estimation as te
 from nx_signal_tpu_torch.spectral import framing as tf
 from nx_signal_tpu_torch.spectral import mel as tm
-from nx_signal_tpu_torch.spectral import stft as ts
 from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
 from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
+from nx_signal_tpu_torch.utils import checks
+
+ts = importlib.import_module("nx_signal_tpu_torch.spectral.stft")
 
 _RNG = np.random.default_rng(0)
 SIG = _RNG.normal(size=(2, 2048)).astype(np.float32)
@@ -68,6 +73,16 @@ PROCESSORS = {
     "StreamingResamplePoly": (tstream.StreamingResamplePoly(1, 2), (2,), SIG),
 }
 
+# the simulation: a discrete and a continuous system, their classes, and
+# evenly spaced times (a simulation without a signal runs where its times
+# sit)
+SYSD = ([1.0, 0.5], [1.0, -0.8], 0.1)
+SYSC = ([1.0], [1.0, 2.0, 5.0])
+SSD = (np.array([[0.5, 0.1], [0.0, 0.3]]), np.array([[1.0], [0.5]]), np.array([[1.0, -1.0]]),
+       np.array([[0.2]]), 0.05)
+T_EVEN = np.linspace(0.0, 5.0, 2048)
+LTI, DLTI = tlti.lti(*SYSC), tlti.dlti(*SYSD[:2], dt=0.1)
+TF_C, SS_D = tlti.TransferFunction(*SYSC), tlti.StateSpace(*SSD[:4], dt=0.05)
 # name -> (function of the signal, the signal as numpy)
 ENTRY_POINTS = {
     "stft": (lambda s: ts.stft(s, WIN, overlap_length=128, onesided=True).z, SIG),
@@ -186,6 +201,29 @@ ENTRY_POINTS = {
     "spline_filter": (lambda s: tspl.spline_filter(s), IMG64),
     "WidebandReceiver": (lambda s: WidebandReceiver(n_channels=16, frame_length=32, hop=16)(s),
                          SIG),
+    "count_nonfinite": (lambda s: checks.count_nonfinite(s), SIG),
+    "assert_all_finite": (lambda s: checks.assert_all_finite(s), SIG),
+    "dlsim": (lambda s: tlti.dlsim(SYSD, s)[1], SIG1),
+    "dlsim_ss": (lambda s: tlti.dlsim(SSD, s, x0=[0.3, -0.2])[2], SIG1),
+    "lsim": (lambda s: tlti.lsim(SYSC, s, T_EVEN)[1], SIG1),
+    "lsim_interp_false": (lambda s: tlti.lsim(SYSC, s, T_EVEN, interp=False)[2], SIG1),
+    "lsim_no_input": (lambda s: tlti.lsim(SYSC, None, s, x0=[1.0, 0.0])[1], T_EVEN),
+    "impulse": (lambda s: tlti.impulse(SYSC, t=s)[1], T_EVEN),
+    "step": (lambda s: tlti.step(SYSC, t=s)[1], T_EVEN),
+    "dimpulse": (lambda s: tlti.dimpulse(SYSD, t=s)[1][0], T_EVEN),
+    "dstep": (lambda s: tlti.dstep(SSD, t=s)[1][0], T_EVEN),
+    "lti.output": (lambda s: LTI.output(s, T_EVEN)[1], SIG1),
+    "lti.impulse": (lambda s: LTI.impulse(T=s)[1], T_EVEN),
+    "lti.step": (lambda s: LTI.step(T=s)[1], T_EVEN),
+    "dlti.output": (lambda s: DLTI.output(s)[1], SIG1),
+    "dlti.impulse": (lambda s: DLTI.impulse(t=s)[1][0], T_EVEN),
+    "dlti.step": (lambda s: DLTI.step(t=s)[1][0], T_EVEN),
+    "TransferFunction.output": (lambda s: TF_C.output(s, T_EVEN)[1], SIG1),
+    "TransferFunction.impulse": (lambda s: TF_C.impulse(t=s)[1], T_EVEN),
+    "TransferFunction.step": (lambda s: TF_C.step(t=s)[1], T_EVEN),
+    "StateSpace.output": (lambda s: SS_D.output(s)[2], SIG1),
+    "StateSpace.impulse": (lambda s: SS_D.impulse(t=s)[1][0], T_EVEN),
+    "StateSpace.step": (lambda s: SS_D.step(t=s)[1][0], T_EVEN),
 }
 for _name, (_proc, _batch, _chunk) in PROCESSORS.items():
     ENTRY_POINTS[f"{_name}.process"] = (
@@ -222,3 +260,30 @@ def test_channelize_power_stream_puts_its_chunks_on_the_card(no_card):
         channelize_power_stream([SIG], 16, taps_per_channel=4)
     power, frames = channelize_power_stream([SIG], 16, taps_per_channel=4, device="cpu")
     assert power.device.type == "cpu" and frames == 2048 // 16
+
+
+# a simulation without a signal or times: on `device`, where None is the card
+NO_SIGNAL = {
+    "impulse": lambda **kw: tlti.impulse(SYSC, **kw)[1],
+    "step": lambda **kw: tlti.step(SYSC, n=50, **kw)[1],
+    "dimpulse": lambda **kw: tlti.dimpulse(SSD, n=50, **kw)[1][0],
+    "dstep": lambda **kw: tlti.dstep(SYSD, **kw)[1][0],
+    "lsim_no_input": lambda **kw: tlti.lsim(SYSC, None, T_EVEN, x0=[1.0, 0.0], **kw)[1],
+    "lti.impulse": lambda **kw: LTI.impulse(**kw)[1],
+    "lti.step": lambda **kw: LTI.step(**kw)[1],
+    "lti.output_no_input": lambda **kw: LTI.output(None, T_EVEN, X0=[1.0, 0.0], **kw)[1],
+    "dlti.impulse": lambda **kw: DLTI.impulse(**kw)[1][0],
+    "dlti.step": lambda **kw: DLTI.step(**kw)[1][0],
+    "TransferFunction.step": lambda **kw: TF_C.step(**kw)[1],
+    "TransferFunction.output_no_input": lambda **kw: TF_C.output(0.0, T_EVEN, x0=[1.0, 0.0],
+                                                                 **kw)[1],
+    "StateSpace.impulse": lambda **kw: SS_D.impulse(**kw)[1][0],
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_SIGNAL))
+def test_a_simulation_without_a_signal_runs_on_the_card_unless_asked(name, no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NO_SIGNAL[name]()
+    out = NO_SIGNAL[name](device="cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.float64

@@ -67,7 +67,7 @@ def test_fir_dft_fold_weights_bitwise(num_taps, frame, n_fft, onesided, rng):
     assert_bitwise(got, want)
 
 
-@pytest.mark.parametrize("strategy", ["conv", "materialize"])
+@pytest.mark.parametrize("strategy", ["conv", "materialize", "blocked"])
 @pytest.mark.parametrize("window,stride,length", [(300, 128, 3000), (256, 100, 2000),
                                                   (128, 128, 1000)])
 @pytest.mark.parametrize("cols", [10, 2])  # 'conv': a conv1d, or few columns: one matmul
@@ -81,6 +81,28 @@ def test_blocked_frame_matmul(strategy, window, stride, length, cols, rng):
                                   window_length=window, stride=stride, num_frames=m,
                                   strategy=strategy)
     assert_close_to_max(got, want)
+
+
+
+@pytest.mark.parametrize("window,stride,length", [(300, 128, 3000), (256, 100, 2000),
+                                                  (128, 128, 1000)])
+@pytest.mark.parametrize("cols", [10, 2])
+def test_blocked_strategy_adds_its_partial_products(window, stride, length, cols, rng):
+    """strategy='blocked' (C partial matmuls added in increasing r) against
+    the JAX package's 'blocked' and the port's 'materialize'."""
+    x = rng.normal(size=(2, length)).astype(np.float32)
+    w = rng.normal(size=(window, cols)).astype(np.float32)
+    m = (length - window) // stride + 1
+    kw = dict(window_length=window, stride=stride, num_frames=m)
+    got = td.blocked_frame_matmul(torch.from_numpy(x), torch.from_numpy(w), strategy="blocked",
+                                  **kw)
+    assert_close_to_max(got, jd.blocked_frame_matmul(jnp.asarray(x), jnp.asarray(w),
+                                                     strategy="blocked", **kw))
+    assert_close_to_max(got, td.blocked_frame_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                                     strategy="materialize", **kw))
+    with pytest.raises(ValueError, match="'conv', 'materialize' or 'blocked'"):
+        td.blocked_frame_matmul(torch.from_numpy(x), torch.from_numpy(w), strategy="frames",
+                                **kw)
 
 
 FRAMED_GEOMETRIES = [  # channels, length, frame, hop, n_fft

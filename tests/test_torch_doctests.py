@@ -35,16 +35,21 @@ MODULES = [
     "nx_signal_tpu_torch.parallel.estimation",
     "nx_signal_tpu_torch.parallel.failure",
     "nx_signal_tpu_torch.parallel.mesh",
+    "nx_signal_tpu_torch.parallel.multihost",
     "nx_signal_tpu_torch.parallel.sharded",
     "nx_signal_tpu_torch.parallel.streaming",
+    "nx_signal_tpu_torch.registry",
     "nx_signal_tpu_torch.spectral.estimation",
     "nx_signal_tpu_torch.spectral.framing",
     "nx_signal_tpu_torch.spectral.mel",
     "nx_signal_tpu_torch.spectral.short_time_fft",
     "nx_signal_tpu_torch.spectral.spectrogram",
     "nx_signal_tpu_torch.spectral.stft",
+    "nx_signal_tpu_torch.utils.checks",
     "nx_signal_tpu_torch.utils.devices",
     "nx_signal_tpu_torch.utils.dtypes",
+    "nx_signal_tpu_torch.utils.metrics",
+    "nx_signal_tpu_torch.utils.profiling",
     "nx_signal_tpu_torch.utils.shapes",
 ]
 

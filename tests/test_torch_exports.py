@@ -5,8 +5,12 @@ submodules) imports from `nx_signal_tpu_torch`, as it does from
 """
 
 import importlib
+import inspect
+import os
 import pathlib
 import pkgutil
+import subprocess
+import sys
 
 import pytest
 
@@ -103,27 +107,74 @@ def test_the_pipeline_slice_names():
         assert DEFINED[name] is getattr(port_pipeline, name)
 
 
-def test_every_jax_name_but_the_rest_of_ltisys_is_exported():
-    """After the long tail of `ops/` (waveforms, peak_finding, wavelets,
-    find_peaks, czt, lambert_w, splines), every name of the JAX `__all__`
-    has a counterpart at the port's top level but the 28 of `ltisys` still
-    to port; `peak_finding` is the module, `__version__` the JAX package's."""
-    from nx_signal_tpu.ops import ltisys
-
+def test_every_jax_name_is_exported():
+    """After the rest of `ltisys`, every name of the JAX `__all__` has a
+    counterpart at the port's top level; `peak_finding` is the module,
+    `__version__` the JAX package's."""
     missing = set(nx_signal_tpu.__all__) - set(nx_signal_tpu_torch.__all__)
-    assert missing == set(ltisys.__all__) - set(nx_signal_tpu_torch.__all__)
-    assert len(missing) == 28
+    assert missing == set()
     assert nx_signal_tpu_torch.__version__ == nx_signal_tpu.__version__
     assert nx_signal_tpu_torch.peak_finding is importlib.import_module(
         "nx_signal_tpu_torch.ops.peak_finding")
     for module in ("waveforms", "peak_finding", "wavelets", "find_peaks", "czt", "lambert_w",
-                   "splines"):
+                   "splines", "ltisys"):
         jax_module = importlib.import_module(f"nx_signal_tpu.ops.{module}")
         port_module = importlib.import_module(f"nx_signal_tpu_torch.ops.{module}")
         assert port_module.__all__ == jax_module.__all__
         for name in port_module.__all__:
             assert name in nx_signal_tpu_torch.__all__ or name == "Extrema"
             assert getattr(port_module, name).__module__ == port_module.__name__
+
+
+@pytest.mark.parametrize("package", ["spectral", "utils"])
+def test_the_subpackages_export_the_jax_names(package):
+    """`nx_signal_tpu_torch.spectral` and `.utils` re-export the JAX
+    subpackages' `__all__`, each name the object its port module defines;
+    `stft` and `spectrogram` are the functions, as in the JAX package."""
+    jax_package = importlib.import_module(f"nx_signal_tpu.{package}")
+    port_package = importlib.import_module(f"nx_signal_tpu_torch.{package}")
+    assert port_package.__all__ == jax_package.__all__
+    for name in port_package.__all__:
+        namespace = {}
+        exec(f"from nx_signal_tpu_torch.{package} import {name}", namespace)
+        obj = namespace[name]
+        assert not inspect.ismodule(obj), name
+        owner = getattr(obj, "__module__", None) or ""
+        if not owner.startswith(f"nx_signal_tpu_torch.{package}."):  # DEFAULT_FLOAT
+            owner = f"nx_signal_tpu_torch.{package}.dtypes"
+        assert getattr(importlib.import_module(owner), name) is obj, name
+    if package == "spectral":
+        stft_module = importlib.import_module("nx_signal_tpu_torch.spectral.stft")
+        assert port_package.stft is stft_module.stft
+        assert port_package.spectrogram is importlib.import_module(
+            "nx_signal_tpu_torch.spectral.spectrogram").spectrogram
+
+
+_ROOT = pathlib.Path(nx_signal_tpu_torch.__file__).parent
+_WHOLE_PORT = """
+import importlib, pkgutil
+import nx_signal_tpu_torch
+for info in pkgutil.walk_packages(nx_signal_tpu_torch.__path__, "nx_signal_tpu_torch."):
+    importlib.import_module(info.name)
+from nx_signal_tpu_torch.spectral import *
+from nx_signal_tpu_torch.utils import *
+import nx_signal_tpu_torch.spectral as spectral
+assert callable(spectral.stft) and callable(spectral.spectrogram)
+assert callable(welch) and callable(next_fast_len)
+"""
+
+
+def test_the_whole_port_imports_whatever_module_comes_first():
+    """A fresh interpreter imports the package, every module of the port,
+    then the subpackages' names. Whatever module a program imports first,
+    the package's `__init__` runs before it, and that `__init__` enters
+    `spectral` before `kernels.dft` (whose import of spectral.framing
+    would otherwise re-enter a half-built kernels.dft through
+    spectral/__init__): so this one start covers every start."""
+    env = {**os.environ, "PYTHONPATH": str(_ROOT.parent)}
+    out = subprocess.run([sys.executable, "-c", _WHOLE_PORT], cwd=_ROOT.parent, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
 
 
 def test_port_sources_import_no_jax_scipy_or_the_jax_package():

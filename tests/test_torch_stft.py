@@ -22,11 +22,11 @@ import torch
 
 from nx_signal_tpu.ops import windows as jw
 from nx_signal_tpu.spectral.framing import overlap_and_add
-from nx_signal_tpu_torch.spectral import stft as ts
 
 # the JAX package's spectral/__init__ re-exports the function under the
 # module's name, so the module is fetched by its path
 js = importlib.import_module("nx_signal_tpu.spectral.stft")
+ts = importlib.import_module("nx_signal_tpu_torch.spectral.stft")
 
 
 def assert_close_to_max(got, want, rel=1e-4):

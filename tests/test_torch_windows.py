@@ -11,6 +11,8 @@ libraries); kaiser and kaiser_bessel_derived at 2e-6 (the JAX package
 evaluates I0 in float32, the port in f64 with numpy's i0, rounded once).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,8 @@ import torch
 
 from nx_signal_tpu.ops import windows as jw
 from nx_signal_tpu_torch.ops import windows as tw
-from nx_signal_tpu_torch.spectral import stft as ts
+
+ts = importlib.import_module("nx_signal_tpu_torch.spectral.stft")
 
 FLOAT32_NAMES = {"hann", "hamming", "blackman", "bartlett", "triangular", "triang"}
 NAMES = sorted(set(jw._WINDOW_BUILDERS))

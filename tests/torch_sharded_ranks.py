@@ -1,8 +1,9 @@
 """Rank programs of the sharded port's tests: each runs in a process of its
 own, spawned by tests/test_torch_sharded.py and
 tests/test_torch_sharded_estimation.py (one gloo group of CPU ranks per test
-process, `cpu_results`) or tests/test_torch_cuda.py (ranks sharing one CUDA
-device). This module
+process, `cpu_results`), tests/test_torch_multihost.py (CPU ranks started
+through parallel.multihost) or tests/test_torch_cuda.py (ranks on the card:
+sharing one, or one card each). This module
 imports no JAX: the spawned ranks must start without it.
 
 Each case makes its inputs with numpy from a seed (`signal`), so the
@@ -411,7 +412,7 @@ def cuda_halo_stream_case(rank, store_path, out_path):
     """Four ranks on cuda:0, meshes (1, 4) and (2, 2): after a first call
     (set-up), 16 calls of kernel E back to back, each on a fresh block, one
     rank delayed on its stream before two of them, with
-    torch.distributed's barrier and all_gather and every stream, event and
+    torch.distributed's barrier, all_gather and all_gather_object and every stream, event and
     device sync replaced by functions that raise; then a call on a side
     stream, a call that grows the buffers, and one after it. Every result
     is held bitwise against the plain halo, computed afterwards; rank 0
@@ -423,7 +424,8 @@ def cuda_halo_stream_case(rank, store_path, out_path):
     _init(rank, WORLD, store_path)
     dev = torch.device("cuda", 0)
     verdicts = {}
-    guarded = [(dist, "barrier"), (dist, "all_gather"), (torch.cuda, "synchronize"),
+    guarded = [(dist, "barrier"), (dist, "all_gather"), (dist, "all_gather_object"),
+               (torch.cuda, "synchronize"),
                (torch.cuda.Stream, "synchronize"), (torch.cuda.Event, "synchronize")]
     for shape in ((1, 4), (2, 2)):
         mesh = make_dsp_mesh(*shape)
@@ -470,6 +472,85 @@ def cuda_halo_stream_case(rank, store_path, out_path):
     if rank == 0:
         with open(out_path, "wb") as f:
             pickle.dump({k: v for entries in every for k, v in entries.items()}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# process_block_range's streams: divisible, ragged, and one whose last
+# block starts past its end (3 samples on 2 blocks of 2, 5 on 4 of 2)
+MULTIHOST_TOTALS = (480000, 48001, 3, 5)
+
+
+def multihost_case(port, rank, store_path, out_path):
+    """A rank started through `parallel.multihost`: initialize at
+    127.0.0.1:port (rank 0 listens), make_pod_mesh(2) on the CPU, and this
+    rank's process_block_range of each of MULTIHOST_TOTALS; rank 0
+    pickles every rank's report."""
+    torch.set_num_threads(1)
+    from nx_signal_tpu_torch.parallel import multihost
+    from nx_signal_tpu_torch.parallel.mesh import mesh_coordinate
+
+    multihost.initialize(f"127.0.0.1:{port}", WORLD, rank, timeout=120.0)
+    mesh = multihost.make_pod_mesh(2, device_type="cpu")
+    report = {"rank": rank, "backend": dist.get_backend(), "world": dist.get_world_size(),
+              "shape": tuple(mesh.shape), "coordinate": tuple(mesh_coordinate(mesh)),
+              "ranges": [multihost.process_block_range(t, mesh) for t in MULTIHOST_TOTALS]}
+    every = [None] * WORLD
+    dist.all_gather_object(every, report)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(every, f)
+    dist.barrier()
+    _exit_rank()
+
+
+def cuda_multihost_case(port, rank, store_path, out_path):
+    """Four ranks started through `multihost.initialize(127.0.0.1:port, 4,
+    rank)` on the card: on one card they share it over gloo, on four each
+    has its own and the group is NCCL with gloo beside it. On a (1, 4)
+    pod mesh, kernel E against the plain halo, bitwise, for f32 and f64;
+    sharded_welch (B-fft once, E twice on each rank) within 1e-5 x max of
+    the single-device welch; and an all-reduce of a host tensor (the
+    liveness probe's). Rank 0 pickles every rank's report."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.parallel import multihost
+    from nx_signal_tpu_torch.parallel.estimation import sharded_welch
+    from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
+    from nx_signal_tpu_torch.spectral.estimation import welch
+
+    multihost.initialize(f"127.0.0.1:{port}", WORLD, rank, timeout=120.0)
+    mesh = multihost.make_pod_mesh(1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    verdicts = {}
+    for dtype, (c, n, pl, pr) in [(torch.float32, (3, 1000, 128, 127)),
+                                  (torch.float64, (2, 77, 5, 9))]:
+        x = torch.from_numpy(signal(40, (c, WORLD * n), np.float64)).to(dtype)
+        blk = x[:, rank * n:(rank + 1) * n].to(dev)
+        before = cuda_halo.halo_extend_cuda.launches
+        got = cuda_halo.halo_extend_cuda(blk, pl, pr, mesh=mesh)
+        want = _halo_extend_torch(blk, pl, pr, mesh=mesh)
+        verdicts["halo", str(dtype)] = (bool(torch.equal(got.cpu(), want.cpu()))
+                                        and cuda_halo.halo_extend_cuda.launches == before + 1)
+    x = torch.from_numpy(signal(13, (4, 48000))).to(dev)
+    kw = dict(sampling_rate=48000.0, segment_length=512, overlap_length=256)
+    before = (cuda_dft.framed_fft_cuda.launches, cuda_halo.halo_extend_cuda.launches)
+    _, p = sharded_welch(x, mesh=mesh, **kw)
+    counts = (cuda_dft.framed_fft_cuda.launches - before[0],
+              cuda_halo.halo_extend_cuda.launches - before[1])
+    _, want = welch(x, **kw)
+    verdicts["welch"] = (counts == (1, 2)
+                         and float((p - want).abs().max()) <= 1e-5 * float(want.abs().max()))
+    ones = torch.ones(())
+    dist.all_reduce(ones)
+    verdicts["host all-reduce"] = float(ones) == WORLD
+    cuda_halo.close_halo_buffers()
+    report = {"rank": rank, "device": dev.index, "backend": str(dist.get_backend()),
+              "verdicts": verdicts}
+    every = [None] * WORLD
+    dist.all_gather_object(every, report)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(every, f)
     dist.barrier()
     dist.destroy_process_group()
 
