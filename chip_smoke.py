@@ -26,16 +26,21 @@ Phases (any failure raises, and the exit code is not 0):
      frame) at 64 x 480000, complex and power, at n_fft 512 (its radix-8
      kernel), 600 and 572 (= 2^2 * 11 * 13; its mixed-radix kernel) and
      1021 and 1018 (= 2 * 509; Bluestein's chirp-z transform on the same
-     passes), and the dense B at n_fft 1031 (past 1024, which B-fft does
-     not take); C (overlap-add) on the
+     passes), then with a hann frame of n_fft at hop n_fft / 4 at 1031,
+     4093 (Bluestein, M = 2079 and 8190), 4094 (Bluestein, M = 4095; the
+     three tables read from L2), 2048 and 4096 (radix 8), and on frames of 2
+     x n_fft (folded modulo n_fft) at 512 and, on 8 channels, 4096 and
+     4093; the dense B at the n_fft B-fft does not take: 4 (64 channels)
+     and 4100 (past 4096, 8 channels); C (overlap-add) on the
      (64, 3747, 512) frames of framed_idft, bitwise, and on complex64
      frames with a complex seed through spectral.framing._ola_fold (C once
      per part: two launches), bitwise the plain per-part fold; B-fft, complex and
      power, on the full spectrum at 64 x 480000, n_fft 16, 8 (frame 5) and
      1024, and the mixed-radix kernel at n_fft 400 (hop 160), 441 (odd: two
      frames per FFT; full spectrum, and frame 300), 480, 960, 1000, 9, 10,
-     1001 and 143 (radices 11 and 13), 997, 17 and 34 (Bluestein) with hops
-     that do not divide the frame; then two ragged
+     1001 and 143 (radices 11 and 13), 997, 17 and 34 (Bluestein), frames
+     longer than n_fft at 1031 and 2000, and 4094 with a shorter frame, with
+     hops that do not divide the frame; then two ragged
      geometries (even taps, hop not dividing the frame, length not a
      multiple of the hop, frame 400 with n_fft 512, a hop whose window
      needs the small frame tile and where A-tc's window does not fit, so
@@ -62,9 +67,13 @@ Phases (any failure raises, and the exit code is not 0):
      frames and the envelope), the same gate, and its fold bitwise the plain
      per-part fold; then stft at fft_length 600 and 572 on the same signal
      (B-fft's mixed-radix kernel) and at the prime 1021 (B-fft's Bluestein
-     transform), each B-fft and not the dense B, and framed_dft at n_fft
-     1031 (the dense B, not B-fft), each held on two channels against the
-     f64 numpy rfft per bin; then LogMelFrontend(frame_length=400,
+     transform), each B-fft and not the dense B; stft at fft_length 2048
+     and 4096 (hann n_fft, hop n_fft / 4), B-fft where the card's cut takes
+     it (kernels/cuda_dft.py:_auto_takes_kernel) and torch.fft past it;
+     framed_dft at n_fft 1031, 2048, 4093 and 4096 and at a frame of 1500
+     (folded) through B-fft, not the dense B, and at n_fft 4100 on 8
+     channels through the dense B, not B-fft; each held on two channels
+     against the f64 numpy rfft per bin; then LogMelFrontend(frame_length=400,
      hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
      kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
      (reflect padding, rfft, |.|^2, the mel filters, log10, floor) within
@@ -89,11 +98,24 @@ Phases (any failure raises, and the exit code is not 0):
      never called by the port: F.conv1d of the folded weights for A and D,
      exact f32, and for A-tc in TF32 beside the exact one;
      torch.stft(center=False) for B-fft at n_fft 512, 600, 572, 1021 and
-     1018 and, its window zero-padded to n_fft 1031, for the dense B; F.fold
-     as a 1-D overlap-add for C), taken in turns, at the phase-2 shapes,
-     A-tc at 'high' and 'default'; then of
+     1018 and for the dense B at 4100 on 8 channels; F.fold as a 1-D
+     overlap-add for C), taken in turns, at the phase-2 shapes, A-tc at
+     'high' and 'default', each function warmed by two calls (the second
+     while the first one's result is alive, so the caching allocator holds
+     its blocks); the card's FFT cut at n_fft 1024, 1031, 2048, 4093, 4094
+     and 4096 (hann frame n_fft, hop n_fft / 4, 64 x 480000): B-fft through
+     framed_dft, its plain version and torch.stft(center=False), then the
+     public stft with method 'matmul' (B-fft) and 'fft' (torch.fft), and
+     the cut those times put beside the port's _CARD_FFT_CUT; then of
      the filtered chain's two stages (the direct FIR and B-fft) at 768 x
-     480000; then welch at 768 x 480000 (hann 512, hop 256, detrend
+     480000; the fused chain's own cut at n_fft 2048 (64 channels): the
+     fold at 'high' (A-tc, or A where A-tc's window does not fit) against
+     the FIR then B-fft's power; frame_chunks='auto' on the plain power
+     path of the bench chain at 768 x 480000: the plan at the card's
+     budget (must be 1) and its peak memory above its inputs beside the
+     plan's model, then the plan at a third of the model (must be > 1),
+     its peak, and its output per bin at 1e-4 of the unchunked one; then
+     welch at 768 x 480000 (hann 512, hop 256, detrend
      'constant', average 'mean') end to end and by stage (B-fft through
      stft, the detrend coefficients' exact-f32 contraction, the in-place z
      - coefs @ wk update, the power and the mean) beside torch.stft(center=
@@ -317,6 +339,9 @@ import time
 _PEAK_F32_FLOPS = 67e12
 _PHASE8_RANKS = 4
 _PHASE8_TIMEOUT_S = 600
+# the n_fft at which phase 7 times B-fft against torch.stft for the card's
+# cut (kernels/cuda_dft.py:_CARD_FFT_CUT)
+_CUT_LENGTHS = (1024, 1031, 2048, 4093, 4094, 4096)
 
 
 def _gpu_name_and_power_limit() -> str:
@@ -2233,9 +2258,10 @@ def main() -> int:
 
     # B-fft (an FFT per frame: the radix-8 kernel at n_fft 512, the
     # mixed-radix one at 600 and at 572 = 2^2 * 11 * 13, Bluestein's at the
-    # prime 1021 and at 1018 = 2 * 509) and the dense B at an n_fft B-fft
-    # does not take (1031, past 1024), each against the plain version,
-    # complex and power
+    # prime 1021 and at 1018 = 2 * 509), then past 1024 with a hann frame of
+    # n_fft at hop n_fft / 4 and a frame longer than n_fft, and the dense B
+    # at the n_fft B-fft does not take (4, and 4100 past its 4096), each
+    # against the plain version, complex and power
     x64 = x[:64]
 
     def plain_dft(xr, wr, fl, hp, nf, onesided):
@@ -2271,15 +2297,38 @@ def main() -> int:
         _check_close(f"B-fft 64x{length} n_fft={nf} power",
                      B_fft(x64, window, output="power", **kw_nf), want_p)
         del w_nf, want_z, want_p
-    n_dense = 1031
-    bins_dense = n_dense // 2 + 1
-    args_dense = dict(stride=hop, num_frames=num_frames, bins=bins_dense)
-    w_dense, want_z, want_p = plain_dft(x64, window, frame, hop, n_dense, True)
-    err_b = _check_close(f"B (dense) 64x{length} n_fft={n_dense} complex",
-                         B(x64, w_dense, **args_dense), want_z)
-    _check_close(f"B (dense) 64x{length} n_fft={n_dense} power",
-                 B(x64, w_dense, output="power", **args_dense), want_p)
-    del want_z, want_p
+    # past 1024: Bluestein at the primes 1031 (M = 2079) and 4093 (M = 8190)
+    # and at 4094 = 2 * 23 * 89 (M = 4095), each table read from L2, radix
+    # 8 at 2048 and 4096; then frames of 2 x n_fft, folded modulo n_fft
+    for nf, fl, ch in ((1031, 1031, 64), (2048, 2048, 64), (4093, 4093, 64), (4094, 4094, 64),
+                       (4096, 4096, 64), (512, 1024, 64), (4096, 8192, 8), (4093, 8186, 8)):
+        xr, wr, hp = x[:ch], hann(fl).numpy(), nf // 4
+        _, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, True)
+        kw_nf = dict(stride=hp, n_fft=nf, onesided=True)
+        tag = f"B-fft {ch}x{length} n_fft={nf} frame={fl} hop={hp}"
+        err_bfft_more[nf if fl == nf else (nf, fl)] = _check_close(
+            f"{tag} complex", B_fft(xr, wr, **kw_nf), want_z)
+        _check_close(f"{tag} power", B_fft(xr, wr, output="power", **kw_nf), want_p)
+        del want_z, want_p
+    # the dense B keeps only an n_fft below 8 or past 4096: n_fft 4 (frame 4,
+    # hop 4) on 64 channels, and 4100 (hann frame 4100, hop 1025) on 8
+    x8 = x[:8]
+    n_dense, ch_dense = 4100, 8
+    bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 4
+    frames_dense = (length - n_dense) // hop_dense + 1
+    win_dense = hann(n_dense).numpy()
+    args_dense = dict(stride=hop_dense, num_frames=frames_dense, bins=bins_dense)
+    w_dense, want_z, want_p = plain_dft(x8, win_dense, n_dense, hop_dense, n_dense, True)
+    err_b = _check_close(f"B (dense) {ch_dense}x{length} n_fft={n_dense} complex",
+                         B(x8, w_dense, **args_dense), want_z)
+    _check_close(f"B (dense) {ch_dense}x{length} n_fft={n_dense} power",
+                 B(x8, w_dense, output="power", **args_dense), want_p)
+    w4, want_z, want_p = plain_dft(x64, hann(4).numpy(), 4, 4, 4, True)
+    args4 = dict(stride=4, num_frames=(length - 4) // 4 + 1, bins=3)
+    _check_close(f"B (dense) 64x{length} n_fft=4 complex", B(x64, w4, **args4), want_z)
+    _check_close(f"B (dense) 64x{length} n_fft=4 power", B(x64, w4, output="power", **args4),
+                 want_p)
+    del want_z, want_p, w4
     fft_ragged = [  # channels, length, frame, hop, n_fft, onesided
         (64, length, frame, hop, n_fft, False),   # the full spectrum
         (2, 20000, 16, 7, 16, True),
@@ -2299,6 +2348,9 @@ def main() -> int:
         # radices 11 and 13, and Bluestein's chirp-z transform: odd (two
         # frames per FFT, M = 2000) and even, short and ragged lengths
         (2, 30001, 900, 333, 997, False),
+        (2, 30001, 1500, 300, 1031, True),    # a frame longer than n_fft, odd
+        (2, 40001, 3000, 777, 2000, False),   # a frame longer than n_fft, 13-smooth
+        (2, 40001, 2047, 500, 4094, True),    # frame < n_fft on Bluestein's M = 4095
         (2, 30001, 1000, 250, 1001, True),
         (3, 20001, 143, 50, 143, True),
         (2, 20001, 17, 5, 17, False),
@@ -2561,22 +2613,62 @@ def main() -> int:
                      torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=nf)))
         del z, fr
 
-    # framed_dft past B-fft's 1024 (n_fft 1031, a prime): the dense kernel B
-    def framed_1031():
-        out["z"] = framed_dft(x64, window, stride=hop, n_fft=n_dense, onesided=True)
-        torch.cuda.synchronize()
+    # stft past 1024 through the public function (hann frame of n_fft, hop
+    # n_fft / 4): B-fft where the card's cut takes it, torch.fft past it
+    # (cuda_dft._auto_takes_kernel); held on two channels against the f64
+    # numpy rfft
+    for nf in (2048, 4096):
+        win_nf = hann(nf, device=dev)
+        on_kernel = cuda_dft._auto_takes_kernel(x64, nf)
 
-    counts = _run_path(f"framed_dft at n_fft {n_dense}", kernels, (B,), framed_1031,
-                       avoid=(B_fft,))
-    launches = {name: launches[name] + counts[name] for name in launches}
-    z = out.pop("z")
-    if tuple(z.shape) != (64, num_frames, bins_dense) or not bool(torch.isfinite(z).all()):
-        raise AssertionError(f"framed_dft output {tuple(z.shape)} not finite or wrong shape")
-    fr = np.lib.stride_tricks.sliding_window_view(xh, frame, axis=-1)[:, ::hop][:, :num_frames]
-    _check_close(f"framed_dft at n_fft {n_dense} vs f64 numpy rfft (2 channels)",
-                 z[:2].cpu().to(torch.complex128),
-                 torch.as_tensor(np.fft.rfft(fr * window.astype(np.float64), n=n_dense)))
-    del z, fr
+        def stft_past_1024():
+            out["z"] = stft(x64, win_nf, sampling_rate=rate, fft_length=nf,
+                            overlap_length=nf - nf // 4, onesided=True).z
+            torch.cuda.synchronize()
+
+        counts = _run_path(f"stft at fft_length {nf} ({'B-fft' if on_kernel else 'torch.fft'})",
+                           kernels, (B_fft,) if on_kernel else (),
+                           stft_past_1024, avoid=(B,) if on_kernel else (B, B_fft))
+        launches = {name: launches[name] + counts[name] for name in launches}
+        z = out.pop("z")
+        m_nf = (length - nf) // (nf // 4) + 1
+        if tuple(z.shape) != (64, m_nf, nf // 2 + 1) or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+        fr = np.lib.stride_tricks.sliding_window_view(xh, nf, axis=-1)[:, ::nf // 4][:, :m_nf]
+        _check_close(f"stft at fft_length {nf} vs f64 numpy rfft (2 channels)",
+                     z[:2].cpu().to(torch.complex128),
+                     torch.as_tensor(np.fft.rfft(fr * hann(nf).double().numpy(), n=nf)))
+        del z, fr
+
+    # framed_dft at n_fft 1031 (a prime, once the dense B's), 2048, 4093 and
+    # 4096 and at a frame of 1500 > n_fft 1031 (folded modulo n_fft): B-fft,
+    # not the dense B; past B-fft's 4096 (n_fft 4100, 8 channels): the
+    # dense B, not B-fft
+    for nf, fl, xr, expect, avoid in ((1031, frame, x64, B_fft, B), (1031, 1500, x64, B_fft, B),
+                                      (2048, 2048, x64, B_fft, B), (4093, 4093, x64, B_fft, B),
+                                      (4096, 4096, x64, B_fft, B),
+                                      (n_dense, n_dense, x8, B, B_fft)):
+        wr, hp = hann(fl).numpy(), nf // 4 if fl == nf else hop
+
+        def framed_path():
+            out["z"] = framed_dft(xr, wr, stride=hp, n_fft=nf, onesided=True)
+            torch.cuda.synchronize()
+
+        counts = _run_path(f"framed_dft at n_fft {nf}, frame {fl}", kernels, (expect,),
+                           framed_path, avoid=(avoid,))
+        launches = {name: launches[name] + counts[name] for name in launches}
+        z = out.pop("z")
+        m_nf = (length - fl) // hp + 1
+        if tuple(z.shape) != (xr.shape[0], m_nf, nf // 2 + 1) or not bool(
+                torch.isfinite(z).all()):
+            raise AssertionError(f"framed_dft output {tuple(z.shape)} not finite or wrong shape")
+        fr = np.lib.stride_tricks.sliding_window_view(xh, fl, axis=-1)[:, ::hp][:, :m_nf]
+        fr = fr * wr.astype(np.float64)
+        if fl > nf:   # the fold modulo n_fft, in f64
+            fr = np.pad(fr, ((0, 0), (0, 0), (0, -fl % nf))).reshape(2, m_nf, -1, nf).sum(-2)
+        _check_close(f"framed_dft at n_fft {nf}, frame {fl} vs f64 numpy rfft (2 channels)",
+                     z[:2].cpu().to(torch.complex128), torch.as_tensor(np.fft.rfft(fr, n=nf)))
+        del z, fr
 
     # Whisper's log-mel front end (frame 400, hop 160, n_fft 400 = 2^4 5^2)
     # on 64 x 30 s at 16 kHz: kernel B-fft, not the dense B
@@ -2686,6 +2778,7 @@ def main() -> int:
           flush=True)
     import torch.nn.functional as F
 
+    from nx_signal_tpu_torch.kernels.dft import _CHUNK_MEMORY_SHARE as _CHUNK_SHARE
     from nx_signal_tpu_torch.kernels.dft import _exact_f32
 
     # the library calls (timed here, never called by the port): the conv1d of
@@ -2710,7 +2803,7 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32 = saved
 
     stft_window = hann(frame, device=dev)
-    dense_window = F.pad(stft_window, (0, n_dense - frame))  # zeros past the frame
+    dense_window = hann(n_dense, device=dev)
     mixed_window = F.pad(stft_window, (0, n_mixed - frame))
     args_mixed = dict(stride=hop, num_frames=num_frames, bins=bins_mixed)
 
@@ -2728,6 +2821,27 @@ def main() -> int:
                                                   return_complex=True)))
         return (_bound(_fft_route_flops(64, length, 0, frame, num_frames, nf, 0),
                        4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * nb), fns)
+
+    def cut_case(nf):
+        """At n_fft nf (hann frame nf, hop nf / 4, 64 x 480000): B-fft through
+        framed_dft, its plain version, torch.stft(center=False), then the
+        public stft with method='matmul' (B-fft) and 'fft' (torch.fft)."""
+        nb, hp, win_nf = nf // 2 + 1, nf // 4, hann(nf, device=dev)
+        m_nf = (length - nf) // hp + 1
+        w_nf = torch.as_tensor(_dft_weights(hann(nf).numpy(), nf, nf, True, np.float32),
+                               device=dev)
+        stft_kw = dict(sampling_rate=rate, fft_length=nf, overlap_length=nf - hp, onesided=True)
+        fns = [("kernel", lambda: framed_dft(x64, win_nf, stride=hp, n_fft=nf, onesided=True)),
+               ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                   x64, w_nf, stride=hp, pad_left=0, num_frames=m_nf, bins=nb,
+                   power=False).split(nb, dim=-1))),
+               ("library", lambda: torch.stft(x64, nf, hop_length=hp, window=win_nf,
+                                              center=False, onesided=True, return_complex=True)),
+               ("stft matmul", lambda: stft(x64, win_nf, method="matmul", **stft_kw)),
+               ("stft fft", lambda: stft(x64, win_nf, method="fft", **stft_kw))]
+        return (_bound(_fft_route_flops(64, length, 0, nf, m_nf, nf, 0),
+                       4.0 * (x64.numel() + nf) + 8.0 * 64 * m_nf * nb), fns)
+
     fold_in = frames.transpose(1, 2).contiguous()
     # A, A-tc and D compute the same function (the FIR + framed DFT power
     # chain): one bound, for the least work it needs, taps and window read once
@@ -2766,14 +2880,17 @@ def main() -> int:
         ("B-fft 572", 64 * length, *fft_case(572)),    # radices 2, 13, 11
         ("B-fft 1021", 64 * length, *fft_case(1021)),  # Bluestein, M = 2048
         ("B-fft 1018", 64 * length, *fft_case(1018)),  # Bluestein, M = 1024
-        ("B", 64 * length,
-         _bound(_fft_route_flops(64, length, 0, frame, num_frames, n_dense, 0),
-                4.0 * (x64.numel() + frame) + 8.0 * 64 * num_frames * bins_dense), [
-            ("kernel", lambda: B(x64, w_dense, **args_dense)),
+        # the card's FFT cut: a hann frame of n_fft at hop n_fft / 4
+        *((f"cut {nf}", 64 * length, *cut_case(nf)) for nf in _CUT_LENGTHS),
+        ("B", ch_dense * length,   # past B-fft's 4096
+         _bound(_fft_route_flops(ch_dense, length, 0, n_dense, frames_dense, n_dense, 0),
+                4.0 * (x8.numel() + n_dense) + 8.0 * ch_dense * frames_dense * bins_dense), [
+            ("kernel", lambda: B(x8, w_dense, **args_dense)),
             ("plain", lambda: torch.complex(*_framed_matmul_torch(
-                x64, w_dense, pad_left=0, power=False, **args_dense).split(bins_dense, dim=-1))),
-            ("library", lambda: torch.stft(x64, n_dense, hop_length=hop, window=dense_window,
-                                           center=False, onesided=True, return_complex=True))]),
+                x8, w_dense, pad_left=0, power=False, **args_dense).split(bins_dense, dim=-1))),
+            ("library", lambda: torch.stft(x8, n_dense, hop_length=hop_dense,
+                                           window=dense_window, center=False, onesided=True,
+                                           return_complex=True))]),
         ("C", 64 * out_length,
          _bound(1.0 * frames.numel(), 4.0 * (frames.numel() + 64 * out_length)), [
             ("kernel", lambda: C(frames, stride=hop, out_length=out_length)),
@@ -2787,8 +2904,10 @@ def main() -> int:
     ]
     timings = {}
     for tag, samples, bound, fns in cases:
-        for _, fn in fns:  # warm up
+        for _, fn in fns:  # warm up, the caching allocator too: a second
+            kept = fn()    # call while the first one's result is alive
             fn()
+            del kept
         torch.cuda.synchronize()
         times = {label: [] for label, _ in fns}
         for _ in range(5):  # in turns: kernel, plain, library, ..., kernel, ...
@@ -2800,6 +2919,17 @@ def main() -> int:
         print(f"  {tag}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
               + ", ".join(f"{label} {timings[tag][label]:.3f} ms" for label, _ in fns[1:])
               + f", bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
+    # the card's FFT cut: where B-fft (through framed_dft, and stft's
+    # 'matmul' route) beats torch.stft (and stft's 'fft' route)
+    wins = []
+    for nf in _CUT_LENGTHS:
+        t = timings[f"cut {nf}"]
+        wins.append((nf, t["kernel"] < t["library"]))
+        print(f"  cut at n_fft {nf}: B-fft / torch.stft = {t['kernel'] / t['library']:.3f}, "
+              f"stft 'matmul' / 'fft' = {t['stft matmul'] / t['stft fft']:.3f}", flush=True)
+    measured = max([nf for nf, won in wins if won], default=1024)
+    print(f"  the cut these times put: n_fft <= {max(measured, 1024)} on B-fft (the port's "
+          f"_CARD_FFT_CUT is {cuda_dft._CARD_FFT_CUT})", flush=True)
     # A-tc's own floor: the dense route's TF32 products at the 495 TFLOP/s peak
     tc_flops = 2.0 * channels * num_frames * rows_a * 2 * bins
     print(f"  A-tc's route at the TF32 peak: 'high' {3 * tc_flops / 495e9:.3f} ms, "
@@ -2862,6 +2992,64 @@ def main() -> int:
               f"{sorted(_time_ms(fn) for _ in range(5))[2]:.3f} ms", flush=True)
     del y
 
+    # the fused chain's own cut: at n_fft 2048 (hann 2048, hop 512, the bench
+    # chain's 255 taps, 64 channels) the fold at 'high' (A-tc, or A where
+    # A-tc's window does not fit) against the FIR then B-fft's power, in turns
+    win_2048 = hann(2048).numpy()
+    chain_fns = [
+        ("the fold at 'high'", lambda: fir_framed_dft(
+            x64, taps, win_2048, stride=512, n_fft=2048, onesided=True, output="power",
+            precision="high")),
+        ("FIR then framed_dft power", lambda: framed_dft(
+            convolve(x64, taps_t, mode="same"), win_2048, stride=512, n_fft=2048,
+            onesided=True, output="power"))]
+    counts = _run_path("the fold at n_fft 2048", kernels, (), chain_fns[0][1])
+    fold_kernel = "A-tc" if counts[A_tc.__name__] else "A"
+    for _, fn in chain_fns:
+        fn()
+    torch.cuda.synchronize()
+    chain_times = {name: [] for name, _ in chain_fns}
+    for _ in range(5):
+        for name, fn in chain_fns:
+            chain_times[name].append(_time_ms(fn))
+    for name, t in chain_times.items():
+        print(f"  fused chain's cut, 64x{length} n_fft 2048: {name} {sorted(t)[2]:.3f} ms"
+              + (f" (kernel {fold_kernel})" if name.startswith("the fold") else ""), flush=True)
+
+    # frame_chunks='auto' on the plain power path (kernel='torch') of the
+    # bench chain at 768 x 480000: the plan at the card's budget, its peak
+    # memory above what was allocated before the call; then a budget a
+    # third of the plan's unchunked model, forcing k > 1, held per bin at
+    # 1e-4 against the unchunked output
+    from nx_signal_tpu_torch.kernels.dft import _auto_frame_chunks, _memory_budget
+
+    plan_args = (channels, num_frames, 2 * bins, x.numel())
+    plan_cols = 2 * bins   # the plan's model of the unchunked path (kernels/dft.py)
+    model = (8.0 * x.numel() + 4.0 * channels * num_frames * (plan_cols // 2 + 1)
+             + 1.15 * 4.0 * channels * num_frames * plan_cols)
+    budget = _memory_budget(dev)
+    k_card = _auto_frame_chunks(*plan_args, budget)
+    k_small = _auto_frame_chunks(*plan_args, model / 3)
+    chunk_kw = dict(stride=hop, n_fft=n_fft, onesided=True, output="power", kernel="torch")
+    peaks = {}
+    for k in ("auto", k_small):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[k] = fir_framed_dft(x, taps, window, frame_chunks=k, **chunk_kw)
+        torch.cuda.synchronize()
+        peaks[k] = torch.cuda.max_memory_allocated(dev) - base
+    print(f"  frame_chunks='auto' at {channels}x{length}: budget {budget / 2 ** 30:.2f} GiB "
+          f"(free x {_CHUNK_SHARE}), plan {k_card}, the plan's unchunked model "
+          f"{model / 2 ** 30:.2f} GiB, peak above the inputs {peaks['auto'] / 2 ** 30:.2f} GiB "
+          f"({peaks['auto'] / model:.2f} x the model)", flush=True)
+    if k_card != 1 or k_small < 2:
+        raise AssertionError(f"chunk plans {k_card} at the card's budget, {k_small} at a third "
+                             "of the model (want 1 and > 1)")
+    print(f"  frame_chunks={k_small} (the plan at {model / 3 / 2 ** 30:.2f} GiB): peak above the "
+          f"inputs {peaks[k_small] / 2 ** 30:.2f} GiB", flush=True)
+    _check_close(f"frame_chunks={k_small} vs unchunked", out.pop(k_small), out.pop("auto"))
+
     # where welch's time goes at 768 x 480000 (hann 512, hop 256, detrend
     # 'constant', average 'mean'): end to end, its stages, and torch.stft
     # with |z|^2 and the mean as the comparison; median of 5, in turns
@@ -2910,7 +3098,7 @@ def main() -> int:
     del z_seg, coefs
 
     # ---------------------------------------------------------------- 8
-    del x, x64, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
+    del x, x64, x8, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
@@ -3008,7 +3196,18 @@ def main() -> int:
                            f"library_ms_{nf}": t_nf["library"],
                            f"bound_ms_{nf}": t_nf["bound_ms"], f"bound_by_{nf}": t_nf["bound_by"],
                            f"max_abs_err_{nf}": err_bfft_more[nf]})
-    entries[3].update(n_fft=n_dense)
+    # past 1024 (hann frame n_fft, hop n_fft / 4): through framed_dft, beside
+    # its plain version and torch.stft, and the frames of 2 x n_fft
+    for nf in _CUT_LENGTHS[1:]:
+        t_nf = timings[f"cut {nf}"]
+        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"plain_ms_{nf}": t_nf["plain"],
+                           f"library_ms_{nf}": t_nf["library"],
+                           f"bound_ms_{nf}": t_nf["bound_ms"], f"bound_by_{nf}": t_nf["bound_by"],
+                           f"max_abs_err_{nf}": err_bfft_more[nf]})
+    entries[2].update(max_abs_err_frame_1024_n_fft_512=err_bfft_more[(512, 1024)],
+                      max_abs_err_frame_8192_n_fft_4096=err_bfft_more[(4096, 8192)])
+    # the dense B: n_fft 4100 (past B-fft's 4096) on 8 channels
+    entries[3].update(n_fft=n_dense, channels=ch_dense)
     # D: the shared path's set-up per call
     entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])
     entries[-1].update(ms_back_to_back=e["back_to_back"], host_ms=e["host"],

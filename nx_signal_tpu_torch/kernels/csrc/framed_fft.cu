@@ -1,13 +1,16 @@
 // Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
-// shared memory, for every n_fft from 8 to 1024.
+// shared memory, for every n_fft from 8 to 4096 and any frame length.
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
-// for those n_fft; an n_fft outside them, or a frame longer than n_fft,
-// keeps the dense contraction of framed_dft.cu.
+// for those n_fft; an n_fft below 8 or above 4096 keeps the dense
+// contraction of framed_dft.cu.
 //
 // For channel c and frame m (0 <= m < num_frames), with
-//   xw[i] = x[c, m*stride + i] * win[i] for i < frame_length, 0 up to n_fft,
+//   xw[i] = sum_q x[c, m*stride + i + q*n_fft] * win[i + q*n_fft] for i < n_fft
+//           (the terms with i + q*n_fft < frame_length: a frame no longer
+//           than n_fft is zero-padded, a longer one folded modulo n_fft, since
+//           exp(-2 pi i k t / n_fft) has period n_fft in t),
 //   X[k] = sum_i xw[i] exp(-2 pi i k i / n_fft),
 // out[c, m, k] is X[k] (complex64 as interleaved float2) or, with POWER,
 // re^2 + im^2 (f32), for the bins = n_fft/2 + 1 (onesided) or n_fft bins.
@@ -15,17 +18,18 @@
 // Two kernels compute it:
 //   * framed_fft_kernel, n_fft a power of two. The real frame of n = n_fft
 //     becomes one complex FFT of h = n/2 points, z[j] = xw[2j] + i xw[2j+1]
-//     (the window multiply fused into the load), run as Stockham autosort
-//     passes of radix 8 (a last pass of radix 4 or 2 where log2 h is not a
-//     multiple of 3) with the butterflies in registers and one shared-memory
-//     exchange per pass; then the split post-pass
+//     (the window multiply and the fold fused into the load), run as
+//     Stockham autosort passes of radix 8 (a last pass of radix 4 or 2 where
+//     log2 h is not a multiple of 3) with the butterflies in registers and
+//     one shared-memory exchange per pass; then the split post-pass
 //       X[k] = (Z[k] + conj Z[h-k]) / 2 - i W^k (Z[k] - conj Z[h-k]) / 2,
 //       W = exp(-2 pi i / n), k = 0..h (indices mod h), X[n-k] = conj X[k],
 //     which forms X[k] and X[h-k] from the same two values and one twiddle.
 //     Twiddles come from the (n_fft) float2 table exp(-2 pi i t / n_fft) the
-//     host builds in f64. Each CTA copies it, and lays out the entries each
-//     Stockham pass after the first reads, exp(-2 pi i jm r / (Ns R)) at
-//     r*Ns + jm, so that a warp's twiddle loads hit consecutive addresses.
+//     host builds in f64. Each CTA copies its first n_fft/4 + 1 entries (the
+//     post-pass's), and lays out the entries each Stockham pass after the
+//     first reads, exp(-2 pi i jm r / (Ns R)) at r*Ns + jm, so that a warp's
+//     twiddle loads hit consecutive addresses.
 //   * framed_fft_mixed_kernel, any other n_fft, following the host's plan
 //     (kernels/dft.py:_fft_plan): Stockham passes of radix 8 and a 4 or 2,
 //     then 13, 11, 7, 5, 3, of L points. For even n_fft, L = n/2 and the
@@ -37,18 +41,25 @@
 //     one warp sync per pass. The plan stores pass p's output index i at
 //     i + (i / (Ns R)) c_p, which sends the stores of a half-warp to
 //     distinct banks for the radix-3, -5 and -7 strides as for the even
-//     ones. Its f64 table (post-pass twiddles, then each later pass's
-//     twiddles in the order the pass reads them) is cast to f32 on the host.
-//     An n_fft with a prime factor above 13 (1021, 997, 1018 = 2 * 509)
-//     follows kernels/dft.py:_bluestein_plan: the L-point DFT as a chirp-z
-//     transform, Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}), w_j = exp(-pi i
-//     j^2 / L), through two FFTs of a 13-smooth M >= 2L - 1 points on the
-//     same passes: the first pass loads z_t w_t (zeros past L), the second
-//     FFT's first pass conj(A[t] S[t]) with S the host's FFT of the
-//     conjugate chirp over M, and the post-pass reads Z[k] = w_k conj(.)
-//     of its output (conj, FFT, conj is the inverse; S carries the 1/M).
-//     M <= 1024 for even n_fft, <= 2048 for odd; the frames per CTA follow
-//     the shared memory the buffers take.
+//     ones (past 2048 points only where c_p adds at most 1/8 to the buffer).
+//     Its f64 table (post-pass twiddles, then each later pass's twiddles in
+//     the order the pass reads them) is cast to f32 on the host.
+//     An n_fft with a prime factor above 13 (1021, 1031, 4093, 1018 = 2 *
+//     509) follows kernels/dft.py:_bluestein_plan: the L-point DFT as a
+//     chirp-z transform, Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}), w_j =
+//     exp(-pi i j^2 / L), through two FFTs of a 13-smooth M >= 2L - 1 points
+//     on the same passes: the first pass loads z_t w_t (zeros past L), the
+//     second FFT's first pass conj(A[t] S[t]) with S the host's FFT of the
+//     conjugate chirp over M, and the post-pass reads Z[k] = w_k conj(.) of
+//     its output (conj, FFT, conj is the inverse; S carries the 1/M).
+//     M <= 4096 for even n_fft, <= 8192 for odd. Up to 2048 points the CTA
+//     stages the table in shared memory where it fits beside one FFT's
+//     buffers and its frames; past 2048 points (and where it would not
+//     fit: Bluestein's table of about 2.5 M float2 at M = 8190) every CTA
+//     reads it from global memory, where all CTAs share it through L2, and
+//     the shared memory it frees holds more CTAs (measured faster there,
+//     NX_FFT_L2_TABLE_POINTS). The frames per CTA follow the shared memory
+//     the buffers take.
 //
 // What bounds it on the H100: bytes. Per input sample it moves 4 B in and
 // 8 * bins / stride B out (complex64), against about 2.5 n log2 n / stride
@@ -57,11 +68,15 @@
 //     x once with 16-byte cp.async where the alignment allows, so each
 //     sample is read from device memory about once, not once per frame.
 //   * A frame's threads (one warp or part of one for every n_fft <= 512 of
-//     the power-of-two kernel and every 13-smooth n_fft of the mixed one)
-//     run its passes in registers and shared memory, several frames per CTA
-//     at once; they sync with __syncwarp, so the warps of a CTA never wait
-//     for each other after the staging. Bluestein's FFTs of 1024 points and
-//     more take two warps each, synced on a named barrier of their own.
+//     the power-of-two kernel and every 13-smooth n_fft <= 2048 of the
+//     mixed one) run its passes in registers and shared memory, several
+//     frames per CTA at once; they sync with __syncwarp, so the warps of a
+//     CTA never wait for each other after the staging. An FFT of more than
+//     1024 points of the mixed kernel, and every Bluestein FFT past 256
+//     points, takes two warps, and one past 2048 points the CTA's eight
+//     warps, synced on a named barrier of its own; the power-of-two kernel
+//     gives a frame of 1024 points and more its h/8 threads, synced on the
+//     CTA's barrier.
 //   * The output is written straight into the complex64 tensor, consecutive
 //     threads on consecutive bins (no stacked [Re | Im] and no copy).
 
@@ -72,10 +87,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinFft = 8;
-constexpr int kMaxFft = 1024;
+constexpr int kMaxFft = 4096;
 constexpr int kTileTarget = 32;                 // frames per CTA where they fit
 constexpr size_t kSmemBudget = 96 * 1024;       // keeps two or more CTAs per SM
 constexpr int64_t kMaxGridY = 65535;
+// Past this many points the mixed kernel reads its table from global
+// memory (L2) even where it would fit in shared memory: there a CTA holds
+// one FFT, and the shared memory the table frees lets more CTAs share an
+// SM. scripts/torch_kernel_variants.py section 5 times the choice (on an
+// H100 at 700 W, L2 against staged: 0.80 / 1.13 ms at n_fft 4095, 2.56 /
+// 3.59 at 4094, 2.20 / 2.42 at 1031; but 1.92 / 1.72 at 1021, M = 2048).
+#ifndef NX_FFT_L2_TABLE_POINTS
+#define NX_FFT_L2_TABLE_POINTS kLargeFft
+#endif
 
 __host__ __device__ inline int pad_index(int i) { return i + (i >> 3); }
 __host__ __device__ inline int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
@@ -83,14 +107,18 @@ __host__ __device__ inline int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
 // threads per frame (each holds min(h, 8) values) and the padded h
 __host__ __device__ inline int threads_per_frame(int h) { return h >= 8 ? h >> 3 : 1; }
 __host__ __device__ inline int padded_len(int h) { return h + (h >> 3); }
+// float2 of the post-pass twiddles a CTA keeps: W^k for k = 0..n_fft/4, an
+// even count so that what follows stays 16-byte aligned
+__host__ __device__ inline int post_len(int n_fft) { return (n_fft / 4 + 2) / 2 * 2; }
 
-// Shared memory of a CTA: twiddles and the passes' twiddle tables (n_fft
-// float2 each), the FFT buffers of `group` frames (an even count of float2,
-// so what follows stays 16-byte aligned), the window, and the staged x
-// window of `tile` frames (+3 for the alignment offset).
+// Shared memory of a CTA: the post-pass twiddles, the passes' twiddle
+// tables (n_fft float2 hold them), the FFT buffers of `group` frames (an
+// even count of float2), the window, and the staged x window of `tile`
+// frames (+3 for the alignment offset).
 inline size_t smem_bytes(int n_fft, int frame_length, int64_t stride, int group, int tile) {
   const int64_t bufs = ((int64_t)group * padded_len(n_fft / 2) + 1) / 2 * 2;
-  return (size_t)(16 * (int64_t)n_fft + 8 * bufs + 4 * round4(frame_length) +
+  return (size_t)(8 * ((int64_t)post_len(n_fft) + n_fft) + 8 * bufs +
+                  4 * round4(frame_length) +
                   4 * round4((int64_t)(tile - 1) * stride + frame_length + 3));
 }
 
@@ -302,21 +330,22 @@ __device__ __forceinline__ void fft_pass(float2* fbuf, const float2* twp, const 
       const int n = j + r * span;
       if constexpr (FIRST) {
         // (x, window) pairs as 8-byte loads where the frame starts 8-byte
-        // aligned in the staged window (the window itself is)
-        const int i0 = 2 * n;
+        // aligned in the staged window (the window itself is); a frame
+        // longer than n_fft = 2h folded modulo n_fft
         float re = 0.0f, im = 0.0f;
-        if (xf != nullptr && i0 + 1 < frame_length) {
-          if ((reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
-            const float2 xv = *reinterpret_cast<const float2*>(xf + i0);
-            const float2 wv = *reinterpret_cast<const float2*>(wins + i0);
-            re = xv.x * wv.x;
-            im = xv.y * wv.y;
-          } else {
-            re = xf[i0] * wins[i0];
-            im = xf[i0 + 1] * wins[i0 + 1];
+        if (xf != nullptr) {
+          const bool aligned = (reinterpret_cast<uintptr_t>(xf) & 7) == 0;
+          for (int i = 2 * n; i < frame_length; i += 2 * h) {
+            if (i + 1 < frame_length && aligned) {
+              const float2 xv = *reinterpret_cast<const float2*>(xf + i);
+              const float2 wv = *reinterpret_cast<const float2*>(wins + i);
+              re += xv.x * wv.x;
+              im += xv.y * wv.y;
+            } else {
+              re += xf[i] * wins[i];
+              if (i + 1 < frame_length) im += xf[i + 1] * wins[i + 1];
+            }
           }
-        } else if (xf != nullptr && i0 < frame_length) {
-          re = xf[i0] * wins[i0];
         }
         v[it][r] = make_float2(re, im);
       } else {
@@ -369,7 +398,7 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   const int G = threads_per_frame(h);
   const int hp = padded_len(h);
   float2* tws = reinterpret_cast<float2*>(smem);
-  float2* twp = tws + n_fft;  // the passes' tables, one after another
+  float2* twp = tws + post_len(n_fft);  // the passes' tables, one after another
   float2* bufs = twp + n_fft;
   float* wins = reinterpret_cast<float*>(bufs + ((int64_t)group * hp + 1) / 2 * 2);
   float* xs = wins + round4(frame_length);
@@ -383,7 +412,7 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   // the tile's window of x: samples [m0*stride, (m_end-1)*stride + frame)
   const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
                                (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
-  for (int i = tid; i < n_fft; i += nthr) tws[i] = tw[i];
+  for (int i = tid; i <= n_fft / 4; i += nthr) tws[i] = tw[i];
   const int r1 = h < 8 ? h : 8;
   for (int Ns = r1, off = 0; Ns < h;) {
     const int R = h / Ns < 8 ? h / Ns : 8;  // exp(-2 pi i jm r / (Ns R))
@@ -447,7 +476,11 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7, 8, 11 or 13) in
 // the low four bits, its output padding c (0..15) in the high four
 constexpr int kMaxPasses = 8;
-constexpr int kMaxPoints = 2048;  // Bluestein's M at the longest odd n_fft
+constexpr int kMaxPoints = 8192;  // Bluestein's M at the longest odd n_fft
+// Past this many points a CTA holds one FFT of the mixed kernel (its two
+// buffers fill the shared memory), which then takes kThreads threads; the
+// host's plans pad such FFTs' passes sparingly (kernels/dft.py:_FULL_PAD_POINTS)
+constexpr int kLargeFft = 2048;
 __host__ __device__ inline int plan_radix(uint64_t plan, int p) {
   return (int)((plan >> (8 * p)) & 15);
 }
@@ -456,10 +489,13 @@ __host__ __device__ inline int plan_pad(uint64_t plan, int p) {
 }
 
 // threads per FFT of M points: one warp, or fewer for short FFTs (a power of
-// two, so the FFTs of a warp never straddle two warps); Bluestein's FFTs of
-// 1024 points and more take two warps (`cap` 64), which doubles the warps
-// an SM holds where their buffers fill its shared memory
-inline int mixed_threads(int M, int cap) {
+// two, so the FFTs of a warp never straddle two warps); Bluestein's FFTs
+// and every FFT of more than 1024 points take up to two warps, which
+// doubles the warps an SM holds where their buffers fill its shared
+// memory, and an FFT of more than 2048 points, whose buffers leave room for
+// one FFT per CTA, takes the CTA's kThreads
+inline int mixed_threads(int M, bool blue) {
+  const int cap = M > kLargeFft ? kThreads : (blue || M > 1024 ? 64 : 32);
   int g = 1;
   while (g < cap && 8 * g < M) g *= 2;
   return g;
@@ -497,9 +533,10 @@ inline int mixed_table_len(uint64_t plan, int L, int M, bool odd) {
   return len;
 }
 
-// Shared memory of a CTA: the table (an even count of float2, so what
-// follows stays 16-byte aligned), two buffers per FFT, the window, and the
-// staged x window of `tile` frames (+3 for the alignment offset).
+// Shared memory of a CTA: the table where it is staged (table_len float2,
+// 0 where it stays in global memory; an even count, so what follows stays
+// 16-byte aligned), two buffers per FFT, the window, and the staged x
+// window of `tile` frames (+3 for the alignment offset).
 inline size_t mixed_smem_bytes(int table_len, int buf_len, int frame_length, int64_t stride,
                                int group, int tile) {
   return (size_t)(8 * (((int64_t)table_len + 1) / 2 * 2) + 16 * (int64_t)group * buf_len +
@@ -507,25 +544,26 @@ inline size_t mixed_smem_bytes(int table_len, int buf_len, int frame_length, int
                   4 * round4((int64_t)(tile - 1) * stride + frame_length + 3));
 }
 
-// Point t of the FFT input, windowed: even n_fft xw[2t] + i xw[2t+1] of
-// frame xa; odd n_fft xw_a[t] + i xw_b[t] of frames xa and xb (null: zeros).
-// Zero past the frame, so for every t >= L.
+// Point t of the FFT input, windowed and folded modulo n_fft: even n_fft
+// xw[2t] + i xw[2t+1] of frame xa; odd n_fft xw_a[t] + i xw_b[t] of frames
+// xa and xb (null: zeros). Zero for every t >= L (Bluestein's padding).
 template <bool ODD>
 __device__ __forceinline__ float2 load_point(int t, const float* xa, const float* xb,
-                                             const float* wins, int frame_length) {
+                                             const float* wins, int frame_length, int L) {
+  float re = 0.0f, im = 0.0f;
+  if (t >= L) return make_float2(re, im);
   if constexpr (ODD) {
-    if (t >= frame_length) return make_float2(0.0f, 0.0f);
-    return make_float2(xa != nullptr ? xa[t] * wins[t] : 0.0f,
-                       xb != nullptr ? xb[t] * wins[t] : 0.0f);
-  } else {
-    const int i0 = 2 * t;
-    float re = 0.0f, im = 0.0f;
-    if (xa != nullptr && i0 < frame_length) {
-      re = xa[i0] * wins[i0];
-      if (i0 + 1 < frame_length) im = xa[i0 + 1] * wins[i0 + 1];
+    for (int i = t; i < frame_length; i += L) {
+      if (xa != nullptr) re += xa[i] * wins[i];
+      if (xb != nullptr) im += xb[i] * wins[i];
     }
-    return make_float2(re, im);
+  } else if (xa != nullptr) {
+    for (int i = 2 * t; i < frame_length; i += 2 * L) {
+      re += xa[i] * wins[i];
+      if (i + 1 < frame_length) im += xa[i + 1] * wins[i + 1];
+    }
   }
+  return make_float2(re, im);
 }
 
 // Where a pass takes its points: a later pass from the previous pass's
@@ -559,7 +597,7 @@ __device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2*
     for (int r = 0; r < R; ++r) {
       const int t = j + r * span;
       if constexpr (SRC == kSignal || SRC == kChirped) {
-        v[r] = load_point<ODD>(t, xa, xb, wins, frame_length);
+        v[r] = load_point<ODD>(t, xa, xb, wins, frame_length, L);
         if (SRC == kChirped && t < L) v[r] = cmul(v[r], tbl[t]);
       } else if constexpr (SRC == kFiltered) {
         const float2 c = cmul(in[t], tbl[t]);
@@ -643,7 +681,7 @@ __device__ __forceinline__ float2 spectrum_at(const float2* src, const float2* c
   return c;
 }
 
-template <bool POWER, bool ODD, bool BLUE>
+template <bool POWER, bool ODD, bool BLUE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
                         const float2* __restrict__ table, void* __restrict__ out, int64_t length,
@@ -653,12 +691,13 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
   extern __shared__ __align__(16) float smem[];
   constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
   const int L = ODD ? n_fft : n_fft / 2;
-  float2* tbl = reinterpret_cast<float2*>(smem);
-  float2* bufs = tbl + (table_len + 1) / 2 * 2;
+  float2* staged = reinterpret_cast<float2*>(smem);  // the table, STAGED
+  float2* bufs = STAGED ? staged + (table_len + 1) / 2 * 2 : staged;
   float* wins = reinterpret_cast<float*>(bufs + (int64_t)group * 2 * buf_len);
   float* xs = wins + round4(frame_length);
-  // the table: post-pass twiddles (even n_fft), [chirp, filter spectrum],
-  // the passes' twiddles
+  // the table, in shared memory or read from global memory (L2): post-pass
+  // twiddles (even n_fft), [chirp, filter spectrum], the passes' twiddles
+  const float2* tbl = STAGED ? staged : table;
   const float2* chirp = tbl + (ODD ? 0 : L / 2 + 1);
   const float2* filt = chirp + L;
   const float2* twp = BLUE ? filt + M : chirp;
@@ -670,7 +709,9 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
   const int m_end = min(num_frames, m0 + tile);
   const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
                                (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
-  for (int i = tid; i < table_len; i += nthr) tbl[i] = table[i];
+  if constexpr (STAGED) {
+    for (int i = tid; i < table_len; i += nthr) staged[i] = table[i];
+  }
   for (int i = tid; i < frame_length; i += nthr) wins[i] = win[i];
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();  // x staged
@@ -751,14 +792,15 @@ inline bool valid_plan(uint64_t plan, int M) {
 
 // x (channels, length) f32, win (frame_length) f32, out (channels,
 // num_frames, bins) complex64 (as float2) or, with power, f32; all
-// contiguous on the current device; frame_length <= n_fft, bins n_fft/2 + 1
-// or n_fft, every frame inside the signal, n_fft in [8, 1024]. plan 0: n_fft
+// contiguous on the current device; any frame_length (folded modulo n_fft
+// past it) whose window fits in shared memory, bins n_fft/2 + 1 or n_fft,
+// every frame inside the signal, n_fft in [8, 4096]. plan 0: n_fft
 // a power of two and tw the (n_fft) float2 table exp(-2 pi i t / n_fft) (the
 // power-of-two kernel; points 0). Else the mixed-radix kernel with the
 // packed pass plan of M = `points` (byte p: radix | pad << 4) and its
 // float2 table, from kernels/dft.py: _fft_plan for a 13-smooth n_fft (M =
 // L, the transform's length, n_fft/2 or odd n_fft) or _bluestein_plan for
-// any n_fft (2L - 1 <= M <= 2048). Launches on `stream` without
+// any n_fft (2L - 1 <= M <= 8192). Launches on `stream` without
 // synchronising; returns the launch's cudaError_t.
 extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw, void* out,
                                  int64_t channels, int64_t length, int64_t stride,
@@ -767,7 +809,7 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                                  void* stream) {
   const int64_t kIntMax = 0x7fffffff;
   if (channels < 1 || stride < 1 || stride > kIntMax || n_fft < kMinFft || n_fft > kMaxFft ||
-      frame_length < 1 || frame_length > n_fft || num_frames < 1 || num_frames > kIntMax ||
+      frame_length < 1 || frame_length > kIntMax || num_frames < 1 || num_frames > kIntMax ||
       (bins != n_fft / 2 + 1 && bins != n_fft) ||
       (num_frames - 1) * stride + frame_length > length) {
     return (int)cudaErrorInvalidValue;
@@ -793,15 +835,22 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
 
   // FFTs at once (group, each of `per` frames) and frames per CTA (tile, a
   // multiple of group * per): up to kTileTarget frames within the budget,
-  // fewer where the staged window or the FFT buffers need it
-  const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(M, blue ? 64 : 32);
+  // fewer where the staged window or the FFT buffers need it. The mixed
+  // kernel stages its table up to NX_FFT_L2_TABLE_POINTS points where that
+  // leaves room for one FFT and its frames, else reads it from global
+  // memory.
+  const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(M, blue);
   const int per = odd ? 2 : 1;
   const int buf_len = pow2 ? 0 : mixed_buf_len(packed, M);
   const int table_len = pow2 ? 0 : mixed_table_len(packed, L, M, odd);
+  bool staged = true;
   auto bytes = [&](int group, int tile) {
     return pow2 ? smem_bytes(fft, fl, stride, group, tile)
-                : mixed_smem_bytes(table_len, buf_len, fl, stride, group, tile);
+                : mixed_smem_bytes(staged ? table_len : 0, buf_len, fl, stride, group, tile);
   };
+  if (!pow2 && (M > NX_FFT_L2_TABLE_POINTS || bytes(1, per) > (size_t)max_smem)) {
+    staged = false;
+  }
   int group = kThreads / per_fft;
   int step = group * per;
   int tile = step * (kTileTarget > step ? kTileTarget / step : 1);
@@ -843,8 +892,10 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                         : (warp_sync ? framed_fft_kernel<false, true>
                                      : framed_fft_kernel<false, false>));
   }
-#define NX_MIXED(POWER, ODD, BLUE) \
-  launch(framed_fft_mixed_kernel<POWER, ODD, BLUE>, packed, per_fft, buf_len, table_len, M)
+#define NX_MIXED(POWER, ODD, BLUE)                                                      \
+  launch(staged ? framed_fft_mixed_kernel<POWER, ODD, BLUE, true>                      \
+                : framed_fft_mixed_kernel<POWER, ODD, BLUE, false>,                    \
+         packed, per_fft, buf_len, table_len, M)
   if (blue) {
     return power ? (odd ? NX_MIXED(true, true, true) : NX_MIXED(true, false, true))
                  : (odd ? NX_MIXED(false, true, true) : NX_MIXED(false, false, true));

@@ -29,9 +29,10 @@ the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
 'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
 and one TF32 pass (about three digits), wherever A-tc's staged window fits
 in shared memory, and kernel A elsewhere (more accurate than asked). The
-framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 1024,
-the dense B for any other. Kernels B, B-fft and D run f32 whatever the
-caller's precision; C is bitwise equal to the plain fold.
+framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 4096
+and any frame length, the dense B for an n_fft below 8 or above 4096.
+Kernels B, B-fft and D run f32 whatever the caller's precision; C is
+bitwise equal to the plain fold.
 """
 
 import ctypes
@@ -43,7 +44,8 @@ import torch
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import (
     _bluestein_plan, _dft_weights, _fft_plan, _fft_twiddles, _framed_matmul_tf32_torch,
-    _framed_matmul_torch, _host_f64, _radices, _shared_power_torch, _tf32_passes, _tf32_split)
+    _framed_matmul_torch, _host_f64, _radices, _shared_power_torch, _tf32_passes, _tf32_split,
+    good_matmul_fft_length)
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
@@ -60,11 +62,20 @@ _SHARED_MAX_COEFFS = 8
 _SHARED_MAX_BLOCKS = 64
 _D_SLOTS = 96
 _D_SUM_ROWS = 32
-# Kernel B-fft's n_fft range and most passes of a plan, and kernels A's and
+# Kernel B-fft's n_fft range, most passes and points of a plan, and kernels A's and
 # A-tc's weight layouts: bins per tile and the row multiple of their weight
 # chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
-_FFT_MIN, _FFT_MAX = 8, 1024
+_FFT_MIN, _FFT_MAX = 8, 4096
 _FFT_MAX_PASSES = 8
+_FFT_MAX_POINTS = 8192   # Bluestein's M at the longest odd n_fft
+# The card's cut for the framed DFT under method='auto': up to this n_fft
+# a CUDA float32 signal takes framed_dft (kernel B-fft), past it torch.fft
+# (`_auto_takes_kernel`). Set from chip_smoke.py phase 7 on an NVIDIA H100
+# 80GB HBM3 at 700 W (64 x 480000, hann frame n_fft, hop n_fft / 4,
+# PERF.md section 6): B-fft / torch.stft read 0.63 at 1024 and 0.77 at 2048,
+# the largest length where B-fft won, and 1.13 at 1031, 1.47 at 4093, 1.11
+# at 4094 and 1.02 at 4096
+_CARD_FFT_CUT = 2048
 _A_TILE_BINS = 64
 _A_CHUNK = 32
 _TC_TILE_BINS = 64
@@ -361,36 +372,60 @@ def _device_fft_plan(n_fft: int, device):
 
 
 def fft_kernel_takes(n_fft: int) -> bool:
-    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 1024 (a
+    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 4096 (a
     power of two on its radix-8 kernel, a 13-smooth one such as 400, 441,
-    572 or 600 on the mixed-radix plan, any other, such as 1021 or 1018,
-    through Bluestein's chirp-z transform on the same passes). The dense
-    kernel B serves an n_fft outside that range.
+    572 or 600 on the mixed-radix plan, any other, such as 1021, 1031 or
+    4093, through Bluestein's chirp-z transform on the same passes), with
+    any frame length. The dense kernel B serves an n_fft below 8 or above
+    4096.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
-    >>> [fft_kernel_takes(n) for n in (512, 600, 441, 572, 1021, 4, 2048)]
-    [True, True, True, True, True, False, False]
+    >>> [fft_kernel_takes(n) for n in (512, 600, 1031, 2048, 4093, 4096, 4, 4097)]
+    [True, True, True, True, True, True, False, False]
     """
     return _FFT_MIN <= n_fft <= _FFT_MAX
+
+
+def _auto_takes_kernel(x, n_fft: int) -> bool:
+    """Whether method='auto' runs the framed DFT of the real signal x as
+    `kernels.dft.framed_dft` rather than torch.fft: on a CUDA float32 tensor
+    up to the card's measured cut (`_CARD_FFT_CUT`), on any other where the
+    JAX package puts it (`kernels.dft.good_matmul_fft_length`). `stft`,
+    `StreamingSTFT`, `sharded_stft`, `ShortTimeFFT` and the filtered
+    `stft_fir_chain` ask it.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
+    >>> [_auto_takes_kernel(torch.zeros(8), n) for n in (512, 1024, 2048)]   # the CPU's cut
+    [True, True, False]
+    """
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return n_fft <= _CARD_FFT_CUT
+    return good_matmul_fft_length(n_fft)
 
 
 def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = False,
                     output: str = "complex"):
     """Kernel B-fft: the windowed framed DFT of the (..., L) real signal as
     a real FFT per frame (framed_fft.cu): frame m is x[m*stride : ... +
-    frame_length] times `window` (a host array or tensor of frame_length <=
-    n_fft samples; a tensor already on x's device is used with no copy
-    from the host), zero-padded to n_fft. Returns complex64 (..., M, bins),
-    bins = n_fft//2 + 1 (`onesided`) or n_fft, M = (L - frame)//stride + 1,
-    or with `output='power'` re^2 + im^2 f32. On a CUDA tensor n_fft must
-    be from 8 to 1024 (`fft_kernel_takes`): a power of two runs the radix-8
-    kernel, any other the mixed-radix kernel of `kernels.dft._fft_plan` (a
-    13-smooth n_fft) or `kernels.dft._bluestein_plan` (any other); each
-    writes the complex64 tensor directly. On a CPU tensor it returns
-    the plain version (the dense [Re | Im] contraction of
-    `_framed_matmul_torch`).
+    frame_length] times `window` (a host array or tensor of frame_length
+    samples; a tensor already on x's device is used with no copy from the
+    host), zero-padded to n_fft or, where longer, folded modulo n_fft (the
+    DFT's period: the JAX package's frame_length-row weights). Returns
+    complex64 (..., M, bins), bins = n_fft//2 + 1 (`onesided`) or n_fft, M =
+    (L - frame)//stride + 1, or with `output='power'` re^2 + im^2 f32. On a
+    CUDA tensor n_fft must be from 8 to 4096 (`fft_kernel_takes`): a power
+    of two runs the radix-8 kernel, any other the mixed-radix kernel of
+    `kernels.dft._fft_plan` (a 13-smooth n_fft) or
+    `kernels.dft._bluestein_plan` (any other); each writes the complex64
+    tensor directly, and raises where the window and one FFT's buffers do
+    not fit in one CTA's shared memory (frames of a few n_fft at 4096). On a
+    CPU tensor it returns the plain version (the dense [Re | Im] contraction
+    of `_framed_matmul_torch`).
 
     Examples:
 
@@ -400,6 +435,9 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     ...                     onesided=True)
     >>> z.shape, z.dtype
     (torch.Size([2, 29, 33]), torch.complex64)
+    >>> framed_fft_cuda(torch.ones(2, 512), torch.hann_window(96), stride=16, n_fft=64,
+    ...                 onesided=True).shape   # a frame folded modulo n_fft
+    torch.Size([2, 27, 33])
     """
     if output not in ("complex", "power"):
         raise ValueError(f"output must be 'complex' or 'power', got {output!r}")
@@ -409,7 +447,7 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     num_frames = (x.shape[-1] - frame_length) // stride + 1
     bins = n_fft // 2 + 1 if onesided else n_fft
     power = output == "power"
-    if stride < 1 or num_frames < 1 or frame_length > n_fft:
+    if stride < 1 or num_frames < 1:
         raise ValueError(f"bad geometry: stride={stride}, frame={frame_length}, "
                          f"n_fft={n_fft}, shape={tuple(x.shape)}")
     if not _on_card(x):
@@ -433,7 +471,8 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
             xf.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), xf.shape[0], length,
             stride, frame_length, n_fft, num_frames, bins, plan, points, int(power),
             torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, "framed_fft kernel")
+    _check(lib, err, f"framed_fft kernel (n_fft {n_fft}, frame {frame_length}, hop {stride}: "
+                     "the window and one FFT's buffers must fit in a CTA's shared memory)")
     framed_fft_cuda.launches += 1
     return out.reshape(*batch, num_frames, bins)
 
@@ -446,7 +485,7 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
     """Kernel B (dense): the windowed framed DFT frames(x) @ W of the
     (..., L) real signal, W the (frame, 2*bins) [Re | Im] weights of
     `kernels.dft._dft_weights`, for what kernel B-fft does not take: an
-    n_fft outside 8..1024, or a frame longer than n_fft.
+    n_fft below 8 or above 4096.
     The kernel writes the stacked f32 [Re | Im]; this returns it as
     complex64 (..., num_frames, bins), or with `output='power'` the
     kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the

@@ -16,7 +16,7 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for every n_fft from 8 to 1024;
+  per frame (kernel B-fft) for every n_fft from 8 to 4096;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -54,6 +54,13 @@ __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights"
 _MAX_MATMUL_FFT = 1024
 _PRECISIONS = ("highest", "high", "default")
 _FEW_COLUMNS = 16  # blocked_frame_matmul: out_cols x C up to this is one matmul
+# Share of the card's free memory that frame_chunks='auto' plans against:
+# the plain power path's peak above its inputs read 1.16x the plan's model
+# of it (13.78 of 11.85 GiB for the bench chain at 768 x 480000 on an
+# NVIDIA H100 80GB HBM3, chip_smoke.py phase 7; the conv1d's output and its
+# transposed copy are both of the intermediate's size), and cuDNN's
+# workspace and the caching allocator's slack take more
+_CHUNK_MEMORY_SHARE = 0.5
 
 
 def _check_precision(precision):
@@ -79,6 +86,50 @@ def _exact_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _memory_budget(device):
+    """Bytes frame_chunks='auto' plans against on `device`: on a card its
+    free memory (`torch.cuda.mem_get_info`) and what the caching allocator
+    holds unused, times `_CHUNK_MEMORY_SHARE`; None on the CPU, where the
+    plan is 1."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return _CHUNK_MEMORY_SHARE * (free + cached)
+
+
+def _auto_frame_chunks(batch_elems: int, num_frames: int, cols: int, in_elems: int,
+                       budget) -> int:
+    """The JAX package's chunk plan (its `kernels/dft.py:_auto_frame_chunks`)
+    against `budget` bytes (None: no plan, 1). Modelled footprints (f32
+    bytes): unchunked = input + padded copy + power output + 1.15x the
+    (batch, frames, cols) intermediate; chunked = the same with the
+    intermediate divided by k and one more output-sized buffer. Returns 1
+    wherever the unchunked path fits, else the fewest chunks that fit, at
+    most num_frames.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _auto_frame_chunks
+    >>> _auto_frame_chunks(768, 3747, 514, 768 * 480000, 40e9)
+    1
+    >>> _auto_frame_chunks(768, 3747, 514, 768 * 480000, 10e9)
+    6
+    """
+    if budget is None:
+        return 1
+    in_b = 4 * in_elems
+    out_b = 4 * batch_elems * num_frames * (cols // 2 + 1)
+    inter = 4 * batch_elems * num_frames * cols
+    if 2 * in_b + out_b + 1.15 * inter <= budget:
+        return 1
+    # past the fixed buffers at least 5% of the budget: more chunks cannot
+    # help beyond that, so chunk hard and let the attempt decide
+    avail = max(budget - (2 * in_b + 2 * out_b), 0.05 * budget)
+    return min(num_frames, max(1, int(-(-inter // avail))))
 
 
 def toeplitz_band(taps, out_cols: int):
@@ -107,8 +158,9 @@ def toeplitz_band(taps, out_cols: int):
 
 def good_matmul_fft_length(n_fft: int) -> bool:
     """True when the framed DFT runs as a contraction (n_fft <= 1024);
-    larger transforms use torch.fft. The cut was measured for the JAX
-    package's chip and is kept until the H100 compares both.
+    larger transforms use torch.fft. The JAX package's cut, measured for its
+    chip: the routes keep it for every signal but a CUDA float32 one, which
+    follows the H100's own times (`kernels.cuda_dft._auto_takes_kernel`).
 
     Examples:
 
@@ -303,12 +355,15 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     `output='power'` returns re^2 + im^2 instead. The signal must already
     be padded (spectral/stft.py handles the padding modes).
 
+    A frame longer than n_fft is folded modulo n_fft (the DFT's period), as
+    the JAX package's frame_length-row weights fold it.
+
     Runs kernel B: `kernels.cuda_dft.framed_fft_cuda` (a real FFT per
     frame in shared memory: mixed radix 2-13, Bluestein for a larger prime
-    factor) for every n_fft from 8 to 1024 (`fft_kernel_takes`) with
-    frame_length <= n_fft, and `kernels.cuda_dft.framed_dft_cuda` (the
-    dense contraction) for anything else. Both are hand-written kernels on a
-    CUDA tensor and the same plain conv1d version on a CPU one.
+    factor; a long frame folded in its load) for every n_fft from 8 to 4096
+    (`fft_kernel_takes`), and `kernels.cuda_dft.framed_dft_cuda` (the dense
+    contraction) for an n_fft below 8 or above 4096. Both are hand-written
+    kernels on a CUDA tensor and the same plain conv1d version on a CPU one.
 
     Examples:
 
@@ -338,7 +393,7 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     if num_frames < 1:
         raise ValueError(
             f"window length {frame_length} exceeds signal length {x.shape[-1]}")
-    if fft_kernel_takes(n_fft) and frame_length <= n_fft:
+    if fft_kernel_takes(n_fft):
         return framed_fft_cuda(x, window, stride=stride, n_fft=n_fft, onesided=onesided,
                                output=output)
     weights = torch.as_tensor(
@@ -400,6 +455,12 @@ def _radices(points: int):
     return [8] * (twos // 3) + ([1 << twos % 3] if twos % 3 else []) + odd
 
 
+# Past this many points a pass keeps its output padding only where it adds
+# at most 1/8 to the buffer, so that two M-point buffers stay within one
+# CTA's shared memory (framed_fft.cu)
+_FULL_PAD_POINTS = 2048
+
+
 def _passes(points: int, radices):
     """Each pass's output padding c and the twiddle tables of the passes
     after the first (see `_fft_plan`)."""
@@ -407,11 +468,12 @@ def _passes(points: int, radices):
     for r in radices:
         group = ns * r
         if group == points:
-            pads.append(0)
+            c = 0
         elif ns == 1:
-            pads.append(1 - r % 2)
+            c = 1 - r % 2
         else:
-            pads.append((ns - group) % 16)
+            c = (ns - group) % 16
+        pads.append(0 if points > _FULL_PAD_POINTS and 8 * c > group else c)
         if ns > 1:
             tables.append(_unit_roots(np.arange(r)[:, None] * np.arange(ns), group).reshape(-1, 2))
         ns = group
@@ -447,7 +509,9 @@ def _fft_plan(n_fft: int) -> FftPlan:
     i + (i // (Ns R)) c against shared-memory bank conflicts, with c = 0
     for an odd radix and 1 for an even one in the first pass (Ns = 1: an odd
     store stride), c = (Ns - Ns R) mod 16 in later passes (the 16 lanes of
-    a half-warp store to distinct banks), and c = 0 in the last pass.
+    a half-warp store to distinct banks), and c = 0 in the last pass; past
+    2048 points (`_FULL_PAD_POINTS`) c is 0 wherever c > Ns R / 8, so that
+    no buffer grows by more than 1/8.
 
     `table` holds, in order: for even n_fft the post-pass twiddles
     exp(-2 pi i k / n_fft), k = 0..L/2; then for each pass after the first
@@ -669,7 +733,10 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     `frame_chunks` only shapes the plain power path (`kernel='torch'`): an
     integer k > 1 splits the frame axis into k sequential chunks so the
     (..., frames, 2*bins) intermediate exists one chunk at a time; 'auto'
-    is 1. The kernels keep no intermediate, so they ignore the setting.
+    plans k from the card's free memory (`_auto_frame_chunks` against
+    `_memory_budget`: 1 wherever the unchunked path fits, and always 1 on a
+    CPU tensor). The kernels keep no intermediate, so they ignore the
+    setting.
 
     `edge='conv'` (power output, unchunked, `kernel='torch'`) contracts
     the signal without a padded copy (`_fir_framed_dft_power_nopad`) where
@@ -706,9 +773,8 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
         raise ValueError(f"window length {frame_length} exceeds signal length {length}")
     num_frames = (length - frame_length) // stride + 1
     bins = n_fft // 2 + 1 if onesided else n_fft
-    if frame_chunks == "auto":
-        frame_chunks = 1
-    if not isinstance(frame_chunks, (int, np.integer)) or frame_chunks < 1:
+    if frame_chunks != "auto" and (not isinstance(frame_chunks, (int, np.integer))
+                                   or frame_chunks < 1):
         raise ValueError(
             f"frame_chunks must be 'auto' or an integer >= 1, got {frame_chunks!r}")
     eligible = output == "power" and onesided and not x.is_complex()
@@ -740,11 +806,15 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                                          precision=precision)
 
     power = output == "power"
-    if edge == "conv" and power and frame_chunks == 1:
+    if edge == "conv" and power and frame_chunks in (1, "auto"):
         out = _fir_framed_dft_power_nopad(x, weights, stride=stride, pad_left=pad_left,
                                           num_frames=num_frames, bins=bins)
         if out is not None:
             return out
+    if frame_chunks == "auto":
+        frame_chunks = _auto_frame_chunks(
+            int(np.prod(x.shape[:-1], dtype=np.int64)), num_frames, 2 * bins, x.numel(),
+            _memory_budget(x.device)) if power else 1
     if not power or frame_chunks == 1:
         acc = _framed_matmul_torch(x, weights, stride=stride, pad_left=pad_left,
                                    num_frames=num_frames, bins=bins, power=power)

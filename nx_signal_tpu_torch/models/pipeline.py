@@ -33,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
+from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
 from nx_signal_tpu_torch.kernels.dft import (
     _same_pad_left,
     fir_dft_fold_weights,
@@ -158,11 +158,14 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
       <= 1024 runs `kernels.dft.fir_framed_dft(output='power')`, which never
       builds the filtered signal (on a CUDA tensor kernel A at 'highest',
       kernel A-tc at 'high' and 'default'; `frame_chunks` shapes only its
-      plain path).
+      plain path). This fold costs O(n_fft^2) a frame, so it keeps the JAX
+      package's 1024 cut on every device.
     * Otherwise the filtered signal comes from `ops.convolution`:
       `fir_method` 'direct' (the Toeplitz conv1d), 'fft', or 'oa'
       (overlap-add, kernel C). Its power is `kernels.dft.framed_dft` (kernel
-      B-fft or B) for real input with frame_length <= fft_length <= 1024, and
+      B-fft, or B) for real input with frame_length <= fft_length where
+      `stft` would take it (`kernels.cuda_dft._auto_takes_kernel`: to 1024,
+      or on a CUDA float32 signal to the card's measured cut), and
       |stft|^2 (torch.fft) otherwise.
 
     Examples:
@@ -187,9 +190,9 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
     n_fft = fft_length
     frame_length = window.shape[-1]
     stride = frame_length - overlap_length
-    matmul_ok = (not x.is_complex() and good_matmul_fft_length(n_fft)
-                 and n_fft >= frame_length)
-    if not return_filtered and matmul_ok:
+    fused_ok = (not x.is_complex() and good_matmul_fft_length(n_fft)
+                and n_fft >= frame_length)
+    if not return_filtered and fused_ok:
         return fir_framed_dft(x, taps.reshape(-1), window, stride=stride, n_fft=n_fft,
                               onesided=onesided, precision=precision, output="power",
                               frame_chunks=frame_chunks)
@@ -199,9 +202,9 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
         y = oaconvolve(x, taps_b, mode="same")
     else:
         y = convolve(x, taps_b, mode="same", method=fir_method)
-    if matmul_ok:
-        # power straight from the [Re | Im] contraction ('valid' framing,
-        # the stft default)
+    if not y.is_complex() and n_fft >= frame_length and _auto_takes_kernel(y, n_fft):
+        # power straight from the framed DFT ('valid' framing, the stft
+        # default)
         power = framed_dft(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
                            precision=precision, output="power")
     else:

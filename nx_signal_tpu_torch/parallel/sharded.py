@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
+from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
 from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
 from nx_signal_tpu_torch.kernels.dft import (
     _check_precision,
@@ -279,7 +279,7 @@ def sharded_stft(x, window, *, mesh, sampling_rate=100, fft_length="power_of_two
 
     real_input = not x.is_complex()
     use_matmul = method == "matmul" or (
-        method == "auto" and real_input and good_matmul_fft_length(n_fft)
+        method == "auto" and real_input and _auto_takes_kernel(x, n_fft)
         and n_fft >= frame_length)
     # the single-device stft's guards
     if use_matmul and not real_input:

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.kernels.dft import _check_precision, framed_dft, good_matmul_fft_length
+from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
+from nx_signal_tpu_torch.kernels.dft import _check_precision, framed_dft
 from nx_signal_tpu_torch.ops.convolution import _float_cast, fir_convolve_1d
 from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.iir import _lfilter_last_axis, _sos_host, _work_dtype
@@ -187,7 +188,7 @@ class StreamingSTFT:
         n_fft = self.fft_length or frame_length
         dev = ext.device
         if (not ext.is_complex() and self._window_f64 is not None
-                and good_matmul_fft_length(n_fft) and n_fft >= frame_length):
+                and _auto_takes_kernel(ext, n_fft) and n_fft >= frame_length):
             window = _kept(self, ("f64", dev), lambda: torch.from_numpy(self._window_f64).to(dev))
             z = framed_dft(ext, window, stride=self.hop, n_fft=n_fft, onesided=self.onesided)
         else:

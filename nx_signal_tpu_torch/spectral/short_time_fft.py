@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fft_kernel_takes
 from nx_signal_tpu_torch.kernels.dft import framed_dft
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
 from nx_signal_tpu_torch.utils.devices import as_signal
@@ -34,7 +35,6 @@ __all__ = ["ShortTimeFFT", "closest_STFT_dual_window"]
 
 _FFT_MODES = ("twosided", "centered", "onesided", "onesided2X")
 _PAD_MODES = ("zeros", "edge", "even", "odd")
-_FFT_MIN, _FFT_MAX = 8, 1024  # the n_fft kernel B-fft takes
 
 
 def _canonical_dual(win, hop: int):
@@ -506,10 +506,11 @@ class ShortTimeFFT:
         if method not in ("auto", "fft", "matmul"):
             raise ValueError(f"fft_method must be 'auto', 'fft' or 'matmul', got {method!r}")
         takes = (detr is None and not np.iscomplexobj(self._win) and not x.is_complex()
-                 and _FFT_MIN <= self.mfft <= _FFT_MAX)
+                 and fft_kernel_takes(self.mfft))
         if method == "matmul":
             return takes
-        return method == "auto" and takes and x.is_cuda and x.dtype == torch.float32
+        return (method == "auto" and takes and x.is_cuda and x.dtype == torch.float32
+                and _auto_takes_kernel(x, self.mfft))
 
     def stft_detrend(self, x, detr, p0=None, p1=None, *, k_offset: int = 0,
                      padding: str = "zeros", axis: int = -1):

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
 from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul_fft_length
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for_windowing
 from nx_signal_tpu_torch.utils.devices import as_signal
@@ -141,7 +142,7 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
         )
     real_input = not data.is_complex()
     use_matmul = method == "matmul" or (
-        method == "auto" and real_input and good_matmul_fft_length(n_fft)
+        method == "auto" and real_input and _auto_takes_kernel(data, n_fft)
         and n_fft >= frame_length  # the contraction zero-pads; it cannot truncate
     )
     if use_matmul and not real_input:

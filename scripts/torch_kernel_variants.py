@@ -34,6 +34,17 @@ alternatives in one run, on one card.
    512, hop 128, n_fft 512), medians of 7 CUDA-event timings, in turns, two
    rounds; then the SM clock, power draw and temperature (nvidia-smi)
    during 3 s of back-to-back calls of D and of A.
+5. Kernel B-fft's mixed-radix table (`kernels/csrc/framed_fft.cu`): the
+   source compiled again with NX_FFT_L2_TABLE_POINTS set to 0 (every CTA
+   reads the plan's table from global memory, through L2) and to 2^30
+   (the table staged in shared memory wherever it fits) beside the built
+   one (staged up to 2048 points), each checked bitwise against the built
+   one (the same arithmetic), at 64 x 480000 with a hann frame of n_fft at
+   hop n_fft / 4, on 13-smooth and Bluestein lengths from 600 to 4095,
+   medians of 7 CUDA-event timings, in turns (built, L2, staged, staged,
+   L2, built).
+
+    python3 scripts/torch_kernel_variants.py 5   # section 5 alone
 
 Prints the card's name and power limit first. Imports nothing of JAX.
 """
@@ -53,7 +64,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from nx_signal_tpu_torch.kernels import cuda_dft  # noqa: E402
-from nx_signal_tpu_torch.kernels.cuda_dft import _pack_plan  # noqa: E402
+from nx_signal_tpu_torch.kernels.cuda_dft import _device_fft_plan, _pack_plan  # noqa: E402
 from nx_signal_tpu_torch.kernels._build import _CSRC, _NVCC_FLAGS, _nvcc, load_library  # noqa: E402
 from nx_signal_tpu_torch.kernels.dft import (  # noqa: E402
     _fft_plan, _fft_twiddles, fir_dft_fold_weights, shared_fold_weights, shared_twiddles)
@@ -319,6 +330,48 @@ def _fft_kernels(dev, gen):
           f"mixed radix {t[1]:.3f} / {t[2]:.3f} ms", flush=True)
 
 
+def _fft_table_in_l2(dev, gen, tmp):
+    libs = {"built": load_library()}
+    for name, points in (("L2", 0), ("staged", 1 << 30)):
+        lib = os.path.join(tmp, f"fft_table_{name}.so")
+        subprocess.run([_nvcc(), *_NVCC_FLAGS, f"-DNX_FFT_L2_TABLE_POINTS={points}", "-shared",
+                        "-o", lib, str(_CSRC / "framed_fft.cu")], check=True,
+                       capture_output=True, text=True)
+        libs[name] = ctypes.CDLL(lib)
+        libs[name].nx_framed_fft_f32.argtypes = libs["built"].nx_framed_fft_f32.argtypes
+        libs[name].nx_framed_fft_f32.restype = ctypes.c_int
+    x = torch.randn((64, 480000), generator=gen, device=dev)
+    # 13-smooth: 600, 3000, 4095; Bluestein: 1018 (M 1024), 1021 (M 2048),
+    # 1031 (M 2079), 2047 (M 4095), 4094 (M 4095)
+    for n_fft in (600, 3000, 4095, 1018, 1021, 1031, 2047, 4094):
+        hop, bins = n_fft // 4, n_fft // 2 + 1
+        win = hann(n_fft, device=dev)
+        table, packed, points = _device_fft_plan(n_fft, dev)
+        frames = (x.shape[-1] - n_fft) // hop + 1
+        outs, runs = {}, {}
+        for name, variant in libs.items():
+            out = outs[name] = torch.empty((64, frames, bins), dtype=torch.complex64, device=dev)
+
+            def run(variant=variant, out=out):
+                err = variant.nx_framed_fft_f32(
+                    x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), 64,
+                    x.shape[-1], hop, n_fft, n_fft, frames, bins, packed, points, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"framed_fft failed ({err})")
+            runs[name] = run
+            run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(torch.view_as_real(outs["built"]), torch.view_as_real(outs[n]))
+                   for n in ("L2", "staged"))
+        t = [_median_ms(runs[n]) for n in ("built", "L2", "staged", "staged", "L2", "built")]
+        print(f"  B-fft n_fft {n_fft} (M {points or n_fft}) hop {hop}: built {t[0]:.3f} / "
+              f"{t[5]:.3f} ms, table in L2 {t[1]:.3f} / {t[4]:.3f} ms, staged where it fits "
+              f"{t[2]:.3f} / {t[3]:.3f} ms, bitwise equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"n_fft {n_fft}: where the table lives changed the result")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
@@ -327,9 +380,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
+        if sys.argv[1:] == ["5"]:
+            _fft_table_in_l2(dev, gen, tmp)
+            return 0
         _ring(dev, gen, tmp)
         _tc_groups(dev, gen, tmp)
         _shared_tiles(dev, gen, tmp)
+        _fft_table_in_l2(dev, gen, tmp)
     _fft_kernels(dev, gen)
     return 0
 

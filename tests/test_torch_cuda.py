@@ -61,7 +61,9 @@ def assert_close_per_bin(got, want, rel=1e-4):
 def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     """Kernels A and B against their plain versions at 1e-4 x max
     (chip_smoke.py is the check that runs them at the main path's
-    shapes)."""
+    shapes); framed_dft takes B-fft at n_fft 1031, 2048, 4093 and 4096 and
+    at a frame longer than n_fft (400 at n_fft 256), and the dense B only
+    past B-fft's 4096."""
     need_cuda()
     x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32)).cuda()
     taps, window = rng.normal(size=100), hann_np(400)
@@ -77,10 +79,18 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    kw = dict(stride=150, n_fft=1031, onesided=True, output=output)   # past B-fft's 1024
-    before = cuda_dft.framed_dft_cuda.launches
+    for n_fft in (1031, 2048, 4093, 4096, 256):
+        kw = dict(stride=150, n_fft=n_fft, onesided=True, output=output)
+        before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
+        got = td.framed_dft(x, window, **kw)
+        assert (cuda_dft.framed_fft_cuda.launches,
+                cuda_dft.framed_dft_cuda.launches) == (before[0] + 1, before[1])
+        assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
+    kw = dict(stride=150, n_fft=4100, onesided=True, output=output)   # past B-fft's 4096
+    before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
     got = td.framed_dft(x, window, **kw)
-    assert cuda_dft.framed_dft_cuda.launches == before + 1
+    assert (cuda_dft.framed_fft_cuda.launches,
+            cuda_dft.framed_dft_cuda.launches) == (before[0], before[1] + 1)
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
 
 
@@ -100,13 +110,21 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     (2, 20001, 512, 128, 1021, True),   # a prime: Bluestein, M = 2048, two frames per FFT
     (2, 20001, 1018, 128, 1018, False),  # 2 * 509: Bluestein, M = 1024
     (3, 20001, 900, 333, 997, True),    # a prime, M = 2000
+    (2, 20001, 1031, 256, 1031, True),  # a prime, M = 2079
+    (2, 30001, 2048, 512, 2048, True),  # radix 8, 128 threads a frame
+    (1, 30001, 4093, 1024, 4093, True),  # a prime, M = 8190: the table read from L2
+    (2, 30001, 4094, 1024, 4094, False),  # 2 * 23 * 89: Bluestein, M = 4095
+    (1, 40001, 4096, 1024, 4096, True),  # radix 8, 256 threads a frame
+    (2, 20001, 1024, 128, 512, True),   # a frame of 2 x n_fft, folded
+    (1, 40001, 8192, 1024, 4096, False),  # the same at B-fft's largest
+    (1, 40001, 8186, 1024, 4093, True),  # and on Bluestein's largest M
 ])
 @pytest.mark.parametrize("output", ["complex", "power"])
 def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
     """Kernel B-fft (an FFT per frame: radix 8 for a power of two, the
-    mixed-radix plan for a 13-smooth n_fft, Bluestein's otherwise) against
-    its plain version (the dense contraction), per bin at 1e-4 of the bin's
-    max."""
+    mixed-radix plan for a 13-smooth n_fft, Bluestein's otherwise; a frame
+    longer than n_fft folded modulo n_fft) against its plain version (the
+    dense contraction), per bin at 1e-4 of the bin's max."""
     need_cuda()
     ch, n, frame, hop, n_fft, onesided = geometry
     x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()

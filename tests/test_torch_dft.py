@@ -113,10 +113,14 @@ FRAMED_GEOMETRIES = [  # channels, length, frame, hop, n_fft
     (2, 3000, 400, 160, 400),   # Whisper's frame, hop and n_fft
     (3, 3000, 441, 147, 441),   # odd n_fft: two frames per complex FFT
     (2, 3000, 500, 128, 1000),  # n_fft 2^3 * 5^3
-    (2, 3000, 512, 128, 572),   # 2^2 * 11 * 13: the dense kernel B
+    (2, 3000, 512, 128, 572),   # 2^2 * 11 * 13: the mixed-radix B-fft, radices 2, 13, 11
     (2, 1000, 12, 5, 16),       # the FFT kernel's small sizes
     (1, 500, 5, 3, 8),
-    (1, 5000, 1000, 300, 1024),  # its largest
+    (1, 5000, 1000, 300, 1024),
+    (2, 3000, 700, 128, 512),   # a frame longer than n_fft: folded modulo n_fft
+    (1, 4000, 1500, 300, 1031),  # the same, odd n_fft on Bluestein's transform
+    (1, 6000, 2048, 512, 2048),  # librosa's default n_fft
+    (1, 9000, 4093, 1024, 4093),  # a prime near B-fft's largest: Bluestein, M = 8190
 ]
 
 
@@ -138,12 +142,12 @@ def test_framed_dft(geometry, onesided, output, rng):
 @pytest.mark.parametrize("n_fft,kernel", [(8, "fft"), (16, "fft"), (512, "fft"), (1024, "fft"),
                                           (400, "fft"), (441, "fft"), (600, "fft"),
                                           (1000, "fft"), (4, "dense"), (572, "fft"),
-                                          (1021, "fft"), (2048, "dense")])
+                                          (1021, "fft"), (2048, "fft"), (4097, "dense")])
 def test_framed_dft_kernel_split(n_fft, kernel, rng):
-    """framed_dft takes kernel B-fft for every n_fft from 8 to 1024 (572
-    and 1021 included) and the dense kernel B for any other; on a CPU
-    tensor both wrappers are the same plain version, so their results are
-    equal bitwise."""
+    """framed_dft takes kernel B-fft for every n_fft from 8 to 4096 (572,
+    1021 and 2048 included) and the dense kernel B for an n_fft below 8 or
+    above 4096; on a CPU tensor both wrappers are the same plain version,
+    so their results are equal bitwise."""
     assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
     frame = min(n_fft, 400)
     x = torch.from_numpy(rng.normal(size=(2, 3 * frame + 7)).astype(np.float32))
@@ -158,8 +162,20 @@ def test_framed_dft_kernel_split(n_fft, kernel, rng):
     assert torch.equal(td.framed_dft(x, window, stride=3, n_fft=n_fft, onesided=True), dense)
 
 
-THIRTEEN_SMOOTH = [n for n in range(8, 1025) if cuda_dft._thirteen_smooth(n)]
-BLUESTEIN = [n for n in range(8, 1025) if not cuda_dft._thirteen_smooth(n)]
+# every n_fft to 1024, and past it a fixed list up to B-fft's largest
+PAST_1024 = [1025, 1031, 1100, 1536, 2000, 2047, 2048, 2049, 2187, 3000, 4093, 4094, 4095,
+             4096]
+THIRTEEN_SMOOTH = [n for n in [*range(8, 1025), *PAST_1024] if cuda_dft._thirteen_smooth(n)]
+BLUESTEIN = [n for n in [*range(8, 1025), *PAST_1024] if not cuda_dft._thirteen_smooth(n)]
+
+
+def assert_buffers_fit(plan):
+    """Past `_FULL_PAD_POINTS` no pass's padding adds more than 1/8 to its
+    buffer, so that framed_fft.cu's two M-point buffers fit in shared
+    memory."""
+    if plan.points > td._FULL_PAD_POINTS:
+        groups = np.cumprod(plan.radices)
+        assert all(8 * c <= g for c, g in zip(plan.pads, groups))
 
 
 def replay_passes(plan, first, table, off):
@@ -233,9 +249,9 @@ def replay_fft_plan(n_fft, frames, bluestein=False, dtype=np.complex128):
 def test_fft_plan_replays_to_numpy(n_fft, rng):
     """The host plan of kernel B-fft (radices, paddings, per-pass twiddle
     tables) replayed as the kernel indexes it gives np.fft's spectrum, for
-    every 13-smooth n_fft from 8 to 1024, even and odd, at 1e-12 of the
-    max; no slot of a padded buffer is read unwritten, and the tables are
-    used up exactly."""
+    every 13-smooth n_fft from 8 to 1024 and those of `PAST_1024`, even and
+    odd, at 1e-12 of the max; no slot of a padded buffer is read unwritten,
+    and the tables are used up exactly."""
     frames = rng.normal(size=(2, n_fft))
     got, want = replay_fft_plan(n_fft, frames), np.fft.rfft(frames)
     assert np.isfinite(got).all()
@@ -244,6 +260,7 @@ def test_fft_plan_replays_to_numpy(n_fft, rng):
     assert plan.points == plan.length
     assert np.prod(plan.radices) == plan.length and plan.pads[-1] == 0
     assert all(0 <= c < 16 for c in plan.pads) and len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+    assert_buffers_fit(plan)
 
 
 @pytest.mark.parametrize("n_fft", BLUESTEIN)
@@ -252,8 +269,9 @@ def test_bluestein_plan_replays_to_numpy(n_fft, rng):
     spectrum, the M-point passes, the product, the inverse as conj-FFT-conj
     and the post-pass) replayed in f64 as the kernel indexes it gives
     np.fft's spectrum at 1e-12 of the max, for every n_fft from 8 to 1024
-    with a prime factor above 13; M is the smallest 13-smooth length >= 2L
-    - 1 and fits the kernel's limits."""
+    with a prime factor above 13 and those of `PAST_1024`; M is the smallest
+    13-smooth length >= 2L - 1 and fits the kernel's limits (M <= 4096 for
+    even n_fft, <= 8192 for odd)."""
     frames = rng.normal(size=(2, n_fft))
     got, want = replay_fft_plan(n_fft, frames, bluestein=True), np.fft.rfft(frames)
     assert np.isfinite(got).all()
@@ -262,9 +280,11 @@ def test_bluestein_plan_replays_to_numpy(n_fft, rng):
     assert plan.length == (n_fft // 2 if n_fft % 2 == 0 else n_fft)
     assert plan.points >= 2 * plan.length - 1 and np.prod(plan.radices) == plan.points
     assert not any(cuda_dft._thirteen_smooth(m) for m in range(2 * plan.length - 1, plan.points))
-    assert plan.points <= (1024 if n_fft % 2 == 0 else 2048)
+    limit = cuda_dft._FFT_MAX_POINTS
+    assert plan.points <= (limit // 2 if n_fft % 2 == 0 else limit)
     assert plan.pads[-1] == 0 and all(0 <= c < 16 for c in plan.pads)
     assert len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+    assert_buffers_fit(plan)
 
 
 @pytest.mark.parametrize("n_fft", BLUESTEIN)
@@ -279,6 +299,106 @@ def test_bluestein_plan_f32_accuracy(n_fft, rng):
     assert got.dtype == np.complex64 and got.shape == want.shape
     err, scale = np.abs(got - want).max(axis=0), np.abs(want).max(axis=0)
     assert (err <= 1e-4 * scale).all(), float((err / scale).max())
+
+
+def fold_frames(frames, n_fft):
+    """Windowed frames longer than n_fft folded modulo n_fft as kernel
+    B-fft's load folds them (framed_fft.cu): xw[i] = sum_q frame[i + q n_fft]."""
+    count, length = frames.shape
+    padded = np.zeros((count, -(-length // n_fft) * n_fft))
+    padded[:, :length] = frames
+    return padded.reshape(count, -1, n_fft).sum(axis=1)
+
+
+@pytest.mark.parametrize("n_fft", [64, 441, 600, 1031])
+@pytest.mark.parametrize("ratio", [1.5, 3])
+def test_fold_modulo_n_fft_replays_to_numpy_and_jax(n_fft, ratio, rng):
+    """Four hann-windowed frames of 1.5x and 3x n_fft folded modulo n_fft
+    as kernel B-fft's load folds them, then its plan replayed in f64 (the
+    mixed-radix plan, Bluestein's at the prime 1031; the power-of-two
+    kernel folds in its load the same way): np.fft.rfft of the folded
+    frames at 1e-12 of the max, and the JAX package's framed_dft (its
+    frame_length-row weights, e^{-2 pi i k t / n_fft} periodic in t) at
+    1e-4 of the max."""
+    frame, hop = int(ratio * n_fft), n_fft // 3
+    x = rng.normal(size=frame + 3 * hop).astype(np.float32)
+    window = hann_np(frame)
+    frames = np.lib.stride_tricks.sliding_window_view(x.astype(np.float64), frame)[::hop]
+    folded = fold_frames(frames * window, n_fft)
+    got = replay_fft_plan(n_fft, folded, bluestein=not cuda_dft._thirteen_smooth(n_fft))
+    want = np.fft.rfft(folded)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    jax_z = jd.framed_dft(jnp.asarray(x), window, stride=hop, n_fft=n_fft, onesided=True)
+    assert_close_to_max(got.astype(np.complex64), np.asarray(jax_z))
+
+
+@pytest.mark.parametrize("budget_gib", [40, 10, 3])
+def test_auto_frame_chunks_matches_jax(budget_gib, monkeypatch):
+    """The port's frame-chunk plan equals the JAX package's at the same
+    budget (the JAX module's `_hbm_budget` patched in this test only): the
+    bench chain at 768 x 480 000 fits 40 GiB unchunked (1), and 10 and 3
+    GiB need chunks. On a CPU tensor there is no budget, so 'auto' is 1."""
+    budget = budget_gib * 1024 ** 3
+    monkeypatch.setattr(jd, "_hbm_budget", lambda: budget)
+    args = (768, 3747, 514, 768 * 480000)
+    want = jd._auto_frame_chunks(*args)
+    assert td._auto_frame_chunks(*args, budget) == want
+    assert (want == 1) == (budget_gib == 40)
+    assert td._memory_budget(torch.device("cpu")) is None
+    assert td._auto_frame_chunks(*args, None) == 1
+
+
+def _route_call(route, x, n_fft):
+    """One call of a public route of the framed DFT at this n_fft (hann
+    frame of n_fft, hop n_fft / 4)."""
+    import importlib
+
+    from nx_signal_tpu_torch.models.pipeline import stft_fir_chain
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel.streaming import StreamingSTFT
+    from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
+
+    window, hop = hann(n_fft), n_fft // 4
+    if route == "stft":
+        importlib.import_module("nx_signal_tpu_torch.spectral.stft").stft(
+            x, window, sampling_rate=1.0, fft_length=n_fft, overlap_length=n_fft - hop)
+    elif route == "streaming":
+        proc = StreamingSTFT(window, hop=hop, onesided=True)
+        proc.process(proc.init_state(x.shape[:-1], device="cpu"), x)
+    elif route == "filtered_chain":
+        stft_fir_chain(x, np.ones(5) / 5, window, fft_length=n_fft, overlap_length=n_fft - hop)
+    else:
+        ShortTimeFFT(window.numpy(), hop, 1.0, mfft=n_fft).stft(x)
+
+
+ROUTE_MODULES = {"stft": "nx_signal_tpu_torch.spectral.stft",
+                 "streaming": "nx_signal_tpu_torch.parallel.streaming",
+                 "filtered_chain": "nx_signal_tpu_torch.models.pipeline",
+                 "short_time_fft": "nx_signal_tpu_torch.spectral.short_time_fft"}
+
+
+@pytest.mark.parametrize("n_fft", [1024, 2048])
+@pytest.mark.parametrize("route", sorted(ROUTE_MODULES))
+def test_cpu_routes_keep_the_jax_cut(route, n_fft, monkeypatch, rng):
+    """On a CPU tensor method='auto' sends the framed DFT where the JAX
+    package sends it: `stft`, `StreamingSTFT` and the filtered
+    `stft_fir_chain` to framed_dft up to 1024 and to torch.fft past it
+    (`stft` at 2048 runs torch.fft), `ShortTimeFFT` to its FFT at any
+    mfft (the JAX package keeps its matmul DFT off the CPU); the card's own
+    cut (`_auto_takes_kernel`) applies to CUDA float32 tensors only, and
+    `good_matmul_fft_length` is the JAX function."""
+    import importlib
+
+    calls = []
+    module = importlib.import_module(ROUTE_MODULES[route])
+    real = module.framed_dft
+    monkeypatch.setattr(module, "framed_dft",
+                        lambda *a, **k: calls.append(k["n_fft"]) or real(*a, **k))
+    x = torch.from_numpy(rng.normal(size=(2, 3 * n_fft)).astype(np.float32))
+    _route_call(route, x, n_fft)
+    jax_cut = jd.good_matmul_fft_length(n_fft) and route != "short_time_fft"
+    assert calls == ([n_fft] if jax_cut else [])
+    assert cuda_dft._auto_takes_kernel(x, n_fft) == jd.good_matmul_fft_length(n_fft)
 
 
 @pytest.mark.parametrize("num_taps,frame,n_fft,onesided", [
@@ -376,7 +496,7 @@ def test_fir_framed_dft_power_nan_bins_match_jax(pos, rng):
     assert_close_to_max(np.where(finite, got, 0.0), np.where(finite, want, 0.0))
 
 
-@pytest.mark.parametrize("n_fft", [8, 512, 1024])
+@pytest.mark.parametrize("n_fft", [8, 512, 1024, 4096])
 def test_fft_twiddles(n_fft):
     want = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
     got = td._fft_twiddles(n_fft).numpy()
@@ -546,13 +666,15 @@ def test_ctypes_signatures_match_the_sources(name):
 
 @pytest.mark.parametrize("source,constants", [
     ("framed_fft.cu", {"kMinFft": "_FFT_MIN", "kMaxFft": "_FFT_MAX",
-                       "kMaxPasses": "_FFT_MAX_PASSES"}),
+                       "kMaxPasses": "_FFT_MAX_PASSES", "kMaxPoints": "_FFT_MAX_POINTS",
+                       "kLargeFft": "_FULL_PAD_POINTS"}),
     ("framed_dft.cu", {"kTileBins": "_A_TILE_BINS", "kChunk": "_A_CHUNK"}),
     ("framed_dft_tc.cu", {"kTileBins": "_TC_TILE_BINS", "kChunk": "_TC_CHUNK"}),
 ])
 def test_kernel_constants_match_the_sources(source, constants):
-    """The wrappers' copies of each kernel's limits and weight layout equal
-    the constants the CUDA source declares."""
+    """The wrappers' copies of each kernel's limits and weight layout (and
+    the plans' padding threshold of kernels/dft.py) equal the constants the
+    CUDA source declares."""
     import re
     from pathlib import Path
 
@@ -561,4 +683,5 @@ def test_kernel_constants_match_the_sources(source, constants):
     text = Path(_build._CSRC, source).read_text()
     for c_name, py_name in constants.items():
         value = re.search(rf"constexpr int {c_name} = (\d+);", text).group(1)
-        assert int(value) == getattr(cuda_dft, py_name), c_name
+        assert int(value) == getattr(cuda_dft if hasattr(cuda_dft, py_name) else td,
+                                     py_name), c_name
