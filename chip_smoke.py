@@ -58,8 +58,10 @@ Phases (any failure raises, and the exit code is not 0):
      use.
   3. the fused chain, models.pipeline.stft_fir_chain(return_filtered=False,
      precision='high') on 768 x 480000 (kernel A-tc), then the same chain
-     as the module StftFirChain, exact f32 (kernel A), each held on two
-     channels against the f64 numpy reference, per bin.
+     as the module StftFirChain(precision='high') (A-tc exactly once, A
+     never; whether its power is bitwise the function's is printed) and
+     StftFirChain, exact f32 (kernel A), each held on two channels against
+     the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
      the public functions (B-fft, C); interior reconstruction error <= 1e-5
      x max|x|; then istft(onesided=False) of the two-sided spectrum (C
@@ -304,6 +306,25 @@ Phases (any failure raises, and the exit code is not 0):
      device_hbm_bandwidth(); slope_rate between 2^27 and 2^28; trace writes
      a Chrome trace holding at least one CUDA kernel event; count_nonfinite
      of a 2^28 tensor with 3 infs gives 3, and assert_all_finite raises.
+ 15. the device rule (utils/devices.py) on the card: every entry point given
+     no tensor (the windows, firwin, firwin_2d, savgol_coeffs, the frequency
+     responses, max_len_seq, firwin2, firls, remez, minimum_phase,
+     mel_filters, fft_frequencies, unit_impulse, the wavelets, the chirp-z
+     points, the fold weights and twiddles, FIRFilterChain.design), called
+     with no device=, returns CUDA tensors equal to its device='cpu' build:
+     bit for bit where the values are built on the host and moved, within
+     1e-6 of the max for float32 / complex64 values computed on the card
+     (mel_filters 1e-5, its gate against the JAX package) and 1e-12 for
+     f64 / complex128 ones, every miss listed; the port's internal host paths
+     on an 8 x 48000 CUDA signal against the same calls on its CPU copy
+     (ShortTimeFFT.from_window('hann') within 1e-4 of the max, check_COLA
+     of a named window, resample_poly and decimate with their default taps,
+     demodulate_channel and StreamingPFB with its default prototype, within
+     1e-5); then the count and bytes of the host-to-device copies of the
+     second call (torch.profiler's trace of the card) of stft(x, hann(512)),
+     LogMelFrontend()(x) and FIRFilterChain()(x) on 8 x 480000, each beside
+     the same work with its window, filterbank or taps built on the CPU,
+     which it must not exceed.
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
@@ -691,7 +712,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((channels, length), generator=gen, device=dev)  # the same on every rank
     x_small = x[:small]
-    taps = firwin(num_taps, [2000.0], sampling_rate=rate)
+    taps = firwin(num_taps, [2000.0], sampling_rate=rate, device=dev)
     for mesh, sig, tag in ((mesh14, x, "(1, 4)"), (mesh22, x_small, "(2, 2)")):
         name = f"sharded_convolve_same {tag} {tuple(sig.shape)}"
         run_path(name, {E: 1}, lambda: out.update(
@@ -711,7 +732,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
             raise AssertionError(f"rank {rank}: {name} off the single-device call by {err}")
         del y, ref, got
 
-    window = hann(frame)
+    window = hann(frame, device=dev)
     num_frames = (length - frame) // hop + 1
     for precision, kernel in (("highest", A), ("high", A_tc), ("default", A_tc)):
         name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length} precision={precision}"
@@ -1032,7 +1053,7 @@ def _phase9(kernels, launches, dev, channels, length, rate):
     # f64 torch.fft route on the CPU, and the fold bitwise against C's plain
     # version on the same frames
     hop = 128
-    sft = ShortTimeFFT(hann(seg, dtype=torch.float64).numpy(), hop, rate)
+    sft = ShortTimeFFT(hann(seg, dtype=torch.float64, device="cpu").numpy(), hop, rate)
 
     def sft_round_trip():
         out["z"] = sft.stft(x64)
@@ -1244,7 +1265,7 @@ def _phase11(kernels, dev):
         lambda: ss.fftconvolve(xh, h2047.double().numpy()[None], axes=-1), rel=1e-5,
         bound=(8 * (n60 + 2046) * 2047 * 2.0, 4.0 * 8 * (2 * n60 + 2046)))
     del x8
-    taps = firwin(129, [2000.0], sampling_rate=rate).double().numpy()
+    taps = firwin(129, [2000.0], sampling_rate=rate, device="cpu").double().numpy()
     run(f"demodulate_channel(x, 12000, 48000, bandwidth=4000, decimation=6) 64x{n60}",
         lambda: demodulate_channel(x, 12000.0, rate, bandwidth=4000.0, decimation=6),
         lambda: ss.resample_poly(xh * lo_f64(n60, 12000.0), 1, 6, window=taps, axis=-1),
@@ -1274,7 +1295,7 @@ def _phase11(kernels, dev):
     xph = host(xp)
     for m, tpc, strategy, used in ((64, 8, "auto", "factored"), (1024, 8, "auto", "factored"),
                                    (16, 8, "matmul", "matmul")):
-        proto = firwin(m * tpc, [1.0 / m], window=("kaiser", 5.0)).double().numpy()
+        proto = firwin(m * tpc, [1.0 / m], window=("kaiser", 5.0), device="cpu").double().numpy()
         frames = (n5 - m * tpc) // m + 1
         run(f"pfb_analyze {m} bands, tpc {tpc}, strategy={strategy!r} ('{used}') 8x{n5}",
             lambda: pfb_analyze(xp, m, taps_per_channel=tpc, strategy=strategy),
@@ -1285,7 +1306,7 @@ def _phase11(kernels, dev):
     del xp, xph
     n_stream = 100_000_000
     xs = randn(14, (1, n_stream))
-    proto = firwin(8192, [1.0 / 1024], window=("kaiser", 5.0)).double().numpy()
+    proto = firwin(8192, [1.0 / 1024], window=("kaiser", 5.0), device="cpu").double().numpy()
     frames = (n_stream - 8192) // 1024 + 1
     run(f"pfb_analyze 1024 bands, tpc 8 ('factored') on one stream of {n_stream} samples",
         lambda: pfb_analyze(xs, 1024), lambda: pfb_f64(host(xs), 1024, 8, proto), rel=1e-5,
@@ -1429,7 +1450,7 @@ def _phase12(kernels, dev):
         # StreamingFIR and StreamingIIR at 768 x 480000, chunks of 48000
         x = randn(12, (768, 480000))
         chunks = list(x.split(48000, dim=-1))
-        taps = firwin(255, [2000.0], sampling_rate=48000.0)
+        taps = firwin(255, [2000.0], sampling_rate=48000.0, device="cpu")
         fir = streaming.StreamingFIR(taps)
         full = main_path("StreamingFIR 768x480000", fir, fir.init_state((768,)), chunks)
         want = convolve(x, taps.to(dev).reshape(1, -1), mode="full")[..., :480000]
@@ -1459,7 +1480,7 @@ def _phase12(kernels, dev):
         # hann 512, hop 128, the full spectrum
         x = randn(13, (64, 480000))
         chunks = list(x.split(48000, dim=-1))
-        w, hop, lead = hann(512), 128, 512 - 128
+        w, hop, lead = hann(512, device="cpu"), 128, 512 - 128
         enc, dec = streaming.StreamingSTFT(w, hop=hop), streaming.StreamingISTFT(w, hop=hop)
         zs = main_path("StreamingSTFT 64x480000", enc, enc.init_state((64,)), chunks, (B_fft,),
                        exact={B_fft: len(chunks)})
@@ -2162,6 +2183,223 @@ def _phase14(kernels, dev, sizes=_PHASE14_SIZES):
     return times
 
 
+def _h2d_copies(fn):
+    """(count, bytes) of the host-to-device copies of the second of two
+    calls of fn, read from a torch.profiler trace of the card (bytes None
+    where the trace gives none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    copies = [e for e in events if "HtoD" in e.get("name", "")]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    return len(copies), (None if None in sizes else int(sum(sizes)))
+
+
+def _phase15(kernels, dev):
+    """Phase 15 (see the module docstring): the device rule on the card.
+    Every entry point given no tensor, called with no device=, builds on
+    the card and equals its device='cpu' build; the port's internal host
+    paths run on a CUDA signal; the host-to-device copies of three paths'
+    second call, with the window or taps built on the CPU and by default.
+    Returns {path: (count, bytes)}."""
+    import numpy as np
+    import torch
+
+    from nx_signal_tpu_torch.kernels import dft
+    from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, LogMelFrontend
+    from nx_signal_tpu_torch.ops import czt, filters, fir_design, waveforms, wavelets, windows
+    from nx_signal_tpu_torch.ops.convolution import oaconvolve
+    from nx_signal_tpu_torch.ops.iir_design import butter
+    from nx_signal_tpu_torch.ops.mixing import demodulate_channel
+    from nx_signal_tpu_torch.ops.resample import decimate, resample_poly
+    from nx_signal_tpu_torch.parallel.streaming import StreamingPFB
+    from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
+    from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
+    from nx_signal_tpu_torch.spectral.stft import check_COLA, fft_frequencies, stft
+
+    t_phase = time.perf_counter()
+    card = _gpu_name_and_power_limit()
+    for kernel in kernels:
+        kernel.launches = 0
+    rate = 48000.0
+    taps = filters.firwin(255, [2000.0], sampling_rate=rate, device="cpu").numpy()
+    window = windows.hann(512, device="cpu").numpy()
+    ba = butter(4, 0.2)
+    sos = butter(8, 0.1, output="sos")
+    zpk = butter(4, 0.2, output="zpk")
+    w_czt, a_czt = np.exp(-0.002j), np.exp(0.1j)
+    # (name, build(**device), gate): 0 is bit for bit (built on the host and
+    # moved), else the largest |default - cpu| over max|cpu| (computed on
+    # the device: 1e-6 for float32 / complex64, 1e-12 for f64 / complex128;
+    # mel_filters 1e-5, its gate against the JAX package, for its float32
+    # exp differs by ulps between libraries and its triangles' edges are
+    # differences of nearly equal frequencies)
+    host, f32, f64 = 0.0, 1e-6, 1e-12
+    cases = [
+        *[(name, lambda n=name, **kw: getattr(windows, n)(512, **kw), f32)
+          for name in ("hann", "hamming", "blackman", "bartlett", "triangular", "triang")],
+        *[(name, lambda n=name, **kw: getattr(windows, n)(512, **kw), host)
+          for name in ("rectangular", "boxcar", "kaiser", "blackmanharris", "nuttall",
+                       "flattop", "bohman", "cosine", "barthann", "parzen", "lanczos", "tukey",
+                       "exponential", "taylor", "chebwin")],
+        ("general_cosine", lambda **kw: windows.general_cosine(512, [0.5, 0.3, 0.2], **kw),
+         host),
+        ("general_hamming", lambda **kw: windows.general_hamming(512, 0.6, **kw), host),
+        ("gaussian", lambda **kw: windows.gaussian(512, 60.0, **kw), host),
+        ("general_gaussian", lambda **kw: windows.general_gaussian(512, 1.5, 60.0, **kw), host),
+        ("dpss", lambda **kw: windows.dpss(512, 3.0, 4, **kw), host),
+        ("kaiser_bessel_derived", lambda **kw: windows.kaiser_bessel_derived(512, 4.0, **kw),
+         host),
+        ("get_window hann", lambda **kw: windows.get_window("hann", 512, periodic=True, **kw),
+         f32),
+        ("get_window kaiser", lambda **kw: windows.get_window(("kaiser", 8.0), 512, **kw),
+         host),
+        ("firwin", lambda **kw: filters.firwin(255, [2000.0], sampling_rate=rate, **kw), f32),
+        ("firwin_2d", lambda **kw: filters.firwin_2d((31, 63), ("hamming", "hann"), fc=0.4,
+                                                     **kw), f32),
+        ("firwin_2d circular", lambda **kw: filters.firwin_2d((63, 31), "hamming", fc=0.3,
+                                                              circular=True, **kw), f32),
+        ("savgol_coeffs", lambda **kw: filters.savgol_coeffs(31, 3, **kw), host),
+        ("freqz", lambda **kw: filters.freqz(taps, n_freqs=8192, **kw), f64),
+        ("freqz iir", lambda **kw: filters.freqz(*ba, n_freqs=8192, whole=True, **kw), f64),
+        ("sosfreqz", lambda **kw: filters.sosfreqz(sos, n_freqs=8192, **kw), f64),
+        ("freqz_sos", lambda **kw: filters.freqz_sos(sos, n_freqs=8192, **kw), f64),
+        ("freqz_zpk", lambda **kw: filters.freqz_zpk(*zpk, n_freqs=8192, **kw), f64),
+        ("freqs", lambda **kw: filters.freqs([1.0], [1.0, 2.0, 5.0], 2000, **kw), f64),
+        ("freqs_zpk", lambda **kw: filters.freqs_zpk([-0.5], [-1.0 + 2.0j, -1.0 - 2.0j], 3.0,
+                                                     2000, **kw), f64),
+        ("group_delay", lambda **kw: filters.group_delay([1.0, 0.5], [1.0, -0.4, 0.2],
+                                                         n_freqs=8192, **kw), f64),
+        ("max_len_seq", lambda **kw: filters.max_len_seq(16, **kw)[0], host),
+        ("firwin2", lambda **kw: fir_design.firwin2(255, [0.0, 0.1, 0.2, 1.0],
+                                                    [1.0, 1.0, 0.0, 0.0], **kw), host),
+        ("firls", lambda **kw: fir_design.firls(255, [0.0, 0.1, 0.2, 1.0],
+                                                [1.0, 1.0, 0.0, 0.0], **kw), host),
+        ("remez", lambda **kw: fir_design.remez(255, [0.0, 0.04, 0.05, 0.5], [1.0, 0.0],
+                                                sampling_rate=1.0, **kw), host),
+        ("minimum_phase", lambda **kw: fir_design.minimum_phase(taps, **kw), host),
+        ("mel_filters", lambda **kw: mel_filters(512, 80, 16000.0, **kw), 1e-5),
+        ("fft_frequencies", lambda **kw: fft_frequencies(16000.0, fft_length=512, **kw), f32),
+        ("unit_impulse", lambda **kw: waveforms.unit_impulse((64, 64), index="midpoint", **kw),
+         host),
+        ("ricker", lambda **kw: wavelets.ricker(1024, 8.0, **kw), host),
+        ("morlet", lambda **kw: wavelets.morlet(1024, 6.0, 1.0, **kw), host),
+        ("morlet2", lambda **kw: wavelets.morlet2(1024, 8.0, **kw), host),
+        ("qmf", lambda **kw: wavelets.qmf(taps, **kw), host),
+        ("czt_points", lambda **kw: czt.czt_points(4096, w_czt, a_czt, **kw), host),
+        ("CZT.points", lambda **kw: czt.CZT(4096, 1024, w_czt, a_czt).points(**kw), host),
+        ("ZoomFFT.points", lambda **kw: czt.ZoomFFT(4096, [0.1, 0.2], 1024).points(**kw),
+         host),
+        ("_CztPlan.points", lambda **kw: czt._CztPlan(4096, 1024).points(**kw), host),
+        ("fir_dft_fold_weights", lambda **kw: dft.fir_dft_fold_weights(taps, window, 512, True,
+                                                                        **kw), host),
+        ("shared_fold_weights", lambda **kw: dft.shared_fold_weights(taps, 128, 512, **kw),
+         host),
+        ("shared_twiddles", lambda **kw: dft.shared_twiddles(128, 512, **kw), host),
+        ("FIRFilterChain.design", lambda **kw: FIRFilterChain().design(**kw), f32),
+    ]
+    worst, failed = {}, []
+    for name, build, gate in cases:
+        got, want = build(), build(device="cpu")
+        got = [t for t in (got if isinstance(got, tuple) else (got,))]
+        want = [t for t in (want if isinstance(want, tuple) else (want,))]
+        for g, w in zip(got, want):
+            if g.device.type != "cuda" or w.device.type != "cpu":
+                failed.append(f"{name} built on {g.device}, its device='cpu' build on "
+                              f"{w.device}")
+                continue
+            g = g.cpu()
+            same = g.dtype == w.dtype and torch.equal(g, w)
+            rel = 0.0 if same else float(
+                (g.to(torch.complex128) - w.to(torch.complex128)).abs().max()
+                / w.to(torch.complex128).abs().max())
+            worst[name] = max(worst.get(name, 0.0), rel)
+            if not (same if gate == host else rel <= gate):
+                failed.append(f"{name} off its device='cpu' build by {rel:.3g} of the max "
+                              f"(gate {'bit for bit' if gate == host else gate})")
+    print(f"  {len(cases)} entry points given no tensor built on the card, each against its "
+          f"device='cpu' build ({sum(1 for _, _, g in cases if g == host)} held bit for bit); "
+          f"largest |d| / max per case: "
+          + ", ".join(f"{n} {r:.3g}" for n, r in worst.items()), flush=True)
+
+    # the port's internal host paths, on a CUDA signal against a CPU one
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((8, 48000), generator=gen, device=dev)
+    xc = x.cpu()
+
+    def hold(name, got, want, rel=1e-5):
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"  {name} on {got.device} vs the CPU: max|d| = {err:.6g}, max = {scale:.6g} "
+              f"(gate {rel:g} x max)", flush=True)
+        if got.device.type != "cuda" or not err <= rel * scale:
+            failed.append(f"{name} on {got.device}: off the CPU by {err}")
+
+    sft = ShortTimeFFT.from_window("hann", rate, 512, 384)
+    hold("ShortTimeFFT.from_window('hann').stft", sft.stft(x), sft.stft(xc), 1e-4)
+    if not (check_COLA("hann", 512, 384) and check_COLA(("kaiser", 8.0), 512, 256)
+            == check_COLA(windows.kaiser(512, beta=8.0, dtype=torch.float64,
+                                         device="cpu").numpy(), 512, 256)):
+        failed.append("check_COLA of a named window")
+    hold("resample_poly(x, 1, 3), default taps", resample_poly(x, 1, 3), resample_poly(xc, 1, 3))
+    hold("decimate(x, 3, 'fir')", decimate(x, 3, ftype="fir"), decimate(xc, 3, ftype="fir"))
+    demod = dict(bandwidth=4000.0, decimation=6)
+    hold("demodulate_channel", demodulate_channel(x, 12000.0, rate, **demod),
+         demodulate_channel(xc, 12000.0, rate, **demod))
+    pfb = StreamingPFB(1024, taps_per_channel=8)
+    chunk = torch.randn((8, 1 << 17), generator=gen, device=dev)
+    hold("StreamingPFB(1024), default prototype",
+         pfb.process(pfb.init_state((8,)), chunk)[1],
+         pfb.process(pfb.init_state((8,), device="cpu"), chunk.cpu())[1])
+    del xc
+
+    # host-to-device copies of each path's second call: the window or taps
+    # built on the CPU, then by default (on the card)
+    x = torch.randn((8, 480000), generator=gen, device=dev)
+    kw = dict(sampling_rate=rate, fft_length=512, overlap_length=384)
+    logmel = LogMelFrontend()
+    mel_kw = dict(sampling_rate=16000.0, fft_length=512, overlap_length=240,
+                  window_padding="reflect")
+    paths = {
+        "stft(x, hann(512, device='cpu'))": lambda: stft(x, windows.hann(512, device="cpu"),
+                                                          **kw),
+        "stft(x, hann(512))": lambda: stft(x, windows.hann(512), **kw),
+        "log-mel, hann(400) and mel_filters on the CPU": lambda: _log_mel(
+            stft(x, windows.hann(400, device="cpu"), **mel_kw).z.abs() ** 2,
+            mel_filters(512, 80, 16000.0, device="cpu").to(dev), 256),
+        "LogMelFrontend()(x)": lambda: logmel(x),
+        "oaconvolve(x, firwin taps built on the CPU)": lambda: oaconvolve(
+            x, FIRFilterChain().design(device="cpu").to(dev).reshape(1, -1), mode="same"),
+        "FIRFilterChain()(x)": lambda: FIRFilterChain()(x),
+    }
+    copies = {}
+    for label, fn in paths.items():
+        copies[label] = _h2d_copies(fn)
+        print(f"  host-to-device copies on the second call of {label}, 8 x 480000: "
+              f"{copies[label][0]}, {copies[label][1]} bytes", flush=True)
+    del x, chunk
+    labels = list(copies)
+    for cpu_built, default in zip(labels[::2], labels[1::2]):
+        if copies[default][0] > copies[cpu_built][0]:
+            failed.append(f"{default} made more host-to-device copies than {cpu_built}: "
+                          f"{copies[default]} against {copies[cpu_built]}")
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    torch.cuda.empty_cache()
+    return copies
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2223,8 +2461,8 @@ def main() -> int:
     num_frames = (length - frame) // hop + 1
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((channels, length), generator=gen, device=dev)
-    taps = firwin(num_taps, [2000.0], sampling_rate=rate).numpy()
-    window = hann(frame).numpy()
+    taps = firwin(num_taps, [2000.0], sampling_rate=rate, device="cpu").numpy()
+    window = hann(frame, device="cpu").numpy()
     pad_left = (num_taps - 1) - (num_taps - 1) // 2
 
     print("phase 2: kernels against their plain versions", flush=True)
@@ -2302,7 +2540,7 @@ def main() -> int:
     # 8 at 2048 and 4096; then frames of 2 x n_fft, folded modulo n_fft
     for nf, fl, ch in ((1031, 1031, 64), (2048, 2048, 64), (4093, 4093, 64), (4094, 4094, 64),
                        (4096, 4096, 64), (512, 1024, 64), (4096, 8192, 8), (4093, 8186, 8)):
-        xr, wr, hp = x[:ch], hann(fl).numpy(), nf // 4
+        xr, wr, hp = x[:ch], hann(fl, device="cpu").numpy(), nf // 4
         _, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, True)
         kw_nf = dict(stride=hp, n_fft=nf, onesided=True)
         tag = f"B-fft {ch}x{length} n_fft={nf} frame={fl} hop={hp}"
@@ -2316,14 +2554,14 @@ def main() -> int:
     n_dense, ch_dense = 4100, 8
     bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 4
     frames_dense = (length - n_dense) // hop_dense + 1
-    win_dense = hann(n_dense).numpy()
+    win_dense = hann(n_dense, device="cpu").numpy()
     args_dense = dict(stride=hop_dense, num_frames=frames_dense, bins=bins_dense)
     w_dense, want_z, want_p = plain_dft(x8, win_dense, n_dense, hop_dense, n_dense, True)
     err_b = _check_close(f"B (dense) {ch_dense}x{length} n_fft={n_dense} complex",
                          B(x8, w_dense, **args_dense), want_z)
     _check_close(f"B (dense) {ch_dense}x{length} n_fft={n_dense} power",
                  B(x8, w_dense, output="power", **args_dense), want_p)
-    w4, want_z, want_p = plain_dft(x64, hann(4).numpy(), 4, 4, 4, True)
+    w4, want_z, want_p = plain_dft(x64, hann(4, device="cpu").numpy(), 4, 4, 4, True)
     args4 = dict(stride=4, num_frames=(length - 4) // 4 + 1, bins=3)
     _check_close(f"B (dense) 64x{length} n_fft=4 complex", B(x64, w4, **args4), want_z)
     _check_close(f"B (dense) 64x{length} n_fft=4 power", B(x64, w4, output="power", **args4),
@@ -2358,7 +2596,7 @@ def main() -> int:
     ]
     for ch, n, fl, hp, nf, onesided in fft_ragged:
         xr = x[:ch, :n]
-        wr = hann(fl).numpy()
+        wr = hann(fl, device="cpu").numpy()
         _, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, onesided)
         tag = f"B-fft {ch}x{n} frame={fl} hop={hp} n_fft={nf} onesided={onesided}"
         _check_close(tag, B_fft(xr, wr, stride=hp, n_fft=nf, onesided=onesided), want_z)
@@ -2393,8 +2631,8 @@ def main() -> int:
     ]
     for ch, n, k, fl, hp, nf, onesided in ragged:
         xr = torch.randn((ch, n), generator=gen, device=dev)
-        tr = firwin(k, [3000.0], sampling_rate=rate).numpy()
-        wr = hann(fl).numpy()
+        tr = firwin(k, [3000.0], sampling_rate=rate, device="cpu").numpy()
+        wr = hann(fl, device="cpu").numpy()
         m = (n - fl) // hp + 1
         tag = f"{ch}x{n} K={k} frame={fl} hop={hp} n_fft={nf}"
         wf = fir_dft_fold_weights(tr, wr, nf, True, device=dev)
@@ -2445,7 +2683,7 @@ def main() -> int:
     # D applies the window as its exact cosine sum: A is given the same
     # window, the periodic hann in f64 (the f32 samples of hann(512) differ
     # from it by up to 6e-8, which the low-pass chain's stopband bins see)
-    window64 = hann(frame, dtype=torch.float64).numpy()
+    window64 = hann(frame, dtype=torch.float64, device="cpu").numpy()
     coeffs = recognize_cosine_window(window64, n_fft)
     w_shared = shared_fold_weights(taps, hop, n_fft, device=dev)
     tw_shared = shared_twiddles(hop, n_fft, device=dev)
@@ -2471,7 +2709,7 @@ def main() -> int:
     for batch, n, k, hp, nf, wname in shared_ragged:
         xr = torch.randn((*batch, n), generator=gen, device=dev)
         tr = None if k is None else rng.normal(size=k)
-        wr = getattr(windows, wname)(nf, dtype=torch.float64).numpy()
+        wr = getattr(windows, wname)(nf, dtype=torch.float64, device="cpu").numpy()
         cr = recognize_cosine_window(wr, nf)
         args = dict(stride=hp, pad_left=0 if k is None else _same_pad_left(k),
                     num_frames=(n - nf) // hp + 1, bins=nf // 2 + 1)
@@ -2498,13 +2736,31 @@ def main() -> int:
               "(first call)", flush=True)
 
     launches = _run_path("the fused chain", kernels, (A_tc,), fused_chain)
-    power = out.pop("power")
-    if tuple(power.shape) != (channels, num_frames, bins):
-        raise AssertionError(f"chain output shape {tuple(power.shape)}")
-    if not bool(torch.isfinite(power).all()):
+    power_high = out.pop("power")
+    if tuple(power_high.shape) != (channels, num_frames, bins):
+        raise AssertionError(f"chain output shape {tuple(power_high.shape)}")
+    if not bool(torch.isfinite(power_high).all()):
         raise AssertionError("chain output is not finite")
-    _check_close("chain vs f64 numpy reference (2 channels)", power[:2].double().cpu(), ref)
-    del power
+    _check_close("chain vs f64 numpy reference (2 channels)", power_high[:2].double().cpu(), ref)
+
+    # the chain as a module at 'high': kernel A-tc, once
+    def chain_module_high():
+        out["power"] = StftFirChain.from_numpy(taps, window, stride=hop, n_fft=n_fft,
+                                               precision="high")(x)
+        torch.cuda.synchronize()
+
+    counts = _run_path("StftFirChain(precision='high')", kernels, (A_tc,), chain_module_high,
+                       avoid=(A,))
+    if counts[A_tc.__name__] != 1:
+        raise AssertionError(f"StftFirChain(precision='high') launched A-tc "
+                             f"{counts[A_tc.__name__]} times, not once")
+    launches = {name: launches[name] + counts[name] for name in launches}
+    power = out.pop("power")
+    _check_close("StftFirChain(precision='high') vs f64 numpy reference (2 channels)",
+                 power[:2].double().cpu(), ref)
+    print(f"  StftFirChain(precision='high') bitwise the fused chain's 'high' power: "
+          f"{torch.equal(power, power_high)}", flush=True)
+    del power, power_high
 
     # the chain as a module keeps exact f32: kernel A
     def chain_module():
@@ -2637,7 +2893,8 @@ def main() -> int:
         fr = np.lib.stride_tricks.sliding_window_view(xh, nf, axis=-1)[:, ::nf // 4][:, :m_nf]
         _check_close(f"stft at fft_length {nf} vs f64 numpy rfft (2 channels)",
                      z[:2].cpu().to(torch.complex128),
-                     torch.as_tensor(np.fft.rfft(fr * hann(nf).double().numpy(), n=nf)))
+                     torch.as_tensor(np.fft.rfft(
+                         fr * hann(nf, device="cpu").double().numpy(), n=nf)))
         del z, fr
 
     # framed_dft at n_fft 1031 (a prime, once the dense B's), 2048, 4093 and
@@ -2648,7 +2905,7 @@ def main() -> int:
                                       (2048, 2048, x64, B_fft, B), (4093, 4093, x64, B_fft, B),
                                       (4096, 4096, x64, B_fft, B),
                                       (n_dense, n_dense, x8, B, B_fft)):
-        wr, hp = hann(fl).numpy(), nf // 4 if fl == nf else hop
+        wr, hp = hann(fl, device="cpu").numpy(), nf // 4 if fl == nf else hop
 
         def framed_path():
             out["z"] = framed_dft(xr, wr, stride=hp, n_fft=nf, onesided=True)
@@ -2690,8 +2947,8 @@ def main() -> int:
     # 1e-5 of the max, the JAX package's own gate for the front end
     frm = np.lib.stride_tricks.sliding_window_view(
         np.pad(xh, ((0, 0), (200, 200)), mode="reflect"), 400, axis=-1)[:, ::160]
-    mel_power = np.abs(np.fft.rfft(frm * hann(400).double().numpy(), n=400)) ** 2
-    filters = mel_filters(400, 80, 16000.0).double().numpy()
+    mel_power = np.abs(np.fft.rfft(frm * hann(400, device="cpu").double().numpy(), n=400)) ** 2
+    filters = mel_filters(400, 80, 16000.0, device="cpu").double().numpy()
     log_ref = np.log10(np.maximum(mel_power[..., :200] @ filters[:, :200].T, 1e-10))
     log_ref = (np.maximum(log_ref, log_ref.max() - 8.0) + 4.0) / 4.0
     _check_close("LogMelFrontend(fft_length=400) vs f64 numpy log-mel (2 channels)",
@@ -2766,7 +3023,7 @@ def main() -> int:
         got = power[:2].double().cpu()
         _check_close(f"{name}, all bins", got.reshape(-1, 1), want.reshape(-1, 1))
         _check_close(name, got, want, rel=5e-3)
-    fir_taps = fir_chain.taps.double().numpy()
+    fir_taps = fir_chain.design(device="cpu").double().numpy()
     fir_ref = np.stack([np.convolve(c, fir_taps)[(fir_taps.size - 1) // 2:][:length]
                         for c in xh])
     _check_close("FIRFilterChain vs np.convolve 'same' (2 channels)",
@@ -2828,8 +3085,8 @@ def main() -> int:
         public stft with method='matmul' (B-fft) and 'fft' (torch.fft)."""
         nb, hp, win_nf = nf // 2 + 1, nf // 4, hann(nf, device=dev)
         m_nf = (length - nf) // hp + 1
-        w_nf = torch.as_tensor(_dft_weights(hann(nf).numpy(), nf, nf, True, np.float32),
-                               device=dev)
+        w_nf = torch.as_tensor(
+            _dft_weights(hann(nf, device="cpu").numpy(), nf, nf, True, np.float32), device=dev)
         stft_kw = dict(sampling_rate=rate, fft_length=nf, overlap_length=nf - hp, onesided=True)
         fns = [("kernel", lambda: framed_dft(x64, win_nf, stride=hp, n_fft=nf, onesided=True)),
                ("plain", lambda: torch.complex(*_framed_matmul_torch(
@@ -2995,7 +3252,7 @@ def main() -> int:
     # the fused chain's own cut: at n_fft 2048 (hann 2048, hop 512, the bench
     # chain's 255 taps, 64 channels) the fold at 'high' (A-tc, or A where
     # A-tc's window does not fit) against the FIR then B-fft's power, in turns
-    win_2048 = hann(2048).numpy()
+    win_2048 = hann(2048, device="cpu").numpy()
     chain_fns = [
         ("the fold at 'high'", lambda: fir_framed_dft(
             x64, taps, win_2048, stride=512, n_fft=2048, onesided=True, output="power",
@@ -3160,6 +3417,11 @@ def main() -> int:
     print("phase 14: the state-space simulation (dlsim, lsim, their responses, the LTI "
           "classes) and the utils on the card", flush=True)
     _phase14((*kernels, halo_extend_cuda), dev)
+
+    # ---------------------------------------------------------------- 15
+    print("phase 15: the device rule on the card (entry points given no tensor, the internal "
+          "host paths, host-to-device copies)", flush=True)
+    _phase15((*kernels, halo_extend_cuda), dev)
 
     rows = [
         (A, "framed_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:342", err_a, "A"),

@@ -192,7 +192,7 @@ def fir_framed_dft_power_cuda(x, weights, *, stride: int, pad_left: int,
     >>> import torch
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
     >>> from nx_signal_tpu_torch.kernels.dft import fir_dft_fold_weights
-    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True)
+    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True, device="cpu")
     >>> fir_framed_dft_power_cuda(torch.ones(2, 512), w, stride=16, pad_left=1,
     ...                           num_frames=29, bins=33).shape
     torch.Size([2, 29, 33])
@@ -306,7 +306,7 @@ def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,
     >>> import torch
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_tc_cuda
     >>> from nx_signal_tpu_torch.kernels.dft import fir_dft_fold_weights
-    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True)
+    >>> w = fir_dft_fold_weights([0.25, 0.5, 0.25], torch.hann_window(64), 64, True, device="cpu")
     >>> fir_framed_dft_power_tc_cuda(torch.ones(2, 512), w, stride=16, pad_left=1,
     ...                              num_frames=29, bins=33).shape
     torch.Size([2, 29, 33])
@@ -652,8 +652,9 @@ def fir_framed_dft_power_shared_cuda(x, weights, twiddles, window_coeffs, *, str
     >>> from nx_signal_tpu_torch.kernels.dft import shared_fold_weights, shared_twiddles
     >>> taps = [0.25, 0.5, 0.25]
     >>> p = fir_framed_dft_power_shared_cuda(
-    ...     torch.ones(2, 512), shared_fold_weights(taps, 16, 64), shared_twiddles(16, 64),
-    ...     (0.5, -0.5), stride=16, pad_left=1, num_frames=29, bins=33)
+    ...     torch.ones(2, 512), shared_fold_weights(taps, 16, 64, device="cpu"),
+    ...     shared_twiddles(16, 64, device="cpu"), (0.5, -0.5), stride=16, pad_left=1,
+    ...     num_frames=29, bins=33)
     >>> p.shape
     torch.Size([2, 29, 33])
     """

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from nx_signal_tpu_torch.spectral.framing import _frame_block_widths
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights",
@@ -372,10 +372,10 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.kernels.dft import framed_dft
     >>> x = torch.sin(0.1 * torch.arange(1024.0))
-    >>> z = framed_dft(x, hann(256), stride=64, n_fft=256, onesided=True)
+    >>> z = framed_dft(x, hann(256, device="cpu"), stride=64, n_fft=256, onesided=True)
     >>> z.shape
     torch.Size([13, 129])
-    >>> frame0 = (x[:256] * hann(256)).numpy()
+    >>> frame0 = (x[:256] * hann(256, device="cpu")).numpy()
     >>> bool(np.abs(z[0].numpy() - np.fft.rfft(frame0)).max() < 1e-3)
     True
     """
@@ -403,14 +403,14 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
                            bins=n_fft // 2 + 1 if onesided else n_fft, output=output)
 
 
-def _fft_twiddles(n_fft: int, *, device=None):
+def _fft_twiddles(n_fft: int, *, device):
     """The (n_fft, 2) f32 table exp(-2 pi i t / n_fft), t = 0..n_fft-1, of
     the FFT kernel (cos, sin pairs computed in f64, then cast).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.dft import _fft_twiddles
-    >>> _fft_twiddles(8)[2].tolist()
+    >>> _fft_twiddles(8, device="cpu")[2].tolist()
     [0.0, -1.0]
     """
     return torch.as_tensor(_unit_roots(np.arange(n_fft), n_fft).astype(np.float32), device=device)
@@ -621,8 +621,8 @@ def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft
     >>> x = torch.sin(0.1 * torch.arange(1024.0))
-    >>> z = framed_dft(x, hann(256), stride=64, n_fft=256, onesided=True)
-    >>> f = framed_idft(z, hann(256), n_fft=256, onesided=True)
+    >>> z = framed_dft(x, hann(256, device="cpu"), stride=64, n_fft=256, onesided=True)
+    >>> f = framed_idft(z, hann(256, device="cpu"), n_fft=256, onesided=True)
     >>> f.shape, f.dtype
     (torch.Size([13, 256]), torch.float32)
     """
@@ -651,14 +651,16 @@ def fir_dft_fold_weights(taps, window, n_fft: int, onesided: bool, *, device=Non
     """The fused chain's weight matrix T @ diag(w) @ F, folded on the host
     in f64 and cast to f32: the banded 'same' Toeplitz of `taps` times the
     window-scaled DFT matrix. Shape (frame_length + K - 1, 2*bins), stacked
-    [Re | Im]; bitwise equal to the JAX package's fold.
+    [Re | Im], on `device` (None: the card); bitwise equal to the JAX
+    package's fold.
 
     Examples:
 
     >>> import numpy as np
     >>> from nx_signal_tpu_torch.kernels.dft import fir_dft_fold_weights
     >>> from nx_signal_tpu_torch.ops.windows import hann
-    >>> fir_dft_fold_weights(np.array([0.25, 0.5, 0.25]), hann(256), 256, True).shape
+    >>> fir_dft_fold_weights(np.array([0.25, 0.5, 0.25]), hann(256, device="cpu"), 256, True,
+    ...                      device="cpu").shape
     torch.Size([258, 258])
     """
     taps = _host_f64(taps).reshape(-1)
@@ -666,7 +668,7 @@ def fir_dft_fold_weights(taps, window, n_fft: int, onesided: bool, *, device=Non
     frame_length = window.shape[-1]
     toeplitz = toeplitz_band(taps, frame_length)
     dft_w = _dft_weights(window, frame_length, n_fft, onesided, np.float64)
-    return torch.as_tensor((toeplitz @ dft_w).astype(np.float32), device=device)
+    return torch.as_tensor((toeplitz @ dft_w).astype(np.float32), device=target_device(device))
 
 
 def _same_pad_left(num_taps: int) -> int:
@@ -750,7 +752,7 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.kernels.dft import fir_framed_dft
     >>> x = torch.sin(0.1 * torch.arange(1024.0))
-    >>> p = fir_framed_dft(x, [0.25, 0.5, 0.25], hann(256), stride=64, n_fft=256,
+    >>> p = fir_framed_dft(x, [0.25, 0.5, 0.25], hann(256, device="cpu"), stride=64, n_fft=256,
     ...                    onesided=True, output='power')
     >>> p.shape
     torch.Size([13, 129])
@@ -858,9 +860,9 @@ def recognize_cosine_window(window, n_fft: int):
 
     >>> from nx_signal_tpu_torch.kernels.dft import recognize_cosine_window
     >>> from nx_signal_tpu_torch.ops.windows import hann
-    >>> recognize_cosine_window(hann(256), 256)
+    >>> recognize_cosine_window(hann(256, device="cpu"), 256)
     (0.5, -0.5)
-    >>> recognize_cosine_window(hann(256, periodic=False), 256) is None
+    >>> recognize_cosine_window(hann(256, periodic=False, device="cpu"), 256) is None
     True
     """
     w = _host_f64(window)
@@ -879,39 +881,40 @@ def shared_fold_weights(taps, stride: int, n_fft: int, onesided: bool = True, *,
     """The per-hop-block partial-DFT weights of the shared-block chain with
     the FIR folded in: toeplitz_band(taps, stride) @ E, E the (stride,
     2*bins) [Re | Im] DFT rows of one hop block (no window), folded on the
-    host in f64 and cast to f32; shape (stride + K - 1, 2*bins). `taps=None`
-    gives E itself. Bitwise equal to the JAX package's weights.
+    host in f64 and cast to f32; shape (stride + K - 1, 2*bins), on `device`
+    (None: the card). `taps=None` gives E itself. Bitwise equal to the JAX package's weights.
 
     Examples:
 
     >>> import numpy as np
     >>> from nx_signal_tpu_torch.kernels.dft import shared_fold_weights
-    >>> shared_fold_weights(np.array([0.25, 0.5, 0.25]), 128, 512).shape
+    >>> shared_fold_weights(np.array([0.25, 0.5, 0.25]), 128, 512, device="cpu").shape
     torch.Size([130, 514])
     """
     e_mat = _dft_weights(np.ones(stride), stride, n_fft, onesided, np.float64)
     if taps is not None:
         e_mat = toeplitz_band(_host_f64(taps).reshape(-1), stride) @ e_mat
-    return torch.as_tensor(e_mat.astype(np.float32), device=device)
+    return torch.as_tensor(e_mat.astype(np.float32), device=target_device(device))
 
 
 def shared_twiddles(stride: int, n_fft: int, onesided: bool = True, *, device=None):
     """The (2, J, bins) f32 twiddles of the shared-block combine, cos then
     sin of -2 pi ((j * k * stride) % n_fft) / n_fft for the J = n_fft /
     stride blocks of a frame: the phase is reduced in integers before the
-    f64 cos/sin, so no angle grows with j * k.
+    f64 cos/sin, so no angle grows with j * k. On `device` (None: the
+    card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.dft import shared_twiddles
-    >>> shared_twiddles(128, 512).shape
+    >>> shared_twiddles(128, 512, device="cpu").shape
     torch.Size([2, 4, 257])
     """
     bins = n_fft // 2 + 1 if onesided else n_fft
     jk = (np.arange(n_fft // stride)[:, None] * np.arange(bins)[None, :] * stride) % n_fft
     ang = -2.0 * np.pi * jk / n_fft
     return torch.as_tensor(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32),
-                           device=device)
+                           device=target_device(device))
 
 
 def _conj_shift_minus(xr, xi, c: int, bins: int):
@@ -1029,7 +1032,7 @@ def fir_framed_dft_shared(x, taps, *, stride: int, n_fft: int, window_coeffs,
     >>> from nx_signal_tpu_torch.kernels.dft import fir_framed_dft, fir_framed_dft_shared
     >>> x = torch.sin(0.1 * torch.arange(1024.0))
     >>> taps = [0.25, 0.5, 0.25]
-    >>> p = fir_framed_dft(x, taps, hann(256), stride=64, n_fft=256, onesided=True,
+    >>> p = fir_framed_dft(x, taps, hann(256, device="cpu"), stride=64, n_fft=256, onesided=True,
     ...                    output='power')
     >>> ps = fir_framed_dft_shared(x, taps, stride=64, n_fft=256, window_coeffs=(0.5, -0.5),
     ...                            onesided=True, output='power')

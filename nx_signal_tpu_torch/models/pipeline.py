@@ -13,7 +13,8 @@ and spectral layers.
   direct Toeplitz conv1d, the FFT, or overlap-add through kernel C) and
   frames it with kernel B-fft or B (kernels/dft.py:framed_dft), or with
   torch.fft through spectral/stft.py for complex input or n_fft > 1024.
-* `StftFirChain`: the fused power chain as an nn.Module (kernel A).
+* `StftFirChain`: the fused power chain as an nn.Module (kernel A at
+  'highest', A-tc at 'high' and 'default').
 * `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
 * `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B-fft), then dBFS or
   Whisper's log-mel normalization.
@@ -35,6 +36,7 @@ from torch import nn
 
 from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
 from nx_signal_tpu_torch.kernels.dft import (
+    _check_precision,
     _same_pad_left,
     fir_dft_fold_weights,
     fir_framed_dft,
@@ -47,7 +49,7 @@ from nx_signal_tpu_torch.ops.resample import pfb_analyze
 from nx_signal_tpu_torch.ops.windows import hann
 from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
 from nx_signal_tpu_torch.spectral.stft import stft
-from nx_signal_tpu_torch.utils.devices import as_signal, card_device
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
@@ -132,14 +134,18 @@ class FIRFilterChain:
     sampling_rate: float = 48000.0
     window: str = "hann"
 
+    def design(self, device=None):
+        """The chain's firwin taps, designed on `device` (None: the card)."""
+        return firwin(self.num_taps, list(self.cutoff), window=self.window,
+                      sampling_rate=self.sampling_rate, device=device)
+
     @property
     def taps(self):
-        return firwin(self.num_taps, list(self.cutoff), window=self.window,
-                      sampling_rate=self.sampling_rate)
+        return self.design()
 
     def __call__(self, x):
         x = as_signal(x)
-        taps = self.taps.to(x.device)
+        taps = self.design(x.device)
         if x.ndim > 1:
             taps = taps.reshape((1,) * (x.ndim - 1) + (-1,))
         return oaconvolve(x, taps, mode="same")
@@ -175,12 +181,12 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
     >>> from nx_signal_tpu_torch.ops.filters import firwin
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> x = torch.randn(2, 4096, generator=torch.Generator().manual_seed(0))
-    >>> taps = firwin(31, [2000.0], sampling_rate=16000.0)
-    >>> p = stft_fir_chain(x, taps, hann(256), fft_length=256, overlap_length=192,
+    >>> taps = firwin(31, [2000.0], sampling_rate=16000.0, device="cpu")
+    >>> p = stft_fir_chain(x, taps, hann(256, device="cpu"), fft_length=256, overlap_length=192,
     ...                    return_filtered=False)
     >>> p.shape
     torch.Size([2, 61, 129])
-    >>> y, p = stft_fir_chain(x, taps, hann(256), fft_length=256, overlap_length=192)
+    >>> y, p = stft_fir_chain(x, taps, hann(256, device="cpu"), fft_length=256, overlap_length=192)
     >>> y.shape, p.shape
     (torch.Size([2, 4096]), torch.Size([2, 61, 129]))
     """
@@ -222,8 +228,10 @@ class StftFirChain(nn.Module):
     in f64, are its `weights` buffer (so `.to(device)` moves them), and
     `forward(x)` maps the real (..., L) signal to its one-sided
     (..., frames, bins) power spectrogram, equal to
-    `stft_fir_chain(x, taps, window, ..., return_filtered=False)`. On a CUDA
-    tensor forward runs kernel A; on a CPU tensor its plain version.
+    `stft_fir_chain(x, taps, window, ..., return_filtered=False,
+    precision=precision)`. On a CUDA tensor forward runs kernel A at
+    'highest', kernel A-tc at 'high' (3xTF32) and 'default' (one TF32 pass);
+    on a CPU tensor their plain versions.
 
     Examples:
 
@@ -231,15 +239,17 @@ class StftFirChain(nn.Module):
     >>> from nx_signal_tpu_torch.models.pipeline import StftFirChain
     >>> from nx_signal_tpu_torch.ops.filters import firwin
     >>> from nx_signal_tpu_torch.ops.windows import hann
-    >>> chain = StftFirChain.from_numpy(firwin(31, [0.2]).numpy(), hann(256).numpy(),
-    ...                                 stride=64, n_fft=256, device="cpu")
+    >>> chain = StftFirChain.from_numpy(firwin(31, [0.2], device="cpu").numpy(),
+    ...                                 hann(256, device="cpu").numpy(), stride=64,
+    ...                                 n_fft=256, device="cpu")
     >>> chain(torch.zeros(3, 1024)).shape
     torch.Size([3, 13, 129])
     """
 
     def __init__(self, weights, *, stride: int, num_taps: int, frame_length: int,
-                 n_fft: int):
+                 n_fft: int, precision: str = "highest"):
         super().__init__()
+        _check_precision(precision)
         if stride < 1:
             raise ValueError(f"stride must be >= 1, got {stride}")
         if tuple(weights.shape) != (frame_length + num_taps - 1, 2 * (n_fft // 2 + 1)):
@@ -250,22 +260,22 @@ class StftFirChain(nn.Module):
         self.frame_length = frame_length
         self.pad_left = _same_pad_left(num_taps)
         self.bins = n_fft // 2 + 1
+        self.precision = precision
 
     @classmethod
-    def from_numpy(cls, taps, window, *, stride: int, n_fft: int, device=None):
+    def from_numpy(cls, taps, window, *, stride: int, n_fft: int, precision: str = "highest",
+                   device=None):
         """Fold the numpy `taps` and `window` (e.g. `np.asarray` of the JAX
         package's firwin / hann) into the module's weights on `device`, by
         default the CUDA device (a RuntimeError where there is none: pass
         device='cpu' for the CPU)."""
-        if device is None:
-            device = card_device()
         taps = np.asarray(taps, dtype=np.float64).reshape(-1)
         window = np.asarray(window, dtype=np.float64)
         if n_fft < window.shape[-1]:
             raise ValueError(f"n_fft {n_fft} is shorter than the window {window.shape[-1]}")
         weights = fir_dft_fold_weights(taps, window, n_fft, True, device=device)
         return cls(weights, stride=stride, num_taps=taps.shape[0],
-                   frame_length=window.shape[-1], n_fft=n_fft)
+                   frame_length=window.shape[-1], n_fft=n_fft, precision=precision)
 
     def forward(self, x):
         x = as_signal(x)
@@ -277,7 +287,7 @@ class StftFirChain(nn.Module):
         num_frames = (x.shape[-1] - self.frame_length) // self.stride + 1
         return fir_framed_dft_power_cuda(x, self.weights, stride=self.stride,
                                          pad_left=self.pad_left, num_frames=num_frames,
-                                         bins=self.bins)
+                                         bins=self.bins, precision=self.precision)
 
 
 @dataclass(frozen=True)
@@ -398,7 +408,7 @@ def channelize_power_stream(blocks, n_channels: int, *, taps_per_channel: int = 
         raise ValueError(
             f"block length ({first.shape[1]}) is shorter than one "
             f"n_channels ({m}) stride")
-    dev = card_device() if device is None else torch.device(device)
+    dev = target_device(device)
     kinds = (np.float32, np.float64, np.complex64, np.complex128)
     stage = _Stager(dev, n_streams, chunk_len,
                     first.dtype if first.dtype in kinds else np.float32)

@@ -19,8 +19,8 @@ Two routes, as in the JAX package:
 The chirp tables are built on the host in f64 (`_CztPlan`) and cast to
 complex64 once; a plan keeps its device copies on itself, one per device,
 so a `CZT` / `ZoomFFT` object called again on the card copies nothing. The
-signal goes through `utils.devices.as_signal`; `czt_points` is built on
-the CPU unless `device=` says otherwise.
+signal goes through `utils.devices.as_signal`; `czt_points` goes to the
+card unless `device=` says otherwise (`utils.devices.target_device`).
 """
 
 import math
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_COMPLEX
 from nx_signal_tpu_torch.utils.shapes import fft_fast_length
 
@@ -140,21 +140,22 @@ class _CztPlan:
         conv = torch.fft.ifft(torch.fft.fft(xm * pre, n=self._length, dim=-1) * v_f, dim=-1)
         return torch.movedim(conv[..., :self.m] * post, -1, axis)
 
-    def points(self, device="cpu"):
-        """The z-plane evaluation points z_k = a * w^{-k}."""
+    def points(self, device=None):
+        """The z-plane evaluation points z_k = a * w^{-k}, on `device`
+        (None: the card)."""
         return czt_points(self.m, self.w, self.a, device=device)
 
 
-def czt_points(m: int, w=None, a=1.0 + 0.0j, *, device="cpu"):
+def czt_points(m: int, w=None, a=1.0 + 0.0j, *, device=None):
     """The m points z_k = a * w^{-k} of the CZT's spiral,
     scipy.signal.czt_points semantics (w defaults to exp(-2j*pi/m): the
     unit circle of the plain DFT); host f64 chirp powers cast to complex64
-    on `device`.
+    on `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.czt import czt_points
-    >>> czt_points(3).numpy().round(4)
+    >>> czt_points(3, device="cpu").numpy().round(4)
     array([ 1. +0.j   , -0.5+0.866j, -0.5-0.866j], dtype=complex64)
     """
     m = int(m)
@@ -163,7 +164,7 @@ def czt_points(m: int, w=None, a=1.0 + 0.0j, *, device="cpu"):
     if w is None:
         w = np.exp(-2j * np.pi / m)
     pts = _as_scalar_complex(a) * _chirp_powers(w, -np.arange(m, dtype=np.float64))
-    return torch.as_tensor(pts.astype(np.complex64), device=device)
+    return torch.as_tensor(pts.astype(np.complex64), device=target_device(device))
 
 
 class CZT:
@@ -202,8 +203,9 @@ class CZT:
     def a(self):
         return self._plan.a
 
-    def points(self, device="cpu"):
-        """The z-plane points this transform evaluates at."""
+    def points(self, device=None):
+        """The z-plane points this transform evaluates at, on `device`
+        (None: the card)."""
         return self._plan.points(device)
 
 

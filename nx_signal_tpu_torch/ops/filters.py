@@ -7,11 +7,12 @@
   host-built edge matrices) and `detrend`. Each takes its signal through
   `utils.devices.as_signal`.
 * Design and analysis on coefficients: `firwin`, `firwin_2d` (float32, as
-  the JAX package), `savgol_coeffs`, `gammatone`, `max_len_seq` (host
-  numpy), and the responses `freqz`, `sosfreqz`, `freqz_sos`, `freqz_zpk`,
-  `freqs`, `freqs_zpk`, `group_delay` in f64 / complex128 (the JAX
-  package's dtype with x64 on), on the coefficients' device (the CPU for
-  anything that is not a tensor).
+  the JAX package), `savgol_coeffs`, `max_len_seq`, and the responses
+  `freqz`, `sosfreqz`, `freqz_sos`, `freqz_zpk`, `freqs`, `freqs_zpk`,
+  `group_delay` in f64 / complex128 (the JAX package's dtype with x64 on).
+  Each runs on the device of a coefficient given as a tensor, else on
+  `device=`, None the card (`utils.devices.target_device`). `gammatone` is
+  host f64 numpy, as the JAX package's.
 
 A median of an even count is the mean of its two middle values, as numpy
 and jnp take it (`torch.median` returns the lower one).
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from nx_signal_tpu_torch.ops.convolution import correlate, fir_convolve_1d
 from nx_signal_tpu_torch.ops.waveforms import sinc
 from nx_signal_tpu_torch.ops.windows import get_window
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["median", "medfilt", "medfilt2d", "order_filter", "wiener", "firwin", "firwin_2d",
@@ -136,7 +137,7 @@ def firwin(num_taps: int, cutoff, *, window="hamming", pass_zero: bool = True,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import firwin
-    >>> firwin(5, [0.5]).numpy().round(4)
+    >>> firwin(5, [0.5], device="cpu").numpy().round(4)
     array([-0.    ,  0.2037,  0.5926,  0.2037, -0.    ], dtype=float32)
     """
     if isinstance(cutoff, (int, float)):
@@ -161,6 +162,7 @@ def firwin(num_taps: int, cutoff, *, window="hamming", pass_zero: bool = True,
             f"an odd number of taps, got: {num_taps}"
         )
 
+    device = target_device(device)
     m = (num_taps - 1) / 2.0
     alpha = torch.arange(num_taps, dtype=dtype, device=device) - m
 
@@ -212,7 +214,7 @@ def firwin_2d(hsize, window, *, fc=None, sampling_rate: float = 2.0, circular: b
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import firwin_2d
-    >>> firwin_2d((3, 3), ("hamming", "hamming"), fc=0.5).numpy().round(4)
+    >>> firwin_2d((3, 3), ("hamming", "hamming"), fc=0.5, device="cpu").numpy().round(4)
     array([[0.0021, 0.0419, 0.0021],
            [0.0419, 0.8237, 0.0419],
            [0.0021, 0.0419, 0.0021]], dtype=float32)
@@ -232,11 +234,20 @@ def firwin_2d(hsize, window, *, fc=None, sampling_rate: float = 2.0, circular: b
         if fc is None:
             raise ValueError("cutoff frequency `fc` must be provided when `circular` is True")
         n_r = max(hsize[0], hsize[1]) * 8  # the oversampled radial prototype
+        from nx_signal_tpu_torch.spectral.stft import _linspace
+
         win_r = firwin(n_r, fc, window=window, **kw)
-        f1 = torch.linspace(-1.0, 1.0, hsize[0], dtype=dtype, device=device)
-        f2 = torch.linspace(-1.0, 1.0, hsize[1], dtype=dtype, device=device)
-        r = torch.sqrt(f1[None, :] ** 2 + f2[:, None] ** 2)
-        return _interp(r, torch.linspace(0.0, 1.0, n_r, dtype=dtype, device=device), win_r)
+        # start + i * step, the same bits on every device (torch.linspace
+        # rounds some points differently on the card, and the interpolation
+        # magnifies a grid point's ulp by the prototype's slope)
+        grid = dict(dtype=dtype, device=win_r.device)
+        f1 = _linspace(-1.0, 1.0, hsize[0], **grid)
+        f2 = _linspace(-1.0, 1.0, hsize[1], **grid)
+        # the radius's sqrt in f64, so its rounding to `dtype` is the correct
+        # one on every device (the card's float32 sqrt is off by an ulp at
+        # some points, and the slope magnifies that too)
+        r = torch.sqrt((f1[None, :] ** 2 + f2[:, None] ** 2).double()).to(dtype)
+        return _interp(r, _linspace(0.0, 1.0, n_r, **grid), win_r)
     if len(window) != 2 or isinstance(window, str):
         raise ValueError("window must be a 2-element tuple or list of window specs "
                          "(or a single spec with circular=True)")
@@ -245,9 +256,18 @@ def firwin_2d(hsize, window, *, fc=None, sampling_rate: float = 2.0, circular: b
     return torch.outer(row, col)
 
 
-def _coefs(c, device=None):
+def _device_of(*coefs, device=None) -> torch.device:
+    """Where a response runs: the device of the first coefficient given as a
+    tensor, else `device` (None: the card)."""
+    for c in coefs:
+        if isinstance(c, torch.Tensor):
+            return c.device
+    return target_device(device)
+
+
+def _coefs(c, device):
     """Filter coefficients as an f64 (or complex128) tensor, on their own
-    device if a tensor, else on `device` (the CPU by default)."""
+    device if a tensor, else on `device`."""
     if isinstance(c, torch.Tensor):
         t = c
     else:
@@ -272,11 +292,12 @@ def _polyval_exp(coefs, w):
 
 
 def freqz(taps, a=None, *, n_freqs: int = 512, sampling_rate: float = 2.0,
-          whole: bool = False):
+          whole: bool = False, device=None):
     """Frequency response H(w) = B(e^{iw}) / A(e^{iw}) at `n_freqs` points
     over [0, Nyquist) (or [0, Fs) with `whole=True`); `a=None` is the FIR
     case. Returns (frequencies, complex response), scipy.signal.freqz
-    semantics, evaluated as a basis product.
+    semantics, evaluated as a basis product on the device of a tensor
+    coefficient, else on `device` (None: the card).
 
     Examples:
 
@@ -286,28 +307,31 @@ def freqz(taps, a=None, *, n_freqs: int = 512, sampling_rate: float = 2.0,
     >>> w.numpy().round(4), h.abs().numpy().round(4)
     (array([0.  , 0.25, 0.5 , 0.75]), array([1.    , 0.9239, 0.7071, 0.3827]))
     """
-    b = _coefs(taps)
-    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, b.device)
+    dev = _device_of(taps, a, device=device)
+    b = _coefs(taps, dev)
+    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, dev)
     resp = _polyval_exp(b, w)
     if a is not None:
-        resp = resp / _polyval_exp(_coefs(a, b.device), w)
+        resp = resp / _polyval_exp(_coefs(a, dev), w)
     return freqs, resp
 
 
-def sosfreqz(sos, *, n_freqs: int = 512, sampling_rate: float = 2.0, whole: bool = False):
+def sosfreqz(sos, *, n_freqs: int = 512, sampling_rate: float = 2.0, whole: bool = False,
+             device=None):
     """Frequency response of cascaded second-order sections,
-    scipy.signal.sosfreqz semantics. Returns (frequencies, response).
+    scipy.signal.sosfreqz semantics, on the device `freqz` takes. Returns
+    (frequencies, response).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import sosfreqz
-    >>> w, h = sosfreqz([[0.5, 0.5, 0.0, 1.0, 0.0, 0.0]], n_freqs=4)
+    >>> w, h = sosfreqz([[0.5, 0.5, 0.0, 1.0, 0.0, 0.0]], n_freqs=4, device="cpu")
     >>> h.abs().numpy().round(4)
     array([1.    , 0.9239, 0.7071, 0.3827])
     """
-    sos = _coefs(sos)
-    if sos.ndim != 2 or sos.shape[1] != 6:
+    if np.ndim(sos) != 2 or np.shape(sos)[1] != 6:
         raise ValueError("sos array must be shape (n_sections, 6)")
+    sos = _coefs(sos, _device_of(sos, device=device))
     freqs, w = _freq_grid(n_freqs, sampling_rate, whole, sos.device)
     resp = torch.ones(w.shape, dtype=torch.complex128, device=sos.device)
     for s in range(sos.shape[0]):
@@ -315,36 +339,40 @@ def sosfreqz(sos, *, n_freqs: int = 512, sampling_rate: float = 2.0, whole: bool
     return freqs, resp
 
 
-def freqz_sos(sos, *, n_freqs: int = 512, sampling_rate: float = 2.0, whole: bool = False):
+def freqz_sos(sos, *, n_freqs: int = 512, sampling_rate: float = 2.0, whole: bool = False,
+              device=None):
     """`sosfreqz` under scipy >= 1.15's name.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import freqz_sos
-    >>> w, h = freqz_sos([[0.5, 0.5, 0.0, 1.0, 0.0, 0.0]], n_freqs=8)
+    >>> w, h = freqz_sos([[0.5, 0.5, 0.0, 1.0, 0.0, 0.0]], n_freqs=8, device="cpu")
     >>> tuple(w.shape), round(float(abs(h[0])), 4)   # unity DC gain
     ((8,), 1.0)
     """
-    return sosfreqz(sos, n_freqs=n_freqs, sampling_rate=sampling_rate, whole=whole)
+    return sosfreqz(sos, n_freqs=n_freqs, sampling_rate=sampling_rate, whole=whole,
+                    device=device)
 
 
 def freqz_zpk(z, p, k, *, n_freqs: int = 512, sampling_rate: float = 2.0,
-              whole: bool = False):
+              whole: bool = False, device=None):
     """Frequency response of a digital filter in zpk form, as a product over
     the roots, k prod(e^{iw} - z_i) / prod(e^{iw} - p_i),
-    scipy.signal.freqz_zpk semantics. Returns (frequencies, response).
+    scipy.signal.freqz_zpk semantics, on the device `freqz` takes. Returns
+    (frequencies, response).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import freqz_zpk
-    >>> w, h = freqz_zpk([1.0], [0.5], 1.0, n_freqs=3)
+    >>> w, h = freqz_zpk([1.0], [0.5], 1.0, n_freqs=3, device="cpu")
     >>> h.abs().numpy().round(4)
     array([0.    , 1.1547, 1.3093])
     """
-    z, p = _coefs(z), _coefs(p)
-    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, z.device)
+    dev = _device_of(z, p, k, device=device)
+    z, p = _coefs(z, dev), _coefs(p, dev)
+    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, dev)
     zm = torch.exp(1j * w)
-    return freqs, k * _root_product(zm, z) / _root_product(zm, p.to(z.device))
+    return freqs, k * _root_product(zm, z) / _root_product(zm, p)
 
 
 def _root_product(s, roots):
@@ -354,16 +382,16 @@ def _root_product(s, roots):
     return torch.prod(s[:, None] - roots.to(torch.complex128)[None, :], dim=-1)
 
 
-def _freqs_grid(worN, num_like, den_like, kind):
-    """Angular frequencies of the analog responses: an int worN is the
-    findfreqs log-spaced range, anything else is used as given."""
+def _freqs_grid(worN, num_like, den_like, kind, device):
+    """Angular frequencies of the analog responses on `device`: an int worN
+    is the findfreqs log-spaced range, anything else is used as given."""
     if np.ndim(worN) == 0 and isinstance(worN, (int, np.integer)):
         from nx_signal_tpu_torch.ops.ltisys import findfreqs
 
         num = num_like.cpu().numpy() if isinstance(num_like, torch.Tensor) else num_like
         den = den_like.cpu().numpy() if isinstance(den_like, torch.Tensor) else den_like
-        return torch.as_tensor(findfreqs(num, den, int(worN), kind=kind))
-    return _coefs(worN)
+        return torch.as_tensor(findfreqs(num, den, int(worN), kind=kind), device=device)
+    return _coefs(worN, device)
 
 
 def _polyval(c, s):
@@ -374,57 +402,63 @@ def _polyval(c, s):
     return out
 
 
-def freqs(b, a, worN: int = 200):
+def freqs(b, a, worN: int = 200, *, device=None):
     """Analog filter frequency response H(jw) = B(jw) / A(jw),
     scipy.signal.freqs semantics: `worN` is a point count (the findfreqs
-    grid) or the angular frequencies. Returns (w, h).
+    grid) or the angular frequencies. Returns (w, h), on the device
+    `freqz` takes.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import freqs
-    >>> w, h = freqs([1.0], [1.0, 1.0], worN=[0.5, 1.0, 2.0])
+    >>> w, h = freqs([1.0], [1.0, 1.0], worN=[0.5, 1.0, 2.0], device="cpu")
     >>> h.abs().numpy().round(4)
     array([0.8944, 0.7071, 0.4472])
     """
-    w = _freqs_grid(worN, b, a, "ba")
+    dev = _device_of(b, a, worN, device=device)
+    w = _freqs_grid(worN, b, a, "ba", dev)
     s = 1j * w.real
-    return w, _polyval(_coefs(b, w.device), s) / _polyval(_coefs(a, w.device), s)
+    return w, _polyval(_coefs(b, dev), s) / _polyval(_coefs(a, dev), s)
 
 
-def freqs_zpk(z, p, k, worN: int = 200):
+def freqs_zpk(z, p, k, worN: int = 200, *, device=None):
     """Analog zpk frequency response k prod(jw - z) / prod(jw - p),
-    scipy.signal.freqs_zpk semantics. Returns (w, h).
+    scipy.signal.freqs_zpk semantics. Returns (w, h), on the device `freqz`
+    takes.
 
     Examples:
 
     >>> import numpy as np
     >>> from nx_signal_tpu_torch.ops.filters import freqs_zpk
-    >>> w, h = freqs_zpk([], [-1.0], 1.0, np.asarray([0.5, 1.0, 2.0]))
+    >>> w, h = freqs_zpk([], [-1.0], 1.0, np.asarray([0.5, 1.0, 2.0]), device="cpu")
     >>> h.abs().numpy().round(4)
     array([0.8944, 0.7071, 0.4472])
     """
-    w = _freqs_grid(worN, z, p, "zp")
+    dev = _device_of(z, p, k, worN, device=device)
+    w = _freqs_grid(worN, z, p, "zp", dev)
     s = (1j * w.real).to(torch.complex128)
-    return w, k * _root_product(s, _coefs(z, w.device)) / _root_product(s, _coefs(p, w.device))
+    return w, k * _root_product(s, _coefs(z, dev)) / _root_product(s, _coefs(p, dev))
 
 
 def group_delay(b, a=None, *, n_freqs: int = 512, sampling_rate: float = 2.0,
-                whole: bool = False):
+                whole: bool = False, device=None):
     """Group delay -dphase/dw of a digital filter in samples,
     scipy.signal.group_delay semantics, by the c = b * reverse(conj(a))
     identity: tau(w) = Re(C'(w) / C(w)) - (len(a) - 1), zero where the
-    response vanishes. Returns (frequencies, delay).
+    response vanishes. Returns (frequencies, delay), on the device `freqz`
+    takes.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import group_delay
-    >>> w, gd = group_delay([0.5, 0.5], n_freqs=4)
+    >>> w, gd = group_delay([0.5, 0.5], n_freqs=4, device="cpu")
     >>> gd.numpy().round(4)
     array([0.5, 0.5, 0.5, 0.5])
     """
-    b = _coefs(b)
-    a = _coefs(a, b.device) if a is not None else torch.ones(1, dtype=b.dtype, device=b.device)
-    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, b.device)
+    dev = _device_of(b, a, device=device)
+    b = _coefs(b, dev)
+    a = _coefs(a, dev) if a is not None else torch.ones(1, dtype=b.dtype, device=dev)
+    freqs, w = _freq_grid(n_freqs, sampling_rate, whole, dev)
     ar = a.flip(0).conj()
     dtype = torch.promote_types(b.dtype, ar.dtype)
     # the full linear convolution of two short coefficient vectors
@@ -472,11 +506,11 @@ def savgol_coeffs(window_length: int, polyorder: int, *, deriv: int = 0, delta: 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import savgol_coeffs
-    >>> savgol_coeffs(5, 2).numpy().round(4)
+    >>> savgol_coeffs(5, 2, device="cpu").numpy().round(4)
     array([-0.0857,  0.3429,  0.4857,  0.3429, -0.0857], dtype=float32)
     """
     return torch.as_tensor(_savgol_coeffs_np(window_length, polyorder, deriv, delta, pos, use),
-                           device=device).to(dtype)
+                           device=target_device(device)).to(dtype)
 
 
 def _savgol_edge_matrix(window_length, polyorder, deriv, delta, positions):
@@ -733,16 +767,17 @@ _MLS_TAPS = {
 }
 
 
-def max_len_seq(nbits: int, state=None, length: int = None, taps=None):
+def max_len_seq(nbits: int, state=None, length: int = None, taps=None, *, device=None):
     """Maximum-length sequence (m-sequence) of a Fibonacci LFSR,
     scipy.signal.max_len_seq semantics: (the sequence of 0/1 as an int8
-    tensor, the final state as an int8 numpy array), default taps for nbits
-    2..32. The register runs as a host loop (a sequential recurrence).
+    tensor on `device`, None the card; the final state as an int8 numpy
+    array), default taps for nbits 2..32. The register runs as a host loop
+    (a sequential recurrence).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.filters import max_len_seq
-    >>> seq, state = max_len_seq(3)
+    >>> seq, state = max_len_seq(3, device="cpu")
     >>> seq, state
     (tensor([1, 1, 1, 0, 1, 0, 0], dtype=torch.int8), array([1, 1, 1], dtype=int8))
     """
@@ -764,6 +799,7 @@ def max_len_seq(nbits: int, state=None, length: int = None, taps=None):
         raise ValueError("state must be a 1-D array of size nbits")
     if np.all(state == 0):
         raise ValueError("state must not be all zeros")
+    device = target_device(device)
     # scipy's circular-buffer register: out = s[idx]; s[idx] ^= xor of
     # s[(idx + t) % nbits] over the taps; idx advances cyclically
     s = [int(v) for v in state]
@@ -779,5 +815,4 @@ def max_len_seq(nbits: int, state=None, length: int = None, taps=None):
         seq[i] = out
         idx = (idx + 1) % nbits
     final = np.roll(np.asarray(s, dtype=np.int8), -idx)
-    return torch.frombuffer(seq, dtype=torch.int8).clone() if length else \
-        torch.zeros(0, dtype=torch.int8), final
+    return torch.tensor(np.frombuffer(seq, dtype=np.int8), device=device), final

@@ -10,9 +10,9 @@ nx_signal_tpu/ops/fir_design.py), scipy.signal semantics:
 All of it is design-time math on tiny arrays, computed in float64 numpy on
 the host as in the JAX package, and returned as a torch tensor of `dtype`
 (float32 by default) on `device`, as `ops.filters.firwin` returns its
-taps: the CPU unless `device` names another (`minimum_phase` defaults to
-its input tensor's device). The taps then feed the FIR paths
-(ops/convolution.py: fir_convolve_1d).
+taps: the card unless `device` names another (`utils.devices.
+target_device`; `minimum_phase` of a tensor defaults to its device). The
+taps then feed the FIR paths (ops/convolution.py: fir_convolve_1d).
 """
 
 import math
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from nx_signal_tpu_torch.ops.windows import get_window
+from nx_signal_tpu_torch.utils.devices import target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = [
@@ -104,7 +105,7 @@ def firwin2(numtaps: int, freq, gain, *, nfreqs=None, window="hamming",
     Nyquist:
 
     >>> from nx_signal_tpu_torch.ops.fir_design import firwin2
-    >>> h = firwin2(5, [0.0, 0.5, 1.0], [1.0, 1.0, 0.0])
+    >>> h = firwin2(5, [0.0, 0.5, 1.0], [1.0, 1.0, 0.0], device="cpu")
     >>> h.numpy().round(4)
     array([-0.0085,  0.1108,  0.75  ,  0.1108, -0.0085], dtype=float32)
     """
@@ -176,11 +177,12 @@ def firwin2(numtaps: int, freq, gain, *, nfreqs=None, window="hamming",
         shift *= 1j
     out_full = np.fft.irfft(fx * shift)
     # the window in f64, as the JAX package builds it with x64 on
-    win = get_window(window, numtaps, periodic=False, dtype=torch.float64).numpy()
+    win = get_window(window, numtaps, periodic=False, dtype=torch.float64,
+                     device="cpu").numpy()
     out = out_full[:numtaps] * win
     if ftype == 3:
         out[numtaps // 2] = 0.0
-    return torch.as_tensor(out, device=device).to(dtype)
+    return torch.as_tensor(out, device=target_device(device)).to(dtype)
 
 
 def firls(numtaps: int, bands, desired, *, weight=None,
@@ -195,7 +197,7 @@ def firls(numtaps: int, bands, desired, *, weight=None,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.fir_design import firls
-    >>> h = firls(5, [0.0, 0.3, 0.4, 1.0], [1.0, 1.0, 0.0, 0.0])
+    >>> h = firls(5, [0.0, 0.3, 0.4, 1.0], [1.0, 1.0, 0.0, 0.0], device="cpu")
     >>> h.numpy().round(4)
     array([0.1265, 0.2786, 0.3451, 0.2786, 0.1265], dtype=float32)
     """
@@ -246,7 +248,7 @@ def firls(numtaps: int, bands, desired, *, weight=None,
 
     g = np.linalg.lstsq(qm, b, rcond=None)[0]
     h = np.concatenate([g[m:0:-1] / 2.0, g[:1], g[1:] / 2.0])
-    return torch.as_tensor(h, device=device).to(dtype)
+    return torch.as_tensor(h, device=target_device(device)).to(dtype)
 
 
 def _remez_dense_grid(bands, grid_density, r):
@@ -292,7 +294,7 @@ def remez(numtaps: int, bands, desired, *, weight=None, maxiter: int = 250,
     with ``sampling_rate=1.0``):
 
     >>> from nx_signal_tpu_torch.ops.fir_design import remez
-    >>> h = remez(7, [0.0, 0.2, 0.3, 0.5], [1.0, 0.0], sampling_rate=1.0)
+    >>> h = remez(7, [0.0, 0.2, 0.3, 0.5], [1.0, 0.0], sampling_rate=1.0, device="cpu")
     >>> h.numpy().round(4)
     array([-0.1196,  0.    ,  0.3131,  0.5   ,  0.3131, -0.    , -0.1196],
           dtype=float32)
@@ -457,7 +459,7 @@ def remez(numtaps: int, bands, desired, *, weight=None, maxiter: int = 250,
     full[: numtaps // 2 + 1] = h_resp * phase
     full[numtaps // 2 + 1:] = np.conj(full[1: (numtaps + 1) // 2][::-1])
     h = np.fft.ifft(full).real
-    return torch.as_tensor(h, device=device).to(dtype)
+    return torch.as_tensor(h, device=target_device(device)).to(dtype)
 
 
 def minimum_phase(h, *, n_fft=None, half: bool = True, dtype=DEFAULT_FLOAT, device=None):
@@ -472,7 +474,7 @@ def minimum_phase(h, *, n_fft=None, half: bool = True, dtype=DEFAULT_FLOAT, devi
     The minimum-phase half of a linear-phase triangle:
 
     >>> from nx_signal_tpu_torch.ops.fir_design import minimum_phase
-    >>> h = minimum_phase([0.25, 0.5, 0.25])
+    >>> h = minimum_phase([0.25, 0.5, 0.25], device="cpu")
     >>> h.numpy().round(4)
     array([0.494 , 0.5058], dtype=float32)
     """
@@ -507,4 +509,4 @@ def minimum_phase(h, *, n_fft=None, half: bool = True, dtype=DEFAULT_FLOAT, devi
         win[stop] = 1.0
     h_min = np.fft.ifft(np.exp(np.fft.fft(cep * win))).real
     n_out = (len(h) + 1) // 2 if half else len(h)
-    return torch.as_tensor(h_min[:n_out], device=device).to(dtype)
+    return torch.as_tensor(h_min[:n_out], device=target_device(device)).to(dtype)

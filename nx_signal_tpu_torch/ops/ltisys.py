@@ -25,7 +25,7 @@ import warnings
 import numpy as np
 import torch
 
-from nx_signal_tpu_torch.utils.devices import as_signal, card_device
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import result_real_dtype
 
 __all__ = [
@@ -762,7 +762,7 @@ def _where(t, device) -> torch.device:
     sits, else `device` (None: the card)."""
     if isinstance(t, torch.Tensor):
         return t.device
-    return card_device() if device is None else torch.device(device)
+    return target_device(device)
 
 
 def _host(v):

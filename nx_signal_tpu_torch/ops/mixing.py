@@ -66,5 +66,6 @@ def demodulate_channel(x, carrier_frequency, sampling_rate, *, bandwidth,
     if decimation < 1:
         raise ValueError(f"decimation must be >= 1, got: {decimation}")
     baseband = mix_down(x, carrier_frequency, sampling_rate)
-    taps = firwin(num_taps, [bandwidth / 2.0], sampling_rate=sampling_rate)
+    # host taps: resample_poly lays out its banded weights on the host
+    taps = firwin(num_taps, [bandwidth / 2.0], sampling_rate=sampling_rate, device="cpu")
     return resample_poly(baseband, 1, decimation, taps=taps)

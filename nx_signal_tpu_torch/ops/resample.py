@@ -198,7 +198,7 @@ def _resample_poly_design(up: int, down: int, window, taps):
     if taps is None:
         max_rate = max(up, down)
         half_len = 10 * max_rate
-        h = firwin(2 * half_len + 1, [1.0 / max_rate], window=window)
+        h = firwin(2 * half_len + 1, [1.0 / max_rate], window=window, device="cpu")
     else:
         h = torch.as_tensor(taps).detach().cpu()
         if h.shape[0] % 2 != 1:
@@ -385,7 +385,7 @@ def _pfb_prototype(m: int, taps_per_channel: int, window):
     """The default prototype firwin(m*tpc, 1/m, window), a host float32
     tensor designed once per band count, taps and window rather than on
     every call (8192 taps at 1024 bands)."""
-    return firwin(m * taps_per_channel, [1.0 / m], window=window)
+    return firwin(m * taps_per_channel, [1.0 / m], window=window, device="cpu")
 
 
 def pfb_footprint_bytes(strategy: str, batch_elems: int, length: int,
@@ -575,7 +575,8 @@ def decimate(x, q: int, *, n: int = None, ftype: str = "iir", axis: int = -1,
         y = sosfiltfilt(sos, x, axis=axis) if zero_phase else sosfilt(sos, x, axis=axis)
     elif ftype == "fir":
         numtaps = (20 * q if n is None else int(n)) + 1
-        b = firwin(numtaps, [1.0 / q], window="hamming")
+        # host taps: resample_poly and upfirdn lay out their weights on the host
+        b = firwin(numtaps, [1.0 / q], window="hamming", device="cpu")
         xm = torch.movedim(x, axis, -1)
         n_out = xm.shape[-1] // q + bool(xm.shape[-1] % q)
         if zero_phase:

@@ -10,8 +10,8 @@ the JAX package's, in the signal's dtype and in its order: a float32
 from a float64 chirp exactly as the reference does (ROADMAP.md, queue 3,
 "chirp's f32 phase"). The periodic waveforms reduce the time with
 `torch.remainder`, which takes the divisor's sign, as `jnp.mod` does.
-`unit_impulse` is built from a shape, on the CPU unless `device=` says
-otherwise, as the windows are.
+`unit_impulse` is built from a shape, on the card unless `device=` says
+otherwise, as the windows are (`utils.devices.target_device`).
 """
 
 import math
@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = [
@@ -253,27 +253,27 @@ def gausspulse(t, fc: float = 1000.0, bw: float = 0.5, bwr: float = -6.0,
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def unit_impulse(shape, *, index=0, dtype=DEFAULT_FLOAT, device="cpu"):
+def unit_impulse(shape, *, index=0, dtype=DEFAULT_FLOAT, device=None):
     """Delta function: 1 at `index` (an int, an index tuple or array, or
-    'midpoint'), 0 elsewhere, built on `device` (the CPU by default). An
+    'midpoint'), 0 elsewhere, built on `device` (None: the card). An
     index past the shape sets nothing, as in the JAX package.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.waveforms import unit_impulse
-    >>> unit_impulse(5, index=2)
+    >>> unit_impulse(5, index=2, device="cpu")
     tensor([0., 0., 1., 0., 0.])
     """
     if isinstance(shape, int):
         shape = (shape,)
     shape = tuple(int(d) for d in shape)
-    out = torch.zeros(shape, dtype=dtype, device=device)
     if isinstance(index, str):
         if index != "midpoint":
             raise ValueError(f"index must be an int, tuple, array or 'midpoint', got: {index}")
         idx = tuple(d // 2 for d in shape)
     else:
         idx = tuple(int(i) for i in torch.as_tensor(index).reshape(len(shape)).tolist())
+    out = torch.zeros(shape, dtype=dtype, device=target_device(device))
     if all(-d <= i < d for i, d in zip(idx, shape)):
         out[idx] = 1
     return out

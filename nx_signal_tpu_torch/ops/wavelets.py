@@ -2,13 +2,14 @@
 nx_signal_tpu/ops/wavelets.py), scipy.signal's legacy wavelet semantics:
 ricker, morlet, morlet2, qmf and cwt.
 
-The wavelets are host f64 tables cast once, built on the CPU unless
-`device=` says otherwise (the windows' rule); `qmf` of a tensor stays on
-its device. `cwt` takes the data through `utils.devices.as_signal` and
-computes as the JAX package does: one FFT of the data at the shared length
-`fft_fast_length(n + k_max - 1)`, one batched FFT of the whole wavelet
-bank (the bank built on the device from its packed kernels), one product
-and one inverse FFT, then each scale's 'same' window as a slice. The
+The wavelets are host f64 tables cast once and moved to the card unless
+`device=` says otherwise (the windows' rule, `utils.devices.target_device`);
+`qmf` of a tensor stays on its device. `cwt` takes the data through
+`utils.devices.as_signal` and computes as the JAX package does: one FFT of
+the data at the shared length `fft_fast_length(n + k_max - 1)`, one
+batched FFT of the whole wavelet bank (the bank built on the device from
+its packed kernels), one product and one inverse FFT, then each scale's
+'same' window as a slice. The
 output is float32, or complex64 for a complex wavelet or signal.
 `_cwt_f64` is the host f64 transform of `find_peaks_cwt`.
 """
@@ -18,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_COMPLEX, DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.shapes import fft_fast_length
 
@@ -43,30 +44,30 @@ def _ricker_np(points, a):
     return amp * (1.0 - xsq) * np.exp(-xsq / 2.0)
 
 
-def ricker(points: int, a, *, dtype=DEFAULT_FLOAT, device="cpu"):
+def ricker(points: int, a, *, dtype=DEFAULT_FLOAT, device=None):
     """Ricker ("Mexican hat") wavelet A (1 - (x/a)^2) e^{-x^2/(2a^2)}, A =
     2 / (sqrt(3a) pi^{1/4}), at x = arange(points) - (points-1)/2; a host
-    f64 table cast to `dtype` on `device`.
+    f64 table cast to `dtype` on `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.wavelets import ricker
-    >>> ricker(5, 1.0).numpy().round(4)
+    >>> ricker(5, 1.0, device="cpu").numpy().round(4)
     array([-0.3521,  0.    ,  0.8673,  0.    , -0.3521], dtype=float32)
     """
-    return torch.as_tensor(_ricker_np(points, a), device=device).to(dtype)
+    return torch.as_tensor(_ricker_np(points, a), device=target_device(device)).to(dtype)
 
 
 def morlet(points: int, w: float = 5.0, s: float = 1.0, complete: bool = True, *,
-           device="cpu"):
+           device=None):
     """Legacy Morlet wavelet over x = linspace(-2 pi s, 2 pi s, points):
     pi^{-1/4} e^{i w x} e^{-x^2/2}, less the zero-mean correction
-    e^{-w^2/2} when `complete`; complex64 on `device`.
+    e^{-w^2/2} when `complete`; complex64 on `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.wavelets import morlet
-    >>> morlet(5, w=5.0, s=0.5).numpy().round(4)
+    >>> morlet(5, w=5.0, s=0.5, device="cpu").numpy().round(4)
     array([-0.0054-0.j    , -0.    -0.2187j,  0.7511+0.j    , -0.    +0.2187j,
            -0.0054+0.j    ], dtype=complex64)
     """
@@ -75,54 +76,56 @@ def morlet(points: int, w: float = 5.0, s: float = 1.0, complete: bool = True, *
     if complete:
         out = out - math.exp(-0.5 * w * w)
     out = out * np.exp(-0.5 * x * x) * (math.pi ** -0.25)
-    return torch.as_tensor(out, device=device).to(DEFAULT_COMPLEX)
+    return torch.as_tensor(out, device=target_device(device)).to(DEFAULT_COMPLEX)
 
 
-def morlet2(points: int, s, w: float = 5.0, *, device="cpu"):
+def morlet2(points: int, s, w: float = 5.0, *, device=None):
     """Morlet wavelet in cwt's parameterization: sqrt(1/s) pi^{-1/4}
     e^{i w x} e^{-x^2/2}, x = (arange(points) - (points-1)/2) / s; complex64
-    on `device`. Its scale s relates to a frequency f as s = w fs / (2 pi f).
+    on `device` (None: the card). Its scale s relates to a frequency f as s = w fs / (2 pi f).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.wavelets import morlet2
-    >>> morlet2(4, 1.0).numpy().round(4)
+    >>> morlet2(4, 1.0, device="cpu").numpy().round(4)
     array([ 0.0845-0.2287j, -0.5311-0.3967j, -0.5311+0.3967j,  0.0845+0.2287j],
           dtype=complex64)
     """
     s = float(s)
     x = (np.arange(points, dtype=np.float64) - (points - 1.0) / 2.0) / s
     out = (math.pi ** -0.25) * math.sqrt(1.0 / s) * np.exp(1j * w * x) * np.exp(-0.5 * x * x)
-    return torch.as_tensor(out, device=device).to(DEFAULT_COMPLEX)
+    return torch.as_tensor(out, device=target_device(device)).to(DEFAULT_COMPLEX)
 
 
-def qmf(hk, *, device="cpu"):
+def qmf(hk, *, device=None):
     """Quadrature mirror filter of a FIR filter, g[n] = (-1)^n h[N-1-n]; a
-    tensor stays on its device, other taps go to `device`.
+    tensor stays on its device, other taps go to `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.wavelets import qmf
-    >>> qmf([1.0, 2.0, 3.0, 4.0])
+    >>> qmf([1.0, 2.0, 3.0, 4.0], device="cpu")
     tensor([ 4., -3.,  2., -1.])
     """
-    hk = torch.atleast_1d(hk if isinstance(hk, torch.Tensor)
-                          else torch.as_tensor(hk, device=device))
-    if hk.ndim != 1:
+    if np.ndim(hk) > 1:
         raise ValueError("qmf expects a rank-1 tap vector")
+    hk = torch.atleast_1d(hk if isinstance(hk, torch.Tensor)
+                          else torch.as_tensor(hk, device=target_device(device)))
     signs = 1 - 2 * (torch.arange(hk.shape[0], device=hk.device) % 2)
     return torch.flip(hk, (0,)) * signs.to(hk.dtype)
 
 
 def _wavelet_bank(wavelet, widths, n):
     """Per-scale kernels conj(wavelet(min(10*width, n), width))[::-1] as
-    host numpy arrays."""
+    host numpy arrays. The port's own wavelets are built on the host for it
+    (device='cpu'); any other callable as scipy calls it, (length, width)."""
+    kw = {"device": "cpu"} if wavelet in (ricker, morlet, morlet2) else {}
     kernels = []
     for width in widths:
         length = int(math.ceil(min(10 * float(width), float(n))))
         if length < 1:
             raise ValueError(f"width {width} yields an empty wavelet")
-        kernels.append(np.conj(_host(wavelet(length, width))[::-1]))
+        kernels.append(np.conj(_host(wavelet(length, width, **kw))[::-1]))
     return kernels
 
 

@@ -8,8 +8,9 @@ math built on the host in f64 numpy (scipy.signal.windows semantics) and
 cast once. Each takes the periodic (DFT-even, default) vs symmetric
 (filter-design) distinction where the JAX package does: the periodic
 window of length n is the symmetric window of length n + 1 without its
-last sample. A window is built on the CPU unless `device=` says otherwise;
-its consumer moves it to the signal's device.
+last sample. A window is built on the card unless `device=` says
+otherwise (`utils.devices.target_device`); code that reads a window as
+numpy asks for `device='cpu'`.
 """
 
 import math
@@ -17,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from nx_signal_tpu_torch.utils.devices import target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["rectangular", "bartlett", "triangular", "blackman", "hamming", "hann", "kaiser",
@@ -27,7 +29,9 @@ __all__ = ["rectangular", "bartlett", "triangular", "blackman", "hamming", "hann
 
 
 def _cosine_window(n: int, coefs, periodic: bool, dtype, device):
-    """General cosine-sum window: sum_k (-1)^k a_k cos(2 pi k i / (L-1))."""
+    """General cosine-sum window: sum_k (-1)^k a_k cos(2 pi k i / (L-1)),
+    computed on `device` (None: the card)."""
+    device = target_device(device)
     if n == 1:
         return torch.ones((1,), dtype=dtype, device=device)  # scipy convention
     length = n + 1 if periodic else n
@@ -48,7 +52,7 @@ def blackman(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None)
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import blackman
-    >>> blackman(8, periodic=False).numpy().round(4)
+    >>> blackman(8, periodic=False, device="cpu").numpy().round(4)
     array([-0.    ,  0.0905,  0.4592,  0.9204,  0.9204,  0.4592,  0.0905,
            -0.    ], dtype=float32)
     """
@@ -61,7 +65,7 @@ def hamming(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import hamming
-    >>> hamming(6, periodic=False).numpy().round(4)
+    >>> hamming(6, periodic=False, device="cpu").numpy().round(4)
     array([0.08  , 0.3979, 0.9121, 0.9121, 0.3979, 0.08  ], dtype=float32)
     """
     return _cosine_window(n, (0.54, 0.46), periodic, dtype, device)
@@ -73,14 +77,16 @@ def hann(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import hann
-    >>> hann(4)
+    >>> hann(4, device="cpu")
     tensor([0.0000, 0.5000, 1.0000, 0.5000])
     """
     return _cosine_window(n, (0.5, 0.5), periodic, dtype, device)
 
 
 def _host_window(n: int, periodic: bool, dtype, device, build):
-    """Symmetric->periodic plumbing for windows built in f64 numpy."""
+    """Symmetric->periodic plumbing for windows built in f64 numpy, then
+    moved to `device` (None: the card)."""
+    device = target_device(device)
     if n == 0:
         return torch.zeros((0,), dtype=dtype, device=device)
     if n == 1:
@@ -98,7 +104,7 @@ def general_cosine(n: int, coefs, *, periodic: bool = True, dtype=DEFAULT_FLOAT,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import general_cosine
-    >>> general_cosine(6, [0.6, 0.4], periodic=False).numpy().round(4)
+    >>> general_cosine(6, [0.6, 0.4], periodic=False, device="cpu").numpy().round(4)
     array([0.2   , 0.4764, 0.9236, 0.9236, 0.4764, 0.2   ], dtype=float32)
     """
     def build(length):
@@ -118,10 +124,10 @@ def rectangular(n: int, *, dtype=torch.int32, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import rectangular
-    >>> rectangular(5)
+    >>> rectangular(5, device="cpu")
     tensor([1, 1, 1, 1, 1], dtype=torch.int32)
     """
-    return torch.ones((n,), dtype=dtype, device=device)
+    return torch.ones((n,), dtype=dtype, device=target_device(device))
 
 
 def bartlett(n: int, *, dtype=DEFAULT_FLOAT, device=None):
@@ -132,10 +138,10 @@ def bartlett(n: int, *, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import bartlett
-    >>> bartlett(6).numpy().round(4)
+    >>> bartlett(6, device="cpu").numpy().round(4)
     array([0.    , 0.3333, 0.6667, 1.    , 0.6667, 0.3333], dtype=float32)
     """
-    i = torch.arange(n, dtype=dtype, device=device)
+    i = torch.arange(n, dtype=dtype, device=target_device(device))
     left_size = n // 2 + n % 2
     return torch.where(i < left_size, i * 2.0 / n, 2.0 - i * 2.0 / n).to(dtype)
 
@@ -147,11 +153,11 @@ def triangular(n: int, *, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import triangular
-    >>> triangular(5).numpy().round(4)
+    >>> triangular(5, device="cpu").numpy().round(4)
     array([0.3333, 0.6667, 1.    , 0.6667, 0.3333], dtype=float32)
     """
     half = (n + 1) // 2
-    idx = torch.arange(1, half + 1, dtype=dtype, device=device)
+    idx = torch.arange(1, half + 1, dtype=dtype, device=target_device(device))
     if n % 2 == 1:
         left = idx * 2.0 / (n + 1)
         return torch.cat([left, left.flip(0)[1:]]).to(dtype)
@@ -168,7 +174,7 @@ def kaiser(n: int, *, beta: float = 12.0, periodic: bool = True, eps: float = 0.
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import kaiser
-    >>> kaiser(5, beta=12.0, periodic=False)
+    >>> kaiser(5, beta=12.0, periodic=False, device="cpu")
     tensor([5.2773e-05, 2.1567e-01, 1.0000e+00, 2.1567e-01, 5.2773e-05])
     """
     def build(length):
@@ -184,7 +190,7 @@ def general_hamming(n: int, alpha: float, *, periodic: bool = True, dtype=DEFAUL
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import general_hamming
-    >>> general_hamming(6, 0.6, periodic=False).numpy().round(4)
+    >>> general_hamming(6, 0.6, periodic=False, device="cpu").numpy().round(4)
     array([0.2   , 0.4764, 0.9236, 0.9236, 0.4764, 0.2   ], dtype=float32)
     """
     return general_cosine(n, [alpha, 1.0 - alpha], periodic=periodic, dtype=dtype,
@@ -197,7 +203,7 @@ def blackmanharris(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import blackmanharris
-    >>> blackmanharris(6, periodic=False).numpy().round(4)
+    >>> blackmanharris(6, periodic=False, device="cpu").numpy().round(4)
     array([1.000e-04, 1.030e-01, 7.938e-01, 7.938e-01, 1.030e-01, 1.000e-04],
           dtype=float32)
     """
@@ -211,7 +217,7 @@ def nuttall(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import nuttall
-    >>> nuttall(6, periodic=False).numpy().round(4)
+    >>> nuttall(6, periodic=False, device="cpu").numpy().round(4)
     array([4.000e-04, 1.105e-01, 7.983e-01, 7.983e-01, 1.105e-01, 4.000e-04],
           dtype=float32)
     """
@@ -225,7 +231,7 @@ def flattop(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import flattop
-    >>> flattop(7, periodic=False).numpy().round(4)
+    >>> flattop(7, periodic=False, device="cpu").numpy().round(4)
     array([-4.000e-04, -5.130e-02,  1.982e-01,  1.000e+00,  1.982e-01,
            -5.130e-02, -4.000e-04], dtype=float32)
     """
@@ -240,7 +246,7 @@ def bohman(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import bohman
-    >>> bohman(6, periodic=False).numpy().round(4)
+    >>> bohman(6, periodic=False, device="cpu").numpy().round(4)
     array([0.    , 0.1791, 0.8343, 0.8343, 0.1791, 0.    ], dtype=float32)
     """
     def build(length):
@@ -256,7 +262,7 @@ def cosine(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import cosine
-    >>> cosine(6, periodic=False).numpy().round(4)
+    >>> cosine(6, periodic=False, device="cpu").numpy().round(4)
     array([0.2588, 0.7071, 0.9659, 0.9659, 0.7071, 0.2588], dtype=float32)
     """
     return _host_window(n, periodic, dtype, device,
@@ -269,7 +275,7 @@ def barthann(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None)
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import barthann
-    >>> barthann(6, periodic=False).numpy().round(4)
+    >>> barthann(6, periodic=False, device="cpu").numpy().round(4)
     array([0.    , 0.3586, 0.8794, 0.8794, 0.3586, 0.    ], dtype=float32)
     """
     def build(length):
@@ -284,7 +290,7 @@ def parzen(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import parzen
-    >>> parzen(6, periodic=False).numpy().round(4)
+    >>> parzen(6, periodic=False, device="cpu").numpy().round(4)
     array([0.0093, 0.25  , 0.8611, 0.8611, 0.25  , 0.0093], dtype=float32)
     """
     def build(length):
@@ -301,7 +307,7 @@ def lanczos(n: int, *, periodic: bool = True, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import lanczos
-    >>> lanczos(6, periodic=False).numpy().round(4)
+    >>> lanczos(6, periodic=False, device="cpu").numpy().round(4)
     array([0.    , 0.5046, 0.9355, 0.9355, 0.5046, 0.    ], dtype=float32)
     """
     return _host_window(n, periodic, dtype, device,
@@ -314,7 +320,7 @@ def gaussian(n: int, std: float, *, periodic: bool = True, dtype=DEFAULT_FLOAT, 
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import gaussian
-    >>> gaussian(7, 1.5, periodic=False).numpy().round(4)
+    >>> gaussian(7, 1.5, periodic=False, device="cpu").numpy().round(4)
     array([0.1353, 0.4111, 0.8007, 1.    , 0.8007, 0.4111, 0.1353],
           dtype=float32)
     """
@@ -331,7 +337,7 @@ def general_gaussian(n: int, p: float, sig: float, *, periodic: bool = True,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import general_gaussian
-    >>> general_gaussian(7, 1.5, 2.0, periodic=False).numpy().round(4)
+    >>> general_gaussian(7, 1.5, 2.0, periodic=False, device="cpu").numpy().round(4)
     array([0.185 , 0.6065, 0.9394, 1.    , 0.9394, 0.6065, 0.185 ],
           dtype=float32)
     """
@@ -349,7 +355,7 @@ def tukey(n: int, alpha: float = 0.5, *, periodic: bool = True, dtype=DEFAULT_FL
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import tukey
-    >>> tukey(8, 0.5, periodic=False).numpy().round(4)
+    >>> tukey(8, 0.5, periodic=False, device="cpu").numpy().round(4)
     array([0.    , 0.6113, 1.    , 1.    , 1.    , 1.    , 0.6113, 0.    ],
           dtype=float32)
     """
@@ -376,7 +382,7 @@ def exponential(n: int, center=None, tau: float = 1.0, *, periodic: bool = True,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import exponential
-    >>> exponential(6, tau=2.0, periodic=False).numpy().round(4)
+    >>> exponential(6, tau=2.0, periodic=False, device="cpu").numpy().round(4)
     array([0.2865, 0.4724, 0.7788, 0.7788, 0.4724, 0.2865], dtype=float32)
     """
     if not periodic and center is not None:
@@ -396,7 +402,7 @@ def taylor(n: int, nbar: int = 4, sll: float = 30.0, *, norm: bool = True,
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import taylor
-    >>> taylor(8, nbar=3, sll=20, periodic=False).numpy().round(4)
+    >>> taylor(8, nbar=3, sll=20, periodic=False, device="cpu").numpy().round(4)
     array([0.5427, 0.6664, 0.848 , 0.981 , 0.981 , 0.848 , 0.6664, 0.5427],
           dtype=float32)
     """
@@ -431,7 +437,7 @@ def chebwin(n: int, at: float = 100.0, *, periodic: bool = True, dtype=DEFAULT_F
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import chebwin
-    >>> chebwin(7, 60, periodic=False).numpy().round(4)
+    >>> chebwin(7, 60, periodic=False, device="cpu").numpy().round(4)
     array([0.0871, 0.38  , 0.7947, 1.    , 0.7947, 0.38  , 0.0871],
           dtype=float32)
     """
@@ -471,7 +477,7 @@ def dpss(n: int, half_bandwidth: float, n_windows=None, *, periodic: bool = Fals
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import dpss
-    >>> dpss(6, 1.5, periodic=False).numpy().round(4)
+    >>> dpss(6, 1.5, periodic=False, device="cpu").numpy().round(4)
     array([0.1329, 0.3766, 0.5835, 0.5835, 0.3766, 0.1329], dtype=float32)
     """
     if not 0 < half_bandwidth < n / 2.0:
@@ -494,7 +500,7 @@ def dpss(n: int, half_bandwidth: float, n_windows=None, *, periodic: bool = Fals
         sig = w[w * w > thresh**2]
         if sig.size and sig[0] < 0:
             wins[2 * i + 1] *= -1
-    out = torch.as_tensor(wins[:, :n], device=device).to(dtype)
+    out = torch.as_tensor(wins[:, :n], device=target_device(device)).to(dtype)
     return out[0] if n_windows is None else out
 
 
@@ -507,17 +513,19 @@ def kaiser_bessel_derived(n: int, beta: float, *, dtype=DEFAULT_FLOAT, device=No
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import kaiser_bessel_derived
-    >>> kaiser_bessel_derived(4, beta=4.0).numpy().round(4)
+    >>> kaiser_bessel_derived(4, beta=4.0, device="cpu").numpy().round(4)
     array([0.2742, 0.9617, 0.9617, 0.2742], dtype=float32)
     """
     if n < 0:
         raise ValueError("Window length n must be non-negative")
-    if n == 0:
-        return torch.zeros((0,), dtype=dtype, device=device)
     if n % 2:
         raise ValueError("Kaiser-Bessel Derived windows are only defined "
                          "for even number of points")
-    kw = kaiser(n // 2 + 1, beta=float(beta), periodic=False, dtype=torch.float64).numpy()
+    device = target_device(device)
+    if n == 0:
+        return torch.zeros((0,), dtype=dtype, device=device)
+    kw = kaiser(n // 2 + 1, beta=float(beta), periodic=False, dtype=torch.float64,
+                device="cpu").numpy()
     csum = np.cumsum(kw)
     half = np.sqrt(csum[:-1] / csum[-1])
     return torch.as_tensor(np.concatenate([half, half[::-1]]), device=device).to(dtype)
@@ -529,10 +537,10 @@ def boxcar(n: int, *, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import boxcar
-    >>> boxcar(3)
+    >>> boxcar(3, device="cpu")
     tensor([1., 1., 1.])
     """
-    return torch.ones((n,), dtype=dtype, device=device)
+    return torch.ones((n,), dtype=dtype, device=target_device(device))
 
 
 def triang(n: int, *, dtype=DEFAULT_FLOAT, device=None):
@@ -542,7 +550,7 @@ def triang(n: int, *, dtype=DEFAULT_FLOAT, device=None):
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import triang
-    >>> triang(4).numpy().round(4)
+    >>> triang(4, device="cpu").numpy().round(4)
     array([0.25, 0.75, 0.75, 0.25], dtype=float32)
     """
     return triangular(n, dtype=dtype, device=device)
@@ -609,9 +617,9 @@ def get_window(window, n: int, *, periodic: bool = False, dtype=DEFAULT_FLOAT, d
     Examples:
 
     >>> from nx_signal_tpu_torch.ops.windows import get_window
-    >>> get_window("hann", 4).numpy().round(4)
+    >>> get_window("hann", 4, device="cpu").numpy().round(4)
     array([0.  , 0.75, 0.75, 0.  ], dtype=float32)
-    >>> get_window(("kaiser", 8.0), 5).numpy().round(4)
+    >>> get_window(("kaiser", 8.0), 5, device="cpu").numpy().round(4)
     array([0.0023, 0.369 , 1.    , 0.369 , 0.0023], dtype=float32)
     """
     if isinstance(window, (tuple, list)):
@@ -626,5 +634,5 @@ def get_window(window, n: int, *, periodic: bool = False, dtype=DEFAULT_FLOAT, d
     if window not in _WINDOW_BUILDERS:
         raise _unknown_window(window)
     if window in ("rectangular", "boxcar"):
-        return torch.ones((n,), dtype=dtype, device=device)
+        return boxcar(n, dtype=dtype, device=device)
     return _WINDOW_BUILDERS[window](n, periodic, dtype, device)

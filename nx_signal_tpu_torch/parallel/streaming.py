@@ -32,7 +32,7 @@ device on its first chunk there and kept on the processor (`_kept`); the
 chunked IIR's matrices are kept per denominator and device by
 `ops.iir._chunk_constants_on`. So a chunk makes no host-to-device copy.
 `init_state` makes its zeros on `device`, by default the card
-(`utils.devices.card_device`).
+(`utils.devices.target_device`).
 """
 
 from dataclasses import dataclass
@@ -58,7 +58,7 @@ from nx_signal_tpu_torch.ops.resample import (
 )
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
 from nx_signal_tpu_torch.spectral.stft import _apply_scaling
-from nx_signal_tpu_torch.utils.devices import as_signal, card_device
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_COMPLEX, DEFAULT_FLOAT
 
 __all__ = ["StreamingFIR", "StreamingSTFT", "StreamingISTFT", "StreamingIIR",
@@ -87,7 +87,7 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
     for the card."""
     if not isinstance(dtype, torch.dtype):
         dtype = torch.from_numpy(np.zeros(0, dtype)).dtype
-    return torch.zeros(shape, dtype=dtype, device=card_device() if device is None else device)
+    return torch.zeros(shape, dtype=dtype, device=target_device(device))
 
 
 def _state_on(state, device) -> torch.Tensor:
@@ -149,7 +149,7 @@ class StreamingSTFT:
     >>> import torch
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.parallel.streaming import StreamingSTFT
-    >>> sstft = StreamingSTFT(hann(8), hop=4, onesided=True)
+    >>> sstft = StreamingSTFT(hann(8, device="cpu"), hop=4, onesided=True)
     >>> state = sstft.init_state(device='cpu')
     >>> state, z1 = sstft.process(state, torch.ones(8))
     >>> state, z2 = sstft.process(state, torch.ones(8))
@@ -214,7 +214,7 @@ class StreamingISTFT:
     >>> import numpy as np, torch
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.parallel.streaming import StreamingISTFT
-    >>> sistft = StreamingISTFT(hann(8), hop=4)
+    >>> sistft = StreamingISTFT(hann(8, device="cpu"), hop=4)
     >>> state = sistft.init_state(device='cpu')
     >>> z = torch.from_numpy(np.fft.fft(np.ones((2, 8))).astype(np.complex64))
     >>> state, y = sistft.process(state, z)
@@ -309,7 +309,9 @@ class StreamingPFB:
     def __post_init__(self):
         m = self.n_channels
         if self.taps is None:
-            proto = firwin(m * self.taps_per_channel, [1.0 / m], window=self.window)
+            # a host prototype: process lays out its weights from it per device
+            proto = firwin(m * self.taps_per_channel, [1.0 / m], window=self.window,
+                           device="cpu")
         else:
             proto = _host(self.taps)
             if proto.shape[0] % m != 0:

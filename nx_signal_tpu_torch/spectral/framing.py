@@ -57,9 +57,16 @@ def pad_for_windowing(x, window_length: int, padding):
     """
     x = as_signal(x)
     if padding == "reflect":
-        half = window_length // 2
-        idx = np.pad(np.arange(x.shape[-1]), (half, half), mode="reflect")
-        return x.index_select(-1, torch.as_tensor(idx, device=x.device))
+        half, n = window_length // 2, x.shape[-1]
+        if n < 2:  # numpy's own rule (and error) for an axis this short
+            idx = torch.as_tensor(np.pad(np.arange(n), (half, half), mode="reflect"),
+                                  device=x.device)
+        else:
+            # numpy's reflection, periodic in 2(n - 1), built where the
+            # signal is: no host-to-device copy a call
+            j = torch.remainder(torch.arange(-half, n + half, device=x.device), 2 * (n - 1))
+            idx = torch.where(j < n, j, 2 * (n - 1) - j)
+        return x.index_select(-1, idx)
     lo, hi = _padding_config(window_length, padding)
     if lo < 0 or hi < 0:
         raise ValueError(f"padding must be non-negative, got: ({lo}, {hi})")

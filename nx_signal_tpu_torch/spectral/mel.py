@@ -9,7 +9,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32
 from nx_signal_tpu_torch.spectral.stft import _linspace, fft_frequencies
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["mel_filters", "stft_to_mel"]
@@ -20,12 +20,13 @@ def mel_filters(fft_length: int, mel_bins: int, sampling_rate, *, max_mel: float
                 device=None):
     """Slaney-style mel filterbank matrix [mels, frequencies]: linear
     spacing below the 1 kHz breakpoint, log spacing (step log(6.4)/27)
-    above, triangular weights with the Slaney 2/bandwidth normalization.
+    above, triangular weights with the Slaney 2/bandwidth normalization,
+    computed on `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.spectral.mel import mel_filters
-    >>> fb = mel_filters(16, 3, 8000.0)
+    >>> fb = mel_filters(16, 3, 8000.0, device="cpu")
     >>> fb.shape
     torch.Size([3, 16])
     >>> fb[:, :6].numpy().round(4)
@@ -33,6 +34,7 @@ def mel_filters(fft_length: int, mel_bins: int, sampling_rate, *, max_mel: float
            [0.    , 0.    , 0.0002, 0.0005, 0.0006, 0.0004],
            [0.    , 0.    , 0.    , 0.    , 0.    , 0.0001]], dtype=float32)
     """
+    device = target_device(device)
     f_sp = mel_frequency_spacing
     fftfreqs = fft_frequencies(sampling_rate, fft_length=fft_length, dtype=dtype,
                                device=device)
@@ -77,7 +79,7 @@ def stft_to_mel(z, sampling_rate, *, fft_length: int, mel_bins: int = 128,
     >>> from nx_signal_tpu_torch.spectral.mel import stft_to_mel
     >>> from nx_signal_tpu_torch.spectral.stft import stft
     >>> x = torch.sin(0.3 * torch.arange(4000.0))
-    >>> z, t, f = stft(x, hann(256), sampling_rate=8000.0, fft_length=256,
+    >>> z, t, f = stft(x, hann(256, device="cpu"), sampling_rate=8000.0, fft_length=256,
     ...                overlap_length=128, onesided=True)
     >>> m = stft_to_mel(z, 8000.0, fft_length=256, mel_bins=40)
     >>> m.shape, bool(torch.isfinite(m).all())

@@ -194,7 +194,7 @@ class ShortTimeFFT:
         if not 0 <= noverlap < nperseg:
             raise ValueError("noverlap must satisfy 0 <= noverlap < nperseg")
         win = get_window(win_param, nperseg, periodic=not symmetric_win,
-                         dtype=torch.float64).numpy()
+                         dtype=torch.float64, device="cpu").numpy()
         return cls(win, hop=nperseg - noverlap, fs=fs, fft_mode=fft_mode, mfft=mfft,
                    scale_to=scale_to, phase_shift=phase_shift)
 

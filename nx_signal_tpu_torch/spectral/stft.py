@@ -22,7 +22,7 @@ import torch
 from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
 from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul_fft_length
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for_windowing
-from nx_signal_tpu_torch.utils.devices import as_signal
+from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.shapes import next_power_of_two
 
@@ -42,20 +42,21 @@ class STFTResult(NamedTuple):
 def fft_frequencies(sampling_rate, *, fft_length: int, dtype=DEFAULT_FLOAT,
                     endpoint: bool = False, device=None):
     """FFT bin frequencies in Hz: linspace(0, Fs, fft_length, endpoint=False),
-    the full bin range.
+    the full bin range, on `device` (None: the card).
 
     Examples:
 
     >>> from nx_signal_tpu_torch.spectral.stft import fft_frequencies
-    >>> fft_frequencies(sampling_rate=10.0, fft_length=5)
+    >>> fft_frequencies(sampling_rate=10.0, fft_length=5, device="cpu")
     tensor([0., 2., 4., 6., 8.])
     """
+    device = target_device(device)
     if endpoint:
         return _linspace(0.0, sampling_rate, fft_length, dtype=dtype, device=device)
     return _linspace(0.0, sampling_rate, fft_length + 1, dtype=dtype, device=device)[:-1]
 
 
-def _linspace(start, stop, num: int, *, dtype=DEFAULT_FLOAT, device=None):
+def _linspace(start, stop, num: int, *, dtype=DEFAULT_FLOAT, device):
     """`num` evenly spaced values from start to stop, each formed as start +
     i * step in `dtype` (jax.numpy.linspace's rounding; torch.linspace
     rounds some points differently)."""
@@ -117,7 +118,7 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.spectral.stft import stft
     >>> x = torch.sin(2 * torch.pi * 100.0 * torch.arange(400) / 400.0)
-    >>> z, times, freqs = stft(x, hann(64), sampling_rate=400.0, overlap_length=32)
+    >>> z, times, freqs = stft(x, hann(64, device="cpu"), sampling_rate=400.0, overlap_length=32)
     >>> z.shape, float(freqs[16]), int(z[0].abs().argmax())
     (torch.Size([11, 64]), 100.0, 16)
     """
@@ -196,8 +197,8 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     >>> from nx_signal_tpu_torch.ops.windows import hann
     >>> from nx_signal_tpu_torch.spectral.stft import istft, stft
     >>> x = torch.sin(torch.arange(256) / 5.0)
-    >>> z, _, _ = stft(x, hann(32), overlap_length=16)
-    >>> y = istft(z, hann(32), overlap_length=16)
+    >>> z, _, _ = stft(x, hann(32, device="cpu"), overlap_length=16)
+    >>> y = istft(z, hann(32, device="cpu"), overlap_length=16)
     >>> bool((y.real[16:-16] - x[16:y.shape[-1] - 16]).abs().max() < 1e-6)
     True
     """
@@ -252,7 +253,8 @@ def _check_window_arg(window, nperseg: int):
     if isinstance(window, (str, tuple)):
         from nx_signal_tpu_torch.ops.windows import get_window
 
-        w = get_window(window, nperseg, periodic=True, dtype=torch.float64).numpy()
+        w = get_window(window, nperseg, periodic=True, dtype=torch.float64,
+                       device="cpu").numpy()
     else:
         if isinstance(window, torch.Tensor):
             window = window.detach().cpu().numpy()

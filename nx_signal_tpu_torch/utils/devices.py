@@ -1,15 +1,22 @@
-"""Where the port's entry points put their data.
+"""Where the port's entry points put their data: one rule for all of them.
 
-The port runs on the card unless the caller asks for the CPU: a signal
-given as a tensor stays on its own device, and anything else (a numpy
-array, a list) goes to the CUDA device. With no CUDA device that is an
-error, never a quiet run on the CPU; the caller asks for the CPU by
-passing a CPU tensor or `device='cpu'`.
+* A tensor argument keeps its device.
+* A numpy array or a list given as a signal goes to the card (`as_signal`).
+* An entry point given no tensor at all (only sizes, scalars, numpy
+  coefficients or strings: a window, a filter design, a frequency
+  response, a filterbank, a wavelet, a set of chirp-z points) builds and
+  computes on the card unless given `device=` (`target_device`).
+* Where there is no card, that is a RuntimeError naming `device='cpu'`,
+  never a quiet run on the CPU.
+
+The caller asks for the CPU by passing a CPU tensor or `device='cpu'`;
+code of the port that wants a host result (a window it reads as numpy, a
+prototype it lays out on the host) names `device='cpu'` where it calls.
 """
 
 import torch
 
-__all__ = ["card_device", "as_signal"]
+__all__ = ["card_device", "target_device", "as_signal"]
 
 
 def card_device() -> torch.device:
@@ -20,6 +27,19 @@ def card_device() -> torch.device:
             "no CUDA device: nx_signal_tpu_torch runs on the card unless asked for the "
             "CPU; pass a CPU tensor (e.g. torch.from_numpy(x)) or device='cpu'")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def target_device(device=None) -> torch.device:
+    """The device an entry point given no tensor builds on: `device` as
+    given, None the card (`card_device`).
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.utils.devices import target_device
+    >>> target_device("cpu")
+    device(type='cpu')
+    """
+    return card_device() if device is None else torch.device(device)
 
 
 def as_signal(x) -> torch.Tensor:

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
-from nx_signal_tpu_torch.utils.devices import card_device
+from nx_signal_tpu_torch.utils.devices import target_device
 
 __all__ = ["benchmark", "BenchResult", "device_hbm_bandwidth", "hard_sync",
            "trace", "timed_median", "slope_rate"]
@@ -43,7 +43,7 @@ def device_hbm_bandwidth(device=None) -> float:
     ...
     ValueError: device_hbm_bandwidth: cpu has no device-memory figure; it reads a CUDA card's
     """
-    device = card_device() if device is None else torch.device(device)
+    device = target_device(device)
     if device.type != "cuda":
         raise ValueError(f"device_hbm_bandwidth: {device} has no device-memory figure; "
                          "it reads a CUDA card's")

@@ -120,8 +120,8 @@ def _ring(dev, gen, tmp):
     num_taps, frame, hop, n_fft = 255, 512, 128, 512
     frames = (x.shape[-1] - frame) // hop + 1
     pad_left = (num_taps - 1) - (num_taps - 1) // 2
-    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
-    w = fir_dft_fold_weights(taps, hann(frame).numpy(), n_fft, True, device=dev)
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
+    w = fir_dft_fold_weights(taps, hann(frame, device="cpu").numpy(), n_fft, True, device=dev)
     want = cuda_dft.fir_framed_dft_power_cuda(x, w, stride=hop, pad_left=pad_left,
                                               num_frames=frames, bins=257)
     out = torch.empty_like(want)
@@ -157,8 +157,8 @@ def _tc_groups(dev, gen, tmp):
     num_taps, frame, hop, n_fft = 255, 512, 128, 512
     frames = (x.shape[-1] - frame) // hop + 1
     pad_left = (num_taps - 1) - (num_taps - 1) // 2
-    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
-    w = fir_dft_fold_weights(taps, hann(frame).numpy(), n_fft, True, device=dev)
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
+    w = fir_dft_fold_weights(taps, hann(frame, device="cpu").numpy(), n_fft, True, device=dev)
     text = (_CSRC / "framed_dft_tc.cu").read_text()
     line = next(ln for ln in text.splitlines() if ln.startswith("constexpr int kGroupSteps = "))
     src, lib = os.path.join(tmp, "tc_stage_group.cu"), os.path.join(tmp, "tc_stage_group.so")
@@ -221,7 +221,7 @@ def _shared_tiles(dev, gen, tmp):
     num_taps, hop, n_fft, bins = 255, 128, 512, 257
     frames = (x.shape[-1] - n_fft) // hop + 1
     pad_left = (num_taps - 1) - (num_taps - 1) // 2
-    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0).numpy()
+    taps = firwin(num_taps, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
     coeffs = (0.5, -0.5)
     w = shared_fold_weights(taps, hop, n_fft, device=dev)
     tw = shared_twiddles(hop, n_fft, device=dev)
@@ -252,8 +252,8 @@ def _shared_tiles(dev, gen, tmp):
         runs[name] = run
     for name, defines in _D_PROBES.items():
         runs[name] = call(_shared_variant(tmp, defines), name)
-    wa = fir_dft_fold_weights(taps, hann(n_fft, dtype=torch.float64).numpy(), n_fft, True,
-                              device=dev)
+    hann64 = hann(n_fft, dtype=torch.float64, device="cpu").numpy()
+    wa = fir_dft_fold_weights(taps, hann64, n_fft, True, device=dev)
     runs["kernel A 'highest' (same chain)"] = lambda: cuda_dft.fir_framed_dft_power_cuda(
         x, wa, stride=hop, pad_left=pad_left, num_frames=frames, bins=bins)
     for _ in range(2):
@@ -292,7 +292,7 @@ def _fft_kernels(dev, gen):
     lib = load_library()
 
     def kernel(n_fft, mixed, x, hop, power):
-        win = torch.as_tensor(hann(n_fft).numpy(), device=dev)
+        win = torch.as_tensor(hann(n_fft, device="cpu").numpy(), device=dev)
         if mixed:
             plan = _fft_plan(n_fft)
             packed, points = _pack_plan(plan), plan.points

@@ -180,7 +180,7 @@ def main() -> int:
     x = randn(3, (8, 4_194_304))
     tpc = 8
     for m in (16, 64, 256, 1024):
-        proto = firwin(m * tpc, [1.0 / m], window=("kaiser", 5.0))
+        proto = firwin(m * tpc, [1.0 / m], window=("kaiser", 5.0), device="cpu")
         nb = x.shape[-1] // m
         u = x[..., :nb * m].reshape(x.shape[0], nb, m)
         w = proto.to(dev).reshape(tpc, m)

@@ -139,7 +139,7 @@ class TestResumeInProcess:
             np.testing.assert_array_equal(got, want)
 
     def test_stft_istft_roundtrip_after_resume(self, tmp_path):
-        w = hann(64)
+        w = hann(64, device="cpu")
         stft_p, istft_p = StreamingSTFT(w, hop=16), StreamingISTFT(w, hop=16)
         rng = np.random.default_rng(3)
         chunks = [torch.from_numpy(rng.normal(size=256).astype(np.float32)) for _ in range(6)]
@@ -178,7 +178,7 @@ state, outs = saved["fir"], []
 for c in chunks[3:]:
     state, out = proc.process(state, c)
     outs.append(out.numpy())
-istft = StreamingISTFT(hann(64), hop=16)
+istft = StreamingISTFT(hann(64, device='cpu'), hop=16)
 zs = np.load(zs_path)
 s, ys = saved["istft"], []
 for z in zs:
@@ -201,7 +201,7 @@ class TestResumeFreshProcess:
         _, full = _run_chunks(proc, proc.init_state(device="cpu"), chunks)
         state, _ = _run_chunks(proc, proc.init_state(device="cpu"), chunks[:3])
 
-        istft = StreamingISTFT(hann(64), hop=16)
+        istft = StreamingISTFT(hann(64, device="cpu"), hop=16)
         zs = (rng.normal(size=(6, 8, 64)) + 1j * rng.normal(size=(6, 8, 64))).astype(np.complex64)
         _, ys_full = _run_chunks(istft, istft.init_state(device="cpu"),
                                  [torch.from_numpy(z) for z in zs])

@@ -45,7 +45,7 @@ def assert_close_to_max(got, want, rel=1e-4):
 
 
 def hann_np(n):
-    return tw.hann(n, dtype=torch.float64).numpy()
+    return tw.hann(n, dtype=torch.float64, device="cpu").numpy()
 
 
 def assert_close_per_bin(got, want, rel=1e-4):
@@ -201,7 +201,7 @@ def test_packed_kernels_nan_bins_match_plain_on_cuda(rng):
     x = rng.normal(size=(2, 6000)).astype(np.float32)
     x[0, 500] = np.inf
     x = torch.from_numpy(x)
-    w = td.fir_dft_fold_weights(rng.normal(size=31), hann_np(64), 64, True)
+    w = td.fir_dft_fold_weights(rng.normal(size=31), hann_np(64), 64, True, device="cpu")
     args = dict(stride=16, pad_left=td._same_pad_left(31), num_frames=(6000 - 64) // 16 + 1,
                 bins=33)
     assert cuda_dft._a_packs(w, 33)
@@ -321,7 +321,8 @@ def test_stft_fir_chain_frame_chunks_runs_kernel_on_cuda(rng):
     1e-4 x max."""
     need_cuda()
     x = torch.from_numpy(rng.normal(size=(2, 8192)).astype(np.float32)).cuda()
-    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
+    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0, device="cpu")
+    window = tw.hann(512, device="cpu")
     before = cuda_dft.fir_framed_dft_power_cuda.launches
     got = stft_fir_chain(x, taps, window, fft_length=512, overlap_length=384,
                          return_filtered=False, frame_chunks=4)
@@ -337,7 +338,8 @@ def test_filtered_chain_runs_kernels_b_and_c_on_cuda(rng):
     overlap-adds with kernel C; both agree with the CPU at 1e-4 x max."""
     need_cuda()
     x = rng.normal(size=(2, 8192)).astype(np.float32)
-    taps, window = tfilt.firwin(255, [2000.0], sampling_rate=48000.0), tw.hann(512)
+    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0, device="cpu")
+    window = tw.hann(512, device="cpu")
     before_b, before_c = cuda_dft.framed_fft_cuda.launches, cuda_dft.overlap_add_cuda.launches
     y, p = stft_fir_chain(torch.from_numpy(x).cuda(), taps, window, fft_length=512,
                           overlap_length=384)
@@ -372,7 +374,7 @@ def test_shared_kernel_matches_plain_on_cuda(geometry, rng):
     batch, length, k, stride, n_fft, wname = geometry
     x = rng.normal(size=(*batch, length)).astype(np.float32)
     taps = rng.normal(size=k).astype(np.float32)
-    window = getattr(tw, wname)(n_fft, dtype=torch.float64).numpy()
+    window = getattr(tw, wname)(n_fft, dtype=torch.float64, device="cpu").numpy()
     coeffs = td.recognize_cosine_window(window, n_fft)
     xc = torch.from_numpy(x).cuda()
     before = cuda_dft.fir_framed_dft_power_shared_cuda.launches
@@ -401,7 +403,7 @@ def test_shared_kernel_nan_bins_match_plain_on_cuda(rng):
     need_cuda()
     x = rng.normal(size=(2, 8000)).astype(np.float32)
     x[0, 1000], x[0, 5000], x[1, 3000] = np.inf, 1e25, np.nan
-    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0).numpy()
+    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
     kw = dict(taps=taps, stride=128, n_fft=512, window_coeffs=(0.5, -0.5), onesided=True,
               output="power")
     before = cuda_dft.fir_framed_dft_power_shared_cuda.launches
@@ -450,7 +452,7 @@ def test_public_functions_run_on_cuda(rng):
         (lambda a, b: tc.deconvolve(a, b)[0], (torch.tensor([1.0, 3.0, 3.0, 1.0]),
                                               torch.tensor([1.0, 1.0])), {}),
         (lambda z: tm.stft_to_mel(z, 8000.0, fft_length=256, mel_bins=40),
-         (stft(arr(2, 4000), tw.hann(256), fft_length=256, overlap_length=128,
+         (stft(arr(2, 4000), tw.hann(256, device="cpu"), fft_length=256, overlap_length=128,
                onesided=True).z,), {}),
         (lambda x: SpectrogramPipeline(frame_length=256, fft_length=256)(x)[0],
          (arr(4096),), {}),
@@ -463,7 +465,7 @@ def test_public_functions_run_on_cuda(rng):
         assert_close_to_max(got.cpu(), want)
     fb = tm.mel_filters(512, 80, 16000.0, device="cuda")
     assert fb.device.type == "cuda"
-    assert_close_to_max(fb.cpu(), tm.mel_filters(512, 80, 16000.0), rel=1e-5)
+    assert_close_to_max(fb.cpu(), tm.mel_filters(512, 80, 16000.0, device="cpu"), rel=1e-5)
 
 
 def _launches_of(fn, *kernels):
@@ -585,7 +587,7 @@ def test_streaming_stft_istft_launch_counts_and_resume_on_cuda(rng, tmp_path):
     from nx_signal_tpu_torch.io.checkpoint import load_state, save_state
     from nx_signal_tpu_torch.parallel.streaming import StreamingISTFT, StreamingSTFT
 
-    w, hop = tw.hann(512), 128
+    w, hop = tw.hann(512, device="cpu"), 128
     enc, dec = StreamingSTFT(w, hop=hop), StreamingISTFT(w, hop=hop)
     x = torch.from_numpy(rng.normal(size=(4, 8 * 4096)).astype(np.float32))
     chunks = list(x.split(4096, dim=-1))
@@ -627,9 +629,9 @@ def test_streaming_chunks_make_no_host_to_device_copy_on_cuda(rng):
     from nx_signal_tpu_torch.parallel import streaming as ts
 
     procs = [
-        (ts.StreamingFIR(tfilt.firwin(255, [0.1])), 4800),
+        (ts.StreamingFIR(tfilt.firwin(255, [0.1], device="cpu")), 4800),
         (ts.StreamingIIR(butter(8, 0.1, output="sos")), 4800),
-        (ts.StreamingSTFT(tw.hann(512), hop=128), 4864),
+        (ts.StreamingSTFT(tw.hann(512, device="cpu"), hop=128), 4864),
         (ts.StreamingPFB(1024, taps_per_channel=8), 8192),
         (ts.StreamingResamplePoly(1, 3), 4800),
     ]
@@ -643,7 +645,7 @@ def test_streaming_chunks_make_no_host_to_device_copy_on_cuda(rng):
                 torch.cuda.synchronize()
         names = [e.name for e in prof.events()]
         assert not [m for m in names if "HtoD" in m], (type(proc).__name__, names)
-    istft = ts.StreamingISTFT(tw.hann(512), hop=128)
+    istft = ts.StreamingISTFT(tw.hann(512, device="cpu"), hop=128)
     state = istft.init_state((4,))
     for i in range(2):
         z = torch.randn((4, 38, 512), dtype=torch.complex64, device="cuda")

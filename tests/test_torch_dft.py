@@ -62,7 +62,7 @@ def test_fir_dft_fold_weights_bitwise(num_taps, frame, n_fft, onesided, rng):
     taps = rng.normal(size=num_taps).astype(np.float32)
     window = hann_np(frame)
     want = jd.fir_dft_fold_weights(taps, window, n_fft, onesided)
-    got = td.fir_dft_fold_weights(taps, torch.from_numpy(window), n_fft, onesided)
+    got = td.fir_dft_fold_weights(taps, torch.from_numpy(window), n_fft, onesided, device="cpu")
     assert got.dtype == torch.float32
     assert_bitwise(got, want)
 
@@ -358,7 +358,7 @@ def _route_call(route, x, n_fft):
     from nx_signal_tpu_torch.parallel.streaming import StreamingSTFT
     from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
 
-    window, hop = hann(n_fft), n_fft // 4
+    window, hop = hann(n_fft, device="cpu"), n_fft // 4
     if route == "stft":
         importlib.import_module("nx_signal_tpu_torch.spectral.stft").stft(
             x, window, sampling_rate=1.0, fft_length=n_fft, overlap_length=n_fft - hop)
@@ -412,7 +412,8 @@ def test_a_weight_layout_round_trips(num_taps, frame, n_fft, onesided, rng):
     to the (krows, 2*bins) weights: every column once, but for the two
     columns packing drops (the DC bin's Im, exactly zero, and the Nyquist
     bin's Im, below f32 resolution of its Re); zeros elsewhere."""
-    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided)
+    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided,
+                                device="cpu")
     krows, bins = w.shape[0], w.shape[1] // 2
     laid, packed = cuda_dft._a_weights(w, bins)
     assert packed == (onesided and n_fft % 2 == 0)
@@ -449,7 +450,8 @@ def test_tc_weight_layout_round_trips(num_taps, frame, n_fft, onesided, passes, 
     bin's Im, exactly zero, and the Nyquist bin's Im, below f32 resolution
     of its Re), zeros elsewhere; 256 slots (4 tiles, not 5) for the bench
     chain's 257 bins."""
-    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided)
+    w = td.fir_dft_fold_weights(rng.normal(size=num_taps), hann_np(frame), n_fft, onesided,
+                                device="cpu")
     krows, bins = w.shape[0], w.shape[1] // 2
     laid, packed = cuda_dft._tc_weights(w, bins, passes)
     assert packed == (onesided and n_fft % 2 == 0)
@@ -499,7 +501,7 @@ def test_fir_framed_dft_power_nan_bins_match_jax(pos, rng):
 @pytest.mark.parametrize("n_fft", [8, 512, 1024, 4096])
 def test_fft_twiddles(n_fft):
     want = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
-    got = td._fft_twiddles(n_fft).numpy()
+    got = td._fft_twiddles(n_fft, device="cpu").numpy()
     assert got.shape == (n_fft, 2) and got.dtype == np.float32
     np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want, rtol=0, atol=6e-8)
     assert got[n_fft // 4, 0] == 0.0 and got[n_fft // 4, 1] == -1.0

@@ -92,7 +92,7 @@ def test_wiener_matches_jax(shape, ks, noise, rng):
     ((9, 9), ("tukey", 0.3), dict(fc=0.5, circular=True, sampling_rate=4.0))])
 def test_firwin_2d_matches_jax(hsize, window, kw):
     want = np.asarray(jf.firwin_2d(hsize, window, **kw))
-    close(tf.firwin_2d(hsize, window, **kw), want, 1e-6 * np.abs(want).max())
+    close(tf.firwin_2d(hsize, window, device="cpu", **kw), want, 1e-6 * np.abs(want).max())
 
 
 def test_firwin_2d_errors_match_jax():
@@ -112,12 +112,13 @@ def test_freqz_family_matches_jax(whole, rng):
     sos = np.array([[0.2, 0.3, 0.1, 1.0, -0.5, 0.2], [1.0, -1.0, 0.5, 1.0, 0.1, 0.3]])
     kw = dict(n_freqs=64, sampling_rate=1000.0, whole=whole)
     for got, want in [(tf.freqz(T(b), T(a), **kw), jf.freqz(b, a, **kw)),
-                      (tf.freqz(b, **kw), jf.freqz(b, **kw)),
-                      (tf.sosfreqz(sos, **kw), jf.sosfreqz(sos, **kw)),
+                      (tf.freqz(b, device="cpu", **kw), jf.freqz(b, **kw)),
+                      (tf.sosfreqz(sos, device="cpu", **kw), jf.sosfreqz(sos, **kw)),
                       (tf.freqz_sos(T(sos), **kw), jf.freqz_sos(sos, **kw)),
-                      (tf.freqz_zpk([0.5, -1.0], [0.3 + 0.2j, 0.3 - 0.2j], 2.0, **kw),
+                      (tf.freqz_zpk([0.5, -1.0], [0.3 + 0.2j, 0.3 - 0.2j], 2.0, device="cpu",
+                                    **kw),
                        jf.freqz_zpk([0.5, -1.0], [0.3 + 0.2j, 0.3 - 0.2j], 2.0, **kw)),
-                      (tf.group_delay(b, a, **kw), jf.group_delay(b, a, **kw)),
+                      (tf.group_delay(b, a, device="cpu", **kw), jf.group_delay(b, a, **kw)),
                       (tf.group_delay(T(b), **kw), jf.group_delay(b, **kw))]:
         assert got[1].dtype in (torch.float64, torch.complex128)
         close(got[0], want[0], 1e-10)
@@ -129,8 +130,9 @@ def test_freqz_family_matches_jax(whole, rng):
 @pytest.mark.parametrize("worN", [20, np.array([0.1, 1.0, 3.0, 30.0])])
 def test_analog_responses_match_jax(worN):
     b, a = np.array([1.0, 0.5]), np.array([1.0, 2.0, 5.0])
-    for got, want in [(tf.freqs(b, a, worN), jf.freqs(b, a, worN)),
-                      (tf.freqs_zpk([-0.5], [-1.0 + 2.0j, -1.0 - 2.0j], 3.0, worN),
+    for got, want in [(tf.freqs(b, a, worN, device="cpu"), jf.freqs(b, a, worN)),
+                      (tf.freqs_zpk([-0.5], [-1.0 + 2.0j, -1.0 - 2.0j], 3.0, worN,
+                                    device="cpu"),
                        jf.freqs_zpk([-0.5], [-1.0 + 2.0j, -1.0 - 2.0j], 3.0, worN))]:
         close(got[0], want[0], 1e-10)
         close(got[1], want[1], 1e-10)
@@ -144,7 +146,7 @@ def test_analog_responses_match_jax(worN):
                                            (5, 2, 3, None, "conv")])
 def test_savgol_coeffs_match_jax(w, p, d, pos, use):
     kw = dict(deriv=d, pos=pos, use=use, delta=0.5)
-    close(tf.savgol_coeffs(w, p, dtype=torch.float64, **kw),
+    close(tf.savgol_coeffs(w, p, dtype=torch.float64, device="cpu", **kw),
           jf.savgol_coeffs(w, p, dtype=jnp.float64, **kw), 1e-10)
 
 
@@ -224,7 +226,7 @@ def test_gammatone_matches_jax(args):
                                       (5, dict(state=[0, 1, 0, 0, 1])),
                                       (6, dict(taps=[5, 2], length=40)), (4, dict(length=0))])
 def test_max_len_seq_matches_jax(nbits, kw):
-    seq, state = tf.max_len_seq(nbits, **kw)
+    seq, state = tf.max_len_seq(nbits, device="cpu", **kw)
     want_seq, want_state = jf.max_len_seq(nbits, **kw)
     assert seq.dtype == torch.int8
     np.testing.assert_array_equal(seq.numpy(), np.asarray(want_seq))

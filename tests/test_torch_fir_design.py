@@ -68,50 +68,51 @@ def test_kaiser_sizing_matches_jax(ripple, width):
 @pytest.mark.parametrize("nt,f,g,kw", FIRWIN2_CASES)
 def test_firwin2_matches_jax(nt, f, g, kw):
     want = jf.firwin2(nt, f, g, dtype=jnp.float64, **kw)
-    close(tf.firwin2(nt, f, g, dtype=torch.float64, **kw), want, 1e-10, 1e-10)
-    f32_close(tf.firwin2(nt, f, g, **kw), want)
+    close(tf.firwin2(nt, f, g, dtype=torch.float64, device="cpu", **kw), want, 1e-10, 1e-10)
+    f32_close(tf.firwin2(nt, f, g, device="cpu", **kw), want)
 
 
 def test_firwin2_kaiser_window_matches_jax():
     want = jf.firwin2(33, [0.0, 1.0], [1.0, 0.0], window=("kaiser", 8.0), dtype=jnp.float64)
-    close(tf.firwin2(33, [0.0, 1.0], [1.0, 0.0], window=("kaiser", 8.0), dtype=torch.float64),
-          want, 1e-6)
+    close(tf.firwin2(33, [0.0, 1.0], [1.0, 0.0], window=("kaiser", 8.0), dtype=torch.float64,
+                     device="cpu"), want, 1e-6)
 
 
 @pytest.mark.parametrize("nt,b,d,w,kw", FIRLS_CASES)
 def test_firls_matches_jax(nt, b, d, w, kw):
     want = jf.firls(nt, b, d, weight=w, dtype=jnp.float64, **kw)
-    close(tf.firls(nt, b, d, weight=w, dtype=torch.float64, **kw), want, 1e-7, 1e-6)
-    f32_close(tf.firls(nt, b, d, weight=w, **kw), want)
+    close(tf.firls(nt, b, d, weight=w, dtype=torch.float64, device="cpu", **kw), want, 1e-7,
+          1e-6)
+    f32_close(tf.firls(nt, b, d, weight=w, device="cpu", **kw), want)
 
 
 @pytest.mark.parametrize("nt,b,d,w", REMEZ_CASES)
 def test_remez_matches_jax(nt, b, d, w):
     want = jf.remez(nt, b, d, weight=w, sampling_rate=1.0, dtype=jnp.float64)
-    got = tf.remez(nt, b, d, weight=w, sampling_rate=1.0, dtype=torch.float64)
+    got = tf.remez(nt, b, d, weight=w, sampling_rate=1.0, dtype=torch.float64, device="cpu")
     close(got, want, 1e-10)
     np.testing.assert_allclose(got.numpy(), sps.remez(nt, b, d, weight=w, fs=1.0), atol=2e-3)
-    f32_close(tf.remez(nt, b, d, weight=w, sampling_rate=1.0), want)
+    f32_close(tf.remez(nt, b, d, weight=w, sampling_rate=1.0, device="cpu"), want)
 
 
 @pytest.mark.parametrize("half", [True, False])
 def test_minimum_phase_matches_jax(half):
     h = sps.remez(151, [0, 0.2, 0.3, 0.5], [1, 0], fs=1.0)
     want = jf.minimum_phase(h, half=half, dtype=jnp.float64)
-    close(tf.minimum_phase(h, half=half, dtype=torch.float64), want, 1e-8)
+    close(tf.minimum_phase(h, half=half, dtype=torch.float64, device="cpu"), want, 1e-8)
     # a tensor's taps in, the same taps out, on the tensor's device
     close(tf.minimum_phase(torch.from_numpy(h), half=half, dtype=torch.float64), want, 1e-8)
-    f32_close(tf.minimum_phase(h, half=half, n_fft=4096), jf.minimum_phase(
+    f32_close(tf.minimum_phase(h, half=half, n_fft=4096, device="cpu"), jf.minimum_phase(
         h, half=half, n_fft=4096, dtype=jnp.float64))
 
 
 def test_taps_go_to_the_device_asked():
-    """Design functions return taps on `device` (the CPU when none is
-    named), as ops.filters.firwin."""
+    """Design functions return taps on `device` (the card when none is
+    named, tests/test_torch_devices.py), as ops.filters.firwin."""
     for taps in (tf.firwin2(9, [0.0, 1.0], [1.0, 0.0], device="cpu"),
                  tf.firls(9, [0, 0.4, 0.5, 1.0], [1, 1, 0, 0], device=torch.device("cpu")),
-                 tf.remez(9, [0, 0.2, 0.3, 0.5], [1, 0], sampling_rate=1.0),
-                 tf.minimum_phase([0.25, 0.5, 0.25])):
+                 tf.remez(9, [0, 0.2, 0.3, 0.5], [1, 0], sampling_rate=1.0, device="cpu"),
+                 tf.minimum_phase([0.25, 0.5, 0.25], device="cpu")):
         assert taps.device.type == "cpu" and taps.dtype == torch.float32
     meta = tf.firls(9, [0, 0.4, 0.5, 1.0], [1, 1, 0, 0], device="meta")
     assert meta.device.type == "meta" and tuple(meta.shape) == (9,)

@@ -49,6 +49,18 @@ def test_pad_for_windowing_reflect_wider_than_signal(rng):
     assert_bitwise(tf.pad_for_windowing(torch.from_numpy(x), 16, "reflect"), want)
 
 
+def test_pad_for_windowing_reflect_is_numpys_at_every_length():
+    """The reflection index, built on the signal's device, is numpy's
+    'reflect' for every signal length and pad, repeated reflections and
+    one-sample signals included."""
+    for n in range(1, 40):
+        for window_length in range(0, 240, 3):
+            half = window_length // 2
+            want = np.pad(np.arange(n), (half, half), mode="reflect")
+            got = tf.pad_for_windowing(torch.arange(n), window_length, "reflect")
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"n={n} pad={half}")
+
+
 @pytest.mark.parametrize("padding", PADDINGS)
 @pytest.mark.parametrize("stride", [1, 3, 4])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])

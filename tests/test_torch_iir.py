@@ -316,7 +316,7 @@ def test_port_runs_without_scipy():
         "x = torch.randn(2, 3000, dtype=torch.float64)\n"
         "y = nt.sosfiltfilt(nt.butter(4, 0.2, output='sos'), nt.lfilter(*nt.cheby1(3, 1.0, 0.3), x))\n"
         "q, r = nt.deconvolve(torch.tensor([1.0, 3.0, 3.0, 1.0]), torch.tensor([1.0, 1.0]))\n"
-        "h = nt.remez(21, [0, 0.2, 0.3, 0.5], [1, 0], sampling_rate=1.0)\n"
+        "h = nt.remez(21, [0, 0.2, 0.3, 0.5], [1, 0], sampling_rate=1.0, device='cpu')\n"
         "assert y.shape == x.shape and q.tolist() == [1.0, 2.0, 1.0] and h.shape == (21,)\n"
         "print('NO_SCIPY_OK')\n"
     )

@@ -67,7 +67,7 @@ def assert_close_to_max(got, want, rel=1e-4):
 @pytest.mark.parametrize("n", [1, 2, 8, 255, 512])
 def test_cosine_windows(name, periodic, n):
     want = np.asarray(getattr(jw, name)(n, periodic=periodic))
-    got = getattr(tw, name)(n, periodic=periodic)
+    got = getattr(tw, name)(n, periodic=periodic, device="cpu")
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
@@ -77,13 +77,13 @@ def test_cosine_windows(name, periodic, n):
 @pytest.mark.parametrize("periodic", [True, False])
 def test_get_window(window, periodic):
     want = np.asarray(jw.get_window(window, 33, periodic=periodic))
-    got = tw.get_window(window, 33, periodic=periodic)
+    got = tw.get_window(window, 33, periodic=periodic, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_general_cosine_and_unknown_window():
     np.testing.assert_allclose(
-        tw.general_cosine(10, [0.5, 0.3, 0.2]).numpy(),
+        tw.general_cosine(10, [0.5, 0.3, 0.2], device="cpu").numpy(),
         np.asarray(jw.general_cosine(10, [0.5, 0.3, 0.2])), rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="unknown window 'kaiser'"):
         tw.get_window("kaiser", 8)
@@ -109,7 +109,7 @@ def test_firwin(num_taps, cutoff, rate, pass_zero, window):
     want = np.asarray(jfilt.firwin(num_taps, cutoff, window=window, pass_zero=pass_zero,
                                    sampling_rate=rate))
     got = tfilt.firwin(num_taps, cutoff, window=window, pass_zero=pass_zero,
-                       sampling_rate=rate)
+                       sampling_rate=rate, device="cpu")
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
@@ -159,10 +159,48 @@ def test_stft_fir_chain_module(k, frame, hop, n_fft, rng):
     assert_close_to_max(chain.to("cpu")(torch.from_numpy(x)), want.astype(np.float32))
 
 
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("k,frame,hop,n_fft", [(255, 512, 128, 512), (100, 400, 150, 512)])
+def test_stft_fir_chain_module_precision(precision, k, frame, hop, n_fft, rng):
+    """StftFirChain(precision=p) is stft_fir_chain(..., precision=p,
+    return_filtered=False) bit for bit (the same folded weights through the
+    same wrapper: on a CPU tensor A's or A-tc's plain version), and within
+    the existing chain tests' gate of the JAX stft_fir_chain at that
+    precision: 1e-4 x max at 'highest' and 'high', 1e-2 x max at 'default'
+    (one TF32 pass against the JAX package's f32 on the CPU,
+    tests/test_torch_precision.py)."""
+    x = rng.normal(size=(2, 6000)).astype(np.float32)
+    taps = np.array(jfilt.firwin(k, [3000.0], sampling_rate=48000.0))
+    window = np.array(jw.hann(frame))
+    chain = StftFirChain.from_numpy(taps, window, stride=hop, n_fft=n_fft, precision=precision,
+                                    device="cpu")
+    assert chain.precision == precision
+    got = chain(torch.from_numpy(x))
+    kw = dict(fft_length=n_fft, overlap_length=frame - hop, return_filtered=False,
+              precision=precision)
+    want = stft_fir_chain(torch.from_numpy(x), torch.from_numpy(taps),
+                          torch.from_numpy(window), **kw)
+    assert got.shape == want.shape and torch.equal(got, want)
+    jax_want = np.asarray(jax_chain(jnp.asarray(x), taps, window, **kw))
+    assert_close_to_max(got, jax_want.astype(np.float32),
+                        rel=1e-2 if precision == "default" else 1e-4)
+
+
+def test_stft_fir_chain_module_checks_its_precision():
+    taps, window = np.ones(5) / 5, np.hanning(256)
+    with pytest.raises(ValueError) as want:
+        stft_fir_chain(torch.zeros(2, 4096), taps, window, fft_length=256, overlap_length=128,
+                       return_filtered=False, precision="fast")
+    with pytest.raises(ValueError) as got:
+        StftFirChain.from_numpy(taps, window, stride=128, n_fft=256, precision="fast",
+                                device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 def test_stft_fir_chain_unported_paths():
     """Every path of stft_fir_chain is ported; what still raises is what the
     JAX package rejects too."""
-    x, taps, window = torch.zeros(2, 4096), np.ones(5) / 5, tw.hann(256)
+    x, taps, window = torch.zeros(2, 4096), np.ones(5) / 5, tw.hann(256, device="cpu")
     kw = dict(fft_length=256, overlap_length=128, fir_method="winograd")
     with pytest.raises(ValueError, match="method"):
         stft_fir_chain(x, taps, window, **kw)
@@ -226,7 +264,8 @@ def test_fir_filter_chain_matches_jax(params, shape, rng):
     x = rng.normal(size=shape).astype(np.float32)
     want = np.asarray(JaxFIRChain(**params)(jnp.asarray(x)))
     chain = FIRFilterChain(**params)
-    np.testing.assert_allclose(chain.taps.numpy(), np.asarray(JaxFIRChain(**params).taps),
+    np.testing.assert_allclose(chain.design(device="cpu").numpy(),
+                               np.asarray(JaxFIRChain(**params).taps),
                                rtol=0, atol=1e-6)
     assert_close_to_max(chain(torch.from_numpy(x)), want, rel=1e-5)
 
@@ -361,7 +400,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, rng):
     quiet run on the CPU). A CPU tensor or device='cpu' asks for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = rng.normal(size=(2, 4096)).astype(np.float32)
-    taps, window = tfilt.firwin(31, [0.2]).numpy(), tw.hann(256).numpy()
+    taps = tfilt.firwin(31, [0.2], device="cpu").numpy()
+    window = tw.hann(256, device="cpu").numpy()
     kw = dict(fft_length=256, overlap_length=192)
     for call in (lambda: stft_fir_chain(x, taps, window, return_filtered=False, **kw),
                  lambda: stft_fir_chain(x.tolist(), taps, window, **kw),
@@ -394,16 +434,17 @@ def test_port_imports_and_runs_without_jax():
         "import numpy as np, torch\n"
         "import nx_signal_tpu_torch as nt\n"
         "x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4096)).astype('f4'))\n"
-        "p = nt.stft_fir_chain(x, nt.firwin(63, [0.2]), nt.hann(256), fft_length=256,\n"
+        "taps, w = nt.firwin(63, [0.2], device='cpu'), nt.hann(256, device='cpu')\n"
+        "p = nt.stft_fir_chain(x, taps, w, fft_length=256,\n"
         "                      overlap_length=192, return_filtered=False)\n"
-        "yf, pf = nt.stft_fir_chain(x, nt.firwin(63, [0.2]), nt.hann(256), fft_length=256,\n"
+        "yf, pf = nt.stft_fir_chain(x, taps, w, fft_length=256,\n"
         "                           overlap_length=192, fir_method='oa')\n"
-        "ps = nt.fir_framed_dft(x, nt.firwin(63, [0.2]), nt.hann(256), stride=64,\n"
+        "ps = nt.fir_framed_dft(x, taps, w, stride=64,\n"
         "                       n_fft=256, onesided=True, output='power',\n"
         "                       kernel='cuda_shared')\n"
         "assert pf.shape == ps.shape == p.shape and yf.shape == x.shape\n"
-        "y = nt.istft(nt.stft(x, nt.hann(256), overlap_length=192, onesided=True).z,\n"
-        "             nt.hann(256), overlap_length=192, onesided=True)\n"
+        "y = nt.istft(nt.stft(x, w, overlap_length=192, onesided=True).z,\n"
+        "             w, overlap_length=192, onesided=True)\n"
         "assert p.shape == (2, 61, 129) and bool(torch.isfinite(p).all()), p.shape\n"
         "assert y.shape == (2, 4096)\n"
         "print('NO_JAX_OK')\n"

@@ -112,7 +112,7 @@ def test_precision_routes_to_the_tc_plain_version(precision, passes, rng):
     sums x_hi (W_hi + W_lo) + x_lo W_hi in f64."""
     x = torch.from_numpy(rng.normal(size=(2, 3000)).astype(np.float32))
     taps, window = rng.normal(size=51), np.asarray(jw.hann(256))
-    weights = td.fir_dft_fold_weights(taps, window, 256, True)
+    weights = td.fir_dft_fold_weights(taps, window, 256, True, device="cpu")
     args = dict(stride=128, pad_left=td._same_pad_left(51), num_frames=(3000 - 256) // 128 + 1,
                 bins=129)
     before = (cuda_dft.fir_framed_dft_power_cuda.launches,

@@ -328,7 +328,7 @@ def test_pfb_factored_sum_matches_jax(m, sum_mode):
     against both of the JAX package's lowerings of it (a depthwise conv
     below 128 bands, shifted multiply-adds from there on)."""
     x = T(signal(31, (2, 40 * m), np.float32))
-    proto = tr.firwin(m * 8, [1.0 / m], window=("kaiser", 5.0))
+    proto = tr.firwin(m * 8, [1.0 / m], window=("kaiser", 5.0), device="cpu")
     got = tr._pfb_factored(x, proto, m, 8)
     want = np.asarray(jr._pfb_factored(jnp.asarray(x.numpy()), jnp.asarray(proto.numpy()), m, 8,
                                        "highest", sum_mode=sum_mode))

@@ -61,7 +61,7 @@ def test_recognize_cosine_window(name, n):
     assert want is not None
     assert td.recognize_cosine_window(window, n) == want
     assert td.recognize_cosine_window(torch.from_numpy(window), n) == want
-    assert td.recognize_cosine_window(getattr(tw, name)(n), n) == want
+    assert td.recognize_cosine_window(getattr(tw, name)(n, device="cpu"), n) == want
 
 
 @pytest.mark.parametrize("window,n_fft", [
@@ -84,7 +84,7 @@ def test_shared_fold_weights_bitwise(num_taps, stride, n_fft, rng):
     else:
         taps = rng.normal(size=num_taps).astype(np.float32)
         want = jd.toeplitz_band(np.asarray(taps, np.float64), stride, np) @ e_mat
-    got = td.shared_fold_weights(taps, stride, n_fft)
+    got = td.shared_fold_weights(taps, stride, n_fft, device="cpu")
     assert got.dtype == torch.float32
     assert got.numpy().tobytes() == want.astype(np.float32).tobytes()
 
@@ -96,7 +96,8 @@ def test_shared_twiddles_bitwise(stride, n_fft, onesided):
     jk = (np.arange(n_fft // stride)[:, None] * np.arange(bins)[None, :] * stride) % n_fft
     ang = -2.0 * np.pi * jk / n_fft
     want = np.stack([np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)])
-    assert td.shared_twiddles(stride, n_fft, onesided).numpy().tobytes() == want.tobytes()
+    got = td.shared_twiddles(stride, n_fft, onesided, device="cpu")
+    assert got.numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("geometry", GEOMETRIES)
@@ -127,8 +128,8 @@ def test_shared_plain_matches_pallas_interpret(geometry, rng):
                                               interpret=True)
     bins = n_fft // 2 + 1
     got = cuda_dft.fir_framed_dft_power_shared_cuda(
-        torch.from_numpy(x), td.shared_fold_weights(taps, stride, n_fft),
-        td.shared_twiddles(stride, n_fft), coeffs, stride=stride,
+        torch.from_numpy(x), td.shared_fold_weights(taps, stride, n_fft, device="cpu"),
+        td.shared_twiddles(stride, n_fft, device="cpu"), coeffs, stride=stride,
         pad_left=td._same_pad_left(taps.size), num_frames=(x.shape[-1] - n_fft) // stride + 1,
         bins=bins)
     assert_close_to_max(got, np.asarray(want), 1e-5)
@@ -229,7 +230,7 @@ def test_edge_conv_matches_jax(geometry, kernel, rng):
 
 def test_edge_conv_nopad_applies_only_where_the_geometry_allows(rng):
     weights = td.fir_dft_fold_weights(rng.normal(size=255), np.asarray(jw.hann(512)), 512,
-                                      True)
+                                      True, device="cpu")
     kw = dict(stride=128, pad_left=127, num_frames=5, bins=257)
     assert td._fir_framed_dft_power_nopad(torch.zeros(2, 1024), weights, **kw) is not None
     assert td._fir_framed_dft_power_nopad(torch.zeros(2, 1000), weights, **kw) is None

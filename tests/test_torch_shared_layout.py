@@ -48,7 +48,7 @@ def tile_columns(t, bins, halo):
 
 
 def halo_of(window_name, n_fft):
-    window = getattr(tw, window_name)(n_fft, dtype=torch.float64)
+    window = getattr(tw, window_name)(n_fft, dtype=torch.float64, device="cpu")
     return len(td.recognize_cosine_window(window, n_fft)) - 1
 
 
@@ -64,8 +64,8 @@ def test_d_layout_round_trips(window_name, n_fft, stride, rng):
     exactly once."""
     halo = halo_of(window_name, n_fft)
     bins = n_fft // 2 + 1
-    weights = td.shared_fold_weights(rng.normal(size=63), stride, n_fft)
-    twiddles = td.shared_twiddles(stride, n_fft)
+    weights = td.shared_fold_weights(rng.normal(size=63), stride, n_fft, device="cpu")
+    twiddles = td.shared_twiddles(stride, n_fft, device="cpu")
     krows = weights.shape[0]
     laid = cuda_dft._d_weights(weights, bins, halo)
     laid_tw = cuda_dft._d_twiddles(twiddles, bins, halo)
@@ -117,7 +117,7 @@ def bench_geometry(rng, channels=2, length=6000):
     """The bench chain (firwin 255 taps at 48 kHz, cutoff 2 kHz; hann 512,
     hop 128, n_fft 512) on a few seeded noise channels."""
     x = rng.normal(size=(channels, length)).astype(np.float32)
-    taps = firwin(255, [2000.0], sampling_rate=48000.0).numpy()
+    taps = firwin(255, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
     return x, taps, 128, 512, "hann"
 
 
@@ -131,7 +131,7 @@ def test_d_stage_a_f32_order_meets_the_bin_gate(rng):
     length, bins, k = x.shape[-1], n_fft // 2 + 1, taps.size
     num_frames = (length - n_fft) // stride + 1
     pad_left = td._same_pad_left(k)
-    weights = td.shared_fold_weights(taps, stride, n_fft).numpy()
+    weights = td.shared_fold_weights(taps, stride, n_fft, device="cpu").numpy()
     rows = -(-weights.shape[0] // 32) * 32
     w = np.zeros((rows, weights.shape[1]), np.float32)
     w[:weights.shape[0]] = weights
@@ -139,16 +139,17 @@ def test_d_stage_a_f32_order_meets_the_bin_gate(rng):
     blocks = blocks_of(x, stride=stride, pad_left=pad_left, num_blocks=num_frames + j_taps - 1,
                        rows=rows)
     p = torch.from_numpy(stage_a_f32(blocks, w))
-    coeffs = td.recognize_cosine_window(tw.hann(n_fft, dtype=torch.float64), n_fft)
-    out_r, out_i = td._shared_epilogue_torch(p, td.shared_twiddles(stride, n_fft), coeffs,
+    hann64 = tw.hann(n_fft, dtype=torch.float64, device="cpu")
+    coeffs = td.recognize_cosine_window(hann64, n_fft)
+    twiddles = td.shared_twiddles(stride, n_fft, device="cpu")
+    out_r, out_i = td._shared_epilogue_torch(p, twiddles, coeffs,
                                              num_frames=num_frames, bins=bins, onesided=True)
     got = (out_r ** 2 + out_i ** 2).numpy().astype(np.float64)
 
     x64 = x.astype(np.float64)
     y = np.stack([np.convolve(c, taps)[(k - 1) // 2:][:length] for c in x64])
     frames = np.lib.stride_tricks.sliding_window_view(y, n_fft, axis=-1)[:, ::stride]
-    want = np.abs(np.fft.rfft(frames[:, :num_frames] * tw.hann(n_fft, dtype=torch.float64)
-                              .numpy())) ** 2
+    want = np.abs(np.fft.rfft(frames[:, :num_frames] * hann64.numpy())) ** 2
     assert got.shape == want.shape
     err = np.abs(got - want).reshape(-1, bins).max(axis=0)
     scale = np.abs(want).reshape(-1, bins).max(axis=0)
@@ -174,7 +175,7 @@ def test_d_tiles_mirror_and_neighbour_columns(n_fft, window_name, rng):
     windowed frame's DFT at kl, DC and Nyquist included."""
     halo = halo_of(window_name, n_fft)
     bins = n_fft // 2 + 1
-    window = getattr(tw, window_name)(n_fft, dtype=torch.float64)
+    window = getattr(tw, window_name)(n_fft, dtype=torch.float64, device="cpu")
     coeffs = td.recognize_cosine_window(window, n_fft)
     a = [coeffs[0]] + [b / 2.0 for b in coeffs[1:]]
     frame = rng.normal(size=n_fft)

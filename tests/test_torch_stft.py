@@ -119,7 +119,7 @@ def test_round_trip_interior(frame, overlap, rng):
 @pytest.mark.parametrize("endpoint", [False, True])
 def test_fft_frequencies(sampling_rate, n, endpoint):
     want = js.fft_frequencies(sampling_rate, fft_length=n, endpoint=endpoint)
-    got = ts.fft_frequencies(sampling_rate, fft_length=n, endpoint=endpoint)
+    got = ts.fft_frequencies(sampling_rate, fft_length=n, endpoint=endpoint, device="cpu")
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 

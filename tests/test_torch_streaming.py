@@ -123,7 +123,7 @@ class TestStreamingSTFT:
         _close(z, np.asarray(expected)[:z.shape[0]], 1e-4)
 
     def test_chunk_not_multiple_of_hop(self):
-        proc = ts.StreamingSTFT(hann(64), hop=32)
+        proc = ts.StreamingSTFT(hann(64, device="cpu"), hop=32)
         with pytest.raises(ValueError, match="multiple of the"):
             proc.process(proc.init_state(device="cpu"), torch.zeros(100))
 
@@ -165,7 +165,7 @@ class TestStreamingISTFT:
         """The port's own encoder (the framed DFT) into its decoder (the
         complex fold through kernel C's wrapper)."""
         x = rng.normal(size=(2, 4096)).astype(np.float32)
-        w, hop = hann(256), 64
+        w, hop = hann(256, device="cpu"), 64
         enc, dec = ts.StreamingSTFT(w, hop=hop), ts.StreamingISTFT(w, hop=hop)
         es, ds = enc.init_state(batch_shape=(2,), device="cpu"), dec.init_state(
             batch_shape=(2,), device="cpu")
@@ -179,7 +179,7 @@ class TestStreamingISTFT:
         _close(y[:, 256:4096], expected[:, 256:4096], 1e-5, 0.0)
 
     def test_rejects_bin_mismatch(self):
-        dec = ts.StreamingISTFT(hann(256), hop=64)
+        dec = ts.StreamingISTFT(hann(256, device="cpu"), hop=64)
         with pytest.raises(ValueError, match="fft_length == window length"):
             dec.process(dec.init_state(device="cpu"), torch.zeros((4, 512), dtype=torch.complex64))
 

@@ -146,10 +146,11 @@ def test_polynomial_sweep_and_sweep_poly_match_jax(coefs, phi, unit):
 @pytest.mark.parametrize("shape,index", [(5, 2), ((3, 4), (1, 2)), ((3, 4), "midpoint"),
                                          ((4, 3), np.array([3, 0])), (6, -1), (4, 9)])
 def test_unit_impulse_matches_jax(shape, index):
-    got = tw.unit_impulse(shape, index=index)
+    got = tw.unit_impulse(shape, index=index, device="cpu")
     assert got.device.type == "cpu" and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(jw.unit_impulse(shape, index=index)))
-    assert tw.unit_impulse(shape, index=index, dtype=torch.float64).dtype == torch.float64
+    assert tw.unit_impulse(shape, index=index, dtype=torch.float64,
+                           device="cpu").dtype == torch.float64
     with pytest.raises(ValueError, match="midpoint"):
         tw.unit_impulse(shape, index="middle")
 

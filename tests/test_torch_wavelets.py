@@ -23,27 +23,27 @@ def T(a):
 
 @pytest.mark.parametrize("points,a", [(5, 1.0), (100, 4.0), (33, 2.5), (7.5, 1.5)])
 def test_ricker_matches_jax(points, a):
-    got = twv.ricker(points, a)
+    got = twv.ricker(points, a, device="cpu")
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(), np.asarray(jwv.ricker(points, a)), atol=1e-7)
-    np.testing.assert_allclose(twv.ricker(points, a, dtype=torch.float64).numpy(),
+    np.testing.assert_allclose(twv.ricker(points, a, dtype=torch.float64, device="cpu").numpy(),
                                jwv._ricker_np(points, a), atol=1e-15)
 
 
 @pytest.mark.parametrize("points,w,s,complete", [(5, 5.0, 0.5, True), (64, 6.0, 1.0, False),
                                                  (31, 3.0, 2.0, True)])
 def test_morlet_and_morlet2_match_jax(points, w, s, complete):
-    got = twv.morlet(points, w, s, complete)
+    got = twv.morlet(points, w, s, complete, device="cpu")
     assert got.dtype == torch.complex64
     np.testing.assert_allclose(got.numpy(), np.asarray(jwv.morlet(points, w, s, complete)),
                                atol=1e-7)
-    np.testing.assert_allclose(twv.morlet2(points, s, w).numpy(),
+    np.testing.assert_allclose(twv.morlet2(points, s, w, device="cpu").numpy(),
                                np.asarray(jwv.morlet2(points, s, w)), atol=1e-7)
 
 
 def test_qmf_matches_jax():
     hk = _RNG.normal(size=9)
-    np.testing.assert_array_equal(twv.qmf(hk).numpy(), np.asarray(jwv.qmf(hk)))
+    np.testing.assert_array_equal(twv.qmf(hk, device="cpu").numpy(), np.asarray(jwv.qmf(hk)))
     np.testing.assert_array_equal(twv.qmf(T(hk.astype(np.float32))).numpy(),
                                   np.asarray(jwv.qmf(hk.astype(np.float32))))
     with pytest.raises(ValueError, match="rank-1"):

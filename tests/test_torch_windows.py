@@ -41,7 +41,7 @@ def tolerance(spec):
 
 def check(spec, n, periodic, dtype=jnp.float32, tdtype=torch.float32):
     want = np.asarray(jw.get_window(spec, n, periodic=periodic, dtype=dtype))
-    got = tw.get_window(spec, n, periodic=periodic, dtype=tdtype)
+    got = tw.get_window(spec, n, periodic=periodic, dtype=tdtype, device="cpu")
     assert got.device.type == "cpu"
     assert got.numpy().dtype == want.dtype and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tolerance(spec))
@@ -73,22 +73,26 @@ def test_kaiser_bessel_derived_matches_jax(n):
 @pytest.mark.parametrize("spec", ["rectangular", "boxcar"])
 def test_rectangular_dtypes_match_jax(spec):
     check(spec, 5, False, dtype=jnp.int32, tdtype=torch.int32)
-    assert tw.rectangular(4).dtype == torch.int32 and tw.boxcar(4).dtype == torch.float32
-    np.testing.assert_array_equal(tw.rectangular(4).numpy(), np.asarray(jw.rectangular(4)))
+    assert (tw.rectangular(4, device="cpu").dtype == torch.int32
+            and tw.boxcar(4, device="cpu").dtype == torch.float32)
+    np.testing.assert_array_equal(tw.rectangular(4, device="cpu").numpy(),
+                                  np.asarray(jw.rectangular(4)))
 
 
 def test_dpss_sequences_match_jax():
     want = np.asarray(jw.dpss(32, 3.0, 4, periodic=True))
-    got = tw.dpss(32, 3.0, 4, periodic=True)
+    got = tw.dpss(32, 3.0, 4, periodic=True, device="cpu")
     assert got.shape == (4, 32)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_kaiser_eps_and_f64():
-    np.testing.assert_allclose(tw.kaiser(9, beta=14.0, periodic=False, eps=1e-7).numpy(),
+    np.testing.assert_allclose(tw.kaiser(9, beta=14.0, periodic=False, eps=1e-7,
+                                         device="cpu").numpy(),
                                np.asarray(jw.kaiser(9, beta=14.0, periodic=False, eps=1e-7)),
                                rtol=0, atol=2e-6)
-    np.testing.assert_allclose(tw.kaiser(16, beta=8.0, dtype=torch.float64).numpy(),
+    np.testing.assert_allclose(tw.kaiser(16, beta=8.0, dtype=torch.float64,
+                                         device="cpu").numpy(),
                                np.kaiser(17, 8.0)[:16], rtol=1e-13, atol=0)
 
 

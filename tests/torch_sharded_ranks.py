@@ -185,9 +185,10 @@ def cpu_cases(rank, store_path, out_path):
     for mesh_shape, (channels, length, k, frame, hop, n_fft) in CHAIN_CASES:
         mesh = meshes[mesh_shape]
         x = signal(6, (channels, length))
-        taps = firwin(k, [2000.0], sampling_rate=48000.0)
+        taps = firwin(k, [2000.0], sampling_rate=48000.0, device="cpu")
+        window = hann(frame, device="cpu")
         before = cuda_dft.fir_framed_dft_power_cuda.launches
-        p = ts.sharded_fir_framed_dft_power(torch.from_numpy(x), taps, hann(frame), mesh=mesh,
+        p = ts.sharded_fir_framed_dft_power(torch.from_numpy(x), taps, window, mesh=mesh,
                                             stride=hop, n_fft=n_fft)
         per_rank["chain_launches", mesh_shape, length, rank] = (
             cuda_dft.fir_framed_dft_power_cuda.launches - before)
@@ -196,20 +197,21 @@ def cpu_cases(rank, store_path, out_path):
     for mesh_shape, channels, length, frame, overlap, onesided in STFT_CASES:
         mesh = meshes[mesh_shape]
         x = signal(7, (channels, length))
+        window = hann(frame, device="cpu")
         kw = dict(fft_length=frame, overlap_length=overlap, sampling_rate=8000.0,
                   onesided=onesided)
-        z, times, freqs = ts.sharded_stft(torch.from_numpy(x), hann(frame), mesh=mesh, **kw)
+        z, times, freqs = ts.sharded_stft(torch.from_numpy(x), window, mesh=mesh, **kw)
         key = mesh_shape, length, onesided
         num_frames = times.shape[0]
         out["stft", key] = (gather(z, mesh, num_frames, -2), times.numpy(), freqs.numpy())
         # istft of the gathered spectrum, every rank passing the global one
         z_global = ts.gather_blocks(z, mesh=mesh, length=num_frames, axis=-2)
-        y = ts.sharded_istft(z_global, hann(frame), mesh=mesh, **kw)
+        y = ts.sharded_istft(z_global, window, mesh=mesh, **kw)
         stride = frame - overlap
         out_length = num_frames * stride + overlap
         out["istft", key] = gather(y, mesh, out_length)
         # the seeded fold against the single-device fold, on the same frames
-        frames = framed_idft(z_global, hann(frame), n_fft=frame, onesided=onesided)
+        frames = framed_idft(z_global, window, n_fft=frame, onesided=onesided)
         frames = frames if onesided else frames.real.contiguous()
         fpb = -(-num_frames // mesh_shape[1])
         shard = ts._local_shard(frames, mesh, fpb, 1, frames.device)
@@ -295,14 +297,14 @@ def cpu_cases(rank, store_path, out_path):
         "halo": _error(lambda: ts.sharded_convolve_same(
             torch.zeros(1, 32), torch.zeros(33), mesh=mesh, method="conv")),
         "chain_halo": _error(lambda: ts.sharded_fir_framed_dft_power(
-            torch.zeros(1, 2048), torch.zeros(301), hann(512), mesh=mesh, stride=128,
+            torch.zeros(1, 2048), torch.zeros(301), hann(512, device="cpu"), mesh=mesh, stride=128,
             n_fft=512)),
         "channels": _error(lambda: ts.sharded_convolve_same(
             torch.zeros(3, 4096), torch.zeros(5), mesh=meshes[(2, 2)])),
         "kernel_halo": _error(lambda: cuda_halo.halo_extend_cuda(
             torch.zeros(2, 16), 17, 0, mesh=mesh)),
         "frame_halo": _error(lambda: ts.sharded_stft(
-            torch.zeros(1, 1024), hann(512), mesh=mesh, overlap_length=448)),
+            torch.zeros(1, 1024), hann(512, device="cpu"), mesh=mesh, overlap_length=448)),
         "mesh": _error(lambda: make_dsp_mesh(3, device_type="cpu")),
         "est_detrend": _error(lambda: te.sharded_welch(
             torch.zeros(4, 4096), mesh=mesh, detrend=lambda f: f)),
@@ -318,6 +320,51 @@ def cpu_cases(rank, store_path, out_path):
     if rank == 0:
         for entries in every:
             out.update(entries)
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    dist.barrier()
+    _exit_rank()
+
+
+FUZZ_WORLD = 8
+FUZZ_MESHES = [(1, 8), (2, 4), (4, 2), (8, 1)]
+
+
+def fuzz_sharded_case(seed):
+    """The draw of tests/test_fuzz_parity.py:test_sharded_geometry_random
+    for `seed`: (mesh shape, signal, taps)."""
+    rng = np.random.default_rng(900 + seed)
+    c, b = FUZZ_MESHES[int(rng.integers(0, 4))]
+    length = int(rng.integers(600, 5000))
+    k = int(rng.integers(3, min(120, length // b)))
+    channels = c * int(rng.integers(1, 3))
+    x = rng.normal(size=(channels, length)).astype(np.float32)
+    taps = rng.normal(size=k).astype(np.float32)
+    return (c, b), x, taps
+
+
+def fuzz_sharded_cases(rank, store_path, out_path):
+    """The four seeds of the sharded parity sweep on a gloo group of
+    FUZZ_WORLD CPU ranks: rank 0 pickles {seed: (sharded_convolve_same
+    gathered, the single-device direct convolve)}."""
+    from nx_signal_tpu_torch.ops.convolution import _direct_convolve
+    from nx_signal_tpu_torch.parallel import sharded as ts
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
+
+    torch.set_num_threads(1)
+    _init(rank, FUZZ_WORLD, store_path)
+    out = {}
+    for seed in range(4):
+        mesh_shape, x, taps = fuzz_sharded_case(seed)
+        mesh = make_dsp_mesh(*mesh_shape, device_type="cpu")
+        y = ts.sharded_convolve_same(torch.from_numpy(x), torch.from_numpy(taps), mesh=mesh,
+                                     method="conv")
+        got = ts.gather_blocks(y, mesh=mesh, length=x.shape[-1]).numpy()
+        if rank == 0:
+            want = _direct_convolve(torch.from_numpy(x), torch.from_numpy(taps)[None, :],
+                                    "same", use_matmul=False).numpy()
+            out[seed] = (got, want)
+    if rank == 0:
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
     dist.barrier()
