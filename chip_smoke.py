@@ -25,13 +25,21 @@ Phases (any failure raises, and the exit code is not 0):
      rfft, |.|^2) at 1e-4 ('high') and 1e-2 ('default'); B-fft (an FFT per
      frame) at 64 x 480000, complex and power, at n_fft 512 (its radix-8
      kernel), 600 and 572 (= 2^2 * 11 * 13; its mixed-radix kernel) and
-     1021 and 1018 (= 2 * 509; Bluestein's chirp-z transform on the same
-     passes), then with a hann frame of n_fft at hop n_fft / 4 at 1031,
-     4093 (Bluestein, M = 2079 and 8190), 4094 (Bluestein, M = 4095; the
-     three tables read from L2), 2048 and 4096 (radix 8), and on frames of 2
-     x n_fft (folded modulo n_fft) at 512 and, on 8 channels, 4096 and
-     4093; the dense B at the n_fft B-fft does not take: 4 (64 channels)
-     and 4100 (past 4096, 8 channels); C (overlap-add) on the
+     1021 and 1018 (= 2 * 509; Bluestein's chirp-z transform on the
+     persistent loop kernel's radix-8 passes, M = 2048 and 1024), then
+     with a hann frame of n_fft at hop n_fft / 4 at 1031, 4093, 8191 and
+     12289 (Bluestein on the mixed kernel, M = 2079 and 8192, and over a
+     cluster of 2 CTAs, M = 16384 and 24640), 4094 and 16382
+     (Bluestein, M = 4096 on the loop kernel and 16384), 2048, 4096, 8192
+     and 16384 (radix 8 on the loop kernel), 12000, 3375 and 6561 (the
+     mixed-radix kernel, the frames read from global memory) and 15625 (the
+     same over a cluster of 2 CTAs), and on frames of 2 x n_fft (folded
+     modulo n_fft) at 512 and, on 8 channels, 4096, 4093 and 8192 (the
+     plain version's weights past 1024 built ahead on 4 host threads); the
+     dense B at the n_fft B-fft
+     does not take: 4 (64 channels) and 16400 (past 16384, 8 channels, hop
+     2050); C
+     (overlap-add) on the
      (64, 3747, 512) frames of framed_idft, bitwise, and on complex64
      frames with a complex seed through spectral.framing._ola_fold (C once
      per part: two launches), bitwise the plain per-part fold; B-fft, complex and
@@ -69,12 +77,15 @@ Phases (any failure raises, and the exit code is not 0):
      frames and the envelope), the same gate, and its fold bitwise the plain
      per-part fold; then stft at fft_length 600 and 572 on the same signal
      (B-fft's mixed-radix kernel) and at the prime 1021 (B-fft's Bluestein
-     transform), each B-fft and not the dense B; stft at fft_length 2048
-     and 4096 (hann n_fft, hop n_fft / 4), B-fft where the card's cut takes
-     it (kernels/cuda_dft.py:_auto_takes_kernel) and torch.fft past it;
-     framed_dft at n_fft 1031, 2048, 4093 and 4096 and at a frame of 1500
-     (folded) through B-fft, not the dense B, and at n_fft 4100 on 8
-     channels through the dense B, not B-fft; each held on two channels
+     transform), each B-fft and not the dense B; stft at fft_length 2048,
+     4093 and 4096 (hann n_fft, hop n_fft / 4), B-fft where the card's cut
+     takes it (kernels/cuda_dft.py:_auto_takes_kernel) and torch.fft past
+     it (4093, past Bluestein's cut: both branches must run); framed_dft at
+     n_fft 1031, 2048, 4093, 4096, 3375, 6561, 8191, 8192, 12000, 12289,
+     15625, 16381 (M = 32768 over a cluster of 4 CTAs), 16382 and 16384
+     and at a frame of 1500 (folded) through B-fft,
+     not the dense B, and at n_fft 16400 on 8 channels through the dense B,
+     not B-fft; each held on two channels
      against the f64 numpy rfft per bin; then LogMelFrontend(frame_length=400,
      hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
      kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
@@ -100,15 +111,20 @@ Phases (any failure raises, and the exit code is not 0):
      never called by the port: F.conv1d of the folded weights for A and D,
      exact f32, and for A-tc in TF32 beside the exact one;
      torch.stft(center=False) for B-fft at n_fft 512, 600, 572, 1021 and
-     1018 and for the dense B at 4100 on 8 channels; F.fold as a 1-D
+     1018 and for the dense B at 16400 on 8 channels; F.fold as a 1-D
      overlap-add for C), taken in turns, at the phase-2 shapes, A-tc at
      'high' and 'default', each function warmed by two calls (the second
      while the first one's result is alive, so the caching allocator holds
-     its blocks); the card's FFT cut at n_fft 1024, 1031, 2048, 4093, 4094
-     and 4096 (hann frame n_fft, hop n_fft / 4, 64 x 480000): B-fft through
-     framed_dft, its plain version and torch.stft(center=False), then the
-     public stft with method 'matmul' (B-fft) and 'fft' (torch.fft), and
-     the cut those times put beside the port's _CARD_FFT_CUT; then of
+     its blocks); the card's FFT cuts at n_fft 1024, 1031, 2048, 3375, 4093,
+     4094, 4096, 6561, 8191, 8192, 12000, 12289, 15625, 16382 and 16384
+     (hann frame n_fft, hop n_fft / 4, 64 x 480000): B-fft through
+     framed_dft, torch.stft(center=False), then the public stft with method
+     'matmul' (B-fft) and 'fft' (torch.fft), and B-fft's plain version at
+     1024-4096, 8192 and 16384; the cut those times put within each length
+     class (the largest timed n_fft of the class up to which B-fft is no
+     slower than torch.stft at every timed length of the class: powers of
+     two, other 13-smooth lengths, Bluestein's) beside the port's
+     _CARD_FFT_CUT, _CARD_SMOOTH_CUT and _CARD_BLUESTEIN_CUT; then of
      the filtered chain's two stages (the direct FIR and B-fft) at 768 x
      480000; the fused chain's own cut at n_fft 2048 (64 channels): the
      fold at 'high' (A-tc, or A where A-tc's window does not fit) against
@@ -344,6 +360,7 @@ of all the ranks sharing the card); the last is the device line {"ok":
 true, "device": {...}}.
 """
 
+import concurrent.futures
 import ctypes
 import json
 import math
@@ -361,8 +378,11 @@ _PEAK_F32_FLOPS = 67e12
 _PHASE8_RANKS = 4
 _PHASE8_TIMEOUT_S = 600
 # the n_fft at which phase 7 times B-fft against torch.stft for the card's
-# cut (kernels/cuda_dft.py:_CARD_FFT_CUT)
-_CUT_LENGTHS = (1024, 1031, 2048, 4093, 4094, 4096)
+# cuts (kernels/cuda_dft.py:_card_takes_kernel), and those at which it also
+# times B-fft's plain version
+_CUT_LENGTHS = (1024, 1031, 2048, 3375, 4093, 4094, 4096, 6561, 8191, 8192, 12000, 12289,
+                15625, 16382, 16384)
+_PLAIN_CUT_LENGTHS = (1024, 1031, 2048, 4093, 4094, 4096, 8192, 16384)
 
 
 def _gpu_name_and_power_limit() -> str:
@@ -2439,9 +2459,14 @@ def main() -> int:
     kernels = (A, A_tc, B_fft, B, C, D)
 
     # ---------------------------------------------------------------- 1
-    t0 = time.perf_counter()
+    t_build = time.perf_counter()
+
+    def _header(text):
+        """A phase's first line, with the seconds since the build began."""
+        print(f"{text} [{time.perf_counter() - t_build:.0f} s]", flush=True)
+
     load_library()
-    print(f"phase 1: built {library_path().name} in {time.perf_counter() - t0:.1f} s",
+    print(f"phase 1: built {library_path().name} in {time.perf_counter() - t_build:.1f} s",
           flush=True)
     kernels_built, regs, spills, warnings = _ptxas_summary(ptxas_log_path().read_text())
     print(f"  ptxas: {kernels_built} kernels, at most {regs} registers, {spills} bytes of "
@@ -2465,7 +2490,7 @@ def main() -> int:
     window = hann(frame, device="cpu").numpy()
     pad_left = (num_taps - 1) - (num_taps - 1) // 2
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    _header("phase 2: kernels against their plain versions")
     w_fold = fir_dft_fold_weights(taps, window, n_fft, True, device=dev)
     args_a = dict(stride=hop, pad_left=pad_left, num_frames=num_frames, bins=bins)
     got = A(x, w_fold, **args_a)
@@ -2498,14 +2523,24 @@ def main() -> int:
     # mixed-radix one at 600 and at 572 = 2^2 * 11 * 13, Bluestein's at the
     # prime 1021 and at 1018 = 2 * 509), then past 1024 with a hann frame of
     # n_fft at hop n_fft / 4 and a frame longer than n_fft, and the dense B
-    # at the n_fft B-fft does not take (4, and 4100 past its 4096), each
+    # at the n_fft B-fft does not take (4, and 16400 past its 16384), each
     # against the plain version, complex and power
     x64 = x[:64]
+
+    # the plain version's weights past 1024 (kernels/dft.py:_dft_weights,
+    # host f64 numpy, seconds each past 8192) built ahead on host threads
+    weight_pool = concurrent.futures.ThreadPoolExecutor(4)
+    weight_jobs = {}
+
+    def weights_ahead(wr, fl, nf):
+        weight_jobs[(fl, nf)] = weight_pool.submit(_dft_weights, wr, fl, nf, True, np.float32)
 
     def plain_dft(xr, wr, fl, hp, nf, onesided):
         """The plain framed DFT: its weights and (complex, power)."""
         nb = nf // 2 + 1 if onesided else nf
-        wd = torch.as_tensor(_dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
+        job = weight_jobs.pop((fl, nf), None) if onesided else None
+        wd = torch.as_tensor(job.result() if job is not None else
+                             _dft_weights(wr, fl, nf, onesided, np.float32), device=dev)
         acc = _framed_matmul_torch(xr, wd, stride=hp, pad_left=0,
                                    num_frames=(xr.shape[-1] - fl) // hp + 1, bins=nb, power=False)
         re, im = acc[..., :nb], acc[..., nb:]
@@ -2535,24 +2570,43 @@ def main() -> int:
         _check_close(f"B-fft 64x{length} n_fft={nf} power",
                      B_fft(x64, window, output="power", **kw_nf), want_p)
         del w_nf, want_z, want_p
-    # past 1024: Bluestein at the primes 1031 (M = 2079) and 4093 (M = 8190)
-    # and at 4094 = 2 * 23 * 89 (M = 4095), each table read from L2, radix
-    # 8 at 2048 and 4096; then frames of 2 x n_fft, folded modulo n_fft
-    for nf, fl, ch in ((1031, 1031, 64), (2048, 2048, 64), (4093, 4093, 64), (4094, 4094, 64),
-                       (4096, 4096, 64), (512, 1024, 64), (4096, 8192, 8), (4093, 8186, 8)):
+    # past 1024: Bluestein at the primes 1031, 4093, 8191 and 12289 (M = 2079
+    # and 8192 on the mixed kernel, 16384 and 24640 on it over a cluster of 2
+    # CTAs) and at 4094 = 2 * 23 * 89 and 16382 = 2 * 8191 (M = 4096 on the
+    # loop kernel, 16384), radix 8 at 2048, 4096, 8192 and 16384 (the
+    # loop kernel), the mixed-radix kernel at 12000, at the odd 3375 and 6561
+    # and over a cluster of 2 CTAs at 15625; then frames of 2 x n_fft, folded
+    # modulo n_fft. The dense B's weights at n_fft 16400 are built ahead too.
+    past_1024 = ((1031, 1031, 64), (2048, 2048, 64), (4093, 4093, 64), (4094, 4094, 64),
+                 (4096, 4096, 64), (3375, 3375, 64), (6561, 6561, 64), (8191, 8191, 64),
+                 (8192, 8192, 64), (12000, 12000, 64), (12289, 12289, 64), (15625, 15625, 64),
+                 (16382, 16382, 64), (16384, 16384, 64),
+                 (512, 1024, 64), (4096, 8192, 8), (4093, 8186, 8), (8192, 16384, 8))
+    for nf, fl, _ in past_1024:
+        weights_ahead(hann(fl, device="cpu").numpy(), fl, nf)
+    weights_ahead(hann(16400, device="cpu").numpy(), 16400, 16400)
+    # the plain version's weights that phase 7 times, kept on the card
+    plain_weights = {}
+    for nf, fl, ch in past_1024:
         xr, wr, hp = x[:ch], hann(fl, device="cpu").numpy(), nf // 4
-        _, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, True)
+        w_nf, want_z, want_p = plain_dft(xr, wr, fl, hp, nf, True)
+        if fl == nf and nf in _PLAIN_CUT_LENGTHS:
+            plain_weights[nf] = w_nf
+        del w_nf
         kw_nf = dict(stride=hp, n_fft=nf, onesided=True)
         tag = f"B-fft {ch}x{length} n_fft={nf} frame={fl} hop={hp}"
         err_bfft_more[nf if fl == nf else (nf, fl)] = _check_close(
             f"{tag} complex", B_fft(xr, wr, **kw_nf), want_z)
         _check_close(f"{tag} power", B_fft(xr, wr, output="power", **kw_nf), want_p)
         del want_z, want_p
-    # the dense B keeps only an n_fft below 8 or past 4096: n_fft 4 (frame 4,
-    # hop 4) on 64 channels, and 4100 (hann frame 4100, hop 1025) on 8
+    # the dense B keeps only what B-fft does not take: n_fft 4 (frame 4, hop
+    # 4) on 64 channels, and 16400 (hann frame 16400) on 8 at hop 2050 =
+    # n_fft / 8 (the kernel stages 16 frames' window of x beside its weight
+    # stages: 229 760 B at hop 2050, 360 768 at n_fft / 4, over a CTA's
+    # 232 448)
     x8 = x[:8]
-    n_dense, ch_dense = 4100, 8
-    bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 4
+    n_dense, ch_dense = 16400, 8
+    bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 8
     frames_dense = (length - n_dense) // hop_dense + 1
     win_dense = hann(n_dense, device="cpu").numpy()
     args_dense = dict(stride=hop_dense, num_frames=frames_dense, bins=bins_dense)
@@ -2567,6 +2621,7 @@ def main() -> int:
     _check_close(f"B (dense) 64x{length} n_fft=4 power", B(x64, w4, output="power", **args4),
                  want_p)
     del want_z, want_p, w4
+    weight_pool.shutdown()
     fft_ragged = [  # channels, length, frame, hop, n_fft, onesided
         (64, length, frame, hop, n_fft, False),   # the full spectrum
         (2, 20000, 16, 7, 16, True),
@@ -2722,7 +2777,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
-    print("phase 3: stft_fir_chain(return_filtered=False, precision='high')", flush=True)
+    _header("phase 3: stft_fir_chain(return_filtered=False, precision='high')")
     out = {}
 
     def fused_chain():
@@ -2777,7 +2832,7 @@ def main() -> int:
                  ref)
     del power
 
-    print("phase 4: stft -> istft round trip, 64 x 480000", flush=True)
+    _header("phase 4: stft -> istft round trip, 64 x 480000")
     win_t = hann(frame, device=dev)
 
     def round_trip():
@@ -2871,11 +2926,14 @@ def main() -> int:
 
     # stft past 1024 through the public function (hann frame of n_fft, hop
     # n_fft / 4): B-fft where the card's cut takes it, torch.fft past it
-    # (cuda_dft._auto_takes_kernel); held on two channels against the f64
-    # numpy rfft
-    for nf in (2048, 4096):
+    # (cuda_dft._auto_takes_kernel; 4093, Bluestein's, is past its class's
+    # cut); held on two channels against the f64 numpy rfft; both branches
+    # of the route must run
+    routes = set()
+    for nf in (2048, 4093, 4096):
         win_nf = hann(nf, device=dev)
         on_kernel = cuda_dft._auto_takes_kernel(x64, nf)
+        routes.add(on_kernel)
 
         def stft_past_1024():
             out["z"] = stft(x64, win_nf, sampling_rate=rate, fft_length=nf,
@@ -2896,16 +2954,24 @@ def main() -> int:
                      torch.as_tensor(np.fft.rfft(
                          fr * hann(nf, device="cpu").double().numpy(), n=nf)))
         del z, fr
+    if routes != {True, False}:
+        raise AssertionError("stft at 2048, 4093 and 4096 drove only one branch of "
+                             f"method='auto' (B-fft: {routes})")
 
-    # framed_dft at n_fft 1031 (a prime, once the dense B's), 2048, 4093 and
-    # 4096 and at a frame of 1500 > n_fft 1031 (folded modulo n_fft): B-fft,
-    # not the dense B; past B-fft's 4096 (n_fft 4100, 8 channels): the
+    # framed_dft at n_fft 1031 (a prime, once the dense B's), 2048, 4093,
+    # 4096, 3375, 6561, 8191, 8192, 12000, 12289, 15625, 16381, 16382 and
+    # 16384 and at a frame of 1500 > n_fft 1031 (folded modulo n_fft): B-fft,
+    # not the dense B; past B-fft's 16384 (n_fft 16400, 8 channels): the
     # dense B, not B-fft
     for nf, fl, xr, expect, avoid in ((1031, frame, x64, B_fft, B), (1031, 1500, x64, B_fft, B),
                                       (2048, 2048, x64, B_fft, B), (4093, 4093, x64, B_fft, B),
                                       (4096, 4096, x64, B_fft, B),
+                                      *((nf, nf, x64, B_fft, B)
+                                        for nf in (3375, 6561, 8191, 8192, 12000, 12289,
+                                                   15625, 16381, 16382, 16384)),
                                       (n_dense, n_dense, x8, B, B_fft)):
-        wr, hp = hann(fl, device="cpu").numpy(), nf // 4 if fl == nf else hop
+        wr = hann(fl, device="cpu").numpy()
+        hp = hop_dense if nf == n_dense else nf // 4 if fl == nf else hop
 
         def framed_path():
             out["z"] = framed_dft(xr, wr, stride=hp, n_fft=nf, onesided=True)
@@ -2957,8 +3023,8 @@ def main() -> int:
     del mel, frm, mel_power
 
     # ---------------------------------------------------------------- 5
-    print("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
-          "fir_framed_dft_shared", flush=True)
+    _header("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
+            "fir_framed_dft_shared")
     ref_exact = torch.as_tensor(_numpy_power(ref_y.numpy(), window64, **ref_kw))
 
     def shared_path():
@@ -2981,8 +3047,8 @@ def main() -> int:
         del got
 
     # ---------------------------------------------------------------- 6
-    print("phase 6: the filtered chain, stft_fir_chain(return_filtered=True), and "
-          "FIRFilterChain", flush=True)
+    _header("phase 6: the filtered chain, stft_fir_chain(return_filtered=True), and "
+            "FIRFilterChain")
     fir_chain = FIRFilterChain()
 
     def filtered_chain():
@@ -3031,8 +3097,7 @@ def main() -> int:
     del y, power, fir
 
     # ---------------------------------------------------------------- 7
-    print("phase 7: median of 5 CUDA-event timings, kernel vs plain vs library call",
-          flush=True)
+    _header("phase 7: median of 5 CUDA-event timings, kernel vs plain vs library call")
     import torch.nn.functional as F
 
     from nx_signal_tpu_torch.kernels.dft import _CHUNK_MEMORY_SHARE as _CHUNK_SHARE
@@ -3085,17 +3150,20 @@ def main() -> int:
         public stft with method='matmul' (B-fft) and 'fft' (torch.fft)."""
         nb, hp, win_nf = nf // 2 + 1, nf // 4, hann(nf, device=dev)
         m_nf = (length - nf) // hp + 1
-        w_nf = torch.as_tensor(
-            _dft_weights(hann(nf, device="cpu").numpy(), nf, nf, True, np.float32), device=dev)
         stft_kw = dict(sampling_rate=rate, fft_length=nf, overlap_length=nf - hp, onesided=True)
         fns = [("kernel", lambda: framed_dft(x64, win_nf, stride=hp, n_fft=nf, onesided=True)),
-               ("plain", lambda: torch.complex(*_framed_matmul_torch(
-                   x64, w_nf, stride=hp, pad_left=0, num_frames=m_nf, bins=nb,
-                   power=False).split(nb, dim=-1))),
                ("library", lambda: torch.stft(x64, nf, hop_length=hp, window=win_nf,
                                               center=False, onesided=True, return_complex=True)),
                ("stft matmul", lambda: stft(x64, win_nf, method="matmul", **stft_kw)),
                ("stft fft", lambda: stft(x64, win_nf, method="fft", **stft_kw))]
+        if nf in _PLAIN_CUT_LENGTHS:
+            w_nf = plain_weights.pop(nf, None)
+            if w_nf is None:
+                w_nf = torch.as_tensor(_dft_weights(hann(nf, device="cpu").numpy(), nf, nf, True,
+                                                    np.float32), device=dev)
+            fns.insert(1, ("plain", lambda: torch.complex(*_framed_matmul_torch(
+                x64, w_nf, stride=hp, pad_left=0, num_frames=m_nf, bins=nb,
+                power=False).split(nb, dim=-1))))
         return (_bound(_fft_route_flops(64, length, 0, nf, m_nf, nf, 0),
                        4.0 * (x64.numel() + nf) + 8.0 * 64 * m_nf * nb), fns)
 
@@ -3139,7 +3207,7 @@ def main() -> int:
         ("B-fft 1018", 64 * length, *fft_case(1018)),  # Bluestein, M = 1024
         # the card's FFT cut: a hann frame of n_fft at hop n_fft / 4
         *((f"cut {nf}", 64 * length, *cut_case(nf)) for nf in _CUT_LENGTHS),
-        ("B", ch_dense * length,   # past B-fft's 4096
+        ("B", ch_dense * length,   # past B-fft's 16384
          _bound(_fft_route_flops(ch_dense, length, 0, n_dense, frames_dense, n_dense, 0),
                 4.0 * (x8.numel() + n_dense) + 8.0 * ch_dense * frames_dense * bins_dense), [
             ("kernel", lambda: B(x8, w_dense, **args_dense)),
@@ -3176,17 +3244,31 @@ def main() -> int:
         print(f"  {tag}: kernel {k_ms:.3f} ms ({samples / k_ms / 1e3:.1f} Msamples/s), "
               + ", ".join(f"{label} {timings[tag][label]:.3f} ms" for label, _ in fns[1:])
               + f", bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
-    # the card's FFT cut: where B-fft (through framed_dft, and stft's
-    # 'matmul' route) beats torch.stft (and stft's 'fft' route)
-    wins = []
+    # the card's FFT cut: the largest timed n_fft up to which B-fft (through
+    # framed_dft, and stft's 'matmul' route) is no slower than torch.stft
+    # (and stft's 'fft' route) at every timed length, over every timed
+    # length and within each length class (the kernels each runs: powers of
+    # two, other 13-smooth lengths, Bluestein's), the port's cuts
+    # (cuda_dft._card_takes_kernel) beside
+    def cut_of(lengths):
+        for i, nf in enumerate(lengths):
+            t = timings[f"cut {nf}"]
+            if t["kernel"] > t["library"]:
+                return max([1024, *lengths[:i]])
+        return max([1024, *lengths])
+
     for nf in _CUT_LENGTHS:
         t = timings[f"cut {nf}"]
-        wins.append((nf, t["kernel"] < t["library"]))
         print(f"  cut at n_fft {nf}: B-fft / torch.stft = {t['kernel'] / t['library']:.3f}, "
               f"stft 'matmul' / 'fft' = {t['stft matmul'] / t['stft fft']:.3f}", flush=True)
-    measured = max([nf for nf, won in wins if won], default=1024)
-    print(f"  the cut these times put: n_fft <= {max(measured, 1024)} on B-fft (the port's "
-          f"_CARD_FFT_CUT is {cuda_dft._CARD_FFT_CUT})", flush=True)
+    pow2 = [nf for nf in _CUT_LENGTHS if nf & (nf - 1) == 0]
+    smooth = [nf for nf in _CUT_LENGTHS if cuda_dft._thirteen_smooth(nf) and nf not in pow2]
+    blue = [nf for nf in _CUT_LENGTHS if not cuda_dft._thirteen_smooth(nf)]
+    print(f"  the cut these times put: n_fft <= {cut_of(_CUT_LENGTHS)} over every timed length; "
+          f"by class, a power of two <= {cut_of(pow2)} (the port's _CARD_FFT_CUT is "
+          f"{cuda_dft._CARD_FFT_CUT}), another 13-smooth n_fft <= {cut_of(smooth)} (the port's "
+          f"_CARD_SMOOTH_CUT is {cuda_dft._CARD_SMOOTH_CUT}), Bluestein's <= {cut_of(blue)} "
+          f"(the port's _CARD_BLUESTEIN_CUT is {cuda_dft._CARD_BLUESTEIN_CUT})", flush=True)
     # A-tc's own floor: the dense route's TF32 products at the 495 TFLOP/s peak
     tc_flops = 2.0 * channels * num_frames * rows_a * 2 * bins
     print(f"  A-tc's route at the TF32 peak: 'high' {3 * tc_flops / 495e9:.3f} ms, "
@@ -3358,8 +3440,8 @@ def main() -> int:
     del x, x64, x8, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
-          "CUDA IPC)", flush=True)
+    _header(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
+            "CUDA IPC)")
     reports = _phase8(_PHASE8_RANKS, "cuda", dict(channels=channels, length=length,
                                                    small_channels=64, block=120320))
     for report in reports:
@@ -3387,40 +3469,39 @@ def main() -> int:
           f"(largest rank, CUDA events, one rank at a time)", flush=True)
 
     # ---------------------------------------------------------------- 9
-    print("phase 9: spectral estimation on the card (welch, csd, coherence, spectrogram, "
-          "ShortTimeFFT)", flush=True)
+    _header("phase 9: spectral estimation on the card (welch, csd, coherence, spectrogram, "
+            "ShortTimeFFT)")
     launches = _phase9(kernels, launches, dev, channels, length, rate)
 
     # ---------------------------------------------------------------- 10
-    print("phase 10: IIR filtering on the card (sosfilt, lfilter, sosfiltfilt, filtfilt)",
-          flush=True)
+    _header("phase 10: IIR filtering on the card (sosfilt, lfilter, sosfiltfilt, filtfilt)")
     _phase10(kernels, dev, channels, length)
 
     # ---------------------------------------------------------------- 11
-    print("phase 11: resampling, the polyphase filterbank and mixing on the card "
-          "(upfirdn, resample_poly, resample, decimate, pfb_analyze, mix_down, "
-          "demodulate_channel)", flush=True)
+    _header("phase 11: resampling, the polyphase filterbank and mixing on the card "
+            "(upfirdn, resample_poly, resample, decimate, pfb_analyze, mix_down, "
+            "demodulate_channel)")
     _phase11(kernels, dev)
 
     # ---------------------------------------------------------------- 12
-    print("phase 12: streaming, the wideband receiver and config 5 from a raw capture, native "
-          "IO, checkpoints and the heartbeat on the card", flush=True)
+    _header("phase 12: streaming, the wideband receiver and config 5 from a raw capture, native "
+            "IO, checkpoints and the heartbeat on the card")
     counts = _phase12(kernels, dev)
     launches = {name: n + counts.get(name, 0) for name, n in launches.items()}
 
     # ---------------------------------------------------------------- 13
-    print("phase 13: waveforms, relative extrema, cwt, find_peaks, czt / zoom_fft, lambert_w "
-          "and the splines on the card", flush=True)
+    _header("phase 13: waveforms, relative extrema, cwt, find_peaks, czt / zoom_fft, lambert_w "
+            "and the splines on the card")
     _phase13(kernels, dev)
 
     # ---------------------------------------------------------------- 14
-    print("phase 14: the state-space simulation (dlsim, lsim, their responses, the LTI "
-          "classes) and the utils on the card", flush=True)
+    _header("phase 14: the state-space simulation (dlsim, lsim, their responses, the LTI "
+            "classes) and the utils on the card")
     _phase14((*kernels, halo_extend_cuda), dev)
 
     # ---------------------------------------------------------------- 15
-    print("phase 15: the device rule on the card (entry points given no tensor, the internal "
-          "host paths, host-to-device copies)", flush=True)
+    _header("phase 15: the device rule on the card (entry points given no tensor, the internal "
+            "host paths, host-to-device copies)")
     _phase15((*kernels, halo_extend_cuda), dev)
 
     rows = [
@@ -3462,13 +3543,14 @@ def main() -> int:
     # its plain version and torch.stft, and the frames of 2 x n_fft
     for nf in _CUT_LENGTHS[1:]:
         t_nf = timings[f"cut {nf}"]
-        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"plain_ms_{nf}": t_nf["plain"],
+        entries[2].update({f"ms_{nf}": t_nf["kernel"], f"plain_ms_{nf}": t_nf.get("plain"),
                            f"library_ms_{nf}": t_nf["library"],
                            f"bound_ms_{nf}": t_nf["bound_ms"], f"bound_by_{nf}": t_nf["bound_by"],
                            f"max_abs_err_{nf}": err_bfft_more[nf]})
     entries[2].update(max_abs_err_frame_1024_n_fft_512=err_bfft_more[(512, 1024)],
-                      max_abs_err_frame_8192_n_fft_4096=err_bfft_more[(4096, 8192)])
-    # the dense B: n_fft 4100 (past B-fft's 4096) on 8 channels
+                      max_abs_err_frame_8192_n_fft_4096=err_bfft_more[(4096, 8192)],
+                      max_abs_err_frame_16384_n_fft_8192=err_bfft_more[(8192, 16384)])
+    # the dense B: n_fft 16400 (past B-fft's 16384) on 8 channels
     entries[3].update(n_fft=n_dense, channels=ch_dense)
     # D: the shared path's set-up per call
     entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])

@@ -1,9 +1,10 @@
 // Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
-// shared memory, for every n_fft from 8 to 4096 and any frame length.
+// shared memory (of one CTA, or of a thread-block cluster of 2 or 4 CTAs),
+// for every n_fft from 8 to 16384 and any frame length.
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
-// for those n_fft; an n_fft below 8 or above 4096 keeps the dense
+// for those n_fft; an n_fft below 8 or above 16384 keeps the dense
 // contraction of framed_dft.cu.
 //
 // For channel c and frame m (0 <= m < num_frames), with
@@ -15,79 +16,109 @@
 // out[c, m, k] is X[k] (complex64 as interleaved float2) or, with POWER,
 // re^2 + im^2 (f32), for the bins = n_fft/2 + 1 (onesided) or n_fft bins.
 //
-// Two kernels compute it:
-//   * framed_fft_kernel, n_fft a power of two. The real frame of n = n_fft
-//     becomes one complex FFT of h = n/2 points, z[j] = xw[2j] + i xw[2j+1]
-//     (the window multiply and the fold fused into the load), run as
-//     Stockham autosort passes of radix 8 (a last pass of radix 4 or 2 where
-//     log2 h is not a multiple of 3) with the butterflies in registers and
-//     one shared-memory exchange per pass; then the split post-pass
-//       X[k] = (Z[k] + conj Z[h-k]) / 2 - i W^k (Z[k] - conj Z[h-k]) / 2,
-//       W = exp(-2 pi i / n), k = 0..h (indices mod h), X[n-k] = conj X[k],
-//     which forms X[k] and X[h-k] from the same two values and one twiddle.
-//     Twiddles come from the (n_fft) float2 table exp(-2 pi i t / n_fft) the
-//     host builds in f64. Each CTA copies its first n_fft/4 + 1 entries (the
-//     post-pass's), and lays out the entries each Stockham pass after the
-//     first reads, exp(-2 pi i jm r / (Ns R)) at r*Ns + jm, so that a warp's
-//     twiddle loads hit consecutive addresses.
-//   * framed_fft_mixed_kernel, any other n_fft, following the host's plan
-//     (kernels/dft.py:_fft_plan): Stockham passes of radix 8 and a 4 or 2,
-//     then 13, 11, 7, 5, 3, of L points. For even n_fft, L = n/2 and the
-//     same split post-pass. For odd n_fft, L = n and two frames share one
-//     FFT, z = xw_m + i xw_{m+1}, separated after it as
-//       X_m[k] = (Z[k] + conj Z[n-k]) / 2,  X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i).
+// A real frame of even n_fft is one complex FFT of L = n_fft/2 points,
+// z[j] = xw[2j] + i xw[2j+1] (the window multiply and the fold fused into
+// the load), and the split post-pass
+//   X[k] = (Z[k] + conj Z[L-k]) / 2 - i W^k (Z[k] - conj Z[L-k]) / 2,
+//   W = exp(-2 pi i / n_fft), k = 0..L (indices mod L), X[n-k] = conj X[k],
+// which forms X[k] and X[L-k] from the same two values and one twiddle. Two
+// real frames of odd n_fft share one complex FFT of L = n_fft points, z =
+// xw_m + i xw_{m+1}, separated after it as
+//   X_m[k] = (Z[k] + conj Z[n-k]) / 2,  X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i).
+// The FFT runs Stockham autosort passes (butterflies in registers); an L
+// with a prime factor above 13 (1021, 1031, 4093, 8191, 1018 = 2 * 509)
+// runs as Bluestein's chirp-z transform (kernels/dft.py:_bluestein_plan),
+//   Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}),  w_j = exp(-pi i j^2 / L),
+// through two FFTs of M >= 2L - 1 points: the first pass loads z_t w_t
+// (zeros past L), the second FFT's first pass conj(A[t] S[t]) with S the
+// host's FFT of the conjugate chirp over M, and the post-pass reads Z[k] =
+// w_k conj(.) of its output (conj, FFT, conj is the inverse; S carries the
+// 1/M). Three kernels run the FFTs:
+//   * framed_fft_kernel, a power-of-two n_fft up to 1024: radix-8 passes
+//     (a last 4 or 2) over a padded buffer per frame (index i at i + i/8),
+//     one CTA per (channel, tile of frames). Each CTA copies the (n_fft)
+//     float2 table exp(-2 pi i t / n_fft) the host builds in f64: its first
+//     n_fft/4 + 1 entries (the post-pass's), and for each pass after the
+//     first the entries exp(-2 pi i jm r / (Ns R)) at r*Ns + jm, so that a
+//     warp's twiddle loads hit consecutive addresses.
+//   * framed_fft_loop_kernel, every M that is a power of two from 8 to 8192
+//     (4096 for odd n_fft): the power-of-two n_fft past 1024 (M = L) and
+//     Bluestein's M, the power of two >= 2L - 1 by the host's rule
+//     (kernels/dft.py:_bluestein_points). Persistent CTAs, as many as the
+//     SMs hold (the occupancy calculator), each walking over (channel, tile
+//     of frames) items. An FFT of M points takes M / 8 threads, each holding
+//     one radix-8 butterfly (two of radix 4, four of radix 2) in registers;
+//     every pass reads the FFT's one exchange buffer, waits for every read,
+//     and writes it back (no ping-pong pair). CTAs of 512 threads (up to 128
+//     registers each) run M up to 2048 and odd n_fft; CTAs of 1024 (64
+//     registers) M = 4096 and 8192, one FFT of 8192 points on 1024 threads,
+//     which two CTAs of 512 holding two butterflies a thread would spill.
+//     Where the next item's window of x, the window and two slots
+//     fit the budget (kLoopBudget), the next item is staged with cp.async
+//     into the second slot while the current one's FFTs run; where they do
+//     not (n_fft past about 4096), the frames and the window are read from
+//     global memory, each frame's samples from device memory about once
+//     (overlapping frames hit L2). The host lays out its table as the mixed
+//     kernel's (post-pass twiddles, [chirp, filter spectrum], each later
+//     pass's twiddles at r*Ns + jm, kernels/dft.py:_passes), with each pass's
+//     output padding c_p of the plan; every CTA reads the twiddles, the
+//     chirp and S through L2.
+//   * framed_fft_mixed_kernel, every other M (13-smooth and not a power of
+//     two, and a power of two past the loop kernel's range), following the
+//     host's plan (kernels/dft.py:_fft_plan, _bluestein_plan): Stockham
+//     passes of radix 8 and a 4 or 2, then 13, 11, 7, 5, 3, of M points.
 //     Each pass reads one buffer and writes the other (a ping-pong pair per
-//     FFT), each thread looping over its share of the L/R butterflies, so
-//     one warp sync per pass. The plan stores pass p's output index i at
-//     i + (i / (Ns R)) c_p, which sends the stores of a half-warp to
-//     distinct banks for the radix-3, -5 and -7 strides as for the even
-//     ones (past 2048 points only where c_p adds at most 1/8 to the buffer).
-//     Its f64 table (post-pass twiddles, then each later pass's twiddles in
-//     the order the pass reads them) is cast to f32 on the host.
-//     An n_fft with a prime factor above 13 (1021, 1031, 4093, 1018 = 2 *
-//     509) follows kernels/dft.py:_bluestein_plan: the L-point DFT as a
-//     chirp-z transform, Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}), w_j =
-//     exp(-pi i j^2 / L), through two FFTs of a 13-smooth M >= 2L - 1 points
-//     on the same passes: the first pass loads z_t w_t (zeros past L), the
-//     second FFT's first pass conj(A[t] S[t]) with S the host's FFT of the
-//     conjugate chirp over M, and the post-pass reads Z[k] = w_k conj(.) of
-//     its output (conj, FFT, conj is the inverse; S carries the 1/M).
-//     M <= 4096 for even n_fft, <= 8192 for odd. Up to 2048 points the CTA
+//     FFT), each thread looping over its share of the M/R butterflies, so
+//     one sync per pass. The plan stores pass p's output index i at i + (i /
+//     (Ns R)) c_p, which sends the stores of a half-warp to distinct banks
+//     for the radix-3, -5 and -7 strides as for the even ones (past 2048
+//     points only where c_p adds at most 1/8 to the buffer). Its f64 table
+//     (post-pass twiddles, then each later pass's twiddles in the order the
+//     pass reads them) is cast to f32 on the host. Up to 2048 points the CTA
 //     stages the table in shared memory where it fits beside one FFT's
-//     buffers and its frames; past 2048 points (and where it would not
-//     fit: Bluestein's table of about 2.5 M float2 at M = 8190) every CTA
-//     reads it from global memory, where all CTAs share it through L2, and
-//     the shared memory it frees holds more CTAs (measured faster there,
-//     NX_FFT_L2_TABLE_POINTS). The frames per CTA follow the shared memory
-//     the buffers take.
+//     buffers and its frames; past 2048 points every CTA reads it from
+//     global memory, where all CTAs share it through L2 (measured faster
+//     there, NX_FFT_L2_TABLE_POINTS). An FFT past 2048 points takes the
+//     CTA's kThreads threads; where staging its frames and the window beside
+//     its buffers would take more than half an SM's shared memory (L past
+//     about 3500), they are read from global memory. It runs Bluestein's
+//     power-of-two M past the loop kernel's range: 8192 for odd n_fft (whose
+//     loop shapes spill at the registers they leave), 16384 and 32768 (one
+//     CTA of the loop kernel would hold 4 or 8 butterflies a thread, which
+//     spills; spread over a cluster it ran about 2x slower than this). Where
+//     one FFT's buffer pair does not fit a CTA (an odd L past 8192,
+//     Bluestein's M of 16384 and 32768), a cluster of 2 or 4 CTAs shares it:
+//     each holds a part of both buffers, the cluster's threads run the FFT's
+//     butterflies through distributed shared memory (the owner of index i
+//     is i / part), and the cluster's barrier ends each pass.
 //
 // What bounds it on the H100: bytes. Per input sample it moves 4 B in and
 // 8 * bins / stride B out (complex64), against about 2.5 n log2 n / stride
 // FLOP (~90 at n = 512, hop 128), far below the card's ratio. So:
-//   * One CTA per (channel, tile of frames). It stages the tile's window of
-//     x once with 16-byte cp.async where the alignment allows, so each
-//     sample is read from device memory about once, not once per frame.
-//   * A frame's threads (one warp or part of one for every n_fft <= 512 of
-//     the power-of-two kernel and every 13-smooth n_fft <= 2048 of the
-//     mixed one) run its passes in registers and shared memory, several
-//     frames per CTA at once; they sync with __syncwarp, so the warps of a
-//     CTA never wait for each other after the staging. An FFT of more than
-//     1024 points of the mixed kernel, and every Bluestein FFT past 256
-//     points, takes two warps, and one past 2048 points the CTA's eight
-//     warps, synced on a named barrier of its own; the power-of-two kernel
-//     gives a frame of 1024 points and more its h/8 threads, synced on the
-//     CTA's barrier.
+//   * Each sample is read from device memory about once, not once per
+//     frame: a CTA stages its tile's window of x with 16-byte cp.async
+//     where the alignment allows, or (the long transforms) reads frames
+//     that overlap through L2.
+//   * A frame's threads run its passes in registers and shared memory,
+//     several frames per CTA at once where they fit; they sync with
+//     __syncwarp where an FFT's threads lie in one warp, else on a named
+//     barrier of their own (the mixed and loop kernels), the CTA's, or the
+//     cluster's.
 //   * The output is written straight into the complex64 tensor, consecutive
 //     threads on consecutive bins (no stacked [Re | Im] and no copy).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinFft = 8;
-constexpr int kMaxFft = 4096;
+constexpr int kMaxFft = 16384;
+constexpr int kMaxSmallFft = 1024;             // framed_fft_kernel's largest n_fft
 constexpr int kTileTarget = 32;                 // frames per CTA where they fit
 constexpr size_t kSmemBudget = 96 * 1024;       // keeps two or more CTAs per SM
 constexpr int64_t kMaxGridY = 65535;
@@ -476,7 +507,7 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7, 8, 11 or 13) in
 // the low four bits, its output padding c (0..15) in the high four
 constexpr int kMaxPasses = 8;
-constexpr int kMaxPoints = 8192;  // Bluestein's M at the longest odd n_fft
+constexpr int kMaxPoints = 32768;  // Bluestein's M at the longest L (16383, odd n_fft)
 // Past this many points a CTA holds one FFT of the mixed kernel (its two
 // buffers fill the shared memory), which then takes kThreads threads; the
 // host's plans pad such FFTs' passes sparingly (kernels/dft.py:_FULL_PAD_POINTS)
@@ -511,6 +542,38 @@ __device__ __forceinline__ void slot_sync(int slot, int G) {
   }
 }
 
+// An FFT buffer of the mixed kernel: C = 1, in this CTA's shared memory;
+// C = 2 or 4, spread over the C CTAs of a thread-block cluster, `part`
+// float2 in each, read and written through distributed shared memory.
+template <int C>
+struct Buf {
+  float2* base[C];
+  int part;
+  // (the owner is picked by compares against constant indices, so `base`
+  // stays in registers)
+  __device__ __forceinline__ float2& operator[](int i) const {
+    float2* p = base[0];
+    int o = i;
+#pragma unroll
+    for (int c = 1; c < C; ++c) {
+      if (i >= c * part) p = base[c], o = i - c * part;
+    }
+    return p[o];
+  }
+};
+
+// Waits for the threads of this FFT: slot_sync, or (C > 1) the cluster's,
+// whose barrier also makes the CTAs' shared-memory writes visible to each
+// other
+template <int C>
+__device__ __forceinline__ void fft_sync(int slot, int G) {
+  if constexpr (C == 1) {
+    slot_sync(slot, G);
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
 // float2 per buffer: the largest padded output of any pass
 inline int mixed_buf_len(uint64_t plan, int M) {
   int len = M;
@@ -535,32 +598,49 @@ inline int mixed_table_len(uint64_t plan, int L, int M, bool odd) {
 
 // Shared memory of a CTA: the table where it is staged (table_len float2,
 // 0 where it stays in global memory; an even count, so what follows stays
-// 16-byte aligned), two buffers per FFT, the window, and the staged x
-// window of `tile` frames (+3 for the alignment offset).
+// 16-byte aligned), two buffers per FFT, and where x is staged the window
+// and the staged x window of `tile` frames (+3 for the alignment offset).
 inline size_t mixed_smem_bytes(int table_len, int buf_len, int frame_length, int64_t stride,
-                               int group, int tile) {
+                               int group, int tile, bool stage_x) {
   return (size_t)(8 * (((int64_t)table_len + 1) / 2 * 2) + 16 * (int64_t)group * buf_len +
-                  4 * round4(frame_length) +
-                  4 * round4((int64_t)(tile - 1) * stride + frame_length + 3));
+                  (stage_x ? 4 * round4(frame_length) +
+                                 4 * round4((int64_t)(tile - 1) * stride + frame_length + 3)
+                           : 0));
 }
 
 // Point t of the FFT input, windowed and folded modulo n_fft: even n_fft
 // xw[2t] + i xw[2t+1] of frame xa; odd n_fft xw_a[t] + i xw_b[t] of frames
 // xa and xb (null: zeros). Zero for every t >= L (Bluestein's padding).
+// The frame and the window lie in shared memory (staged) or global memory.
+// The fold loops run once where the frame is no longer than n_fft; they are
+// not unrolled, which keeps the loop kernel within its registers.
 template <bool ODD>
 __device__ __forceinline__ float2 load_point(int t, const float* xa, const float* xb,
                                              const float* wins, int frame_length, int L) {
   float re = 0.0f, im = 0.0f;
   if (t >= L) return make_float2(re, im);
   if constexpr (ODD) {
+#pragma unroll 1
     for (int i = t; i < frame_length; i += L) {
       if (xa != nullptr) re += xa[i] * wins[i];
       if (xb != nullptr) im += xb[i] * wins[i];
     }
   } else if (xa != nullptr) {
+    // (x, window) pairs as 8-byte loads where the frame starts 8-byte
+    // aligned (the window does); the same products either way
+    const bool aligned = ((reinterpret_cast<uintptr_t>(xa) | reinterpret_cast<uintptr_t>(wins)) &
+                          7) == 0;
+#pragma unroll 1
     for (int i = 2 * t; i < frame_length; i += 2 * L) {
-      re += xa[i] * wins[i];
-      if (i + 1 < frame_length) im += xa[i + 1] * wins[i + 1];
+      if (i + 1 < frame_length && aligned) {
+        const float2 xv = *reinterpret_cast<const float2*>(xa + i);
+        const float2 wv = *reinterpret_cast<const float2*>(wins + i);
+        re += xv.x * wv.x;
+        im += xv.y * wv.y;
+      } else {
+        re += xa[i] * wins[i];
+        if (i + 1 < frame_length) im += xa[i + 1] * wins[i + 1];
+      }
     }
   }
   return make_float2(re, im);
@@ -581,8 +661,8 @@ enum Source { kBuffer, kSignal, kChirped, kFiltered };
 // (j / Ns) (Ns R + out_pad) + j mod Ns + r Ns of out. M/R is a multiple of
 // Ns, so point j + r M/R lies in group j / Ns + r M/(R Ns); (j / Ns, j mod
 // Ns) advance by (G / Ns, G mod Ns) with a carry, one division per pass.
-template <int R, int SRC, bool ODD>
-__device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2* out,
+template <int R, int SRC, bool ODD, int C>
+__device__ __forceinline__ void mixed_pass(const Buf<C>& in, int in_pad, const Buf<C>& out,
                                            int out_pad, const float2* tbl, const float* xa,
                                            const float* xb, const float* wins, int frame_length,
                                            int L, int M, int Ns, int G, int j0) {
@@ -611,24 +691,24 @@ __device__ __forceinline__ void mixed_pass(const float2* in, int in_pad, float2*
       for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tbl[r * Ns + jm]);
     }
     dft<R>(v);
-    float2* o = out + g * stride_g + jm;
+    const int o = g * stride_g + jm;
 #pragma unroll
-    for (int r = 0; r < R; ++r) o[r * Ns] = v[r];
+    for (int r = 0; r < R; ++r) out[o + r * Ns] = v[r];
     g += dq;
     jm += dr;
     if (jm >= Ns) jm -= Ns, ++g;
   }
 }
 
-template <int SRC, bool ODD>
-__device__ __forceinline__ void run_mixed_pass(int R, const float2* in, int in_pad, float2* out,
-                                               int out_pad, const float2* tbl, const float* xa,
-                                               const float* xb, const float* wins,
-                                               int frame_length, int L, int M, int Ns, int G,
-                                               int j0) {
-#define NX_MIXED_PASS(RADIX)                                                                  \
-  mixed_pass<RADIX, SRC, ODD>(in, in_pad, out, out_pad, tbl, xa, xb, wins, frame_length, L, M, \
-                              Ns, G, j0)
+template <int SRC, bool ODD, int C>
+__device__ __forceinline__ void run_mixed_pass(int R, const Buf<C>& in, int in_pad,
+                                               const Buf<C>& out, int out_pad, const float2* tbl,
+                                               const float* xa, const float* xb,
+                                               const float* wins, int frame_length, int L, int M,
+                                               int Ns, int G, int j0) {
+#define NX_MIXED_PASS(RADIX)                                                                     \
+  mixed_pass<RADIX, SRC, ODD, C>(in, in_pad, out, out_pad, tbl, xa, xb, wins, frame_length, L, M, \
+                                 Ns, G, j0)
   switch (R) {
     case 13: NX_MIXED_PASS(13); break;
     case 11: NX_MIXED_PASS(11); break;
@@ -643,58 +723,103 @@ __device__ __forceinline__ void run_mixed_pass(int R, const float2* in, int in_p
 }
 
 // One FFT of M points of this slot through every pass of the plan: the
-// first from SRC (`first`: its chirp or filter spectrum; `in`: the buffer it
-// reads, if any) into the other buffer of the slot's pair (buf0, buf0 +
-// buf_len), the rest between the pair with the twiddles twp; returns the
-// buffer holding the result, unpadded, in natural order.
-template <int SRC, bool ODD>
-__device__ __forceinline__ const float2* run_fft(float2* buf0, int buf_len, const float2* in,
-                                                 const float2* first, const float2* twp,
-                                                 uint64_t plan, const float* xa, const float* xb,
-                                                 const float* wins, int frame_length, int L,
-                                                 int M, int G, int j0, int slot) {
-  float2* dst = in == buf0 ? buf0 + buf_len : buf0;
-  run_mixed_pass<SRC, ODD>(plan_radix(plan, 0), in, 0, dst, plan_pad(plan, 0), first, xa, xb,
-                           wins, frame_length, L, M, 1, G, j0);
-  const float2* src = dst;
+// first from SRC (`first`: its chirp or filter spectrum; `in`: the buffer
+// it reads, if any) into `out`, the rest between `out` and `spare` with the
+// twiddles twp; on return `out` holds the result, unpadded, in natural
+// order, and `spare` the other buffer (passed and swapped by value, so no
+// buffer is chosen by a runtime index into an array).
+template <int SRC, bool ODD, int C>
+__device__ __forceinline__ void run_fft(const Buf<C>& in, Buf<C>& out, Buf<C>& spare,
+                                        const float2* first, const float2* twp, uint64_t plan,
+                                        const float* xa, const float* xb, const float* wins,
+                                        int frame_length, int L, int M, int G, int j0,
+                                        int slot) {
+  run_mixed_pass<SRC, ODD, C>(plan_radix(plan, 0), in, 0, out, plan_pad(plan, 0), first, xa, xb,
+                              wins, frame_length, L, M, 1, G, j0);
   int ns = plan_radix(plan, 0);
   for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
-    slot_sync(slot, G);  // the previous pass's writes are visible
+    fft_sync<C>(slot, G);  // the previous pass's writes are visible
     const int R = plan_radix(plan, p);
-    float2* out = src == buf0 ? buf0 + buf_len : buf0;
-    run_mixed_pass<kBuffer, ODD>(R, src, plan_pad(plan, p - 1), out, plan_pad(plan, p), twp,
-                                 nullptr, nullptr, wins, frame_length, L, M, ns, G, j0);
+    run_mixed_pass<kBuffer, ODD, C>(R, out, plan_pad(plan, p - 1), spare, plan_pad(plan, p), twp,
+                                    nullptr, nullptr, wins, frame_length, L, M, ns, G, j0);
     twp += ns * R;
     ns *= R;
-    src = out;
+    const Buf<C> done = spare;
+    spare = out;
+    out = done;
   }
-  return src;
 }
 
 // Z[k] of the L-point transform from the last FFT's output: the output
 // itself, or with Bluestein w_k conj(out[k]) (the inverse FFT's last conj
 // and the chirp; the filter spectrum carries the 1/M)
-template <bool BLUE>
-__device__ __forceinline__ float2 spectrum_at(const float2* src, const float2* chirp, int k) {
+template <bool BLUE, class S>
+__device__ __forceinline__ float2 spectrum_at(const S& src, const float2* chirp, int k) {
   const float2 c = src[k];
   if constexpr (BLUE) return cmul(chirp[k], make_float2(c.x, -c.y));
   return c;
 }
 
-template <bool POWER, bool ODD, bool BLUE, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
+// The bins of one FFT's frames from Z (the unpadded output `src`): odd
+// n_fft the separation of frames m (row, where `first`) and m+1 (row +
+// bins, where `second`), even n_fft the split post-pass with the twiddles
+// post_tw of frame m (where `first`); this thread takes k = j0, j0 + G, ...,
+// so consecutive threads write consecutive bins.
+template <bool POWER, bool ODD, bool BLUE, class S>
+__device__ __forceinline__ void write_spectrum(const S& src, const float2* chirp,
+                                               const float2* post_tw, void* out, int64_t row,
+                                               bool first, bool second, int bins, int n_fft,
+                                               int L, int G, int j0) {
+  const bool full = bins == n_fft;
+  // bin k (and L - k, even n_fft)
+  auto bin = [&](int k) {
+    const float2 a = spectrum_at<BLUE>(src, chirp, k);
+    const float2 b = spectrum_at<BLUE>(src, chirp, k == 0 ? 0 : L - k);
+    const float sr = a.x + b.x, si = a.y - b.y;  // Z[k] + conj Z[L-k]
+    const float dr = a.x - b.x, di = a.y + b.y;  // Z[k] - conj Z[L-k]
+    if constexpr (ODD) {
+      // X_m[k] = (Z[k] + conj Z[n-k]) / 2, X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i)
+      if (first) put_bin<POWER>(out, row, k, 0.5f * sr, 0.5f * si, full && k >= 1, n_fft);
+      if (second) put_bin<POWER>(out, row + bins, k, 0.5f * di, -0.5f * dr, full && k >= 1, n_fft);
+    } else {
+      // the split post-pass, as in framed_fft_kernel
+      const float2 w = post_tw[k];
+      const float pr = w.x * dr - w.y * di, pi = w.x * di + w.y * dr;
+      put_bin<POWER>(out, row, k, 0.5f * (sr + pi), 0.5f * (si - pr), full && k >= 1, n_fft);
+      if (L - k != k) {
+        put_bin<POWER>(out, row, L - k, 0.5f * (sr - pi), -0.5f * (si + pr), full && k >= 1,
+                       n_fft);
+      }
+    }
+  };
+  if (!ODD && !first) return;
+  const int end = ODD ? (L + 1) / 2 : L / 2 + 1;  // k = 0..(n-1)/2 (odd), 0..L/2 (even)
+  for (int k = j0; k < end; k += G) bin(k);
+}
+
+// C = 1: `group` FFTs a CTA, each of G threads over a buffer pair of
+// buf_len float2. C = 2 or 4 (a cluster of C CTAs launched with
+// cudaLaunchKernelEx, blockIdx.x / C the tile): one FFT over the cluster's
+// G = C * blockDim.x threads, each CTA holding `part` float2 of each
+// buffer; the table, the frames and the window read from global memory.
+// (launch bounds: four CTAs an SM, 64 registers a thread, for C = 1; one
+// for a cluster's CTAs, whose buffer parts fill an SM's shared memory)
+template <bool POWER, bool ODD, bool BLUE, bool STAGED, int C>
+__global__ void __launch_bounds__(kThreads, C == 1 ? 4 : 1)
 framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
                         const float2* __restrict__ table, void* __restrict__ out, int64_t length,
                         int stride, int frame_length, int n_fft, int num_frames, int bins,
                         int tile, int group, uint64_t plan, int G, int buf_len, int table_len,
-                        int M) {
+                        int M, int stage_x, int part) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
   const int L = ODD ? n_fft : n_fft / 2;
   float2* staged = reinterpret_cast<float2*>(smem);  // the table, STAGED
   float2* bufs = STAGED ? staged + (table_len + 1) / 2 * 2 : staged;
-  float* wins = reinterpret_cast<float*>(bufs + (int64_t)group * 2 * buf_len);
-  float* xs = wins + round4(frame_length);
+  // the window and the tile's samples: staged (stage_x) or in global memory
+  float* wins_s = reinterpret_cast<float*>(bufs + (int64_t)group * 2 * buf_len);
+  float* xs = wins_s + round4(frame_length);
+  const float* wins = stage_x ? wins_s : win;
   // the table, in shared memory or read from global memory (L2): post-pass
   // twiddles (even n_fft), [chirp, filter spectrum], the passes' twiddles
   const float2* tbl = STAGED ? staged : table;
@@ -705,69 +830,286 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int64_t ch = blockIdx.y;
-  const int m0 = blockIdx.x * tile;
+  const int m0 = blockIdx.x / C * tile;
   const int m_end = min(num_frames, m0 + tile);
-  const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
-                               (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
+  const float* xw = x + ch * length + (int64_t)m0 * stride;  // sample m0 * stride
+  if (C == 1 && stage_x) {
+    xw = xs + stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
+                           (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
+    for (int i = tid; i < frame_length; i += nthr) wins_s[i] = win[i];
+  }
   if constexpr (STAGED) {
     for (int i = tid; i < table_len; i += nthr) staged[i] = table[i];
   }
-  for (int i = tid; i < frame_length; i += nthr) wins[i] = win[i];
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();  // x staged
 
   // each FFT's G threads run it and write its bins on their own: FFT slot
   // takes frames mg + kPer*slot (and the next, odd n_fft) of the tile
-  const int slot = tid / G;
-  const int j0 = tid - slot * G;
-  float2* const buf0 = bufs + (int64_t)slot * 2 * buf_len;
-  const bool full = bins == n_fft;
+  const int slot = C == 1 ? tid / G : 0;
+  int j0 = tid - slot * G;
+  Buf<C> buf_a, buf_b;
+  if constexpr (C == 1) {
+    buf_a.base[0] = bufs + (int64_t)slot * 2 * buf_len;
+    buf_b.base[0] = buf_a.base[0] + buf_len;
+  } else {
+    // this CTA's parts of the two buffers, and every CTA's, mapped; the
+    // cluster's CTAs have all started before any reads another's memory
+    cg::cluster_group cluster = cg::this_cluster();
+    j0 += (int)cluster.block_rank() * nthr;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      buf_a.base[r] = cluster.map_shared_rank(bufs, r);
+      buf_b.base[r] = cluster.map_shared_rank(bufs + part, r);
+    }
+    buf_a.part = buf_b.part = part;
+    cluster.sync();
+  }
   for (int mg = m0; mg < m_end; mg += group * kPer) {
     const int m = mg + slot * kPer;
-    const float* xa = m < m_end ? xs + mis + (m - m0) * stride : nullptr;
+    const float* xa = m < m_end ? xw + (int64_t)(m - m0) * stride : nullptr;
     const float* xb = ODD && m + 1 < m_end ? xa + stride : nullptr;
-    const float2* src = run_fft<BLUE ? kChirped : kSignal, ODD>(
-        buf0, buf_len, nullptr, chirp, twp, plan, xa, xb, wins, frame_length, L, M, G, j0, slot);
+    Buf<C> res = buf_a, spare = buf_b;
+    run_fft<BLUE ? kChirped : kSignal, ODD, C>(spare, res, spare, chirp, twp, plan, xa, xb, wins,
+                                               frame_length, L, M, G, j0, slot);
     if constexpr (BLUE) {
-      slot_sync(slot, G);
-      src = run_fft<kFiltered, ODD>(buf0, buf_len, src, filt, twp, plan, nullptr, nullptr, wins,
-                                    frame_length, L, M, G, j0, slot);
+      fft_sync<C>(slot, G);
+      const Buf<C> first_out = res;  // the second FFT reads it, then ping-pongs with it
+      res = spare;
+      spare = first_out;
+      run_fft<kFiltered, ODD, C>(first_out, res, spare, filt, twp, plan, nullptr, nullptr, wins,
+                                 frame_length, L, M, G, j0, slot);
     }
-    slot_sync(slot, G);
+    fft_sync<C>(slot, G);
 
-    // the post-pass from Z; consecutive threads write consecutive bins
-    if constexpr (ODD) {
-      // frames m and m+1: X_m[k] = (Z[k] + conj Z[n-k]) / 2,
-      // X_{m+1}[k] = (Z[k] - conj Z[n-k]) / (2i), k = 0..(n-1)/2
-      const int64_t row = (ch * num_frames + m) * (int64_t)bins;
-      for (int k = j0; 2 * k < L; k += G) {
-        const float2 a = spectrum_at<BLUE>(src, chirp, k);
-        const float2 b = spectrum_at<BLUE>(src, chirp, k == 0 ? 0 : L - k);
-        const float sr = a.x + b.x, si = a.y - b.y;  // Z[k] + conj Z[n-k]
-        const float dr = a.x - b.x, di = a.y + b.y;  // Z[k] - conj Z[n-k]
-        if (m < m_end) put_bin<POWER>(out, row, k, 0.5f * sr, 0.5f * si, full && k >= 1, n_fft);
-        if (m + 1 < m_end) {
-          put_bin<POWER>(out, row + bins, k, 0.5f * di, -0.5f * dr, full && k >= 1, n_fft);
-        }
+    // the post-pass from Z
+    write_spectrum<POWER, ODD, BLUE>(res, chirp, tbl, out,
+                                     (ch * num_frames + m) * (int64_t)bins, m < m_end,
+                                     ODD && m + 1 < m_end, bins, n_fft, L, G, j0);
+    fft_sync<C>(slot, G);  // the buffers are read before the next frames fill them
+  }
+}
+
+// ---- the persistent loop kernel (a power-of-two M: the power-of-two n_fft
+// past the small kernel's range, and Bluestein's power-of-two M)
+
+// Threads of a CTA: kLoopThreads up to M = 2048 and for odd n_fft,
+// kLoopWide (64 registers a thread) for M = 4096 and 8192
+constexpr int kLoopThreads = 512;
+constexpr int kLoopWide = 1024;
+// Shared memory a CTA may take for the staged frames: two CTAs of
+// kLoopThreads share an SM at 112 KB each
+constexpr size_t kLoopBudget = 112 * 1024;
+
+// One Stockham pass of radix R (8, 4 or 2) over this FFT's M-point buffer
+// after Ns = 2^ns_log points have been combined: butterfly j = j0 + it G
+// (it < IT, IT G = M/R) reads points j + r M/R (a later pass from the
+// buffer, where the previous pass stored index t at t + (t / Ns) in_pad,
+// times twiddle tbl[r Ns + j mod Ns]; a first pass from SRC as
+// mixed_pass's), every read of the FFT's threads completes, then it writes
+// its DFT to (j / Ns) (Ns R + out_pad) + j mod Ns + r Ns of the same buffer.
+template <int R, int IT, int SRC, bool ODD>
+__device__ __forceinline__ void loop_pass(float2* buf, int in_pad, int out_pad,
+                                          const float2* tbl, const float* xa, const float* xb,
+                                          const float* wins, int frame_length, int L, int M,
+                                          int ns_log, int G, int j0, int slot) {
+  const int ns = 1 << ns_log;
+  const int span = M / R;
+  const int stride_g = ns * R + out_pad;
+  if constexpr (SRC == kSignal || SRC == kChirped) {
+    // a first pass reads no buffer, so each butterfly is stored at once
+    // (Ns = 1: output j R + r at j (R + out_pad) + r)
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int j = j0 + it * G;
+      float2 v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = j + r * span;
+        v[r] = load_point<ODD>(t, xa, xb, wins, frame_length, L);
+        if (SRC == kChirped && t < L) v[r] = cmul(v[r], tbl[t]);
       }
-    } else if (m < m_end) {
-      // the split post-pass, as in framed_fft_kernel
-      const int64_t row = (ch * num_frames + m) * (int64_t)bins;
-      for (int k = j0; 2 * k <= L; k += G) {
-        const float2 a = spectrum_at<BLUE>(src, chirp, k);
-        const float2 b = spectrum_at<BLUE>(src, chirp, k == 0 ? 0 : L - k);
-        const float sr = a.x + b.x, si = a.y - b.y;
-        const float dr = a.x - b.x, di = a.y + b.y;
-        const float2 w = tbl[k];
-        const float pr = w.x * dr - w.y * di, pi = w.x * di + w.y * dr;
-        put_bin<POWER>(out, row, k, 0.5f * (sr + pi), 0.5f * (si - pr), full && k >= 1, n_fft);
-        if (L - k != k) {
-          put_bin<POWER>(out, row, L - k, 0.5f * (sr - pi), -0.5f * (si + pr), full && k >= 1,
-                         n_fft);
-        }
+      dft<R>(v);
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[j * stride_g + r] = v[r];
+    }
+    return;
+  }
+  float2 v[IT][R];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int j = j0 + it * G;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = j + r * span;
+      if constexpr (SRC == kFiltered) {
+        const float2 c = cmul(buf[t], tbl[t]);
+        v[it][r] = make_float2(c.x, -c.y);
+      } else {
+        v[it][r] = buf[t + (t >> ns_log) * in_pad];
       }
     }
-    slot_sync(slot, G);  // the buffers are read before the next frames fill them
+    if constexpr (SRC == kBuffer) {
+      const int jm = j & (ns - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], tbl[r * ns + jm]);
+    }
+    dft<R>(v[it]);
+  }
+  slot_sync(slot, G);  // every read of this pass is done
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int j = j0 + it * G;
+    float2* o = buf + (j >> ns_log) * stride_g + (j & (ns - 1));
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r * ns] = v[it][r];
+  }
+}
+
+// Radix 8, else the plan's last radix: LAST (8, 4 or 2) where M fixes it,
+// 0 for 4 or 2 (the passes a kernel instance cannot meet are not compiled,
+// so they take no registers)
+template <int SRC, bool ODD, int LAST>
+__device__ __forceinline__ void run_loop_pass(int R, float2* buf, int in_pad, int out_pad,
+                                              const float2* tbl, const float* xa,
+                                              const float* xb, const float* wins,
+                                              int frame_length, int L, int M, int ns_log, int G,
+                                              int j0, int slot) {
+  if (R == 8 || LAST == 8) {
+    loop_pass<8, 1, SRC, ODD>(buf, in_pad, out_pad, tbl, xa, xb, wins, frame_length, L, M,
+                              ns_log, G, j0, slot);
+  } else if (LAST != 2 && (LAST == 4 || R == 4)) {
+    if constexpr (LAST != 2 && LAST != 8) {
+      loop_pass<4, 2, SRC, ODD>(buf, in_pad, out_pad, tbl, xa, xb, wins, frame_length, L, M,
+                                ns_log, G, j0, slot);
+    }
+  } else if constexpr (LAST != 4 && LAST != 8) {
+    loop_pass<2, 4, SRC, ODD>(buf, in_pad, out_pad, tbl, xa, xb, wins, frame_length, L, M,
+                              ns_log, G, j0, slot);
+  }
+}
+
+// One FFT of M points through every pass of the plan in this slot's buffer:
+// the first from SRC (`first`: its chirp or filter spectrum), the rest
+// with the twiddles twp; the result, unpadded and in natural order, is in
+// the buffer once the slot has synced.
+template <int SRC, bool ODD, int LAST>
+__device__ __forceinline__ void loop_fft(float2* buf, const float2* first, const float2* twp,
+                                         uint64_t plan, const float* xa, const float* xb,
+                                         const float* wins, int frame_length, int L, int M,
+                                         int G, int j0, int slot) {
+  int R = plan_radix(plan, 0);
+  run_loop_pass<SRC, ODD, LAST>(R, buf, 0, plan_pad(plan, 0), first, xa, xb, wins,
+                                frame_length, L, M, 0, G, j0, slot);
+  int ns_log = __ffs(R) - 1;
+  for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
+    slot_sync(slot, G);  // the previous pass's writes are visible
+    R = plan_radix(plan, p);
+    run_loop_pass<kBuffer, ODD, LAST>(R, buf, plan_pad(plan, p - 1), plan_pad(plan, p), twp,
+                                      nullptr, nullptr, wins, frame_length, L, M, ns_log, G, j0,
+                                      slot);
+    twp += R << ns_log;
+    ns_log += __ffs(R) - 1;
+  }
+}
+
+// Stages the samples of item `item` (channel item / tiles, frames from
+// (item mod tiles) * tile) into dst and commits the copies as one group.
+__device__ __forceinline__ void stage_item(float* dst, const float* x, int64_t item,
+                                           int64_t tiles, int tile, int64_t length, int stride,
+                                           int frame_length, int num_frames, int tid, int nthr) {
+  const int64_t ch = item / tiles;
+  const int m0 = (int)(item - ch * tiles) * tile;
+  const int m_end = min(num_frames, m0 + tile);
+  stage_window(dst, x + ch * length, length, (int64_t)m0 * stride,
+               (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
+}
+
+// M / 8 threads per FFT, each one radix-8 butterfly of a pass (two of radix
+// 4, four of radix 2), THREADS / that FFTs at once: THREADS kLoopThreads (at
+// most 128 registers a thread; a floor of two CTAs an SM, 64 registers,
+// spills the odd-n_fft instances) up to M = 2048 and for odd n_fft,
+// kLoopWide (64 registers) at M = 4096 (LAST 8) and 8192 (LAST 2). The
+// twiddles are read from the table in global memory (L2); `slot_len` floats
+// per staged x slot (0: the frames and the window read from global memory).
+template <bool POWER, bool ODD, bool BLUE, int THREADS, int LAST>
+__global__ void __launch_bounds__(THREADS, 1)
+framed_fft_loop_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                       const float2* __restrict__ table, void* __restrict__ out, int64_t length,
+                       int stride, int frame_length, int n_fft, int num_frames, int bins,
+                       int64_t channels, int tile, uint64_t plan, int M, int buf_len,
+                       int slot_len) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
+  const int L = ODD ? n_fft : n_fft / 2;
+  const int G = M / 8;
+  const int group = blockDim.x / G;
+  const int post_len = ODD ? 0 : L / 2 + 1;
+  // the table: post-pass twiddles (even n_fft), [chirp, filter spectrum],
+  // the passes' twiddles
+  const float2* chirp = table + post_len;
+  const float2* filt = chirp + L;
+  const float2* twp = BLUE ? filt + M : chirp;
+  float2* bufs = reinterpret_cast<float2*>(smem);
+  float* wins_s = reinterpret_cast<float*>(bufs + ((int64_t)group * buf_len + 1) / 2 * 2);
+  float* xs = wins_s + round4(frame_length);  // two slots of slot_len floats
+  const bool stage_x = slot_len > 0;
+  const float* wins = stage_x ? wins_s : win;
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int64_t tiles = (num_frames + tile - 1) / tile;
+  const int64_t items = channels * tiles;
+  int64_t item = blockIdx.x;
+  if (stage_x) {
+    for (int i = tid; i < frame_length; i += nthr) wins_s[i] = win[i];
+    if (item < items) {
+      stage_item(xs, x, item, tiles, tile, length, stride, frame_length, num_frames, tid, nthr);
+    }
+  }
+  __syncthreads();  // the window is in place
+
+  // each FFT's G threads run it and write its bins on their own: FFT slot
+  // takes frames mg + kPer*slot (and the next, odd n_fft) of the item
+  const int slot = tid / G;
+  const int j0 = tid - slot * G;
+  float2* const buf = bufs + (int64_t)slot * buf_len;
+  for (int k = 0; item < items; ++k, item += gridDim.x) {
+    const int64_t ch = item / tiles;
+    const int m0 = (int)(item - ch * tiles) * tile;
+    const int m_end = min(num_frames, m0 + tile);
+    const float* xw = x + ch * length + (int64_t)m0 * stride;  // sample m0 * stride
+    if (stage_x) {
+      // the next item's samples into the other slot, while this one runs
+      const int64_t next = item + gridDim.x;
+      if (next < items) {
+        stage_item(xs + ((k + 1) & 1) * slot_len, x, next, tiles, tile, length, stride,
+                   frame_length, num_frames, tid, nthr);
+      } else {
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncthreads();  // this item's samples are staged
+      xw = xs + (k & 1) * slot_len + ((reinterpret_cast<uintptr_t>(xw) >> 2) & 3);
+    }
+    for (int mg = m0; mg < m_end; mg += group * kPer) {
+      const int m = mg + slot * kPer;
+      const float* xa = m < m_end ? xw + (int64_t)(m - m0) * stride : nullptr;
+      const float* xb = ODD && m + 1 < m_end ? xa + stride : nullptr;
+      loop_fft<BLUE ? kChirped : kSignal, ODD, LAST>(buf, chirp, twp, plan, xa, xb, wins,
+                                                     frame_length, L, M, G, j0, slot);
+      if constexpr (BLUE) {
+        slot_sync(slot, G);
+        loop_fft<kFiltered, ODD, LAST>(buf, filt, twp, plan, nullptr, nullptr, wins,
+                                       frame_length, L, M, G, j0, slot);
+      }
+      slot_sync(slot, G);
+      write_spectrum<POWER, ODD, BLUE>(buf, chirp, table, out,
+                                       (ch * num_frames + m) * (int64_t)bins, m < m_end,
+                                       ODD && m + 1 < m_end, bins, n_fft, L, G, j0);
+      slot_sync(slot, G);  // the buffer is read before the next frames fill it
+    }
+    if (stage_x) __syncthreads();  // the slot is read before it is refilled
   }
 }
 
@@ -788,19 +1130,28 @@ inline bool valid_plan(uint64_t plan, int M) {
          plan_pad(plan, passes - 1) == 0;
 }
 
+// Shared memory of a loop-kernel CTA: the FFT buffers of `group` FFTs (an
+// even count, so what follows stays 16-byte aligned), and where x is staged
+// (slot_len > 0) the window and two slots of slot_len floats.
+inline size_t loop_smem_bytes(int group, int buf_len, int frame_length, int64_t slot_len) {
+  return (size_t)(8 * (((int64_t)group * buf_len + 1) / 2 * 2) +
+                  (slot_len > 0 ? 4 * round4(frame_length) + 8 * slot_len : 0));
+}
+
 }  // namespace
 
 // x (channels, length) f32, win (frame_length) f32, out (channels,
 // num_frames, bins) complex64 (as float2) or, with power, f32; all
 // contiguous on the current device; any frame_length (folded modulo n_fft
-// past it) whose window fits in shared memory, bins n_fft/2 + 1 or n_fft,
-// every frame inside the signal, n_fft in [8, 4096]. plan 0: n_fft
-// a power of two and tw the (n_fft) float2 table exp(-2 pi i t / n_fft) (the
-// power-of-two kernel; points 0). Else the mixed-radix kernel with the
-// packed pass plan of M = `points` (byte p: radix | pad << 4) and its
-// float2 table, from kernels/dft.py: _fft_plan for a 13-smooth n_fft (M =
-// L, the transform's length, n_fft/2 or odd n_fft) or _bluestein_plan for
-// any n_fft (2L - 1 <= M <= 8192). Launches on `stream` without
+// past it), bins n_fft/2 + 1 or n_fft, every frame inside the signal,
+// n_fft in [8, 16384] with L (n_fft/2 or odd n_fft) at most 8192. plan 0:
+// n_fft a power of two up to 1024 and tw the (n_fft) float2 table exp(-2
+// pi i t / n_fft) (framed_fft_kernel; points 0). Else the packed pass plan
+// of M = `points` (byte p: radix | pad << 4) and its float2 table, from
+// kernels/dft.py: _fft_plan for a 13-smooth n_fft (M = L) or
+// _bluestein_plan for any n_fft (2L - 1 <= M <= 16384); a power-of-two M
+// runs framed_fft_loop_kernel, any other framed_fft_mixed_kernel, which
+// must fit one FFT's two buffers in a CTA. Launches on `stream` without
 // synchronising; returns the launch's cudaError_t.
 extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw, void* out,
                                  int64_t channels, int64_t length, int64_t stride,
@@ -815,42 +1166,116 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     return (int)cudaErrorInvalidValue;
   }
   const int fft = (int)n_fft, fl = (int)frame_length;
-  const bool pow2 = plan == 0;
+  const bool pow2 = plan == 0;  // framed_fft_kernel
   const bool odd = (fft & 1) != 0;
   const int L = odd ? fft : fft / 2;  // points of the complex transform
   const bool blue = !pow2 && points != L;
   const uint64_t packed = (uint64_t)plan;
-  if (pow2 ? (fft & (fft - 1)) != 0 || points != 0
-           : (blue && (points < 2 * L - 1 || points > kMaxPoints)) ||
-                 !valid_plan(packed, (int)points)) {
+  if (pow2 ? (fft & (fft - 1)) != 0 || fft > kMaxSmallFft || points != 0
+           : L > kMaxPoints / 2 || points < 1 || points > kMaxPoints ||
+                 (blue && points < 2 * L - 1) || !valid_plan(packed, (int)points)) {
     return (int)cudaErrorInvalidValue;
   }
   const int M = pow2 ? L : (int)points;
+  // a power-of-two M runs the loop kernel up to 8192 points (4096 for odd
+  // n_fft), every other M the mixed kernel, over a cluster where one CTA
+  // does not hold its two buffers
+  const bool loop = !pow2 && (M & (M - 1)) == 0 && M >= 8 && M <= (odd ? 4096 : 8192);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(win);
+  const float2* tf = static_cast<const float2*>(tw);
+  const size_t out_elem = power ? sizeof(float) : 2 * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  if (loop) {
+    // the kernel's shape (see framed_fft_loop_kernel): threads a CTA, M / 8
+    // threads per FFT, group FFTs at once; the plan's passes are radix 8
+    // but the last; items of `tile` frames (a multiple of group * per),
+    // staged in two slots where they fit kLoopBudget, else one round of
+    // FFTs each with the frames read from global memory
+    for (int p = 0; p + 1 < kMaxPasses && plan_radix(packed, p + 1) != 0; ++p) {
+      if (plan_radix(packed, p) != 8) return (int)cudaErrorInvalidValue;
+    }
+    const int threads = M <= 2048 || odd ? kLoopThreads : kLoopWide;
+    const int G = M / 8;
+    const int group = threads / G;
+    const int per = odd ? 2 : 1, step = group * per;
+    const int buf_len = mixed_buf_len(packed, M);
+    auto slot_of = [&](int t) { return round4((int64_t)(t - 1) * stride + fl + 3); };
+    int tile = step;
+    int64_t slot_len = 0;
+    if (loop_smem_bytes(group, buf_len, fl, slot_of(step)) <= kLoopBudget) {
+      tile = step * (kTileTarget > step ? kTileTarget / step : 1);
+      while (tile > step && loop_smem_bytes(group, buf_len, fl, slot_of(tile)) > kLoopBudget) {
+        tile = step * ((tile / step + 1) / 2);
+      }
+      slot_len = slot_of(tile);
+    }
+    const size_t smem = loop_smem_bytes(group, buf_len, fl, slot_len);
+    if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t items = channels * ((num_frames + tile - 1) / tile);
+    auto launch = [&](auto kernel) -> int {
+      cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      const int64_t grid = items < (int64_t)per_sm * sms ? items : (int64_t)per_sm * sms;
+      kernel<<<(unsigned)grid, threads, smem, s>>>(
+          xf, wf, tf, out, length, (int)stride, fl, fft, (int)num_frames, (int)bins, channels,
+          tile, packed, M, buf_len, (int)slot_len);
+      return (int)cudaGetLastError();
+    };
+#define NX_LOOP(POWER, ODD, BLUE)                                                   \
+  (threads == kLoopThreads                                                          \
+       ? launch(framed_fft_loop_kernel<POWER, ODD, BLUE, kLoopThreads, 0>)          \
+       : M == 4096 ? launch(framed_fft_loop_kernel<POWER, ODD, BLUE, kLoopWide, 8>) \
+                   : launch(framed_fft_loop_kernel<POWER, ODD, BLUE, kLoopWide, 2>))
+    if (odd) {
+      if (!blue) return (int)cudaErrorInvalidValue;
+      return power ? launch(framed_fft_loop_kernel<true, true, true, kLoopThreads, 0>)
+                   : launch(framed_fft_loop_kernel<false, true, true, kLoopThreads, 0>);
+    }
+    return blue ? (power ? NX_LOOP(true, false, true) : NX_LOOP(false, false, true))
+                : (power ? NX_LOOP(true, false, false) : NX_LOOP(false, false, false));
+#undef NX_LOOP
+  }
 
   // FFTs at once (group, each of `per` frames) and frames per CTA (tile, a
   // multiple of group * per): up to kTileTarget frames within the budget,
   // fewer where the staged window or the FFT buffers need it. The mixed
   // kernel stages its table up to NX_FFT_L2_TABLE_POINTS points where that
   // leaves room for one FFT and its frames, else reads it from global
-  // memory.
+  // memory, and reads the frames and the window from global memory where
+  // staging them beside one FFT's buffers takes more than half an SM's
+  // shared memory.
   const int per_fft = pow2 ? threads_per_frame(L) : mixed_threads(M, blue);
   const int per = odd ? 2 : 1;
   const int buf_len = pow2 ? 0 : mixed_buf_len(packed, M);
   const int table_len = pow2 ? 0 : mixed_table_len(packed, L, M, odd);
-  bool staged = true;
+  bool staged = true, stage_x = true;
   auto bytes = [&](int group, int tile) {
     return pow2 ? smem_bytes(fft, fl, stride, group, tile)
-                : mixed_smem_bytes(staged ? table_len : 0, buf_len, fl, stride, group, tile);
+                : mixed_smem_bytes(staged ? table_len : 0, buf_len, fl, stride, group, tile,
+                                   stage_x);
   };
   if (!pow2 && (M > NX_FFT_L2_TABLE_POINTS || bytes(1, per) > (size_t)max_smem)) {
     staged = false;
   }
+  // the frames and the window from global memory where staging them would
+  // leave one CTA an SM (or not fit)
+  if (!pow2 && bytes(1, per) > (size_t)max_smem / 2) stage_x = false;
   int group = kThreads / per_fft;
   int step = group * per;
   int tile = step * (kTileTarget > step ? kTileTarget / step : 1);
@@ -860,14 +1285,25 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     step = group * per;
     tile = step;
   }
-  const size_t smem = bytes(group, tile);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  size_t smem = bytes(group, tile);
+  // where one FFT's buffer pair does not fit a CTA, a cluster of C = 2 or 4
+  // CTAs shares it, `part` float2 of each buffer in each CTA, one FFT of C *
+  // per_fft threads a tile of `per` frames
+  int C = 1, part = 0, G = per_fft;
+  if (!pow2 && smem > (size_t)max_smem) {
+    staged = stage_x = false;
+    for (C = 2; C <= 4; C *= 2) {
+      part = (buf_len + C - 1) / C;
+      part += part & 1;
+      if (16 * (size_t)part <= (size_t)max_smem) break;
+    }
+    group = 1;
+    tile = per;
+    smem = 16 * (size_t)part;
+    G = C * per_fft;
+  }
+  if (C > 4 || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
 
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(win);
-  const float2* tf = static_cast<const float2*>(tw);
-  const size_t out_elem = power ? sizeof(float) : 2 * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(group * per_fft);
   // the kernel's own arguments follow the shared ones
   auto launch = [&](auto kernel, auto... own) -> int {
@@ -876,11 +1312,29 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     if (e != cudaSuccess) return (int)e;
     for (int64_t c0 = 0; c0 < channels; c0 += kMaxGridY) {
       const int64_t nc = channels - c0 < kMaxGridY ? channels - c0 : kMaxGridY;
-      const dim3 grid((unsigned)((num_frames + tile - 1) / tile), (unsigned)nc);
-      kernel<<<grid, block, smem, s>>>(
-          xf + c0 * length, wf, tf, static_cast<char*>(out) + c0 * num_frames * bins * out_elem,
-          length, (int)stride, fl, fft, (int)num_frames, (int)bins, tile, group, own...);
-      e = cudaGetLastError();
+      const dim3 grid((unsigned)((num_frames + tile - 1) / tile * C), (unsigned)nc);
+      const float* xc = xf + c0 * length;
+      void* oc = static_cast<char*>(out) + c0 * num_frames * bins * out_elem;
+      if (C == 1) {
+        kernel<<<grid, block, smem, s>>>(xc, wf, tf, oc, length, (int)stride, fl, fft,
+                                         (int)num_frames, (int)bins, tile, group, own...);
+        e = cudaGetLastError();
+      } else {
+        cudaLaunchConfig_t config = {};
+        config.gridDim = grid;
+        config.blockDim = block;
+        config.dynamicSmemBytes = smem;
+        config.stream = s;
+        cudaLaunchAttribute cluster[1];
+        cluster[0].id = cudaLaunchAttributeClusterDimension;
+        cluster[0].val.clusterDim.x = C;
+        cluster[0].val.clusterDim.y = 1;
+        cluster[0].val.clusterDim.z = 1;
+        config.attrs = cluster;
+        config.numAttrs = 1;
+        e = cudaLaunchKernelEx(&config, kernel, xc, wf, tf, oc, length, (int)stride, fl, fft,
+                               (int)num_frames, (int)bins, tile, group, own...);
+      }
       if (e != cudaSuccess) return (int)e;
     }
     return (int)cudaSuccess;
@@ -892,15 +1346,28 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                         : (warp_sync ? framed_fft_kernel<false, true>
                                      : framed_fft_kernel<false, false>));
   }
-#define NX_MIXED(POWER, ODD, BLUE)                                                      \
-  launch(staged ? framed_fft_mixed_kernel<POWER, ODD, BLUE, true>                      \
-                : framed_fft_mixed_kernel<POWER, ODD, BLUE, false>,                    \
-         packed, per_fft, buf_len, table_len, M)
+#define NX_MIXED_AT(POWER, ODD, BLUE, STAGED, CLUSTER)                                   \
+  launch(framed_fft_mixed_kernel<POWER, ODD, BLUE, STAGED, CLUSTER>, packed, G, buf_len, \
+         table_len, M, (int)stage_x, part)
+#define NX_MIXED(POWER, ODD, BLUE)                                                   \
+  (C == 1 ? (staged ? NX_MIXED_AT(POWER, ODD, BLUE, true, 1)                         \
+                    : NX_MIXED_AT(POWER, ODD, BLUE, false, 1))                       \
+          : C == 2 ? NX_MIXED_AT(POWER, ODD, BLUE, false, 2) : (int)cudaErrorInvalidValue)
+#define NX_MIXED4(POWER, ODD, BLUE) \
+  (C == 4 ? NX_MIXED_AT(POWER, ODD, BLUE, false, 4) : NX_MIXED(POWER, ODD, BLUE))
+  // a cluster serves Bluestein's M past 8192 and the direct odd L past 8192;
+  // only Bluestein's odd M past 16384 (L past 8192) needs four CTAs
+  if (C > 1 && !blue && !odd) return (int)cudaErrorInvalidValue;
   if (blue) {
-    return power ? (odd ? NX_MIXED(true, true, true) : NX_MIXED(true, false, true))
-                 : (odd ? NX_MIXED(false, true, true) : NX_MIXED(false, false, true));
+    return power ? (odd ? NX_MIXED4(true, true, true) : NX_MIXED(true, false, true))
+                 : (odd ? NX_MIXED4(false, true, true) : NX_MIXED(false, false, true));
   }
-  return power ? (odd ? NX_MIXED(true, true, false) : NX_MIXED(true, false, false))
-               : (odd ? NX_MIXED(false, true, false) : NX_MIXED(false, false, false));
+  if (odd) return power ? NX_MIXED(true, true, false) : NX_MIXED(false, true, false);
+  return power ? (staged ? NX_MIXED_AT(true, false, false, true, 1)
+                         : NX_MIXED_AT(true, false, false, false, 1))
+               : (staged ? NX_MIXED_AT(false, false, false, true, 1)
+                         : NX_MIXED_AT(false, false, false, false, 1));
+#undef NX_MIXED4
 #undef NX_MIXED
+#undef NX_MIXED_AT
 }

@@ -29,8 +29,9 @@ the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
 'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
 and one TF32 pass (about three digits), wherever A-tc's staged window fits
 in shared memory, and kernel A elsewhere (more accurate than asked). The
-framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 4096
-and any frame length, the dense B for an n_fft below 8 or above 4096.
+framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 16384
+and any frame length, the dense B for an n_fft below 8 or above 16384
+(`fft_kernel_takes`).
 Kernels B, B-fft and D run f32 whatever the caller's precision; C is
 bitwise equal to the plain fold.
 """
@@ -62,20 +63,32 @@ _SHARED_MAX_COEFFS = 8
 _SHARED_MAX_BLOCKS = 64
 _D_SLOTS = 96
 _D_SUM_ROWS = 32
-# Kernel B-fft's n_fft range, most passes and points of a plan, and kernels A's and
-# A-tc's weight layouts: bins per tile and the row multiple of their weight
-# chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
-_FFT_MIN, _FFT_MAX = 8, 4096
+# Kernel B-fft's n_fft range, most passes and points of a plan, and kernels
+# A's and A-tc's weight layouts: bins per tile and the row multiple of their
+# weight chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
+_FFT_MIN, _FFT_MAX = 8, 16384
 _FFT_MAX_PASSES = 8
-_FFT_MAX_POINTS = 8192   # Bluestein's M at the longest odd n_fft
-# The card's cut for the framed DFT under method='auto': up to this n_fft
-# a CUDA float32 signal takes framed_dft (kernel B-fft), past it torch.fft
-# (`_auto_takes_kernel`). Set from chip_smoke.py phase 7 on an NVIDIA H100
-# 80GB HBM3 at 700 W (64 x 480000, hann frame n_fft, hop n_fft / 4,
-# PERF.md section 6): B-fft / torch.stft read 0.63 at 1024 and 0.77 at 2048,
-# the largest length where B-fft won, and 1.13 at 1031, 1.47 at 4093, 1.11
-# at 4094 and 1.02 at 4096
-_CARD_FFT_CUT = 2048
+_FFT_MAX_POINTS = 32768   # Bluestein's M at the longest L, 16383 (odd n_fft)
+# Up to this n_fft a power of two runs B-fft's first radix-8 kernel
+# (framed_fft_kernel, one CTA per tile of frames); past it the persistent
+# loop kernel (framed_fft_loop_kernel), which scripts/torch_kernel_variants.py
+# section 2 times against it
+_SMALL_FFT_MAX = 1024
+# The card's cuts for the framed DFT under method='auto', by length class
+# (`_card_takes_kernel`), each the kernels that class runs: up to
+# _CARD_FFT_CUT a power-of-two n_fft (radix 8), up to _CARD_SMOOTH_CUT any
+# other 13-smooth n_fft (the mixed-radix kernel) and up to
+# _CARD_BLUESTEIN_CUT any other (Bluestein's transform) on a CUDA float32
+# signal takes framed_dft (kernel B-fft), past them torch.fft. Each is the
+# largest timed n_fft of its class up to which B-fft was no slower than
+# torch.stft at every timed length of the class, from chip_smoke.py phase 7
+# on an NVIDIA H100 80GB HBM3 at 700 W (64 x 480000, hann frame n_fft, hop
+# n_fft / 4, PERF.md section 6; B-fft / torch.stft): every power of two
+# from 1024 to 16384 0.59-0.88; 3375 0.57 but 6561 1.14 (12000 0.85, 15625
+# 1.59); Bluestein's 1031 1.19
+_CARD_FFT_CUT = 16384
+_CARD_SMOOTH_CUT = 3375
+_CARD_BLUESTEIN_CUT = 1024
 _A_TILE_BINS = 64
 _A_CHUNK = 32
 _TC_TILE_BINS = 64
@@ -359,12 +372,15 @@ def _pack_plan(plan) -> int:
 @functools.cache
 def _device_fft_plan(n_fft: int, device):
     """Kernel B-fft's table, packed plan and FFT points, built once per
-    n_fft and device: for a power of two the twiddles of
-    `kernels.dft._fft_twiddles`, plan 0 and points 0 (the power-of-two
-    kernel); else the mixed-radix kernel's plan, `kernels.dft._fft_plan`
-    for a 13-smooth n_fft and `kernels.dft._bluestein_plan` for any other,
-    its f64 table cast to f32 and its points M."""
-    if n_fft & (n_fft - 1) == 0:
+    n_fft and device: for a power of two up to `_SMALL_FFT_MAX` the
+    twiddles of `kernels.dft._fft_twiddles`, plan 0 and points 0 (its first
+    radix-8 kernel); else the plan, `kernels.dft._fft_plan` for a 13-smooth
+    n_fft and `kernels.dft._bluestein_plan` for any other, its f64 table
+    cast to f32 and its points M (a power-of-two M to 8192, 4096 for odd
+    n_fft, runs the persistent radix-8 loop kernel; any other the
+    mixed-radix kernel, over a cluster of CTAs where one does not hold its
+    buffers)."""
+    if n_fft & (n_fft - 1) == 0 and n_fft <= _SMALL_FFT_MAX:
         return _fft_twiddles(n_fft, device=device), 0, 0
     plan = _fft_plan(n_fft) if _thirteen_smooth(n_fft) else _bluestein_plan(n_fft)
     return (torch.as_tensor(plan.table.astype(np.float32), device=device), _pack_plan(plan),
@@ -372,27 +388,55 @@ def _device_fft_plan(n_fft: int, device):
 
 
 def fft_kernel_takes(n_fft: int) -> bool:
-    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 4096 (a
-    power of two on its radix-8 kernel, a 13-smooth one such as 400, 441,
-    572 or 600 on the mixed-radix plan, any other, such as 1021, 1031 or
-    4093, through Bluestein's chirp-z transform on the same passes), with
-    any frame length. The dense kernel B serves an n_fft below 8 or above
-    4096.
+    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 16384,
+    with any frame length. A power of two runs radix 8, a 13-smooth n_fft
+    such as 400, 441, 572, 600, 12000 or 15625 the mixed-radix plan, any
+    other, such as 1021, 1031, 4093, 8191, 12289 or 16382, Bluestein's
+    chirp-z transform (on power-of-two radix-8 passes, or on a 13-smooth M
+    where the power of two would nearly double it,
+    `kernels.dft._bluestein_points`); a transform whose buffers do not fit
+    one CTA (an odd n_fft past 8192, Bluestein's M past 8192) is spread over
+    a cluster of 2 or 4 CTAs. The dense kernel B serves an n_fft below 8 or
+    above 16384.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
-    >>> [fft_kernel_takes(n) for n in (512, 600, 1031, 2048, 4093, 4096, 4, 4097)]
-    [True, True, True, True, True, True, False, False]
+    >>> [fft_kernel_takes(n) for n in (512, 1031, 4097, 8191, 12289, 15625, 16384)]
+    [True, True, True, True, True, True, True]
+    >>> [fft_kernel_takes(n) for n in (4, 16385)]
+    [False, False]
     """
     return _FFT_MIN <= n_fft <= _FFT_MAX
+
+
+def _card_takes_kernel(n_fft: int) -> bool:
+    """The card's route rule for the framed DFT: kernel B-fft takes this
+    n_fft (`fft_kernel_takes`) and it is within the card's measured cut of
+    its length class: `_CARD_FFT_CUT` for a power of two,
+    `_CARD_SMOOTH_CUT` for any other 13-smooth n_fft, `_CARD_BLUESTEIN_CUT`
+    for the rest (Bluestein's transform).
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import _card_takes_kernel
+    >>> [_card_takes_kernel(n) for n in (1021, 1031, 2048, 3375, 4093, 6561, 16384, 16385)]
+    [True, False, True, True, False, False, True, False]
+    """
+    if n_fft & (n_fft - 1) == 0:
+        cut = _CARD_FFT_CUT
+    elif _thirteen_smooth(n_fft):
+        cut = _CARD_SMOOTH_CUT
+    else:
+        cut = _CARD_BLUESTEIN_CUT
+    return fft_kernel_takes(n_fft) and n_fft <= cut
 
 
 def _auto_takes_kernel(x, n_fft: int) -> bool:
     """Whether method='auto' runs the framed DFT of the real signal x as
     `kernels.dft.framed_dft` rather than torch.fft: on a CUDA float32 tensor
-    up to the card's measured cut (`_CARD_FFT_CUT`), on any other where the
-    JAX package puts it (`kernels.dft.good_matmul_fft_length`). `stft`,
+    by the card's measured cuts (`_card_takes_kernel`), on any other where
+    the JAX package puts it (`kernels.dft.good_matmul_fft_length`). `stft`,
     `StreamingSTFT`, `sharded_stft`, `ShortTimeFFT` and the filtered
     `stft_fir_chain` ask it.
 
@@ -404,7 +448,7 @@ def _auto_takes_kernel(x, n_fft: int) -> bool:
     [True, True, False]
     """
     if x.device.type == "cuda" and x.dtype == torch.float32:
-        return n_fft <= _CARD_FFT_CUT
+        return _card_takes_kernel(n_fft)
     return good_matmul_fft_length(n_fft)
 
 
@@ -418,14 +462,17 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     DFT's period: the JAX package's frame_length-row weights). Returns
     complex64 (..., M, bins), bins = n_fft//2 + 1 (`onesided`) or n_fft, M =
     (L - frame)//stride + 1, or with `output='power'` re^2 + im^2 f32. On a
-    CUDA tensor n_fft must be from 8 to 4096 (`fft_kernel_takes`): a power
-    of two runs the radix-8 kernel, any other the mixed-radix kernel of
-    `kernels.dft._fft_plan` (a 13-smooth n_fft) or
-    `kernels.dft._bluestein_plan` (any other); each writes the complex64
-    tensor directly, and raises where the window and one FFT's buffers do
-    not fit in one CTA's shared memory (frames of a few n_fft at 4096). On a
-    CPU tensor it returns the plain version (the dense [Re | Im] contraction
-    of `_framed_matmul_torch`).
+    CUDA tensor n_fft must be from 8 to 16384 (`fft_kernel_takes`): a power
+    of two runs radix 8 (to 1024 one CTA per tile of frames, past it the
+    persistent loop kernel), a 13-smooth n_fft the mixed-radix kernel of
+    `kernels.dft._fft_plan`, any other Bluestein's transform of
+    `kernels.dft._bluestein_plan` (on the loop kernel for a power-of-two M
+    to 8192, 4096 for odd n_fft); the mixed kernel spreads a transform
+    whose two buffers do not fit one CTA over a cluster of 2 or 4 CTAs.
+    Each writes the complex64 tensor directly and reads the frames and the
+    window from global memory where they do not fit beside the FFT buffers.
+    On a CPU tensor it returns the plain version (the dense [Re | Im]
+    contraction of `_framed_matmul_torch`).
 
     Examples:
 
@@ -472,7 +519,7 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
             stride, frame_length, n_fft, num_frames, bins, plan, points, int(power),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, f"framed_fft kernel (n_fft {n_fft}, frame {frame_length}, hop {stride}: "
-                     "the window and one FFT's buffers must fit in a CTA's shared memory)")
+                     "one FFT's buffers must fit in a CTA's shared memory)")
     framed_fft_cuda.launches += 1
     return out.reshape(*batch, num_frames, bins)
 
@@ -484,8 +531,8 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
                     output: str = "complex"):
     """Kernel B (dense): the windowed framed DFT frames(x) @ W of the
     (..., L) real signal, W the (frame, 2*bins) [Re | Im] weights of
-    `kernels.dft._dft_weights`, for what kernel B-fft does not take: an
-    n_fft below 8 or above 4096.
+    `kernels.dft._dft_weights`, for what kernel B-fft does not take
+    (`fft_kernel_takes`): an n_fft below 8 or above 16384.
     The kernel writes the stacked f32 [Re | Im]; this returns it as
     complex64 (..., num_frames, bins), or with `output='power'` the
     kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the

@@ -16,7 +16,7 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for every n_fft from 8 to 4096;
+  per frame (kernel B-fft) for every n_fft from 8 to 16384;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -359,11 +359,14 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     the JAX package's frame_length-row weights fold it.
 
     Runs kernel B: `kernels.cuda_dft.framed_fft_cuda` (a real FFT per
-    frame in shared memory: mixed radix 2-13, Bluestein for a larger prime
-    factor; a long frame folded in its load) for every n_fft from 8 to 4096
-    (`fft_kernel_takes`), and `kernels.cuda_dft.framed_dft_cuda` (the dense
-    contraction) for an n_fft below 8 or above 4096. Both are hand-written
-    kernels on a CUDA tensor and the same plain conv1d version on a CPU one.
+    frame in shared memory: radix 8 for a power of two, mixed radix 2-13
+    for a 13-smooth n_fft, Bluestein's chirp-z transform on power-of-two
+    radix-8 passes for a larger prime factor; a long frame folded in its
+    load; a transform too large for one CTA spread over a cluster of CTAs)
+    for every n_fft from 8 to 16384 (`fft_kernel_takes`), and
+    `kernels.cuda_dft.framed_dft_cuda` (the dense contraction) for an
+    n_fft below 8 or above 16384. Both are hand-written kernels on a CUDA
+    tensor and the same plain conv1d version on a CPU one.
 
     Examples:
 
@@ -535,18 +538,66 @@ def _fft_plan(n_fft: int) -> FftPlan:
                    np.concatenate([_post_twiddles(n_fft, length), *tables]))
 
 
-def _bluestein_plan(n_fft: int) -> FftPlan:
+def _smooth_points(length: int) -> int:
+    """The smallest 13-smooth M >= 2L - 1 (the mixed-radix kernel's
+    Bluestein length)."""
+    points = 2 * length - 1
+    while _radices(points) is None:
+        points += 1
+    return points
+
+
+# Bluestein's M: the power of two P >= 2L - 1 (radix-8 passes, on B-fft's
+# persistent loop kernel to 8192 points, 4096 for odd n_fft) unless P is
+# more than this many times the smallest 13-smooth S >= 2L - 1 (the
+# mixed-radix kernel, whose passes cost more a point). From
+# scripts/torch_kernel_variants.py section 6 on an NVIDIA H100 80GB HBM3 at
+# 700 W (64 x 480000, hann frame n_fft, hop n_fft / 4; ms, P against S, at
+# P / S): P won at every ratio up to 1.302 (997 1.41 / 3.30 at 1.02, 4093
+# 3.16 / 3.54 and 4094 1.38 / 2.59 at 1.00, 802 1.64 / 3.29 at 1.26, 787
+# 1.69 / 1.87 at 1.30); S won at 11 of the 13 lengths from 1.330 (3079
+# 3.82 / 2.09 and 6151 7.28 / 3.07 at 1.33, 1367 2.19 / 1.84, 2731 4.28 /
+# 2.08 at 1.49, 662 1.96 / 1.71 at 1.52, 541, 526, 514, 1031, 2053 and 8209
+# by 1.27-2.5x at 1.88-1.99), lost at 683 (1.97 / 2.19 at 1.50) and tied at
+# 603 (2.20 / 2.22 at 1.69)
+_SMOOTH_M_RATIO = 1.31
+
+
+def _bluestein_points(length: int) -> int:
+    """Bluestein's M for a transform of L points: the power of two P >= 2L
+    - 1 (up to 32768; B-fft runs it on its persistent radix-8 kernel to
+    8192, 4096 for odd n_fft, and on the mixed-radix kernel past that, over
+    a cluster of CTAs past 8192), or the smallest 13-smooth S >= 2L - 1
+    (`_smooth_points`, the mixed-radix kernel) where P > `_SMOOTH_M_RATIO`
+    S.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _bluestein_points
+    >>> _bluestein_points(1021), _bluestein_points(4093), _bluestein_points(8191)
+    (2048, 8192, 16384)
+    >>> _bluestein_points(1031)   # P = 4096 is 1.97 S
+    2079
+    """
+    power = 1 << (2 * length - 2).bit_length()
+    smooth = _smooth_points(length)
+    return smooth if power > _SMOOTH_M_RATIO * smooth else power
+
+
+def _bluestein_plan(n_fft: int, points=None) -> FftPlan:
     """Kernel B-fft's plan for any n_fft as a chirp-z (Bluestein) transform:
     the complex DFT of L points (L as in `_fft_plan`) becomes, with the
     chirp w_j = exp(-pi i j^2 / L),
 
         Z[k] = w_k sum_j (z_j w_j) conj(w_{k-j}),
 
-    a circular convolution of M points, M the smallest 13-smooth length >=
-    2L - 1: z_j w_j zero-padded to M, a forward FFT of M points on the plan's
-    passes, a product with the FFT of the conjugate chirp (j and M - j for
-    0 <= j < L, zeros between), divided by M, an inverse FFT of M points
-    as conj, forward FFT, conj, and a last product with w_k. Then the split
+    a circular convolution of M points, M = `points` or, where None,
+    `_bluestein_points(L)` (a power of two >= 2L - 1, or the smallest
+    13-smooth one where the power of two nearly doubles it): z_j w_j
+    zero-padded to M, a forward FFT of M points on the plan's passes, a
+    product with the FFT of the conjugate chirp (j and M - j for 0 <= j <
+    L, zeros between), divided by M, an inverse FFT of M points as conj,
+    forward FFT, conj, and a last product with w_k. Then the split
     post-pass or the separation of `_fft_plan`.
 
     `table` holds, in order: the post-pass twiddles (even n_fft), the
@@ -561,13 +612,16 @@ def _bluestein_plan(n_fft: int) -> FftPlan:
     >>> plan.length, plan.points, plan.radices
     (1021, 2048, (8, 8, 8, 4))
     >>> _bluestein_plan(1018).points, _bluestein_plan(997).points
-    (1024, 2000)
+    (1024, 2048)
+    >>> _bluestein_plan(997, points=2000).radices   # the 13-smooth M
+    (8, 2, 5, 5, 5)
     """
     length = _transform_length(n_fft)
-    points = 2 * length - 1
-    while _radices(points) is None:
-        points += 1
+    points = _bluestein_points(length) if points is None else points
     radices = _radices(points)
+    if radices is None or points < 2 * length - 1:
+        raise ValueError(f"Bluestein's M must be 13-smooth and >= 2L - 1 = {2 * length - 1}, "
+                         f"got {points}")
     pads, tables = _passes(points, radices)
     j = np.arange(length)
     chirp = _unit_roots(j * j % (2 * length), 2 * length)

@@ -13,10 +13,12 @@ alternatives in one run, on one card.
    480000, 255 taps, hann 512, hop 128, n_fft 512), medians of 7 CUDA-event
    timings, two rounds.
 2. Kernel B-fft at every power of two from 8 to 1024 (64 x 480000, frame
-   n_fft, hop n_fft/4): its radix-8 kernel against the mixed-radix one
-   driven by the host plan of the same n_fft (`kernels/dft.py:_fft_plan`),
-   in turns (radix 8, mixed, mixed, radix 8), their outputs compared; then
-   both on the filtered chain's power stage (768 x 480000, n_fft 512).
+   n_fft, hop n_fft/4): its first radix-8 kernel (framed_fft_kernel, plan
+   0) against the persistent loop kernel driven by the host plan of the
+   same n_fft (`kernels/dft.py:_fft_plan`; at n_fft 8, M = 4, the
+   mixed-radix kernel), in turns (radix 8, loop, loop, radix 8), their
+   outputs compared; then both on the filtered chain's power stage (768 x
+   480000, n_fft 512).
 3. Kernel A-tc's wgmma groups (`kernels/csrc/framed_dft_tc.cu`): the
    source compiled again with a whole weight stage per group
    (kGroupSteps = 0) against the built one (one k-step per group),
@@ -40,15 +42,32 @@ alternatives in one run, on one card.
    (the table staged in shared memory wherever it fits) beside the built
    one (staged up to 2048 points), each checked bitwise against the built
    one (the same arithmetic), at 64 x 480000 with a hann frame of n_fft at
-   hop n_fft / 4, on 13-smooth and Bluestein lengths from 600 to 4095,
+   hop n_fft / 4, on 13-smooth lengths and Bluestein's on its 13-smooth M
+   from 600 to 4095,
    medians of 7 CUDA-event timings, in turns (built, L2, staged, staged,
    L2, built).
+6. Kernel B-fft past 1024 points against an earlier version of it: with
+   --parent DIR, the framed_fft.cu of the checkout in DIR (say the parent
+   commit, unpacked with `git archive`) built alone with nvcc beside this
+   one, at 64 x 480000, hann frame n_fft, hop n_fft / 4, at n_fft 1031,
+   2048, 4093, 4094 and 4096 (the lengths both take), each version on the
+   plan it was written for (this one's `_device_fft_plan`; for the earlier
+   one the radix-8 kernel, plan 0, at a power of two and Bluestein on the
+   smallest 13-smooth M), torch.stft(center=False) beside, in turns (this,
+   earlier, torch.stft, then back), their outputs compared. Then
+   Bluestein's M at lengths whose power of two P >= 2L - 1 exceeds the
+   smallest 13-smooth S >= 2L - 1 by 1.0 to 2.0 times: P (the loop kernel
+   to 8192 points, 4096 for odd n_fft; the mixed-radix kernel past that)
+   against S (the mixed-radix kernel), in turns, their outputs compared;
+   `kernels/dft.py:_bluestein_points`'s ratio follows these times.
 
-    python3 scripts/torch_kernel_variants.py 5   # section 5 alone
+    python3 scripts/torch_kernel_variants.py 5   # section 5 alone (or 2)
+    python3 scripts/torch_kernel_variants.py 6 --parent DIR   # section 6
 
 Prints the card's name and power limit first. Imports nothing of JAX.
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -67,7 +86,8 @@ from nx_signal_tpu_torch.kernels import cuda_dft  # noqa: E402
 from nx_signal_tpu_torch.kernels.cuda_dft import _device_fft_plan, _pack_plan  # noqa: E402
 from nx_signal_tpu_torch.kernels._build import _CSRC, _NVCC_FLAGS, _nvcc, load_library  # noqa: E402
 from nx_signal_tpu_torch.kernels.dft import (  # noqa: E402
-    _fft_plan, _fft_twiddles, fir_dft_fold_weights, shared_fold_weights, shared_twiddles)
+    _bluestein_plan, _bluestein_points, _fft_plan, _fft_twiddles, _smooth_points,
+    _transform_length, fir_dft_fold_weights, shared_fold_weights, shared_twiddles)
 from nx_signal_tpu_torch.ops.filters import firwin  # noqa: E402
 from nx_signal_tpu_torch.ops.windows import hann  # noqa: E402
 
@@ -291,27 +311,14 @@ def _clock_under_load(fn, seconds=3.0):
 def _fft_kernels(dev, gen):
     lib = load_library()
 
-    def kernel(n_fft, mixed, x, hop, power):
-        win = torch.as_tensor(hann(n_fft, device="cpu").numpy(), device=dev)
-        if mixed:
+    def kernel(n_fft, planned, x, hop, power):
+        if planned:   # the host plan: the loop kernel (the mixed one at n_fft 8)
             plan = _fft_plan(n_fft)
             packed, points = _pack_plan(plan), plan.points
             table = torch.as_tensor(plan.table.astype(np.float32), device=dev)
         else:
             packed, points, table = 0, 0, _fft_twiddles(n_fft, device=dev)
-        frames = (x.shape[-1] - n_fft) // hop + 1
-        out = torch.empty((x.shape[0], frames, n_fft // 2 + 1),
-                          dtype=torch.float32 if power else torch.complex64, device=dev)
-
-        def run():
-            err = lib.nx_framed_fft_f32(
-                x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
-                x.shape[-1], hop, n_fft, n_fft, frames, n_fft // 2 + 1, packed, points,
-                int(power),
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"framed_fft failed ({err})")
-        return run, out
+        return _fft_call(lib, x, n_fft, hop, table, packed, points, power)
 
     x = torch.randn((64, 480000), generator=gen, device=dev)
     for n_fft in (8, 16, 32, 64, 128, 256, 512, 1024):
@@ -321,46 +328,148 @@ def _fft_kernels(dev, gen):
         diff = float((a - b).abs().max() / a.abs().max())
         t = [_median_ms(f) for f in (radix8, mixed, mixed, radix8)]
         print(f"  B-fft n_fft {n_fft} hop {n_fft // 4}: radix 8 {t[0]:.3f} / {t[3]:.3f} ms, "
-              f"mixed radix {t[1]:.3f} / {t[2]:.3f} ms, max|d| / max {diff:.2g}", flush=True)
+              f"{'mixed radix' if n_fft == 8 else 'loop kernel'} {t[1]:.3f} / {t[2]:.3f} ms, "
+              f"max|d| / max {diff:.2g}", flush=True)
     del x
     y = torch.randn((768, 480000), generator=gen, device=dev)
     (radix8, _), (mixed, _) = (kernel(512, m, y, 128, True) for m in (False, True))
     t = [_median_ms(f) for f in (radix8, mixed, mixed, radix8)]
     print(f"  B-fft power at 768 x 480000, n_fft 512: radix 8 {t[0]:.3f} / {t[3]:.3f} ms, "
-          f"mixed radix {t[1]:.3f} / {t[2]:.3f} ms", flush=True)
+          f"loop kernel {t[1]:.3f} / {t[2]:.3f} ms", flush=True)
+
+
+def _fft_variants(tmp, variants, source=_CSRC / "framed_fft.cu"):
+    """A framed_fft.cu (this one by default) built once per {name: {macro:
+    value}}, all at once, each into its own library; returns {name:
+    library}."""
+    libs, procs = {}, []
+    for name, defines in variants.items():
+        lib = os.path.join(tmp, f"fft_{len(procs)}.so")
+        flags = [f"-D{k}={v}" for k, v in defines.items()]
+        procs.append((name, lib, subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, *flags, "-shared", "-o", lib, str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = load_library()   # while they compile
+    for name, lib, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
+        libs[name].nx_framed_fft_f32.argtypes = built.nx_framed_fft_f32.argtypes
+        libs[name].nx_framed_fft_f32.restype = ctypes.c_int
+    return libs
+
+
+def _fft_call(lib, x, n_fft, hop, table, packed, points, power=False):
+    """(run, out): one launch of nx_framed_fft_f32 from `lib` at a hann
+    frame of n_fft and hop `hop`, onesided, into `out`."""
+    win = hann(n_fft, device=x.device)
+    frames = (x.shape[-1] - n_fft) // hop + 1
+    out = torch.empty((x.shape[0], frames, n_fft // 2 + 1),
+                      dtype=torch.float32 if power else torch.complex64, device=x.device)
+
+    def run():
+        err = lib.nx_framed_fft_f32(
+            x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[-1], hop, n_fft, n_fft, frames, n_fft // 2 + 1, packed, points, int(power),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"framed_fft failed ({err}) at n_fft {n_fft}")
+    return run, out
+
+
+# Section 6's Bluestein lengths: n_fft whose P / S (the power of two and the
+# smallest 13-smooth M >= 2L - 1) runs from 1.0 to 2.0, even and odd, on
+# either side of 1024 points
+_M_SWEEP = (997, 4093, 4094, 802, 787, 3079, 6151, 1367, 2731, 683, 662, 603, 541, 526, 514,
+            1031, 2053, 8209)
+
+
+def _timed_in_turns(runs):
+    """{name: (ms, ms)}: each run's median of 7 in turns, forth and back."""
+    order = list(runs)
+    t = {n: [] for n in order}
+    for n in order + order[::-1]:
+        t[n].append(_median_ms(runs[n]))
+    return t
+
+
+def _rel_diff(got, want):
+    got, want = torch.view_as_real(got), torch.view_as_real(want)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _against_parent(dev, gen, tmp, parent):
+    x = torch.randn((64, 480000), generator=gen, device=dev)
+    if parent is not None:
+        source = os.path.join(parent, "nx_signal_tpu_torch", "kernels", "csrc", "framed_fft.cu")
+        earlier = _fft_variants(tmp, {"earlier": {}}, source)["earlier"]
+        for n_fft in (1031, 2048, 4093, 4094, 4096):
+            hop = n_fft // 4
+            table, packed, points = _device_fft_plan(n_fft, dev)
+            runs, outs = {}, {}
+            runs["this"], outs["this"] = _fft_call(load_library(), x, n_fft, hop, table, packed,
+                                                   points)
+            if n_fft & (n_fft - 1) == 0:   # the earlier radix-8 kernel, plan 0
+                plan_e = (_fft_twiddles(n_fft, device=dev), 0, 0)
+            else:
+                plan = _bluestein_plan(n_fft, _smooth_points(_transform_length(n_fft)))
+                plan_e = (torch.as_tensor(plan.table.astype(np.float32), device=dev),
+                          _pack_plan(plan), plan.points)
+            runs["earlier"], outs["earlier"] = _fft_call(earlier, x, n_fft, hop, *plan_e)
+            win = hann(n_fft, device=dev)
+            runs["torch.stft"] = lambda: torch.stft(
+                x, n_fft, hop_length=hop, window=win, center=False, onesided=True,
+                return_complex=True)
+            for run in runs.values():
+                run()
+            torch.cuda.synchronize()
+            t = _timed_in_turns(runs)
+            length = _transform_length(n_fft)
+            print(f"  B-fft n_fft {n_fft} (M {points or length} here, {plan_e[2] or length} "
+                  f"earlier) hop {hop}: " + ", ".join(f"{n} {a:.3f} / {b:.3f} ms"
+                                                       for n, (a, b) in t.items())
+                  + f", max|d| / max {_rel_diff(outs['this'], outs['earlier']):.2g}",
+                  flush=True)
+            del runs, outs
+    # Bluestein's M: the power of two against the smallest 13-smooth M
+    for n_fft in _M_SWEEP:
+        hop, length = n_fft // 4, _transform_length(n_fft)
+        ms = (1 << (2 * length - 2).bit_length(), _smooth_points(length))
+        runs, outs = {}, {}
+        for m in ms:
+            plan = _bluestein_plan(n_fft, m)
+            table = torch.as_tensor(plan.table.astype(np.float32), device=dev)
+            runs[m], outs[m] = _fft_call(load_library(), x, n_fft, hop, table, _pack_plan(plan),
+                                         m)
+            runs[m]()
+        torch.cuda.synchronize()
+        t = _timed_in_turns(runs)
+        print(f"  Bluestein n_fft {n_fft} (L {length}) hop {hop}: "
+              + ", ".join(f"M {m} {a:.3f} / {b:.3f} ms" for m, (a, b) in t.items())
+              + f", P / S {ms[0] / ms[1]:.3f}, the rule's M {_bluestein_points(length)}, "
+              f"max|d| / max {_rel_diff(outs[ms[1]], outs[ms[0]]):.2g}", flush=True)
+        del runs, outs
 
 
 def _fft_table_in_l2(dev, gen, tmp):
     libs = {"built": load_library()}
-    for name, points in (("L2", 0), ("staged", 1 << 30)):
-        lib = os.path.join(tmp, f"fft_table_{name}.so")
-        subprocess.run([_nvcc(), *_NVCC_FLAGS, f"-DNX_FFT_L2_TABLE_POINTS={points}", "-shared",
-                        "-o", lib, str(_CSRC / "framed_fft.cu")], check=True,
-                       capture_output=True, text=True)
-        libs[name] = ctypes.CDLL(lib)
-        libs[name].nx_framed_fft_f32.argtypes = libs["built"].nx_framed_fft_f32.argtypes
-        libs[name].nx_framed_fft_f32.restype = ctypes.c_int
+    libs.update(_fft_variants(tmp, {"L2": {"NX_FFT_L2_TABLE_POINTS": 0},
+                                    "staged": {"NX_FFT_L2_TABLE_POINTS": 1 << 30}}))
     x = torch.randn((64, 480000), generator=gen, device=dev)
-    # 13-smooth: 600, 3000, 4095; Bluestein: 1018 (M 1024), 1021 (M 2048),
-    # 1031 (M 2079), 2047 (M 4095), 4094 (M 4095)
-    for n_fft in (600, 3000, 4095, 1018, 1021, 1031, 2047, 4094):
-        hop, bins = n_fft // 4, n_fft // 2 + 1
-        win = hann(n_fft, device=dev)
-        table, packed, points = _device_fft_plan(n_fft, dev)
-        frames = (x.shape[-1] - n_fft) // hop + 1
+    # 13-smooth: 600, 3000, 4095; Bluestein on the 13-smooth M: 1031 (M
+    # 2079), 2047 (M 4095), 4094 (M 4095)
+    for n_fft in (600, 3000, 4095, 1031, 2047, 4094):
+        hop = n_fft // 4
+        # the mixed-radix kernel's plan: Bluestein on the 13-smooth M
+        plan = (_fft_plan(n_fft) if cuda_dft._thirteen_smooth(n_fft) else
+                _bluestein_plan(n_fft, _smooth_points(_transform_length(n_fft))))
+        table = torch.as_tensor(plan.table.astype(np.float32), device=dev)
+        packed, points = _pack_plan(plan), plan.points
         outs, runs = {}, {}
         for name, variant in libs.items():
-            out = outs[name] = torch.empty((64, frames, bins), dtype=torch.complex64, device=dev)
-
-            def run(variant=variant, out=out):
-                err = variant.nx_framed_fft_f32(
-                    x.data_ptr(), win.data_ptr(), table.data_ptr(), out.data_ptr(), 64,
-                    x.shape[-1], hop, n_fft, n_fft, frames, bins, packed, points, 0,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"framed_fft failed ({err})")
-            runs[name] = run
-            run()
+            runs[name], outs[name] = _fft_call(variant, x, n_fft, hop, table, packed, points)
+            runs[name]()
         torch.cuda.synchronize()
         same = all(torch.equal(torch.view_as_real(outs["built"]), torch.view_as_real(outs[n]))
                    for n in ("L2", "staged"))
@@ -373,6 +482,12 @@ def _fft_table_in_l2(dev, gen, tmp):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Design probe of the port's kernels.")
+    parser.add_argument("section", nargs="?", choices=("2", "5", "6"),
+                        help="run this section alone")
+    parser.add_argument("--parent", help="section 6: a checkout whose framed_fft.cu to time "
+                                         "beside this one")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -380,13 +495,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
-        if sys.argv[1:] == ["5"]:
+        if args.section == "5":
             _fft_table_in_l2(dev, gen, tmp)
+            return 0
+        if args.section == "6":
+            _against_parent(dev, gen, tmp, args.parent)
+            return 0
+        if args.section == "2":
+            _fft_kernels(dev, gen)
             return 0
         _ring(dev, gen, tmp)
         _tc_groups(dev, gen, tmp)
         _shared_tiles(dev, gen, tmp)
         _fft_table_in_l2(dev, gen, tmp)
+        _against_parent(dev, gen, tmp, args.parent)
     _fft_kernels(dev, gen)
     return 0
 

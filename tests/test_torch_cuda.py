@@ -61,9 +61,9 @@ def assert_close_per_bin(got, want, rel=1e-4):
 def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     """Kernels A and B against their plain versions at 1e-4 x max
     (chip_smoke.py is the check that runs them at the main path's
-    shapes); framed_dft takes B-fft at n_fft 1031, 2048, 4093 and 4096 and
-    at a frame longer than n_fft (400 at n_fft 256), and the dense B only
-    past B-fft's 4096."""
+    shapes); framed_dft takes B-fft at n_fft 1031, 2048, 4093, 4096, 8191,
+    8192, 12289, 16382 and 16384 and at a frame longer than n_fft (400 at
+    n_fft 256), and the dense B only outside B-fft's range (4 and 16400)."""
     need_cuda()
     x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32)).cuda()
     taps, window = rng.normal(size=100), hann_np(400)
@@ -79,19 +79,20 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    for n_fft in (1031, 2048, 4093, 4096, 256):
+    for n_fft in (1031, 2048, 4093, 4096, 8191, 8192, 12289, 16382, 16384, 256):
         kw = dict(stride=150, n_fft=n_fft, onesided=True, output=output)
         before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
         got = td.framed_dft(x, window, **kw)
         assert (cuda_dft.framed_fft_cuda.launches,
                 cuda_dft.framed_dft_cuda.launches) == (before[0] + 1, before[1])
         assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    kw = dict(stride=150, n_fft=4100, onesided=True, output=output)   # past B-fft's 4096
-    before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
-    got = td.framed_dft(x, window, **kw)
-    assert (cuda_dft.framed_fft_cuda.launches,
-            cuda_dft.framed_dft_cuda.launches) == (before[0], before[1] + 1)
-    assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
+    for n_fft in (4, 16400):   # outside B-fft's range
+        kw = dict(stride=150, n_fft=n_fft, onesided=True, output=output)
+        before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
+        got = td.framed_dft(x, window, **kw)
+        assert (cuda_dft.framed_fft_cuda.launches,
+                cuda_dft.framed_dft_cuda.launches) == (before[0], before[1] + 1)
+        assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
 
 
 @pytest.mark.cuda
@@ -109,15 +110,24 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     (3, 20001, 512, 128, 572, True),    # 2^2 * 11 * 13: radices 2, 13, 11
     (2, 20001, 512, 128, 1021, True),   # a prime: Bluestein, M = 2048, two frames per FFT
     (2, 20001, 1018, 128, 1018, False),  # 2 * 509: Bluestein, M = 1024
-    (3, 20001, 900, 333, 997, True),    # a prime, M = 2000
-    (2, 20001, 1031, 256, 1031, True),  # a prime, M = 2079
-    (2, 30001, 2048, 512, 2048, True),  # radix 8, 128 threads a frame
-    (1, 30001, 4093, 1024, 4093, True),  # a prime, M = 8190: the table read from L2
-    (2, 30001, 4094, 1024, 4094, False),  # 2 * 23 * 89: Bluestein, M = 4095
-    (1, 40001, 4096, 1024, 4096, True),  # radix 8, 256 threads a frame
+    (3, 20001, 900, 333, 997, True),    # a prime, M = 2048
+    (2, 20001, 1031, 256, 1031, True),  # a prime, M = 2079 (13-smooth, P / S = 1.97)
+    (2, 30001, 2048, 512, 2048, True),  # radix 8 on the persistent loop kernel
+    (1, 30001, 4093, 1024, 4093, True),  # a prime, M = 8192
+    (2, 30001, 4094, 1024, 4094, False),  # 2 * 23 * 89: Bluestein, M = 4096
+    (1, 40001, 4096, 1024, 4096, True),  # radix 8 on the loop kernel, M = 2048
     (2, 20001, 1024, 128, 512, True),   # a frame of 2 x n_fft, folded
-    (1, 40001, 8192, 1024, 4096, False),  # the same at B-fft's largest
-    (1, 40001, 8186, 1024, 4093, True),  # and on Bluestein's largest M
+    (1, 40001, 8192, 1024, 4096, False),  # the same past 4096
+    (1, 40001, 8186, 1024, 4093, True),  # and on Bluestein's M = 8192 (the mixed kernel)
+    (1, 70001, 8191, 2048, 8191, True),  # a prime: M = 16384 over a cluster of 2 CTAs
+    (1, 70001, 8192, 2048, 8192, False),  # radix 8 on 1024 threads
+    (1, 70001, 12000, 3000, 12000, True),  # 13-smooth past 4096: the frames from global memory
+    (1, 100001, 12289, 3072, 12289, True),  # a prime: M = 24640 over a cluster of 2 CTAs
+    (1, 100001, 16381, 4095, 16381, True),  # 3 * 43 * 127: M = 32768 over a cluster of 4 CTAs
+    (1, 100001, 15625, 3906, 15625, False),  # 5^6, L = 15625 over a cluster of 2 CTAs
+    (1, 100001, 16382, 4096, 16382, True),  # 2 * 8191: M = 16384 over a cluster
+    (1, 100001, 16384, 4096, 16384, False),  # B-fft's largest, radix 8 on 1024 threads
+    (1, 80001, 16384, 2048, 8192, True),  # a frame of 2 x 8192, folded
 ])
 @pytest.mark.parametrize("output", ["complex", "power"])
 def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):

@@ -142,12 +142,16 @@ def test_framed_dft(geometry, onesided, output, rng):
 @pytest.mark.parametrize("n_fft,kernel", [(8, "fft"), (16, "fft"), (512, "fft"), (1024, "fft"),
                                           (400, "fft"), (441, "fft"), (600, "fft"),
                                           (1000, "fft"), (4, "dense"), (572, "fft"),
-                                          (1021, "fft"), (2048, "fft"), (4097, "dense")])
+                                          (1021, "fft"), (2048, "fft"), (4097, "fft"),
+                                          (8191, "fft"), (8192, "fft"), (16382, "fft"),
+                                          (16384, "fft"), (8193, "fft"), (12289, "fft"),
+                                          (16385, "dense")])
 def test_framed_dft_kernel_split(n_fft, kernel, rng):
-    """framed_dft takes kernel B-fft for every n_fft from 8 to 4096 (572,
-    1021 and 2048 included) and the dense kernel B for an n_fft below 8 or
-    above 4096; on a CPU tensor both wrappers are the same plain version,
-    so their results are equal bitwise."""
+    """framed_dft takes kernel B-fft for every n_fft from 8 to 16384 (572,
+    1021, 2048, 4097, 8191, 8193, 12289, 16382 and 16384 included) and the
+    dense kernel B for an n_fft below 8 or above 16384; on a CPU tensor both
+    wrappers are the same plain version, so their results are equal
+    bitwise."""
     assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
     frame = min(n_fft, 400)
     x = torch.from_numpy(rng.normal(size=(2, 3 * frame + 7)).astype(np.float32))
@@ -164,7 +168,7 @@ def test_framed_dft_kernel_split(n_fft, kernel, rng):
 
 # every n_fft to 1024, and past it a fixed list up to B-fft's largest
 PAST_1024 = [1025, 1031, 1100, 1536, 2000, 2047, 2048, 2049, 2187, 3000, 4093, 4094, 4095,
-             4096]
+             4096, 4097, 6000, 8191, 8192, 12000, 12289, 15625, 16382, 16384]
 THIRTEEN_SMOOTH = [n for n in [*range(8, 1025), *PAST_1024] if cuda_dft._thirteen_smooth(n)]
 BLUESTEIN = [n for n in [*range(8, 1025), *PAST_1024] if not cuda_dft._thirteen_smooth(n)]
 
@@ -202,17 +206,19 @@ def replay_passes(plan, first, table, off):
     return src, off
 
 
-def replay_fft_plan(n_fft, frames, bluestein=False, dtype=np.complex128):
-    """Kernel B-fft's mixed-radix transform in numpy, in the kernel's order
-    and layout (framed_fft.cu:framed_fft_mixed_kernel), in `dtype`: the
-    Stockham passes of the plan through two padded buffers with the plan's
-    twiddle table (`bluestein`: the chirp-z transform of
-    `kernels.dft._bluestein_plan`, the chirp on the first pass's points, the
-    filter spectrum and conj on the second FFT's, w_k conj(.) on its
-    output), then the split (even n_fft, one frame per FFT) or the
-    separation (odd, two frames); returns the onesided spectra of the
-    (even count of) frames, (frames, bins)."""
-    plan = td._bluestein_plan(n_fft) if bluestein else td._fft_plan(n_fft)
+def replay_fft_plan(n_fft, frames, bluestein=False, dtype=np.complex128, points=None):
+    """Kernel B-fft's planned transform in numpy, in the kernel's order and
+    layout (framed_fft.cu: framed_fft_mixed_kernel, and
+    framed_fft_loop_kernel for a power-of-two M, whose one exchange buffer
+    holds what the two padded buffers here hold), in `dtype`: the Stockham
+    passes of the plan through two padded buffers with the plan's twiddle
+    table (`bluestein`: the chirp-z transform of
+    `kernels.dft._bluestein_plan` with M = `points` or the rule's, the chirp
+    on the first pass's points, the filter spectrum and conj on the second
+    FFT's, w_k conj(.) on its output), then the split (even n_fft, one frame
+    per FFT) or the separation (odd, two frames); returns the onesided
+    spectra of the (even count of) frames, (frames, bins)."""
+    plan = td._bluestein_plan(n_fft, points) if bluestein else td._fft_plan(n_fft)
     size = plan.length
     table = (plan.table[:, 0] + 1j * plan.table[:, 1]).astype(dtype)
     frames = frames.astype(np.dtype(dtype).type(0).real.dtype)
@@ -263,28 +269,95 @@ def test_fft_plan_replays_to_numpy(n_fft, rng):
     assert_buffers_fit(plan)
 
 
+def check_bluestein_replay(n_fft, points, rng):
+    """Bluestein's plan with M = `points` (None: the rule's) replayed in f64
+    against np.fft at 1e-12 of the max, and its shape within the kernel's
+    limits; returns the plan."""
+    frames = rng.normal(size=(2, n_fft))
+    got = replay_fft_plan(n_fft, frames, bluestein=True, points=points)
+    want = np.fft.rfft(frames)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    plan = td._bluestein_plan(n_fft, points)
+    assert plan.length == (n_fft // 2 if n_fft % 2 == 0 else n_fft)
+    assert plan.points >= 2 * plan.length - 1 and np.prod(plan.radices) == plan.points
+    assert plan.points <= cuda_dft._FFT_MAX_POINTS
+    assert plan.pads[-1] == 0 and all(0 <= c < 16 for c in plan.pads)
+    assert len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
+    assert_buffers_fit(plan)
+    return plan
+
+
+def check_bluestein_f32(n_fft, points, rng):
+    """The replay in f32 (complex64 throughout, the tables cast as the
+    kernel's are) on 32 seeded hann-windowed noise frames: each bin within
+    1e-4 of that bin's max over the frames against the f64 rfft of the same
+    f32 frames."""
+    frames = (rng.normal(size=(32, n_fft)) * np.hanning(n_fft)).astype(np.float32)
+    got = replay_fft_plan(n_fft, frames, bluestein=True, dtype=np.complex64, points=points)
+    want = np.fft.rfft(frames.astype(np.float64))
+    assert got.dtype == np.complex64 and got.shape == want.shape
+    err, scale = np.abs(got - want).max(axis=0), np.abs(want).max(axis=0)
+    assert (err <= 1e-4 * scale).all(), float((err / scale).max())
+
+
 @pytest.mark.parametrize("n_fft", BLUESTEIN)
 def test_bluestein_plan_replays_to_numpy(n_fft, rng):
     """Bluestein's plan of kernel B-fft (the chirp, M, the chirp filter's
     spectrum, the M-point passes, the product, the inverse as conj-FFT-conj
     and the post-pass) replayed in f64 as the kernel indexes it gives
     np.fft's spectrum at 1e-12 of the max, for every n_fft from 8 to 1024
-    with a prime factor above 13 and those of `PAST_1024`; M is the smallest
-    13-smooth length >= 2L - 1 and fits the kernel's limits (M <= 4096 for
-    even n_fft, <= 8192 for odd)."""
-    frames = rng.normal(size=(2, n_fft))
-    got, want = replay_fft_plan(n_fft, frames, bluestein=True), np.fft.rfft(frames)
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
-    plan = td._bluestein_plan(n_fft)
-    assert plan.length == (n_fft // 2 if n_fft % 2 == 0 else n_fft)
-    assert plan.points >= 2 * plan.length - 1 and np.prod(plan.radices) == plan.points
-    assert not any(cuda_dft._thirteen_smooth(m) for m in range(2 * plan.length - 1, plan.points))
-    limit = cuda_dft._FFT_MAX_POINTS
-    assert plan.points <= (limit // 2 if n_fft % 2 == 0 else limit)
-    assert plan.pads[-1] == 0 and all(0 <= c < 16 for c in plan.pads)
-    assert len(plan.radices) <= cuda_dft._FFT_MAX_PASSES
-    assert_buffers_fit(plan)
+    with a prime factor above 13 and those of `PAST_1024`; M is the rule's
+    (`_bluestein_points`: the power of two >= 2L - 1, or the smallest
+    13-smooth one where the power of two would nearly double it) and at
+    most 32768."""
+    plan = check_bluestein_replay(n_fft, None, rng)
+    assert plan.points == td._bluestein_points(plan.length)
+
+
+@pytest.mark.parametrize("n_fft,points", [(1021, 2048), (1031, 4096), (4093, 8192),
+                                          (4094, 4096), (1031, 2079), (1031, 2080),
+                                          (4093, 8190), (4094, 4095), (997, 2000),
+                                          (514, 1024), (541, 1089), (683, 1365),
+                                          (2053, 4116), (2053, 8192), (6151, 12320)])
+def test_bluestein_plan_replays_at_either_m(n_fft, points, rng):
+    """Bluestein's plan on the power-of-two M (the loop kernel's radix-8
+    passes) and on the smallest 13-smooth M (the mixed-radix kernel), which
+    the card's times choose between, each replayed in f64 at 1e-12 of the
+    max and in f32 at the per-bin 1e-4 gate."""
+    check_bluestein_replay(n_fft, points, rng)
+    check_bluestein_f32(n_fft, points, rng)
+
+
+@pytest.mark.parametrize("length,points", [(17, 64), (509, 1024), (1021, 2048), (1031, 4096),
+                                           (2047, 4096), (4093, 8192), (4097, 16384),
+                                           (8191, 16384), (12289, 32768)])
+def test_bluestein_points_rule(length, points):
+    """The M rule (`_bluestein_points`): the power of two P >= 2L - 1
+    (`points`) unless P exceeds the smallest 13-smooth S >= 2L - 1
+    (`_smooth_points`) by more than `_SMOOTH_M_RATIO`, then S; both at
+    least 2L - 1 and within B-fft's points."""
+    smooth = td._smooth_points(length)
+    assert points >= 2 * length - 1 > points // 2
+    want = smooth if points > td._SMOOTH_M_RATIO * smooth else points
+    assert td._bluestein_points(length) == want <= cuda_dft._FFT_MAX_POINTS
+    assert 1.0 < td._SMOOTH_M_RATIO < 2.0
+    assert cuda_dft._thirteen_smooth(smooth)
+    assert td._smooth_points(length) >= 2 * length - 1
+    assert not any(cuda_dft._thirteen_smooth(m)
+                   for m in range(2 * length - 1, td._smooth_points(length)))
+
+
+@pytest.mark.parametrize("n_fft,points", [
+    (997, 2048), (4093, 8192), (4094, 4096), (802, 1024), (787, 2048), (3079, 6160),
+    (6151, 12320), (1367, 2744), (2731, 5488), (683, 1365), (662, 672), (603, 1210),
+    (541, 1089), (526, 525), (514, 520), (1031, 2079), (2053, 4116), (8209, 16464)])
+def test_bluestein_points_at_the_timed_lengths(n_fft, points):
+    """The M the rule gives at each length whose power of two and smallest
+    13-smooth M the card timed against each other (scripts/
+    torch_kernel_variants.py section 6): the power of two up to P / S =
+    1.302 (787), the 13-smooth M from 1.330 (3079)."""
+    assert td._bluestein_plan(n_fft).points == points
 
 
 @pytest.mark.parametrize("n_fft", BLUESTEIN)
@@ -293,12 +366,7 @@ def test_bluestein_plan_f32_accuracy(n_fft, rng):
     kernel's are) on 32 seeded hann-windowed noise frames: each bin within
     1e-4 of that bin's max over the frames against the f64 rfft of the same
     f32 frames, the per-bin gate chip_smoke.py holds the kernel to."""
-    frames = (rng.normal(size=(32, n_fft)) * np.hanning(n_fft)).astype(np.float32)
-    got = replay_fft_plan(n_fft, frames, bluestein=True, dtype=np.complex64)
-    want = np.fft.rfft(frames.astype(np.float64))
-    assert got.dtype == np.complex64 and got.shape == want.shape
-    err, scale = np.abs(got - want).max(axis=0), np.abs(want).max(axis=0)
-    assert (err <= 1e-4 * scale).all(), float((err / scale).max())
+    check_bluestein_f32(n_fft, None, rng)
 
 
 def fold_frames(frames, n_fft):
@@ -399,6 +467,31 @@ def test_cpu_routes_keep_the_jax_cut(route, n_fft, monkeypatch, rng):
     jax_cut = jd.good_matmul_fft_length(n_fft) and route != "short_time_fft"
     assert calls == ([n_fft] if jax_cut else [])
     assert cuda_dft._auto_takes_kernel(x, n_fft) == jd.good_matmul_fft_length(n_fft)
+
+
+@pytest.mark.parametrize("n_fft", [8, 600, 1021, 1024, 1031, 2048, 4093, 4094, 4096, 8191,
+                                   8192, 12000, 15625, 16382, 16384, 16385, 3375, 6000, 6561])
+def test_card_cut_by_length_class(n_fft):
+    """The card's route rule (`_card_takes_kernel`, which `_auto_takes_kernel`
+    applies to a CUDA float32 signal): B-fft wherever it takes the n_fft, up
+    to `_CARD_FFT_CUT` for a power of two (radix 8), `_CARD_SMOOTH_CUT` for
+    any other 13-smooth n_fft (the mixed-radix kernel) and
+    `_CARD_BLUESTEIN_CUT` for the rest (Bluestein's lengths, which lost to
+    torch.stft at 1031 on the card), torch.fft elsewhere; every cut within
+    B-fft's range and at least the JAX package's 1024."""
+    if n_fft & (n_fft - 1) == 0:
+        cut = cuda_dft._CARD_FFT_CUT
+    elif cuda_dft._thirteen_smooth(n_fft):
+        cut = cuda_dft._CARD_SMOOTH_CUT
+    else:
+        cut = cuda_dft._CARD_BLUESTEIN_CUT
+    assert cuda_dft._card_takes_kernel(n_fft) == (cuda_dft.fft_kernel_takes(n_fft)
+                                                  and n_fft <= cut)
+    for class_cut in (cuda_dft._CARD_FFT_CUT, cuda_dft._CARD_SMOOTH_CUT,
+                      cuda_dft._CARD_BLUESTEIN_CUT):
+        assert 1024 <= class_cut <= cuda_dft._FFT_MAX
+    if n_fft <= 1024 and n_fft >= 8:
+        assert cuda_dft._card_takes_kernel(n_fft)   # the JAX cut's lengths stay on B-fft
 
 
 @pytest.mark.parametrize("num_taps,frame,n_fft,onesided", [
@@ -669,7 +762,7 @@ def test_ctypes_signatures_match_the_sources(name):
 @pytest.mark.parametrize("source,constants", [
     ("framed_fft.cu", {"kMinFft": "_FFT_MIN", "kMaxFft": "_FFT_MAX",
                        "kMaxPasses": "_FFT_MAX_PASSES", "kMaxPoints": "_FFT_MAX_POINTS",
-                       "kLargeFft": "_FULL_PAD_POINTS"}),
+                       "kLargeFft": "_FULL_PAD_POINTS", "kMaxSmallFft": "_SMALL_FFT_MAX"}),
     ("framed_dft.cu", {"kTileBins": "_A_TILE_BINS", "kChunk": "_A_CHUNK"}),
     ("framed_dft_tc.cu", {"kTileBins": "_TC_TILE_BINS", "kChunk": "_TC_CHUNK"}),
 ])
