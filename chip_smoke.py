@@ -18,7 +18,9 @@ Phases (any failure raises, and the exit code is not 0):
      low-pass chain's small stopband bins are held as tightly as its
      passband) unless said otherwise: A (fused FIR + framed DFT + power,
      exact f32) at 768 x 480000 with the bench chain (firwin 255 taps @ 48
-     kHz, hann 512, hop 128, n_fft 512); A-tc ('high' 3xTF32 and 'default'
+     kHz, hann 512, hop 128, n_fft 512), and on 64 channels at hann 4096,
+     hop 4096 (16 frames' window of x does not fit beside its weight ring:
+     it streams x); A-tc ('high' 3xTF32 and 'default'
      one TF32 pass) on the same chain against its plain version (the same
      TF32 products summed in f64, 192 channels at a time) and, on two
      channels, against an f64 numpy reference (convolve, frame, window,
@@ -35,10 +37,15 @@ Phases (any failure raises, and the exit code is not 0):
      mixed-radix kernel, the frames read from global memory) and 15625 (the
      same over a cluster of 2 CTAs), and on frames of 2 x n_fft (folded
      modulo n_fft) at 512 and, on 8 channels, 4096, 4093 and 8192 (the
-     plain version's weights past 1024 built ahead on 4 host threads); the
-     dense B at the n_fft B-fft
-     does not take: 4 (64 channels) and 16400 (past 16384, 8 channels, hop
-     2050); C
+     plain version's weights past 1024 built ahead on 4 host threads); past
+     16384 at 16400, 19683 (= 3^9, radix 9), 20000, 32749 (a prime, M =
+     65536 over a cluster of 8 CTAs), 32768 and 65536 (radix 8 over
+     clusters of 2 and 4) and 65535 (M = 131072 over a cluster of 16), hop
+     n_fft / 4, against the plain version at a hann frame of 512
+     zero-padded and at a hann frame of n_fft against the f64 torch.fft of
+     the same frames; the dense B at 4 (64 channels, B-fft's range starts
+     at 8) and, called directly, at 16400 (8 channels, hop 4100, where it
+     streams x); C
      (overlap-add) on the
      (64, 3747, 512) frames of framed_idft, bitwise, and on complex64
      frames with a complex seed through spectral.framing._ola_fold (C once
@@ -82,11 +89,13 @@ Phases (any failure raises, and the exit code is not 0):
      takes it (kernels/cuda_dft.py:_auto_takes_kernel) and torch.fft past
      it (4093, past Bluestein's cut: both branches must run); framed_dft at
      n_fft 1031, 2048, 4093, 4096, 3375, 6561, 8191, 8192, 12000, 12289,
-     15625, 16381 (M = 32768 over a cluster of 4 CTAs), 16382 and 16384
-     and at a frame of 1500 (folded) through B-fft,
-     not the dense B, and at n_fft 16400 on 8 channels through the dense B,
-     not B-fft; each held on two channels
-     against the f64 numpy rfft per bin; then LogMelFrontend(frame_length=400,
+     15625, 16381 (M = 32768 over a cluster of 4 CTAs), 16382, 16384, 16400,
+     19683, 20000, 32749, 32768, 65535 and 65536 and at a frame of 1500
+     (folded) through B-fft, not the dense B, and at n_fft 4 through the
+     dense B, not B-fft; each held on two channels
+     against the f64 numpy rfft per bin; stft(method='matmul') at
+     fft_length 32768 (hann 32768, hop 8192: B-fft, not the dense B), held
+     the same way; then LogMelFrontend(frame_length=400,
      hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
      kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
      (reflect padding, rfft, |.|^2, the mel filters, log10, floor) within
@@ -111,12 +120,14 @@ Phases (any failure raises, and the exit code is not 0):
      never called by the port: F.conv1d of the folded weights for A and D,
      exact f32, and for A-tc in TF32 beside the exact one;
      torch.stft(center=False) for B-fft at n_fft 512, 600, 572, 1021 and
-     1018 and for the dense B at 16400 on 8 channels; F.fold as a 1-D
+     1018 and for the dense B at 16400 on 8 channels (hop 4100); F.fold as a 1-D
      overlap-add for C), taken in turns, at the phase-2 shapes, A-tc at
-     'high' and 'default', each function warmed by two calls (the second
+     'high' and 'default', A also at hann 4096, hop 4096 on 64 channels,
+     each function warmed by two calls (the second
      while the first one's result is alive, so the caching allocator holds
      its blocks); the card's FFT cuts at n_fft 1024, 1031, 2048, 3375, 4093,
-     4094, 4096, 6561, 8191, 8192, 12000, 12289, 15625, 16382 and 16384
+     4094, 4096, 6561, 8191, 8192, 12000, 12289, 15625, 16382, 16384, 19683,
+     20000, 32749, 32768, 65535 and 65536
      (hann frame n_fft, hop n_fft / 4, 64 x 480000): B-fft through
      framed_dft, torch.stft(center=False), then the public stft with method
      'matmul' (B-fft) and 'fft' (torch.fft), and B-fft's plain version at
@@ -172,7 +183,9 @@ Phases (any failure raises, and the exit code is not 0):
      precision 'highest' (kernel A), 'high' and 'default' (A-tc), each
      rank's frames
      bitwise equal to the single-device stft_fir_chain at the same
-     precision, the kernel and E launched once per rank; sharded_stft ->
+     precision, the kernel and E launched once per rank, and at hann 1024,
+     hop 4096 (no right halo; kernel A streams x) bitwise equal to the
+     single-device fir_framed_dft; sharded_stft ->
      sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
      interior within 1e-5 x
      max|x|, and the seeded sharded overlap-add bitwise equal to the
@@ -346,12 +359,16 @@ killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
 A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
 8's over all ranks, and phases 9's and 12's; phases 13 and 14 launch
-none; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
+none; A's at the bench chain, with the same keys and `_hop_4096` at hann
+4096, hop 4096 beside; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
 'high', with `ms_default`, `max_abs_err_default` and the exact conv1d's
 `library_exact_ms` beside; B-fft's at n_fft 512, with the mixed-radix
 kernel's `ms_600`, `plain_ms_600`, `library_ms_600`, `bound_ms_600`,
 `bound_by_600` and `max_abs_err_600` at 600 beside, and the same keys
-with `_572`, `_1021` and `_1018`; B's at its `n_fft` 1031; D's with the
+with `_572`, `_1021` and `_1018` and each timed n_fft of the cuts (past
+16384 `max_abs_err_<n>` against the f64 torch.fft, and
+`max_abs_err_<n>_frame_512` against the plain version); B's at its
+`n_fft` 16400, `channels` 8 and `hop` 4100; D's with the
 shared path's set-up, `fold_ms` and `layout_ms`; E's `ms`,
 `ms_back_to_back`, `host_ms`, `plain_ms` and `library_ms` are host-clock
 times of all ranks at once, `device_ms` its kernels alone, and its bound
@@ -381,8 +398,15 @@ _PHASE8_TIMEOUT_S = 600
 # cuts (kernels/cuda_dft.py:_card_takes_kernel), and those at which it also
 # times B-fft's plain version
 _CUT_LENGTHS = (1024, 1031, 2048, 3375, 4093, 4094, 4096, 6561, 8191, 8192, 12000, 12289,
-                15625, 16382, 16384)
+                15625, 16382, 16384, 19683, 20000, 32749, 32768, 65535, 65536)
 _PLAIN_CUT_LENGTHS = (1024, 1031, 2048, 4093, 4094, 4096, 8192, 16384)
+# B-fft past 16384 (phase 2 holds each against its plain version at a frame
+# of 512 and against an f64 torch.fft at a hann frame of n_fft; phase 4
+# drives each through framed_dft): 16400 (past 16384), 19683 = 3^9
+# and 20000 (13-smooth), the prime 32749 (Bluestein, M = 65536), 32768 and
+# 65536 (radix 8 over clusters of 2 and 4 CTAs) and 65535 = 3 * 5 * 17 * 257
+# (Bluestein, M = 131072 over a cluster of 16)
+_LONG_LENGTHS = (16400, 19683, 20000, 32749, 32768, 65535, 65536)
 
 
 def _gpu_name_and_power_limit() -> str:
@@ -652,7 +676,7 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
     multihost.initialize(coordinator_address=address, num_processes=world, process_id=rank)
     from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
     from nx_signal_tpu_torch.kernels._build import load_library
-    from nx_signal_tpu_torch.kernels.dft import framed_idft
+    from nx_signal_tpu_torch.kernels.dft import fir_framed_dft, framed_idft
     from nx_signal_tpu_torch.models.pipeline import stft_fir_chain
     from nx_signal_tpu_torch.ops.convolution import convolve
     from nx_signal_tpu_torch.ops.filters import firwin
@@ -769,6 +793,23 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
         if on_card:  # each frame sums the same way whatever its tile
             bitwise(f"{name} vs the single-device chain", got, want)
         del p, single, got, want
+    # a hop of 4096 past a hann frame of 1024 (no right halo): kernel A
+    # streams x on every rank and in the single-device chain
+    win_l, hop_l, n_l = hann(1024, device=dev), 4096, 1024
+    name = f"sharded_fir_framed_dft_power (1, 4) {channels}x{length} hann 1024 hop {hop_l}"
+    run_path(name, {A: 1, E: 1}, lambda: out.update(p=sharded_fir_framed_dft_power(
+        x, taps, win_l, mesh=mesh14, stride=hop_l, n_fft=n_l)))
+    p = out.pop("p")
+    single = fir_framed_dft(x, taps, win_l, stride=hop_l, n_fft=n_l, onesided=True,
+                            output="power")
+    f0 = b * p.shape[1]
+    f1 = min(f0 + p.shape[1], single.shape[1])
+    got, want = p[:, :f1 - f0], single[:, f0:f1]
+    _check_close(f"[rank {rank}] {name} frames {f0}:{f1} vs single-device fir_framed_dft",
+                 got, want)
+    if on_card:
+        bitwise(f"{name} vs the single-device chain", got, want)
+    del p, single, got, want
 
     win_t = hann(frame, device=dev)
     kw = dict(fft_length=n_fft, overlap_length=frame - hop, sampling_rate=rate, onesided=True)
@@ -2497,6 +2538,17 @@ def main() -> int:
     want = _framed_matmul_torch(x, w_fold, power=True, **args_a)
     err_a = _check_close(f"A {channels}x{length}", got, want)
     del got, want
+    # A where 16 frames' window of x does not fit beside its weight ring: a
+    # hann frame of 4096 at hop 4096 with the bench taps (311 568 B of 232
+    # 448), 64 channels; the kernel streams x through the ring
+    frame_l = hop_l = 4096
+    frames_l, bins_l = (length - frame_l) // hop_l + 1, frame_l // 2 + 1
+    w_fold_l = fir_dft_fold_weights(taps, hann(frame_l, device="cpu").numpy(), frame_l, True,
+                                    device=dev)
+    args_al = dict(stride=hop_l, pad_left=pad_left, num_frames=frames_l, bins=bins_l)
+    err_a_hop = _check_close(f"A 64x{length} frame {frame_l} hop {hop_l} (x streamed)",
+                             A(x[:64], w_fold_l, **args_al),
+                             _framed_matmul_torch(x[:64], w_fold_l, power=True, **args_al))
 
     # A-tc ('high': 3xTF32, 'default': one TF32 pass) on the same chain:
     # against its plain version (the same TF32 products summed in f64), 192
@@ -2585,6 +2637,8 @@ def main() -> int:
     for nf, fl, _ in past_1024:
         weights_ahead(hann(fl, device="cpu").numpy(), fl, nf)
     weights_ahead(hann(16400, device="cpu").numpy(), 16400, 16400)
+    for nf in _LONG_LENGTHS:
+        weights_ahead(window, frame, nf)
     # the plain version's weights that phase 7 times, kept on the card
     plain_weights = {}
     for nf, fl, ch in past_1024:
@@ -2599,14 +2653,37 @@ def main() -> int:
             f"{tag} complex", B_fft(xr, wr, **kw_nf), want_z)
         _check_close(f"{tag} power", B_fft(xr, wr, output="power", **kw_nf), want_p)
         del want_z, want_p
-    # the dense B keeps only what B-fft does not take: n_fft 4 (frame 4, hop
-    # 4) on 64 channels, and 16400 (hann frame 16400) on 8 at hop 2050 =
-    # n_fft / 8 (the kernel stages 16 frames' window of x beside its weight
-    # stages: 229 760 B at hop 2050, 360 768 at n_fft / 4, over a CTA's
-    # 232 448)
+    # past 16384 (hop n_fft / 4): against the plain version at the hann
+    # frame of 512 zero-padded to n_fft, then at a hann frame of n_fft (the
+    # plain weights pass 17 GB at 65536) against the f64 torch.fft of the
+    # same f32 frames times the same f32 window samples, complex and power
+    for nf in _LONG_LENGTHS:
+        hp, nb = nf // 4, nf // 2 + 1
+        kw_nf = dict(stride=hp, n_fft=nf, onesided=True)
+        _, want_z, want_p = plain_dft(x64, window, frame, hp, nf, True)
+        tag = f"B-fft 64x{length} n_fft={nf} frame={frame} hop={hp}"
+        err_bfft_more[(nf, frame)] = _check_close(f"{tag} complex", B_fft(x64, window, **kw_nf),
+                                                  want_z)
+        _check_close(f"{tag} power", B_fft(x64, window, output="power", **kw_nf), want_p)
+        del want_z, want_p
+        wr = hann(nf, device="cpu").numpy()
+        want_z = torch.fft.rfft(x64.double().unfold(-1, nf, hp)
+                                * torch.as_tensor(wr, dtype=torch.float64, device=dev), n=nf)
+        tag = f"B-fft 64x{length} n_fft={nf} frame={nf} hop={hp} vs f64 torch.fft"
+        err_bfft_more[nf] = _check_close(f"{tag} complex", B_fft(x64, wr, **kw_nf), want_z)
+        _check_close(f"{tag} power", B_fft(x64, wr, output="power", **kw_nf),
+                     want_z.real ** 2 + want_z.imag ** 2)
+        if want_z.shape[-1] != nb:
+            raise AssertionError(f"{tag}: {want_z.shape[-1]} bins, not {nb}")
+        del want_z
+    # the dense B keeps only what B-fft does not take (an n_fft below 8 or
+    # above 65536): n_fft 4 (frame 4, hop 4) on 64 channels; and, called
+    # directly, at 16400 (hann frame 16400) on 8 channels at hop 4100 =
+    # n_fft / 4, where 16 frames' window of x (360 768 B) does not fit beside
+    # its weight stages (232 448 B a CTA): the kernel streams x
     x8 = x[:8]
     n_dense, ch_dense = 16400, 8
-    bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 8
+    bins_dense, hop_dense = n_dense // 2 + 1, n_dense // 4
     frames_dense = (length - n_dense) // hop_dense + 1
     win_dense = hann(n_dense, device="cpu").numpy()
     args_dense = dict(stride=hop_dense, num_frames=frames_dense, bins=bins_dense)
@@ -2960,18 +3037,20 @@ def main() -> int:
 
     # framed_dft at n_fft 1031 (a prime, once the dense B's), 2048, 4093,
     # 4096, 3375, 6561, 8191, 8192, 12000, 12289, 15625, 16381, 16382 and
-    # 16384 and at a frame of 1500 > n_fft 1031 (folded modulo n_fft): B-fft,
-    # not the dense B; past B-fft's 16384 (n_fft 16400, 8 channels): the
-    # dense B, not B-fft
+    # 16384, past it at 16400, 19683, 20000, 32749,
+    # 32768, 65535 and 65536, and at a frame of 1500 > n_fft 1031 (folded
+    # modulo n_fft): B-fft, not the dense B; below B-fft's 8 (n_fft 4, frame
+    # 4, hop 4): the dense B, not B-fft
     for nf, fl, xr, expect, avoid in ((1031, frame, x64, B_fft, B), (1031, 1500, x64, B_fft, B),
                                       (2048, 2048, x64, B_fft, B), (4093, 4093, x64, B_fft, B),
                                       (4096, 4096, x64, B_fft, B),
                                       *((nf, nf, x64, B_fft, B)
                                         for nf in (3375, 6561, 8191, 8192, 12000, 12289,
-                                                   15625, 16381, 16382, 16384)),
-                                      (n_dense, n_dense, x8, B, B_fft)):
+                                                   15625, 16381, 16382, 16384, *_LONG_LENGTHS)),
+                                      (4, 4, x64, B, B_fft)):
         wr = hann(fl, device="cpu").numpy()
-        hp = hop_dense if nf == n_dense else nf // 4 if fl == nf else hop
+        hp = max(1, nf // 4) if fl == nf else hop
+        hp = 4 if nf == 4 else hp
 
         def framed_path():
             out["z"] = framed_dft(xr, wr, stride=hp, n_fft=nf, onesided=True)
@@ -2992,6 +3071,30 @@ def main() -> int:
         _check_close(f"framed_dft at n_fft {nf}, frame {fl} vs f64 numpy rfft (2 channels)",
                      z[:2].cpu().to(torch.complex128), torch.as_tensor(np.fft.rfft(fr, n=nf)))
         del z, fr
+
+    # stft(method='matmul') past 16384: n_fft 32768 (hann 32768, hop 8192),
+    # kernel B-fft (radix 8 over a cluster of 2 CTAs), not the dense B; on
+    # two channels against the f64 numpy rfft
+    n_long, hop_long = 32768, 8192
+    win_long = hann(n_long, device=dev)
+
+    def stft_matmul_long():
+        out["z"] = stft(x64, win_long, sampling_rate=rate, fft_length=n_long,
+                        overlap_length=n_long - hop_long, onesided=True, method="matmul").z
+        torch.cuda.synchronize()
+
+    counts = _run_path(f"stft(method='matmul') at fft_length {n_long}", kernels, (B_fft,),
+                       stft_matmul_long, avoid=(B,))
+    launches = {name: launches[name] + counts[name] for name in launches}
+    z = out.pop("z")
+    fr = np.lib.stride_tricks.sliding_window_view(xh, n_long, axis=-1)[:, ::hop_long]
+    if tuple(z.shape) != (64, fr.shape[1], n_long // 2 + 1) or not bool(
+            torch.isfinite(z).all()):
+        raise AssertionError(f"stft output {tuple(z.shape)} not finite or wrong shape")
+    _check_close(f"stft(method='matmul') at fft_length {n_long} vs f64 numpy rfft (2 channels)",
+                 z[:2].cpu().to(torch.complex128), torch.as_tensor(np.fft.rfft(
+                     fr * hann(n_long, device="cpu").double().numpy(), n=n_long)))
+    del z, fr
 
     # Whisper's log-mel front end (frame 400, hop 160, n_fft 400 = 2^4 5^2)
     # on 64 x 30 s at 16 kHz: kernel B-fft, not the dense B
@@ -3106,23 +3209,30 @@ def main() -> int:
     # the library calls (timed here, never called by the port): the conv1d of
     # the folded weights over the hop blocks, as the plain path runs it
     # without its power epilogue (A, and D whose chain it computes)
-    rows_a = w_fold.shape[0]
-    c_blocks = -(-rows_a // hop)
-    needed = (num_frames + c_blocks - 1) * hop
-    xp = F.pad(x, (pad_left, max(0, needed - pad_left - length)))[..., :needed]
-    blocks = xp.reshape(channels, -1, hop).transpose(1, 2)
-    conv_w = F.pad(w_fold, (0, 0, 0, c_blocks * hop - rows_a)).reshape(
-        c_blocks, hop, 2 * bins).permute(2, 1, 0).contiguous()
+    def folded_conv(xr, w, hp, frames_r):
+        """(cuDNN's conv1d of the folded weights w over the hop-hp blocks of
+        xr, exact f32 or TF32; its inputs, kept for `del`)."""
+        c_blk = -(-w.shape[0] // hp)
+        needed = (frames_r + c_blk - 1) * hp
+        blk = F.pad(xr, (pad_left, max(0, needed - pad_left - xr.shape[-1])))[..., :needed]
+        blk = blk.reshape(xr.shape[0], -1, hp).transpose(1, 2)
+        cw = F.pad(w, (0, 0, 0, c_blk * hp - w.shape[0])).reshape(
+            c_blk, hp, w.shape[1]).permute(2, 1, 0).contiguous()
 
-    def conv1d_folded(tf32=False):
-        """cuDNN's conv1d of the folded weights, exact f32 or TF32."""
-        saved = torch.backends.cudnn.allow_tf32
-        try:
-            with _exact_f32():
-                torch.backends.cudnn.allow_tf32 = tf32
-                return F.conv1d(blocks, conv_w)
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+        def conv(tf32=False):
+            saved = torch.backends.cudnn.allow_tf32
+            try:
+                with _exact_f32():
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    return F.conv1d(blk, cw)
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+
+        return conv, (blk, cw)
+
+    rows_a = w_fold.shape[0]
+    conv1d_folded, conv_in = folded_conv(x, w_fold, hop, num_frames)
+    conv1d_folded_l, conv_in_l = folded_conv(x[:64], w_fold_l, hop_l, frames_l)
 
     stft_window = hann(frame, device=dev)
     dense_window = hann(n_dense, device=dev)
@@ -3178,6 +3288,12 @@ def main() -> int:
             ("kernel", lambda: A(x, w_fold, **args_a)),
             ("plain", lambda: _framed_matmul_torch(x, w_fold, power=True, **args_a)),
             ("library", conv1d_folded)]),
+        ("A hop 4096", 64 * length,   # x streamed through the weight ring
+         _bound(_fft_route_flops(64, length, num_taps, frame_l, frames_l, frame_l, bins_l),
+                4.0 * (64 * length + num_taps + frame_l + 64 * frames_l * bins_l)), [
+            ("kernel", lambda: A(x[:64], w_fold_l, **args_al)),
+            ("plain", lambda: _framed_matmul_torch(x[:64], w_fold_l, power=True, **args_al)),
+            ("library", conv1d_folded_l)]),
         ("A-tc", channels * length, bound_chain, [
             ("kernel", lambda: A_tc(x, w_fold, precision="high", **args_a)),
             ("plain", lambda: _framed_matmul_tf32_torch(x, w_fold, passes=3, **args_a)),
@@ -3207,7 +3323,7 @@ def main() -> int:
         ("B-fft 1018", 64 * length, *fft_case(1018)),  # Bluestein, M = 1024
         # the card's FFT cut: a hann frame of n_fft at hop n_fft / 4
         *((f"cut {nf}", 64 * length, *cut_case(nf)) for nf in _CUT_LENGTHS),
-        ("B", ch_dense * length,   # past B-fft's 16384
+        ("B", ch_dense * length,   # called directly at 16400, hop 4100: x streamed
          _bound(_fft_route_flops(ch_dense, length, 0, n_dense, frames_dense, n_dense, 0),
                 4.0 * (x8.numel() + n_dense) + 8.0 * ch_dense * frames_dense * bins_dense), [
             ("kernel", lambda: B(x8, w_dense, **args_dense)),
@@ -3313,7 +3429,7 @@ def main() -> int:
     out.pop("fold")
     print(f"  the shared path's set-up per call (host clock): fold + twiddles "
           f"{setup_ms['fold']:.3f} ms, D's layout {setup_ms['layout']:.3f} ms", flush=True)
-    del xp, blocks, fold_in
+    del conv_in, conv_in_l, fold_in
 
     # where the filtered chain's time goes: the direct FIR, then kernel B-fft
     from nx_signal_tpu_torch.ops.convolution import convolve
@@ -3437,7 +3553,7 @@ def main() -> int:
     del z_seg, coefs
 
     # ---------------------------------------------------------------- 8
-    del x, x64, x8, xs, frames, w_fold, w_fold64, w_shared, w_dense, w_mixed, conv_w
+    del x, x64, x8, xs, frames, w_fold, w_fold64, w_fold_l, w_shared, w_dense, w_mixed
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     _header(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
@@ -3524,6 +3640,12 @@ def main() -> int:
         for k, src, replaces, err, tag in rows]
     # A-tc: 'high' above; its 'default' time, its 'default' error against
     # the plain version, and the exact conv1d beside the TF32 one
+    # A: the bench chain above; at hop 4096 (hann 4096, 64 channels), where
+    # it streams x, beside
+    a_l = timings["A hop 4096"]
+    entries[0].update(ms_hop_4096=a_l["kernel"], plain_ms_hop_4096=a_l["plain"],
+                      library_ms_hop_4096=a_l["library"], bound_ms_hop_4096=a_l["bound_ms"],
+                      bound_by_hop_4096=a_l["bound_by"], max_abs_err_hop_4096=err_a_hop)
     entries[1].update(ms_default=timings["A-tc"]["kernel 'default'"],
                       max_abs_err_default=err_atc["default"],
                       library_exact_ms=timings["A-tc"]["exact library"])
@@ -3550,8 +3672,12 @@ def main() -> int:
     entries[2].update(max_abs_err_frame_1024_n_fft_512=err_bfft_more[(512, 1024)],
                       max_abs_err_frame_8192_n_fft_4096=err_bfft_more[(4096, 8192)],
                       max_abs_err_frame_16384_n_fft_8192=err_bfft_more[(8192, 16384)])
-    # the dense B: n_fft 16400 (past B-fft's 16384) on 8 channels
-    entries[3].update(n_fft=n_dense, channels=ch_dense)
+    # past 16384 the errors above are against the f64 torch.fft (frame n_fft);
+    # against the plain version at a frame of 512 here
+    entries[2].update({f"max_abs_err_{nf}_frame_{frame}": err_bfft_more[(nf, frame)]
+                       for nf in _LONG_LENGTHS})
+    # the dense B: called directly at n_fft 16400 on 8 channels, hop 4100
+    entries[3].update(n_fft=n_dense, channels=ch_dense, hop=hop_dense)
     # D: the shared path's set-up per call
     entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])
     entries[-1].update(ms_back_to_back=e["back_to_back"], host_ms=e["host"],

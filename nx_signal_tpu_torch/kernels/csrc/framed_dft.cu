@@ -50,6 +50,12 @@
 //     outside the signal) as (blocks, stride) hop rows at a pitch P = 4 (mod
 //     32) floats: frame m at k is row m + k / stride, column k % stride, so
 //     the 4 frame groups' loads (adjacent rows) fall in distinct banks.
+//     Where that window does not fit even at 16 frames a CTA (a hop past
+//     about 2900 samples with 255 taps), the CTA streams x instead (STREAM):
+//     with each chunk of kChunk weight rows, rows [k0, k0 + kChunk) of each
+//     of its 128 frames go through the same cp.async ring, a row of kXPitch
+//     floats per frame, so shared memory is bounded by the ring at any hop.
+//     The sums run in the same order either way, so both give the same bits.
 //   * The weight tile streams through shared memory in chunks of kChunk rows
 //     in a kStages-deep cp.async ring, one barrier per chunk (32 rows, 2
 //     stages: the next chunk's load overlaps this chunk's 2048 FMAs per
@@ -73,19 +79,26 @@ constexpr int kTileBins = 64;              // bin slots per CTA
 constexpr int kCols = 2 * kTileBins;       // floats per weight row of a tile
 constexpr int kChunk = 32;                 // weight rows per stage
 constexpr int kStages = 2;
+constexpr int kXPitch = kChunk + 4;        // floats per streamed frame row, = 4 (mod 32)
 constexpr int64_t kMaxGridZ = 65535;
 
 // floats per staged x row: at least stride, = 4 (mod 32)
-__host__ __device__ inline int x_pitch(int stride) { return stride + ((36 - stride % 32) % 32); }
+__host__ __device__ inline int64_t x_pitch(int64_t stride) {
+  return stride + ((36 - stride % 32) % 32);
+}
 
 // hop rows holding the windows of bm frames
 __host__ __device__ inline int64_t x_rows(int bm, int64_t stride, int64_t krows_pad) {
   return ((int64_t)(bm - 1) * stride + krows_pad + stride - 1) / stride;
 }
 
-inline size_t smem_bytes(int fpt, int64_t stride, int64_t krows_pad) {
+// staged: the weight ring and the window of 16 * fpt frames; streamed: the
+// weight ring and a ring of the same depth of kChunk-row slices of 16 * fpt
+// frames
+inline size_t smem_bytes(int fpt, int64_t stride, int64_t krows_pad, bool stream) {
   return (size_t)(4 * kStages * kChunk * kCols +
-                  4 * x_rows(16 * fpt, stride, krows_pad) * x_pitch((int)stride));
+                  (stream ? 4 * kStages * 16 * fpt * kXPitch
+                          : 4 * x_rows(16 * fpt, stride, krows_pad) * x_pitch(stride)));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -101,8 +114,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, unsigned s
 }
 
 // FPT frames per lane (16 * FPT per CTA); VEC 4 loads x as float4 along k
-// (stride % 4 == 0), VEC 1 as scalars
-template <int FPT, int VEC, bool POWER>
+// (stride % 4 == 0, or STREAM), VEC 1 as scalars; STREAM streams x with the
+// weight chunks instead of staging the frames' window
+template <int FPT, int VEC, bool POWER, bool STREAM>
 __global__ void __launch_bounds__(kThreads, 2)
 framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ out, int64_t length, int stride, int krows_pad,
@@ -110,8 +124,7 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   int bin_tiles) {
   constexpr int kBM = 16 * FPT;
   extern __shared__ __align__(16) float smem[];
-  const int P = x_pitch(stride);
-  const int rows = (int)x_rows(kBM, stride, krows_pad);
+  const int P = STREAM ? kXPitch : (int)x_pitch(stride);
   float* ws = smem;
   float* xs = smem + kStages * kChunk * kCols;
 
@@ -127,21 +140,33 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int nchunks = krows_pad / kChunk;
 
   const float* wt = w + (int64_t)tile * krows_pad * kCols;
+  const float* xc = x + ch * length;
+  const int64_t s0 = (int64_t)m0 * stride - pad_left;
+  // x index of frame f's sample k: s0 + f*stride + k (zeros outside the signal)
+  auto load_x = [&](float* dst, int64_t gi) {
+    const bool inside = gi >= 0 && gi < length;
+    cp_async4(dst, xc + (inside ? gi : 0), inside ? 4 : 0);
+  };
   auto load_chunk = [&](int chunk) {
     const float* src = wt + (int64_t)chunk * kChunk * kCols;
     float* dst = ws + (chunk % kStages) * kChunk * kCols;
     for (int i = 4 * tid; i < kChunk * kCols; i += 4 * kThreads) cp_async16(dst + i, src + i);
+    if constexpr (STREAM) {
+      // rows [chunk*kChunk, +kChunk) of every frame, one warp a frame row
+      float* xd = xs + (chunk % kStages) * kBM * kXPitch;
+      const int64_t k0 = s0 + (int64_t)chunk * kChunk + lane;
+      for (int f = warp; f < kBM; f += kWarps) {
+        load_x(xd + f * kXPitch + lane, k0 + (int64_t)f * stride);
+      }
+    }
   };
 
-  // the frames' window of x: sample s of the window (x index m0*stride -
-  // pad_left + s) at row s / stride, column s % stride
-  const float* xc = x + ch * length;
-  const int64_t s0 = (int64_t)m0 * stride - pad_left;
-  for (int r = warp; r < rows; r += kWarps) {
-    for (int c = lane; c < stride; c += 32) {
-      const int64_t gi = s0 + (int64_t)r * stride + c;
-      const bool inside = gi >= 0 && gi < length;
-      cp_async4(xs + r * P + c, xc + (inside ? gi : 0), inside ? 4 : 0);
+  if constexpr (!STREAM) {
+    // the frames' window of x: sample s of the window (x index s0 + s) at
+    // row s / stride, column s % stride
+    const int rows = (int)x_rows(kBM, stride, krows_pad);
+    for (int r = warp; r < rows; r += kWarps) {
+      for (int c = lane; c < stride; c += 32) load_x(xs + r * P + c, s0 + (int64_t)r * stride + c);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -158,7 +183,8 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   // this lane's first frame row; frame i is 4 rows further per i. (q, r) is
-  // k's (row, column) in the hop rows, advanced by VEC per step
+  // k's (row, column) in the hop rows, advanced by VEC per step; streamed, a
+  // frame's row of the stage holds its kChunk samples of the chunk
   const float* xrow = xs + (wm * 4 * FPT + fg) * P;
   const int p4 = 4 * P;
   const int wofs = wn * 64 + bg * 4;
@@ -174,7 +200,7 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += VEC) {
       float xv[FPT][VEC];
-      const float* xk = xrow + q * P + r;
+      const float* xk = STREAM ? xrow + (chunk % kStages) * kBM * kXPitch + kk : xrow + q * P + r;
 #pragma unroll
       for (int i = 0; i < FPT; ++i) {
         if constexpr (VEC == 4) {
@@ -199,8 +225,10 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
           }
         }
       }
-      r += VEC;
-      if (r >= stride) r -= stride, ++q;
+      if constexpr (!STREAM) {
+        r += VEC;
+        if (r >= stride) r -= stride, ++q;
+      }
     }
   }
 
@@ -239,12 +267,12 @@ framed_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int FPT, int VEC, bool POWER>
+template <int FPT, int VEC, bool POWER, bool STREAM>
 cudaError_t launch(const float* x, const float* w, float* out, int64_t channels, int64_t length,
                    int64_t stride, int64_t krows_pad, int64_t pad_left, int64_t num_frames,
                    int64_t bins, bool packed, cudaStream_t stream) {
-  auto kernel = framed_dft_kernel<FPT, VEC, POWER>;
-  const size_t smem = smem_bytes(FPT, stride, krows_pad);
+  auto kernel = framed_dft_kernel<FPT, VEC, POWER, STREAM>;
+  const size_t smem = smem_bytes(FPT, stride, krows_pad, STREAM);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -264,16 +292,21 @@ cudaError_t launch(const float* x, const float* w, float* out, int64_t channels,
   return cudaSuccess;
 }
 
-template <int FPT>
+template <int FPT, bool STREAM>
 cudaError_t dispatch(const float* x, const float* w, float* out, int64_t channels,
                      int64_t length, int64_t stride, int64_t krows_pad, int64_t pad_left,
                      int64_t num_frames, int64_t bins, bool packed, bool power, cudaStream_t s) {
   const bool vec = stride % 4 == 0;
 #define NX_LAUNCH(VEC, POWER)                                                                \
-  launch<FPT, VEC, POWER>(x, w, out, channels, length, stride, krows_pad, pad_left,          \
-                          num_frames, bins, packed, s)
-  if (power) return vec ? NX_LAUNCH(4, true) : NX_LAUNCH(1, true);
-  return vec ? NX_LAUNCH(4, false) : NX_LAUNCH(1, false);
+  launch<FPT, VEC, POWER, STREAM>(x, w, out, channels, length, stride, krows_pad, pad_left,  \
+                                  num_frames, bins, packed, s)
+  if constexpr (STREAM) {
+    return power ? NX_LAUNCH(4, true) : NX_LAUNCH(4, false);
+  } else if (power) {
+    return vec ? NX_LAUNCH(4, true) : NX_LAUNCH(1, true);
+  } else {
+    return vec ? NX_LAUNCH(4, false) : NX_LAUNCH(1, false);
+  }
 #undef NX_LAUNCH
 }
 
@@ -292,7 +325,7 @@ extern "C" int nx_framed_dft_f32(const void* x, const void* w, void* out, int64_
                                  int64_t length, int64_t stride, int64_t krows_pad,
                                  int64_t pad_left, int64_t num_frames, int64_t bins,
                                  int64_t packed, int64_t power, void* stream) {
-  if (channels < 1 || length < 1 || stride < 1 || stride > 0xffff || krows_pad < kChunk ||
+  if (channels < 1 || length < 1 || stride < 1 || stride > 0x7fffffff || krows_pad < kChunk ||
       krows_pad % kChunk != 0 || krows_pad > 0xffffff || num_frames < 1 ||
       num_frames > 0x7fffffff || bins < 1 + (packed != 0) || bins > 0xffffff) {
     return (int)cudaErrorInvalidValue;
@@ -307,15 +340,18 @@ extern "C" int nx_framed_dft_f32(const void* x, const void* w, void* out, int64_
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 128 frames per CTA where the staged window fits, else 16
-  if (smem_bytes(8, stride, krows_pad) <= (size_t)max_smem) {
-    err = dispatch<8>(xf, wf, of, channels, length, stride, krows_pad, pad_left, num_frames, bins,
-                      packed != 0, power != 0, s);
-  } else if (smem_bytes(1, stride, krows_pad) <= (size_t)max_smem) {
-    err = dispatch<1>(xf, wf, of, channels, length, stride, krows_pad, pad_left, num_frames, bins,
-                      packed != 0, power != 0, s);
+  // 128 frames per CTA where the staged window fits, else 16, else 128
+  // frames with x streamed through the ring
+#define NX_DISPATCH(FPT, STREAM)                                                            \
+  dispatch<FPT, STREAM>(xf, wf, of, channels, length, stride, krows_pad, pad_left, num_frames, \
+                        bins, packed != 0, power != 0, s)
+  if (smem_bytes(8, stride, krows_pad, false) <= (size_t)max_smem) {
+    err = NX_DISPATCH(8, false);
+  } else if (smem_bytes(1, stride, krows_pad, false) <= (size_t)max_smem) {
+    err = NX_DISPATCH(1, false);
   } else {
-    err = cudaErrorInvalidValue;
+    err = NX_DISPATCH(8, true);
   }
+#undef NX_DISPATCH
   return (int)err;
 }

@@ -1,10 +1,10 @@
 // Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
-// shared memory (of one CTA, or of a thread-block cluster of 2 or 4 CTAs),
-// for every n_fft from 8 to 16384 and any frame length.
+// shared memory (of one CTA, or of a thread-block cluster of 2 to 16 CTAs),
+// for every n_fft from 8 to 65536 and any frame length.
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
-// for those n_fft; an n_fft below 8 or above 16384 keeps the dense
+// for those n_fft; an n_fft below 8 or above 65536 keeps the dense
 // contraction of framed_dft.cu.
 //
 // For channel c and frame m (0 <= m < num_frames), with
@@ -66,7 +66,7 @@
 //   * framed_fft_mixed_kernel, every other M (13-smooth and not a power of
 //     two, and a power of two past the loop kernel's range), following the
 //     host's plan (kernels/dft.py:_fft_plan, _bluestein_plan): Stockham
-//     passes of radix 8 and a 4 or 2, then 13, 11, 7, 5, 3, of M points.
+//     passes of radix 8 and a 4 or 2, then 13, 11, 9, 7, 5, 3, of M points.
 //     Each pass reads one buffer and writes the other (a ping-pong pair per
 //     FFT), each thread looping over its share of the M/R butterflies, so
 //     one sync per pass. The plan stores pass p's output index i at i + (i /
@@ -83,14 +83,18 @@
 //     its buffers would take more than half an SM's shared memory (L past
 //     about 3500), they are read from global memory. It runs Bluestein's
 //     power-of-two M past the loop kernel's range: 8192 for odd n_fft (whose
-//     loop shapes spill at the registers they leave), 16384 and 32768 (one
-//     CTA of the loop kernel would hold 4 or 8 butterflies a thread, which
-//     spills; spread over a cluster it ran about 2x slower than this). Where
-//     one FFT's buffer pair does not fit a CTA (an odd L past 8192,
-//     Bluestein's M of 16384 and 32768), a cluster of 2 or 4 CTAs shares it:
-//     each holds a part of both buffers, the cluster's threads run the FFT's
-//     butterflies through distributed shared memory (the owner of index i
-//     is i / part), and the cluster's barrier ends each pass.
+//     loop shapes spill at the registers they leave), 16384 to 131072 (one
+//     CTA of the loop kernel would hold 4 or more butterflies a thread,
+//     which spills; spread over a cluster it ran about 2x slower than this),
+//     and the power-of-two n_fft past 16384 (L 16384 and 32768). Where one
+//     FFT's buffer pair does not fit a CTA (an L or Bluestein's M past about
+//     14000 points), a cluster of C = 2, 4, 8 or 16 CTAs shares it (16, for
+//     Bluestein's M past about 116000 points of an odd n_fft past 58000, is
+//     past the portable 8 and asks for the non-portable size): each CTA
+//     holds a part of both buffers, index i in CTA (i / 32) mod C (runs of
+//     32 points, so that a warp's 32 consecutive points lie in one CTA), the
+//     cluster's threads run the FFT's butterflies through distributed shared
+//     memory, and the cluster's barrier ends each pass.
 //
 // What bounds it on the H100: bytes. Per input sample it moves 4 B in and
 // 8 * bins / stride B out (complex64), against about 2.5 n log2 n / stride
@@ -117,7 +121,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinFft = 8;
-constexpr int kMaxFft = 16384;
+constexpr int kMaxFft = 65536;
 constexpr int kMaxSmallFft = 1024;             // framed_fft_kernel's largest n_fft
 constexpr int kTileTarget = 32;                 // frames per CTA where they fit
 constexpr size_t kSmemBudget = 96 * 1024;       // keeps two or more CTAs per SM
@@ -208,13 +212,20 @@ __device__ __forceinline__ void dft<8>(float2* v) {
   }
 }
 
-// cos and sin of 2 pi m / R, R = 3, 5, 7, 11 or 13, 1 <= m <= (R - 1) / 2
+// cos and sin of 2 pi m / R, R = 3, 5, 7, 9, 11 or 13, 0 <= m <= (R - 1) / 2
 // (R and m are compile-time constants where the butterflies call these)
 __device__ __forceinline__ float root_cos(int R, int m) {
+  if (m == 0) return 1.0f;
   if (R == 3) return -0.5f;
   if (R == 5) return m == 1 ? 0.30901699437494745f : -0.8090169943749473f;
   if (R == 7) {
     return m == 1 ? 0.6234898018587336f : (m == 2 ? -0.22252093395631434f : -0.900968867902419f);
+  }
+  if (R == 9) {
+    return m == 1 ? 0.76604444311897804f
+         : m == 2 ? 0.17364817766693035f
+         : m == 3 ? -0.5f
+                  : -0.93969262078590838f;
   }
   if (R == 11) {
     return m == 1 ? 0.84125353283118117f
@@ -231,10 +242,17 @@ __device__ __forceinline__ float root_cos(int R, int m) {
                 : -0.97094181742605202f;
 }
 __device__ __forceinline__ float root_sin(int R, int m) {
+  if (m == 0) return 0.0f;
   if (R == 3) return 0.8660254037844387f;
   if (R == 5) return m == 1 ? 0.9510565162951535f : 0.5877852522924732f;
   if (R == 7) {
     return m == 1 ? 0.7818314824680298f : (m == 2 ? 0.9749279121818236f : 0.43388373911755823f);
+  }
+  if (R == 9) {
+    return m == 1 ? 0.64278760968653933f
+         : m == 2 ? 0.98480775301220806f
+         : m == 3 ? 0.8660254037844387f
+                  : 0.34202014332566866f;
   }
   if (R == 11) {
     return m == 1 ? 0.54064081745559758f
@@ -254,7 +272,7 @@ __device__ __forceinline__ float root_sin(int R, int m) {
 // In-register forward DFT of an odd R points from the symmetric pairs
 // a_n = v[n] + v[R-n], b_n = v[n] - v[R-n]:
 //   X[k] = v[0] + sum_n a_n cos(2 pi n k / R) - i sum_n b_n sin(2 pi n k / R),
-// and X[R-k] the same with + i.
+// and X[R-k] the same with + i (any odd R: at R = 9, n k = 9 is the angle 0).
 template <int R>
 __device__ __forceinline__ void dft_odd(float2* v) {
   constexpr int H = (R - 1) / 2;
@@ -289,6 +307,8 @@ template <>
 __device__ __forceinline__ void dft<5>(float2* v) { dft_odd<5>(v); }
 template <>
 __device__ __forceinline__ void dft<7>(float2* v) { dft_odd<7>(v); }
+template <>
+__device__ __forceinline__ void dft<9>(float2* v) { dft_odd<9>(v); }
 template <>
 __device__ __forceinline__ void dft<11>(float2* v) { dft_odd<11>(v); }
 template <>
@@ -504,10 +524,13 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // ---- the mixed-radix kernel (every other n_fft: 13-smooth ones directly,
 // the rest through Bluestein's chirp-z transform)
 
-// A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7, 8, 11 or 13) in
-// the low four bits, its output padding c (0..15) in the high four
+// A plan packs pass p into byte p: its radix (2, 3, 4, 5, 7, 8, 9, 11 or 13)
+// in the low four bits, its output padding c (0..15) in the high four
 constexpr int kMaxPasses = 8;
-constexpr int kMaxPoints = 32768;  // Bluestein's M at the longest L (16383, odd n_fft)
+constexpr int kMaxPoints = 131072;  // Bluestein's M at the longest L (65535, odd n_fft)
+// A cluster's CTAs hold an FFT buffer in runs of 1 << kRunLog points
+constexpr int kRunLog = 5;
+constexpr int kMaxCluster = 16;
 // Past this many points a CTA holds one FFT of the mixed kernel (its two
 // buffers fill the shared memory), which then takes kThreads threads; the
 // host's plans pad such FFTs' passes sparingly (kernels/dft.py:_FULL_PAD_POINTS)
@@ -542,35 +565,41 @@ __device__ __forceinline__ void slot_sync(int slot, int G) {
   }
 }
 
-// An FFT buffer of the mixed kernel: C = 1, in this CTA's shared memory;
-// C = 2 or 4, spread over the C CTAs of a thread-block cluster, `part`
-// float2 in each, read and written through distributed shared memory.
-template <int C>
+// An FFT buffer of the mixed kernel: CL false, in this CTA's shared memory
+// from `base`; CL true, spread over the C = 1 << log_c CTAs of a
+// thread-block cluster, run r = i >> kRunLog of index i in CTA r mod C, at
+// run r / C of the part from `base` there (the same offset in every CTA),
+// read and written through distributed shared memory.
+template <bool CL>
 struct Buf {
-  float2* base[C];
-  int part;
-  // (the owner is picked by compares against constant indices, so `base`
-  // stays in registers)
+  float2* base;
+  int log_c;
   __device__ __forceinline__ float2& operator[](int i) const {
-    float2* p = base[0];
-    int o = i;
-#pragma unroll
-    for (int c = 1; c < C; ++c) {
-      if (i >= c * part) p = base[c], o = i - c * part;
+    if constexpr (CL) {
+      const int run = i >> kRunLog;
+      float2* local = base + ((run >> log_c) << kRunLog) + (i & ((1 << kRunLog) - 1));
+      return *cg::this_cluster().map_shared_rank(local, run & ((1 << log_c) - 1));
+    } else {
+      return base[i];
     }
-    return p[o];
   }
 };
 
-// Waits for the threads of this FFT: slot_sync, or (C > 1) the cluster's,
+// float2 of each buffer a CTA of a cluster of 1 << log_c holds: whole runs
+inline int cluster_part(int buf_len, int log_c) {
+  const int runs = (buf_len + (1 << kRunLog) - 1) >> kRunLog;
+  return ((runs + (1 << log_c) - 1) >> log_c) << kRunLog;
+}
+
+// Waits for the threads of this FFT: slot_sync, or (CL) the cluster's,
 // whose barrier also makes the CTAs' shared-memory writes visible to each
 // other
-template <int C>
+template <bool CL>
 __device__ __forceinline__ void fft_sync(int slot, int G) {
-  if constexpr (C == 1) {
-    slot_sync(slot, G);
-  } else {
+  if constexpr (CL) {
     cg::this_cluster().sync();
+  } else {
+    slot_sync(slot, G);
   }
 }
 
@@ -661,8 +690,8 @@ enum Source { kBuffer, kSignal, kChirped, kFiltered };
 // (j / Ns) (Ns R + out_pad) + j mod Ns + r Ns of out. M/R is a multiple of
 // Ns, so point j + r M/R lies in group j / Ns + r M/(R Ns); (j / Ns, j mod
 // Ns) advance by (G / Ns, G mod Ns) with a carry, one division per pass.
-template <int R, int SRC, bool ODD, int C>
-__device__ __forceinline__ void mixed_pass(const Buf<C>& in, int in_pad, const Buf<C>& out,
+template <int R, int SRC, bool ODD, bool CL>
+__device__ __forceinline__ void mixed_pass(const Buf<CL>& in, int in_pad, const Buf<CL>& out,
                                            int out_pad, const float2* tbl, const float* xa,
                                            const float* xb, const float* wins, int frame_length,
                                            int L, int M, int Ns, int G, int j0) {
@@ -700,18 +729,19 @@ __device__ __forceinline__ void mixed_pass(const Buf<C>& in, int in_pad, const B
   }
 }
 
-template <int SRC, bool ODD, int C>
-__device__ __forceinline__ void run_mixed_pass(int R, const Buf<C>& in, int in_pad,
-                                               const Buf<C>& out, int out_pad, const float2* tbl,
+template <int SRC, bool ODD, bool CL>
+__device__ __forceinline__ void run_mixed_pass(int R, const Buf<CL>& in, int in_pad,
+                                               const Buf<CL>& out, int out_pad, const float2* tbl,
                                                const float* xa, const float* xb,
                                                const float* wins, int frame_length, int L, int M,
                                                int Ns, int G, int j0) {
 #define NX_MIXED_PASS(RADIX)                                                                     \
-  mixed_pass<RADIX, SRC, ODD, C>(in, in_pad, out, out_pad, tbl, xa, xb, wins, frame_length, L, M, \
-                                 Ns, G, j0)
+  mixed_pass<RADIX, SRC, ODD, CL>(in, in_pad, out, out_pad, tbl, xa, xb, wins, frame_length, L,  \
+                                  M, Ns, G, j0)
   switch (R) {
     case 13: NX_MIXED_PASS(13); break;
     case 11: NX_MIXED_PASS(11); break;
+    case 9: NX_MIXED_PASS(9); break;
     case 8: NX_MIXED_PASS(8); break;
     case 7: NX_MIXED_PASS(7); break;
     case 5: NX_MIXED_PASS(5); break;
@@ -728,23 +758,23 @@ __device__ __forceinline__ void run_mixed_pass(int R, const Buf<C>& in, int in_p
 // twiddles twp; on return `out` holds the result, unpadded, in natural
 // order, and `spare` the other buffer (passed and swapped by value, so no
 // buffer is chosen by a runtime index into an array).
-template <int SRC, bool ODD, int C>
-__device__ __forceinline__ void run_fft(const Buf<C>& in, Buf<C>& out, Buf<C>& spare,
+template <int SRC, bool ODD, bool CL>
+__device__ __forceinline__ void run_fft(const Buf<CL>& in, Buf<CL>& out, Buf<CL>& spare,
                                         const float2* first, const float2* twp, uint64_t plan,
                                         const float* xa, const float* xb, const float* wins,
                                         int frame_length, int L, int M, int G, int j0,
                                         int slot) {
-  run_mixed_pass<SRC, ODD, C>(plan_radix(plan, 0), in, 0, out, plan_pad(plan, 0), first, xa, xb,
-                              wins, frame_length, L, M, 1, G, j0);
+  run_mixed_pass<SRC, ODD, CL>(plan_radix(plan, 0), in, 0, out, plan_pad(plan, 0), first, xa, xb,
+                               wins, frame_length, L, M, 1, G, j0);
   int ns = plan_radix(plan, 0);
   for (int p = 1; p < kMaxPasses && plan_radix(plan, p) != 0; ++p) {
-    fft_sync<C>(slot, G);  // the previous pass's writes are visible
+    fft_sync<CL>(slot, G);  // the previous pass's writes are visible
     const int R = plan_radix(plan, p);
-    run_mixed_pass<kBuffer, ODD, C>(R, out, plan_pad(plan, p - 1), spare, plan_pad(plan, p), twp,
-                                    nullptr, nullptr, wins, frame_length, L, M, ns, G, j0);
+    run_mixed_pass<kBuffer, ODD, CL>(R, out, plan_pad(plan, p - 1), spare, plan_pad(plan, p), twp,
+                                     nullptr, nullptr, wins, frame_length, L, M, ns, G, j0);
     twp += ns * R;
     ns *= R;
-    const Buf<C> done = spare;
+    const Buf<CL> done = spare;
     spare = out;
     out = done;
   }
@@ -797,20 +827,21 @@ __device__ __forceinline__ void write_spectrum(const S& src, const float2* chirp
   for (int k = j0; k < end; k += G) bin(k);
 }
 
-// C = 1: `group` FFTs a CTA, each of G threads over a buffer pair of
-// buf_len float2. C = 2 or 4 (a cluster of C CTAs launched with
+// CL false: `group` FFTs a CTA, each of G threads over a buffer pair of
+// buf_len float2. CL true (a cluster of C = 1 << log_c CTAs launched with
 // cudaLaunchKernelEx, blockIdx.x / C the tile): one FFT over the cluster's
 // G = C * blockDim.x threads, each CTA holding `part` float2 of each
-// buffer; the table, the frames and the window read from global memory.
-// (launch bounds: four CTAs an SM, 64 registers a thread, for C = 1; one
-// for a cluster's CTAs, whose buffer parts fill an SM's shared memory)
-template <bool POWER, bool ODD, bool BLUE, bool STAGED, int C>
-__global__ void __launch_bounds__(kThreads, C == 1 ? 4 : 1)
+// buffer (`Buf`); the table, the frames and the window read from global
+// memory. (launch bounds: four CTAs an SM, 64 registers a thread, for one
+// CTA; one for a cluster's CTAs, whose buffer parts fill an SM's shared
+// memory)
+template <bool POWER, bool ODD, bool BLUE, bool STAGED, bool CL>
+__global__ void __launch_bounds__(kThreads, CL ? 1 : 4)
 framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ win,
                         const float2* __restrict__ table, void* __restrict__ out, int64_t length,
                         int stride, int frame_length, int n_fft, int num_frames, int bins,
                         int tile, int group, uint64_t plan, int G, int buf_len, int table_len,
-                        int M, int stage_x, int part) {
+                        int M, int stage_x, int part, int log_c) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kPer = ODD ? 2 : 1;  // frames per FFT
   const int L = ODD ? n_fft : n_fft / 2;
@@ -830,10 +861,10 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int64_t ch = blockIdx.y;
-  const int m0 = blockIdx.x / C * tile;
+  const int m0 = (blockIdx.x >> log_c) * tile;
   const int m_end = min(num_frames, m0 + tile);
   const float* xw = x + ch * length + (int64_t)m0 * stride;  // sample m0 * stride
-  if (C == 1 && stage_x) {
+  if (!CL && stage_x) {
     xw = xs + stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
                            (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
     for (int i = tid; i < frame_length; i += nthr) wins_s[i] = win[i];
@@ -846,47 +877,44 @@ framed_fft_mixed_kernel(const float* __restrict__ x, const float* __restrict__ w
 
   // each FFT's G threads run it and write its bins on their own: FFT slot
   // takes frames mg + kPer*slot (and the next, odd n_fft) of the tile
-  const int slot = C == 1 ? tid / G : 0;
+  const int slot = CL ? 0 : tid / G;
   int j0 = tid - slot * G;
-  Buf<C> buf_a, buf_b;
-  if constexpr (C == 1) {
-    buf_a.base[0] = bufs + (int64_t)slot * 2 * buf_len;
-    buf_b.base[0] = buf_a.base[0] + buf_len;
-  } else {
-    // this CTA's parts of the two buffers, and every CTA's, mapped; the
-    // cluster's CTAs have all started before any reads another's memory
+  Buf<CL> buf_a, buf_b;
+  buf_a.log_c = buf_b.log_c = log_c;
+  if constexpr (CL) {
+    // this CTA's parts of the two buffers; the cluster's CTAs have all
+    // started before any reads another's memory
     cg::cluster_group cluster = cg::this_cluster();
     j0 += (int)cluster.block_rank() * nthr;
-#pragma unroll
-    for (int r = 0; r < C; ++r) {
-      buf_a.base[r] = cluster.map_shared_rank(bufs, r);
-      buf_b.base[r] = cluster.map_shared_rank(bufs + part, r);
-    }
-    buf_a.part = buf_b.part = part;
+    buf_a.base = bufs;
+    buf_b.base = bufs + part;
     cluster.sync();
+  } else {
+    buf_a.base = bufs + (int64_t)slot * 2 * buf_len;
+    buf_b.base = buf_a.base + buf_len;
   }
   for (int mg = m0; mg < m_end; mg += group * kPer) {
     const int m = mg + slot * kPer;
     const float* xa = m < m_end ? xw + (int64_t)(m - m0) * stride : nullptr;
     const float* xb = ODD && m + 1 < m_end ? xa + stride : nullptr;
-    Buf<C> res = buf_a, spare = buf_b;
-    run_fft<BLUE ? kChirped : kSignal, ODD, C>(spare, res, spare, chirp, twp, plan, xa, xb, wins,
-                                               frame_length, L, M, G, j0, slot);
+    Buf<CL> res = buf_a, spare = buf_b;
+    run_fft<BLUE ? kChirped : kSignal, ODD, CL>(spare, res, spare, chirp, twp, plan, xa, xb, wins,
+                                                frame_length, L, M, G, j0, slot);
     if constexpr (BLUE) {
-      fft_sync<C>(slot, G);
-      const Buf<C> first_out = res;  // the second FFT reads it, then ping-pongs with it
+      fft_sync<CL>(slot, G);
+      const Buf<CL> first_out = res;  // the second FFT reads it, then ping-pongs with it
       res = spare;
       spare = first_out;
-      run_fft<kFiltered, ODD, C>(first_out, res, spare, filt, twp, plan, nullptr, nullptr, wins,
-                                 frame_length, L, M, G, j0, slot);
+      run_fft<kFiltered, ODD, CL>(first_out, res, spare, filt, twp, plan, nullptr, nullptr, wins,
+                                  frame_length, L, M, G, j0, slot);
     }
-    fft_sync<C>(slot, G);
+    fft_sync<CL>(slot, G);
 
     // the post-pass from Z
     write_spectrum<POWER, ODD, BLUE>(res, chirp, tbl, out,
                                      (ch * num_frames + m) * (int64_t)bins, m < m_end,
                                      ODD && m + 1 < m_end, bins, n_fft, L, G, j0);
-    fft_sync<C>(slot, G);  // the buffers are read before the next frames fill them
+    fft_sync<CL>(slot, G);  // the buffers are read before the next frames fill them
   }
 }
 
@@ -1113,14 +1141,16 @@ framed_fft_loop_kernel(const float* __restrict__ x, const float* __restrict__ wi
   }
 }
 
-// Whether a packed plan covers M points: radices 2, 3, 4, 5, 7, 8, 11 or 13
-// whose product is M, zero bytes after the last pass, no padding on the last.
+// Whether a packed plan covers M points: radices 2, 3, 4, 5, 7, 8, 9, 11 or
+// 13 whose product is M, zero bytes after the last pass, no padding on the
+// last.
 inline bool valid_plan(uint64_t plan, int M) {
   int64_t prod = 1;
   int passes = 0;
   while (passes < kMaxPasses && plan_radix(plan, passes) != 0) {
     const int r = plan_radix(plan, passes);
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8 && r != 11 && r != 13) {
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8 && r != 9 && r != 11 &&
+        r != 13) {
       return false;
     }
     prod *= r;
@@ -1144,15 +1174,15 @@ inline size_t loop_smem_bytes(int group, int buf_len, int frame_length, int64_t 
 // num_frames, bins) complex64 (as float2) or, with power, f32; all
 // contiguous on the current device; any frame_length (folded modulo n_fft
 // past it), bins n_fft/2 + 1 or n_fft, every frame inside the signal,
-// n_fft in [8, 16384] with L (n_fft/2 or odd n_fft) at most 8192. plan 0:
-// n_fft a power of two up to 1024 and tw the (n_fft) float2 table exp(-2
-// pi i t / n_fft) (framed_fft_kernel; points 0). Else the packed pass plan
-// of M = `points` (byte p: radix | pad << 4) and its float2 table, from
-// kernels/dft.py: _fft_plan for a 13-smooth n_fft (M = L) or
-// _bluestein_plan for any n_fft (2L - 1 <= M <= 16384); a power-of-two M
-// runs framed_fft_loop_kernel, any other framed_fft_mixed_kernel, which
-// must fit one FFT's two buffers in a CTA. Launches on `stream` without
-// synchronising; returns the launch's cudaError_t.
+// n_fft in [8, 65536]. plan 0: n_fft a power of two up to 1024 and tw the
+// (n_fft) float2 table exp(-2 pi i t / n_fft) (framed_fft_kernel; points
+// 0). Else the packed pass plan of M = `points` (byte p: radix | pad << 4)
+// and its float2 table, from kernels/dft.py: _fft_plan for a 13-smooth
+// n_fft (M = L) or _bluestein_plan for any n_fft (2L - 1 <= M <= 131072);
+// a power-of-two M to 8192 (4096 for odd n_fft) runs
+// framed_fft_loop_kernel, any other framed_fft_mixed_kernel, on a cluster
+// of up to 16 CTAs where one CTA does not hold its two buffers. Launches on
+// `stream` without synchronising; returns the launch's cudaError_t.
 extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw, void* out,
                                  int64_t channels, int64_t length, int64_t stride,
                                  int64_t frame_length, int64_t n_fft, int64_t num_frames,
@@ -1286,15 +1316,15 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     tile = step;
   }
   size_t smem = bytes(group, tile);
-  // where one FFT's buffer pair does not fit a CTA, a cluster of C = 2 or 4
-  // CTAs shares it, `part` float2 of each buffer in each CTA, one FFT of C *
-  // per_fft threads a tile of `per` frames
-  int C = 1, part = 0, G = per_fft;
+  // where one FFT's buffer pair does not fit a CTA, a cluster of C = 2, 4,
+  // 8 or 16 CTAs shares it, `part` float2 of each buffer in each CTA
+  // (whole runs, cluster_part), one FFT of C * per_fft threads a tile of
+  // `per` frames
+  int C = 1, log_c = 0, part = 0, G = per_fft;
   if (!pow2 && smem > (size_t)max_smem) {
     staged = stage_x = false;
-    for (C = 2; C <= 4; C *= 2) {
-      part = (buf_len + C - 1) / C;
-      part += part & 1;
+    for (C = 2, log_c = 1; C <= kMaxCluster; C *= 2, ++log_c) {
+      part = cluster_part(buf_len, log_c);
       if (16 * (size_t)part <= (size_t)max_smem) break;
     }
     group = 1;
@@ -1302,7 +1332,7 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     smem = 16 * (size_t)part;
     G = C * per_fft;
   }
-  if (C > 4 || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  if (C > kMaxCluster || smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
 
   const dim3 block(group * per_fft);
   // the kernel's own arguments follow the shared ones
@@ -1310,6 +1340,10 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    if (C > 8) {  // past the portable cluster size
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+    }
     for (int64_t c0 = 0; c0 < channels; c0 += kMaxGridY) {
       const int64_t nc = channels - c0 < kMaxGridY ? channels - c0 : kMaxGridY;
       const dim3 grid((unsigned)((num_frames + tile - 1) / tile * C), (unsigned)nc);
@@ -1346,28 +1380,19 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                         : (warp_sync ? framed_fft_kernel<false, true>
                                      : framed_fft_kernel<false, false>));
   }
-#define NX_MIXED_AT(POWER, ODD, BLUE, STAGED, CLUSTER)                                   \
-  launch(framed_fft_mixed_kernel<POWER, ODD, BLUE, STAGED, CLUSTER>, packed, G, buf_len, \
-         table_len, M, (int)stage_x, part)
-#define NX_MIXED(POWER, ODD, BLUE)                                                   \
-  (C == 1 ? (staged ? NX_MIXED_AT(POWER, ODD, BLUE, true, 1)                         \
-                    : NX_MIXED_AT(POWER, ODD, BLUE, false, 1))                       \
-          : C == 2 ? NX_MIXED_AT(POWER, ODD, BLUE, false, 2) : (int)cudaErrorInvalidValue)
-#define NX_MIXED4(POWER, ODD, BLUE) \
-  (C == 4 ? NX_MIXED_AT(POWER, ODD, BLUE, false, 4) : NX_MIXED(POWER, ODD, BLUE))
-  // a cluster serves Bluestein's M past 8192 and the direct odd L past 8192;
-  // only Bluestein's odd M past 16384 (L past 8192) needs four CTAs
-  if (C > 1 && !blue && !odd) return (int)cudaErrorInvalidValue;
+#define NX_MIXED_AT(POWER, ODD, BLUE, STAGED, CL)                                   \
+  launch(framed_fft_mixed_kernel<POWER, ODD, BLUE, STAGED, CL>, packed, G, buf_len, \
+         table_len, M, (int)stage_x, part, log_c)
+#define NX_MIXED(POWER, ODD, BLUE)                                                       \
+  (C > 1 ? NX_MIXED_AT(POWER, ODD, BLUE, false, true)                                    \
+         : staged ? NX_MIXED_AT(POWER, ODD, BLUE, true, false)                           \
+                  : NX_MIXED_AT(POWER, ODD, BLUE, false, false))
   if (blue) {
-    return power ? (odd ? NX_MIXED4(true, true, true) : NX_MIXED(true, false, true))
-                 : (odd ? NX_MIXED4(false, true, true) : NX_MIXED(false, false, true));
+    return power ? (odd ? NX_MIXED(true, true, true) : NX_MIXED(true, false, true))
+                 : (odd ? NX_MIXED(false, true, true) : NX_MIXED(false, false, true));
   }
-  if (odd) return power ? NX_MIXED(true, true, false) : NX_MIXED(false, true, false);
-  return power ? (staged ? NX_MIXED_AT(true, false, false, true, 1)
-                         : NX_MIXED_AT(true, false, false, false, 1))
-               : (staged ? NX_MIXED_AT(false, false, false, true, 1)
-                         : NX_MIXED_AT(false, false, false, false, 1));
-#undef NX_MIXED4
+  return power ? (odd ? NX_MIXED(true, true, false) : NX_MIXED(true, false, false))
+               : (odd ? NX_MIXED(false, true, false) : NX_MIXED(false, false, false));
 #undef NX_MIXED
 #undef NX_MIXED_AT
 }

@@ -29,9 +29,11 @@ the JAX package's modes): 'highest' is kernel A, exact f32 FMA; 'high' and
 'default' are kernel A-tc on the tensor cores, 3xTF32 (about f32 accuracy)
 and one TF32 pass (about three digits), wherever A-tc's staged window fits
 in shared memory, and kernel A elsewhere (more accurate than asked). The
-framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 16384
-and any frame length, the dense B for an n_fft below 8 or above 16384
-(`fft_kernel_takes`).
+framed DFT (kernel B) splits by n_fft: B-fft for every n_fft from 8 to 65536
+and any frame length, the dense B for an n_fft below 8 or above 65536
+(`fft_kernel_takes`). Kernels A and B take any hop: where the staged window
+of x does not fit in shared memory, the contraction streams x through its
+weight ring, in the same order of sums.
 Kernels B, B-fft and D run f32 whatever the caller's precision; C is
 bitwise equal to the plain fold.
 """
@@ -66,9 +68,9 @@ _D_SUM_ROWS = 32
 # Kernel B-fft's n_fft range, most passes and points of a plan, and kernels
 # A's and A-tc's weight layouts: bins per tile and the row multiple of their
 # weight chunks (framed_fft.cu, framed_dft.cu, framed_dft_tc.cu)
-_FFT_MIN, _FFT_MAX = 8, 16384
+_FFT_MIN, _FFT_MAX = 8, 65536
 _FFT_MAX_PASSES = 8
-_FFT_MAX_POINTS = 32768   # Bluestein's M at the longest L, 16383 (odd n_fft)
+_FFT_MAX_POINTS = 131072   # Bluestein's M at the longest L, 65535 (odd n_fft)
 # Up to this n_fft a power of two runs B-fft's first radix-8 kernel
 # (framed_fft_kernel, one CTA per tile of frames); past it the persistent
 # loop kernel (framed_fft_loop_kernel), which scripts/torch_kernel_variants.py
@@ -84,10 +86,12 @@ _SMALL_FFT_MAX = 1024
 # torch.stft at every timed length of the class, from chip_smoke.py phase 7
 # on an NVIDIA H100 80GB HBM3 at 700 W (64 x 480000, hann frame n_fft, hop
 # n_fft / 4, PERF.md section 6; B-fft / torch.stft): every power of two
-# from 1024 to 16384 0.59-0.88; 3375 0.57 but 6561 1.14 (12000 0.85, 15625
-# 1.59); Bluestein's 1031 1.19
+# from 1024 to 16384 0.60-0.88, but 32768 2.19 and 65536 2.24 (clusters of
+# 2 and 4 CTAs); 3375 0.55, 6561 0.59 (radix 9; 1.14 on radix 3) and 12000
+# 0.83, but 15625 1.50, 19683 1.42 and 20000 1.28; Bluestein's 1031 1.03
+# (4093 1.34, 32749 2.50, 65535 2.92)
 _CARD_FFT_CUT = 16384
-_CARD_SMOOTH_CUT = 3375
+_CARD_SMOOTH_CUT = 12000
 _CARD_BLUESTEIN_CUT = 1024
 _A_TILE_BINS = 64
 _A_CHUNK = 32
@@ -378,8 +382,8 @@ def _device_fft_plan(n_fft: int, device):
     n_fft and `kernels.dft._bluestein_plan` for any other, its f64 table
     cast to f32 and its points M (a power-of-two M to 8192, 4096 for odd
     n_fft, runs the persistent radix-8 loop kernel; any other the
-    mixed-radix kernel, over a cluster of CTAs where one does not hold its
-    buffers)."""
+    mixed-radix kernel, over a cluster of 2 to 16 CTAs where one does not
+    hold its buffers)."""
     if n_fft & (n_fft - 1) == 0 and n_fft <= _SMALL_FFT_MAX:
         return _fft_twiddles(n_fft, device=device), 0, 0
     plan = _fft_plan(n_fft) if _thirteen_smooth(n_fft) else _bluestein_plan(n_fft)
@@ -388,23 +392,24 @@ def _device_fft_plan(n_fft: int, device):
 
 
 def fft_kernel_takes(n_fft: int) -> bool:
-    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 16384,
+    """Whether kernel B-fft serves this n_fft: every n_fft from 8 to 65536,
     with any frame length. A power of two runs radix 8, a 13-smooth n_fft
-    such as 400, 441, 572, 600, 12000 or 15625 the mixed-radix plan, any
-    other, such as 1021, 1031, 4093, 8191, 12289 or 16382, Bluestein's
-    chirp-z transform (on power-of-two radix-8 passes, or on a 13-smooth M
-    where the power of two would nearly double it,
-    `kernels.dft._bluestein_points`); a transform whose buffers do not fit
-    one CTA (an odd n_fft past 8192, Bluestein's M past 8192) is spread over
-    a cluster of 2 or 4 CTAs. The dense kernel B serves an n_fft below 8 or
-    above 16384.
+    such as 400, 441, 572, 600, 12000, 15625, 19683 or 20000 the
+    mixed-radix plan, any other, such as 1021, 1031, 4093, 8191, 12289,
+    16382, 32749 or 65535, Bluestein's chirp-z transform (on power-of-two
+    radix-8 passes, or on a 13-smooth M where the power of two would nearly
+    double it, `kernels.dft._bluestein_points`); a transform whose buffers
+    do not fit one CTA (an L or Bluestein's M past about 14000 points) is
+    spread over a cluster of 2, 4, 8 or 16 CTAs (16 only for Bluestein's M
+    past about 116000 points, an odd n_fft past about 58000). The dense
+    kernel B serves an n_fft below 8 or above 65536.
 
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import fft_kernel_takes
-    >>> [fft_kernel_takes(n) for n in (512, 1031, 4097, 8191, 12289, 15625, 16384)]
+    >>> [fft_kernel_takes(n) for n in (512, 1031, 16384, 19683, 32749, 65535, 65536)]
     [True, True, True, True, True, True, True]
-    >>> [fft_kernel_takes(n) for n in (4, 16385)]
+    >>> [fft_kernel_takes(n) for n in (4, 65537)]
     [False, False]
     """
     return _FFT_MIN <= n_fft <= _FFT_MAX
@@ -420,8 +425,8 @@ def _card_takes_kernel(n_fft: int) -> bool:
     Examples:
 
     >>> from nx_signal_tpu_torch.kernels.cuda_dft import _card_takes_kernel
-    >>> [_card_takes_kernel(n) for n in (1021, 1031, 2048, 3375, 4093, 6561, 16384, 16385)]
-    [True, False, True, True, False, False, True, False]
+    >>> [_card_takes_kernel(n) for n in (1021, 1031, 2048, 3375, 4093, 6561, 15625, 32768)]
+    [True, False, True, True, False, True, False, False]
     """
     if n_fft & (n_fft - 1) == 0:
         cut = _CARD_FFT_CUT
@@ -462,13 +467,14 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
     DFT's period: the JAX package's frame_length-row weights). Returns
     complex64 (..., M, bins), bins = n_fft//2 + 1 (`onesided`) or n_fft, M =
     (L - frame)//stride + 1, or with `output='power'` re^2 + im^2 f32. On a
-    CUDA tensor n_fft must be from 8 to 16384 (`fft_kernel_takes`): a power
-    of two runs radix 8 (to 1024 one CTA per tile of frames, past it the
-    persistent loop kernel), a 13-smooth n_fft the mixed-radix kernel of
-    `kernels.dft._fft_plan`, any other Bluestein's transform of
-    `kernels.dft._bluestein_plan` (on the loop kernel for a power-of-two M
-    to 8192, 4096 for odd n_fft); the mixed kernel spreads a transform
-    whose two buffers do not fit one CTA over a cluster of 2 or 4 CTAs.
+    CUDA tensor n_fft must be from 8 to 65536 (`fft_kernel_takes`): a power
+    of two runs radix 8 (to 1024 one CTA per tile of frames, to 16384 the
+    persistent loop kernel, past it the mixed kernel), a 13-smooth n_fft
+    the mixed-radix kernel of `kernels.dft._fft_plan`, any other
+    Bluestein's transform of `kernels.dft._bluestein_plan` (on the loop
+    kernel for a power-of-two M to 8192, 4096 for odd n_fft); the mixed
+    kernel spreads a transform whose two buffers do not fit one CTA over a
+    cluster of 2, 4, 8 or 16 CTAs.
     Each writes the complex64 tensor directly and reads the frames and the
     window from global memory where they do not fit beside the FFT buffers.
     On a CPU tensor it returns the plain version (the dense [Re | Im]
@@ -532,7 +538,9 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
     """Kernel B (dense): the windowed framed DFT frames(x) @ W of the
     (..., L) real signal, W the (frame, 2*bins) [Re | Im] weights of
     `kernels.dft._dft_weights`, for what kernel B-fft does not take
-    (`fft_kernel_takes`): an n_fft below 8 or above 16384.
+    (`fft_kernel_takes`): an n_fft below 8 or above 65536. Any hop: where
+    16 frames' window of x does not fit beside the weight ring in shared
+    memory, the kernel streams x through the ring with the weights.
     The kernel writes the stacked f32 [Re | Im]; this returns it as
     complex64 (..., num_frames, bins), or with `output='power'` the
     kernel's re^2 + im^2. Exact f32 FMA. On a CPU tensor it returns the

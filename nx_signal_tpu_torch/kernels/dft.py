@@ -16,7 +16,7 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for every n_fft from 8 to 16384;
+  per frame (kernel B-fft) for every n_fft from 8 to 65536;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -362,11 +362,12 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     frame in shared memory: radix 8 for a power of two, mixed radix 2-13
     for a 13-smooth n_fft, Bluestein's chirp-z transform on power-of-two
     radix-8 passes for a larger prime factor; a long frame folded in its
-    load; a transform too large for one CTA spread over a cluster of CTAs)
-    for every n_fft from 8 to 16384 (`fft_kernel_takes`), and
-    `kernels.cuda_dft.framed_dft_cuda` (the dense contraction) for an
-    n_fft below 8 or above 16384. Both are hand-written kernels on a CUDA
-    tensor and the same plain conv1d version on a CPU one.
+    load; a transform too large for one CTA spread over a cluster of 2 to
+    16 CTAs) for every n_fft from 8 to 65536 (`fft_kernel_takes`), and
+    `kernels.cuda_dft.framed_dft_cuda` (the dense contraction, whose
+    (frame, 2*bins) weights pass 17 GB at a frame of n_fft past 65536) for
+    an n_fft below 8 or above 65536. Both are hand-written kernels on a
+    CUDA tensor and the same plain conv1d version on a CPU one.
 
     Examples:
 
@@ -438,13 +439,23 @@ class FftPlan(NamedTuple):
     table: np.ndarray    # (entries, 2) f64 twiddles, in the order the kernel reads them
 
 
-_ODD_RADICES = (13, 11, 7, 5, 3)
+# Radix 9 takes the 3s in pairs: every 13-smooth M up to 131072 (B-fft's
+# largest) then needs at most 8 passes (93750 = 2 * 3 * 5^6 the most), where
+# 3^9 = 19683 alone would need 9 of radix 3
+_ODD_RADICES = (13, 11, 9, 7, 5, 3)
 
 
 def _radices(points: int):
     """The Stockham radices of a 13-smooth length, in the plan's order:
-    radix 8 and a 4 or 2 for the powers of two, then 13, 11, 7, 5, 3; None
-    for a length with a larger prime factor."""
+    radix 8 and a 4 or 2 for the powers of two, then 13, 11, 9, 7, 5, 3
+    (at most one 3); None for a length with a larger prime factor.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.dft import _radices
+    >>> _radices(19683), _radices(32768), _radices(1021)
+    ([9, 9, 9, 9, 3], [8, 8, 8, 8, 8], None)
+    """
     if points < 1:
         return None
     rest, odd = points, []
@@ -504,7 +515,7 @@ def _fft_plan(n_fft: int) -> FftPlan:
     frames of odd n_fft are one complex FFT of L = n_fft points (frame m
     real, frame m+1 imaginary) and a separation. The FFT runs Stockham
     autosort passes of radix 8 and a 4 or 2 for the powers of two, then 13,
-    11, 7, 5, 3 (largest first), an order that keeps the padded buffers
+    11, 9, 7, 5, 3 (largest first), an order that keeps the padded buffers
     small. Pass p, after Ns points have been combined, takes butterfly j
     (0 <= j < L/R) from points j + r L/R, r < R, scales point r by
     exp(-2 pi i (j mod Ns) r / (Ns R)), and writes its DFT to
@@ -528,6 +539,8 @@ def _fft_plan(n_fft: int) -> FftPlan:
     (300, (4, 5, 5, 3), (1, 0, 0, 0), (571, 2))
     >>> _fft_plan(572).radices
     (2, 13, 11)
+    >>> _fft_plan(65536).radices, _fft_plan(19683).radices
+    ((8, 8, 8, 8, 8), (9, 9, 9, 9, 3))
     """
     length = _transform_length(n_fft)
     radices = _radices(length)
@@ -565,11 +578,11 @@ _SMOOTH_M_RATIO = 1.31
 
 def _bluestein_points(length: int) -> int:
     """Bluestein's M for a transform of L points: the power of two P >= 2L
-    - 1 (up to 32768; B-fft runs it on its persistent radix-8 kernel to
-    8192, 4096 for odd n_fft, and on the mixed-radix kernel past that, over
-    a cluster of CTAs past 8192), or the smallest 13-smooth S >= 2L - 1
-    (`_smooth_points`, the mixed-radix kernel) where P > `_SMOOTH_M_RATIO`
-    S.
+    - 1 (up to 131072 for L up to 65535; B-fft runs it on its persistent
+    radix-8 kernel to 8192, 4096 for odd n_fft, and on the mixed-radix
+    kernel past that, over a cluster of CTAs past about 14000 points), or
+    the smallest 13-smooth S >= 2L - 1 (`_smooth_points`, the mixed-radix
+    kernel) where P > `_SMOOTH_M_RATIO` S.
 
     Examples:
 
@@ -578,6 +591,8 @@ def _bluestein_points(length: int) -> int:
     (2048, 8192, 16384)
     >>> _bluestein_points(1031)   # P = 4096 is 1.97 S
     2079
+    >>> _bluestein_points(32749), _bluestein_points(65535)   # odd n_fft past 32767
+    (65536, 131072)
     """
     power = 1 << (2 * length - 2).bit_length()
     smooth = _smooth_points(length)

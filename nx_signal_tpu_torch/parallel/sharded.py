@@ -574,7 +574,8 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     One halo exchange (kernel E) supplies both the FIR 'same' context and
     the frame tail: pad_left = (K-1) - (K-1)//2 samples from the left
     neighbour (zeros at block 0, the single-device left pad) and frame -
-    stride + (K-1)//2 from the right. Every rank then contracts
+    stride + (K-1)//2 from the right (none where the hop is longer: the
+    block's frames then end inside it). Every rank then contracts
     [left halo | block | right halo] against the folded weights with kernel
     A (kernels/cuda_dft.py:fir_framed_dft_power_cuda, pad_left=0, at the
     caller's `precision`: kernel A-tc for 'high' and 'default') on a CUDA
@@ -611,7 +612,8 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
     block_len, frames_per_block, _, _ = _stft_frame_geometry(
         x.shape[1], frame_length, stride, n_block)
     pad_left = (k - 1) - (k - 1) // 2
-    halo_right = frame_length - stride + (k - 1) // 2
+    # none where a hop past the frame leaves the block's last frame inside it
+    halo_right = max(0, frame_length - stride + (k - 1) // 2)
     if max(pad_left, halo_right) > block_len:
         raise ValueError(
             f"chain halo (left {pad_left}, right {halo_right}) exceeds the "

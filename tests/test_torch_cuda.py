@@ -62,8 +62,9 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     """Kernels A and B against their plain versions at 1e-4 x max
     (chip_smoke.py is the check that runs them at the main path's
     shapes); framed_dft takes B-fft at n_fft 1031, 2048, 4093, 4096, 8191,
-    8192, 12289, 16382 and 16384 and at a frame longer than n_fft (400 at
-    n_fft 256), and the dense B only outside B-fft's range (4 and 16400)."""
+    8192, 12289, 16382, 16384, 16400 and 65536 and at a frame longer than
+    n_fft (400 at n_fft 256), and the dense B only outside B-fft's range (4
+    and 65537)."""
     need_cuda()
     x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32)).cuda()
     taps, window = rng.normal(size=100), hann_np(400)
@@ -79,14 +80,14 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     got = td.framed_dft(x, window, **kw)
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    for n_fft in (1031, 2048, 4093, 4096, 8191, 8192, 12289, 16382, 16384, 256):
+    for n_fft in (1031, 2048, 4093, 4096, 8191, 8192, 12289, 16382, 16384, 16400, 65536, 256):
         kw = dict(stride=150, n_fft=n_fft, onesided=True, output=output)
         before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
         got = td.framed_dft(x, window, **kw)
         assert (cuda_dft.framed_fft_cuda.launches,
                 cuda_dft.framed_dft_cuda.launches) == (before[0] + 1, before[1])
         assert_close_to_max(got.cpu(), td.framed_dft(x.cpu(), window, **kw))
-    for n_fft in (4, 16400):   # outside B-fft's range
+    for n_fft in (4, 65537):   # outside B-fft's range
         kw = dict(stride=150, n_fft=n_fft, onesided=True, output=output)
         before = (cuda_dft.framed_fft_cuda.launches, cuda_dft.framed_dft_cuda.launches)
         got = td.framed_dft(x, window, **kw)
@@ -126,8 +127,20 @@ def test_framed_dft_kernel_matches_plain_on_cuda(power, rng):
     (1, 100001, 16381, 4095, 16381, True),  # 3 * 43 * 127: M = 32768 over a cluster of 4 CTAs
     (1, 100001, 15625, 3906, 15625, False),  # 5^6, L = 15625 over a cluster of 2 CTAs
     (1, 100001, 16382, 4096, 16382, True),  # 2 * 8191: M = 16384 over a cluster
-    (1, 100001, 16384, 4096, 16384, False),  # B-fft's largest, radix 8 on 1024 threads
+    (1, 100001, 16384, 4096, 16384, False),  # radix 8 on 1024 threads
     (1, 80001, 16384, 2048, 8192, True),  # a frame of 2 x 8192, folded
+    # past 16384, a frame of 512 zero-padded (the plain weights of a full
+    # frame pass 17 GB at 65536: test_framed_fft_long_frames_on_cuda holds
+    # those against an f64 FFT)
+    (1, 100001, 512, 5000, 20000, True),    # 13-smooth, L = 10000 on one CTA
+    (1, 200001, 512, 10000, 40000, False),  # 13-smooth, L = 20000 over a cluster of 2
+    (1, 100001, 512, 4921, 19683, True),    # 3^9: radix 9, odd L over a cluster of 2
+    (2, 300001, 512, 14762, 59049, False),  # 3^10, odd L = 59049 over a cluster of 8
+    (1, 200001, 512, 8192, 32768, True),    # radix 8 on the mixed kernel, a cluster of 2
+    (1, 300001, 512, 16384, 65536, False),  # B-fft's largest: L = 32768, a cluster of 4
+    (1, 150001, 512, 8187, 32749, True),    # a prime: M = 65536 over a cluster of 8
+    (1, 300001, 512, 16383, 65534, True),   # 2 * 7 * 31 * 151: M = 65536, even n_fft
+    (2, 300001, 512, 16383, 65535, False),  # 3 * 5 * 17 * 257: M = 131072, a cluster of 16
 ])
 @pytest.mark.parametrize("output", ["complex", "power"])
 def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
@@ -145,6 +158,83 @@ def test_framed_fft_kernel_matches_plain_on_cuda(geometry, output, rng):
     assert cuda_dft.framed_fft_cuda.launches == before + 1
     assert got.dtype == (torch.float32 if output == "power" else torch.complex64)
     assert_close_per_bin(got, cuda_dft.framed_fft_cuda(x.cpu(), window, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [20000, 19683, 32749, 32768, 59049, 65534, 65535, 65536])
+def test_framed_fft_long_frames_on_cuda(n_fft, rng):
+    """Kernel B-fft past 16384 at a hann frame of n_fft and hop n_fft / 4
+    (the frames read from global memory, a cluster of CTAs) against the f64
+    torch.fft of the same f32 frames, per bin at 1e-4 of the bin's max."""
+    need_cuda()
+    hop = n_fft // 4
+    x = torch.from_numpy(rng.normal(size=(2, 6 * n_fft)).astype(np.float32)).cuda()
+    window = hann_np(n_fft)
+    before = cuda_dft.framed_fft_cuda.launches
+    got = td.framed_dft(x, window, stride=hop, n_fft=n_fft, onesided=True)
+    assert cuda_dft.framed_fft_cuda.launches == before + 1
+    frames = x.double().unfold(-1, n_fft, hop) * torch.from_numpy(window).cuda()
+    assert_close_per_bin(got, torch.fft.rfft(frames, n=n_fft))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [  # channels, length, taps, frame, hop, n_fft
+    (2, 70001, 255, 4096, 4096, 4096),   # A's window of 16 frames: 311 568 B, over the 232 448
+    (2, 60001, 255, 3072, 3072, 3072),   # 241 936 B
+    (3, 60001, 100, 1024, 3001, 1024),   # a hop past the frame, no multiple of 4
+])
+def test_a_kernel_streams_x_at_any_hop_on_cuda(geometry, rng):
+    """Kernel A where the staged window of x does not fit in shared memory
+    (it streams x through its weight ring) against its plain version per
+    bin at 1e-4, and bitwise equal to every other frame at half the hop,
+    where the window is staged: one fmaf chain per frame in increasing k
+    either way."""
+    need_cuda()
+    ch, n, k, frame, hop, n_fft = geometry
+    x = torch.from_numpy(rng.normal(size=(ch, n)).astype(np.float32)).cuda()
+    w = td.fir_dft_fold_weights(rng.normal(size=k), hann_np(frame), n_fft, True, device="cuda")
+    bins = n_fft // 2 + 1
+    args = dict(pad_left=td._same_pad_left(k), bins=bins)
+    frames = (n - frame) // hop + 1
+    got = cuda_dft.fir_framed_dft_power_cuda(x, w, stride=hop, num_frames=frames, **args)
+    assert_close_per_bin(got, td._framed_matmul_torch(x.cpu(), w.cpu(), power=True, stride=hop,
+                                                      num_frames=frames, **args))
+    if hop % 2 == 0:
+        half = cuda_dft.fir_framed_dft_power_cuda(x, w, stride=hop // 2,
+                                                  num_frames=2 * frames - 1, **args)
+        assert torch.equal(got, half[:, ::2])
+    # kernel B's wrapper on the same weights: the [Re | Im] output, no pad
+    kw = dict(stride=hop, num_frames=frames, bins=bins)
+    acc = td._framed_matmul_torch(x.cpu(), w.cpu(), pad_left=0, power=False, **kw)
+    assert_close_per_bin(cuda_dft.framed_dft_cuda(x, w, **kw),
+                         torch.complex(acc[..., :bins], acc[..., bins:]))
+
+
+@pytest.mark.cuda
+def test_stft_fir_chain_at_a_long_hop_on_cuda(rng):
+    """StftFirChain at n_fft 4096, hop 4096 (kernel A streaming x), once,
+    against its plain version per bin at 1e-4."""
+    need_cuda()
+    from nx_signal_tpu_torch.models.pipeline import StftFirChain
+
+    x = torch.from_numpy(rng.normal(size=(2, 100000)).astype(np.float32))
+    taps = tfilt.firwin(255, [2000.0], sampling_rate=48000.0, device="cpu").numpy()
+    chain = StftFirChain.from_numpy(taps, hann_np(4096), stride=4096, n_fft=4096)
+    before = cuda_dft.fir_framed_dft_power_cuda.launches
+    got = chain(x.cuda())
+    assert cuda_dft.fir_framed_dft_power_cuda.launches == before + 1
+    assert_close_per_bin(got, chain.to("cpu")(x))
+
+
+@pytest.mark.cuda
+def test_sharded_chain_at_a_long_hop_bitwise_on_cuda(tmp_path):
+    """Two ranks on cuda:0: sharded_fir_framed_dft_power at hop 4096 (kernel
+    A streaming x; no right halo where the hop passes the frame) bitwise
+    equal to the single-device chain on every rank."""
+    need_cuda()
+    from tests import torch_sharded_ranks as ranks
+
+    assert ranks.spawn(ranks.cuda_long_hop_chain_case, 2, tmp_path) == [True, True]
 
 
 @pytest.mark.cuda

@@ -120,7 +120,7 @@ FRAMED_GEOMETRIES = [  # channels, length, frame, hop, n_fft
     (2, 3000, 700, 128, 512),   # a frame longer than n_fft: folded modulo n_fft
     (1, 4000, 1500, 300, 1031),  # the same, odd n_fft on Bluestein's transform
     (1, 6000, 2048, 512, 2048),  # librosa's default n_fft
-    (1, 9000, 4093, 1024, 4093),  # a prime near B-fft's largest: Bluestein, M = 8190
+    (1, 9000, 1024, 1024, 4093),  # a prime past 4096 / 2: Bluestein (M = 8192), frame zero-padded
 ]
 
 
@@ -145,30 +145,37 @@ def test_framed_dft(geometry, onesided, output, rng):
                                           (1021, "fft"), (2048, "fft"), (4097, "fft"),
                                           (8191, "fft"), (8192, "fft"), (16382, "fft"),
                                           (16384, "fft"), (8193, "fft"), (12289, "fft"),
-                                          (16385, "dense")])
+                                          (16385, "fft"), (20000, "fft"), (32749, "fft"),
+                                          (32768, "fft"), (65536, "fft"), (65537, "dense")])
 def test_framed_dft_kernel_split(n_fft, kernel, rng):
-    """framed_dft takes kernel B-fft for every n_fft from 8 to 16384 (572,
-    1021, 2048, 4097, 8191, 8193, 12289, 16382 and 16384 included) and the
-    dense kernel B for an n_fft below 8 or above 16384; on a CPU tensor both
-    wrappers are the same plain version, so their results are equal
-    bitwise."""
+    """framed_dft takes kernel B-fft for every n_fft from 8 to 65536 (572,
+    1021, 2048, 4097, 8191, 8193, 12289, 16382, 16384, 16385, 20000, the
+    prime 32749, 32768 and 65536 included) and the dense kernel B for an
+    n_fft below 8 or above 65536; on a CPU tensor both wrappers are the
+    same plain version, so their results are equal bitwise."""
     assert cuda_dft.fft_kernel_takes(n_fft) == (kernel == "fft")
-    frame = min(n_fft, 400)
+    # past 16384 a shorter frame and fewer frames: the weights grow as n_fft
+    frame, hop = (min(n_fft, 400), 3) if n_fft <= 16384 else (128, 31)
     x = torch.from_numpy(rng.normal(size=(2, 3 * frame + 7)).astype(np.float32))
     window = hann_np(frame)
-    m = (x.shape[-1] - frame) // 3 + 1
+    m = (x.shape[-1] - frame) // hop + 1
     bins = n_fft // 2 + 1
     dense = cuda_dft.framed_dft_cuda(
-        x, torch.as_tensor(td._dft_weights(window, frame, n_fft, True, np.float32)), stride=3,
+        x, torch.as_tensor(td._dft_weights(window, frame, n_fft, True, np.float32)), stride=hop,
         num_frames=m, bins=bins)
-    assert torch.equal(cuda_dft.framed_fft_cuda(x, window, stride=3, n_fft=n_fft, onesided=True),
-                       dense)
-    assert torch.equal(td.framed_dft(x, window, stride=3, n_fft=n_fft, onesided=True), dense)
+    assert torch.equal(cuda_dft.framed_fft_cuda(x, window, stride=hop, n_fft=n_fft,
+                                                onesided=True), dense)
+    assert torch.equal(td.framed_dft(x, window, stride=hop, n_fft=n_fft, onesided=True), dense)
 
 
-# every n_fft to 1024, and past it a fixed list up to B-fft's largest
+# every n_fft to 1024, and past it a fixed list up to B-fft's largest: past
+# 16384 the 13-smooth 19683 = 3^9 (radix 9), 20000, 40000 and 59049 = 3^10,
+# the powers of two 32768 and 65536, and Bluestein's 16385, 32749 and 65534
+# (M = 65536), 40009 (an odd prime: the 13-smooth M 80080) and 65535 (M =
+# 131072)
 PAST_1024 = [1025, 1031, 1100, 1536, 2000, 2047, 2048, 2049, 2187, 3000, 4093, 4094, 4095,
-             4096, 4097, 6000, 8191, 8192, 12000, 12289, 15625, 16382, 16384]
+             4096, 4097, 6000, 8191, 8192, 12000, 12289, 15625, 16382, 16384, 16385, 19683,
+             20000, 32749, 32768, 40000, 40009, 59049, 65534, 65535, 65536]
 THIRTEEN_SMOOTH = [n for n in [*range(8, 1025), *PAST_1024] if cuda_dft._thirteen_smooth(n)]
 BLUESTEIN = [n for n in [*range(8, 1025), *PAST_1024] if not cuda_dft._thirteen_smooth(n)]
 
@@ -310,7 +317,7 @@ def test_bluestein_plan_replays_to_numpy(n_fft, rng):
     with a prime factor above 13 and those of `PAST_1024`; M is the rule's
     (`_bluestein_points`: the power of two >= 2L - 1, or the smallest
     13-smooth one where the power of two would nearly double it) and at
-    most 32768."""
+    most 131072."""
     plan = check_bluestein_replay(n_fft, None, rng)
     assert plan.points == td._bluestein_points(plan.length)
 
@@ -331,7 +338,8 @@ def test_bluestein_plan_replays_at_either_m(n_fft, points, rng):
 
 @pytest.mark.parametrize("length,points", [(17, 64), (509, 1024), (1021, 2048), (1031, 4096),
                                            (2047, 4096), (4093, 8192), (4097, 16384),
-                                           (8191, 16384), (12289, 32768)])
+                                           (8191, 16384), (12289, 32768), (16383, 32768),
+                                           (32749, 65536), (40009, 131072), (65535, 131072)])
 def test_bluestein_points_rule(length, points):
     """The M rule (`_bluestein_points`): the power of two P >= 2L - 1
     (`points`) unless P exceeds the smallest 13-smooth S >= 2L - 1
@@ -398,6 +406,29 @@ def test_fold_modulo_n_fft_replays_to_numpy_and_jax(n_fft, ratio, rng):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
     jax_z = jd.framed_dft(jnp.asarray(x), window, stride=hop, n_fft=n_fft, onesided=True)
     assert_close_to_max(got.astype(np.complex64), np.asarray(jax_z))
+
+
+def assert_close_per_bin(got, want, rel=1e-4):
+    """Each bin (last axis) within rel x that bin's max|want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).reshape(-1, want.shape[-1]).max(axis=0)
+    scale = np.abs(want).reshape(-1, want.shape[-1]).max(axis=0)
+    assert (err <= rel * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("n_fft", [20000, 32749, 32768, 65536])
+def test_framed_dft_past_16384_matches_jax(n_fft, rng):
+    """framed_dft at an n_fft past 16384 (kernel B-fft on the card, its
+    plain version here) against the JAX package's framed_dft: a hann frame
+    of 256 zero-padded to n_fft, 2 channels, per bin at 1e-4 of the bin's
+    max."""
+    x = rng.normal(size=(2, 1280)).astype(np.float32)
+    window = hann_np(256)
+    kw = dict(stride=256, n_fft=n_fft, onesided=True)
+    want = jd.framed_dft(jnp.asarray(x), window, **kw)
+    got = td.framed_dft(torch.from_numpy(x), torch.from_numpy(window), **kw)
+    assert_close_per_bin(got, np.asarray(want).astype(np.complex64))
 
 
 @pytest.mark.parametrize("budget_gib", [40, 10, 3])
@@ -470,7 +501,8 @@ def test_cpu_routes_keep_the_jax_cut(route, n_fft, monkeypatch, rng):
 
 
 @pytest.mark.parametrize("n_fft", [8, 600, 1021, 1024, 1031, 2048, 4093, 4094, 4096, 8191,
-                                   8192, 12000, 15625, 16382, 16384, 16385, 3375, 6000, 6561])
+                                   8192, 12000, 15625, 16382, 16384, 16385, 3375, 6000, 6561,
+                                   19683, 20000, 32749, 32768, 65535, 65536, 65537])
 def test_card_cut_by_length_class(n_fft):
     """The card's route rule (`_card_takes_kernel`, which `_auto_takes_kernel`
     applies to a CUDA float32 signal): B-fft wherever it takes the n_fft, up

@@ -80,6 +80,22 @@ def test_stft_paths_match_jax(frame, overlap, fft_length, method, complex_input,
     assert_close_to_max(got.z, np.asarray(want.z).astype(np.complex64))
 
 
+@pytest.mark.parametrize("fft_length", [20000, 32749, 32768, 65536])
+def test_stft_matmul_past_16384_matches_jax(fft_length, rng):
+    """stft(method='matmul') at an fft_length past 16384 (kernel B-fft on the
+    card, its plain version here): a hann frame of 256 zero-padded, 2
+    channels, against the JAX package per bin at 1e-4 of the bin's max."""
+    x = rng.normal(size=(2, 1024)).astype(np.float32)
+    window = hann_np(256)
+    kw = dict(sampling_rate=1000.0, overlap_length=0, fft_length=fft_length, method="matmul")
+    want = np.asarray(js.stft(jnp.asarray(x), window, **kw).z).astype(np.complex64)
+    got = ts.stft(torch.from_numpy(x), window, **kw).z.numpy()
+    assert got.shape == want.shape
+    err = np.abs(got - want).reshape(-1, want.shape[-1]).max(axis=0)
+    scale = np.abs(want).reshape(-1, want.shape[-1]).max(axis=0)
+    assert (err <= 1e-4 * scale).all(), float((err / scale).max())
+
+
 @pytest.mark.parametrize("onesided", [True, False])
 @pytest.mark.parametrize("scaling", [None, "psd"])
 @pytest.mark.parametrize("method", ["auto", "fft"])

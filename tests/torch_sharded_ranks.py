@@ -25,9 +25,10 @@ CONV_SHAPES = [(4096, 255), (4096, 256), (1000, 31), (4099, 17)]  # tests/test_s
 CONV_CASES = [(mesh, length, k, method) for mesh in MESHES for length, k in CONV_SHAPES
               for method in ("conv", "direct")]
 # channels, length, taps, frame, hop, n_fft: the bench chain cut to size
-# (block 2048, a multiple of the hop), and a ragged one
+# (block 2048, a multiple of the hop), a ragged one, and a hop of 4096 past
+# the frame (no right halo)
 CHAIN_CASES = [((1, 4), (4, 8192, 255, 512, 128, 512)), ((2, 2), (4, 8192, 255, 512, 128, 512)),
-               ((2, 2), (2, 6000, 100, 400, 150, 512))]
+               ((2, 2), (2, 6000, 100, 400, 150, 512)), ((1, 4), (2, 65536, 255, 1024, 4096, 1024))]
 # mesh, channels, length, frame, overlap, onesided (61 frames: padded to 64
 # on 4 blocks; 4099 samples: a padded block)
 STFT_CASES = [((1, 4), 4, 4096, 256, 192, True), ((2, 2), 4, 4096, 256, 192, False),
@@ -431,6 +432,43 @@ def cuda_welch_case(rank, store_path, out_path):
     _, want = welch(x, **kw)
     err = float((p - want).abs().max())
     verdict = counts == (1, 2) and err <= 1e-5 * float(want.abs().max())
+    cuda_halo.close_halo_buffers()
+    every = [None] * 2
+    dist.all_gather_object(every, verdict)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(every, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def cuda_long_hop_chain_case(rank, store_path, out_path):
+    """Two ranks on cuda:0: sharded_fir_framed_dft_power at hop 4096 past
+    the frame (hann 1024, 255 taps: kernel A streams x) launches A and E
+    once each and is bitwise the single-device chain's frames; rank 0
+    pickles the verdicts."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.kernels.dft import fir_framed_dft
+    from nx_signal_tpu_torch.ops.filters import firwin
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh, mesh_coordinate
+    from nx_signal_tpu_torch.parallel.sharded import sharded_fir_framed_dft_power
+
+    _init(rank, 2, store_path)
+    mesh = make_dsp_mesh(1, 2)
+    x = torch.from_numpy(signal(15, (3, 65536 + 1000))).to("cuda:0")
+    taps = firwin(255, [2000.0], sampling_rate=48000.0, device="cpu")
+    window = hann(1024, device="cpu")
+    kw = dict(stride=4096, n_fft=1024)
+    before = (cuda_dft.fir_framed_dft_power_cuda.launches, cuda_halo.halo_extend_cuda.launches)
+    p = sharded_fir_framed_dft_power(x, taps, window, mesh=mesh, **kw)
+    counts = (cuda_dft.fir_framed_dft_power_cuda.launches - before[0],
+              cuda_halo.halo_extend_cuda.launches - before[1])
+    single = fir_framed_dft(x, taps.numpy(), window.numpy(), onesided=True, output="power", **kw)
+    _, b = mesh_coordinate(mesh)
+    f0 = b * p.shape[1]
+    f1 = min(f0 + p.shape[1], single.shape[1])
+    verdict = counts == (1, 1) and f1 > f0 and torch.equal(p[:, :f1 - f0], single[:, f0:f1])
     cuda_halo.close_halo_buffers()
     every = [None] * 2
     dist.all_gather_object(every, verdict)
