@@ -52,6 +52,7 @@ from nx_signal_tpu_torch.kernels.dft import (
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_fft_cuda",
            "framed_dft_cuda", "overlap_add_cuda", "fir_framed_dft_power_shared_cuda",
@@ -284,23 +285,24 @@ def _tc_weights(weights, bins: int, passes: int):
     column group of 8, column, row). Returns them, f32 (tiles, stages,
     kStageBytes / 4) on the weights' device, and whether they are packed
     (`_a_packs`, one sync)."""
-    packed = _a_packs(weights, bins)
-    cols = torch.as_tensor(_tc_columns(bins, packed), device=weights.device)
-    krows = weights.shape[0]
-    krows_pad = _tc_krows_pad(krows)
-    w = torch.nn.functional.pad(weights.to(DEFAULT_FLOAT),
-                                (0, 1, 0, krows_pad - krows))   # column -1: zeros
-    tiled = w[:, cols].permute(1, 0, 2)                         # (tiles, krows_pad, 128)
-    tiles = tiled.shape[0]
-    rows = _TC_CHUNK if passes == 1 else _TC_CHUNK // 2
+    with span("nx.weights.a_tc"):
+        packed = _a_packs(weights, bins)
+        cols = torch.as_tensor(_tc_columns(bins, packed), device=weights.device)
+        krows = weights.shape[0]
+        krows_pad = _tc_krows_pad(krows)
+        w = torch.nn.functional.pad(weights.to(DEFAULT_FLOAT),
+                                    (0, 1, 0, krows_pad - krows))   # column -1: zeros
+        tiled = w[:, cols].permute(1, 0, 2)                         # (tiles, krows_pad, 128)
+        tiles = tiled.shape[0]
+        rows = _TC_CHUNK if passes == 1 else _TC_CHUNK // 2
 
-    def image(part):   # k = ((stage*steps + step)*2 + half)*4 + kk, n = group*8 + col
-        return part.reshape(tiles, krows_pad // rows, rows // 8, 2, 4, 16, 8).permute(
-            0, 1, 2, 3, 5, 6, 4)
+        def image(part):   # k = ((stage*steps + step)*2 + half)*4 + kk, n = group*8 + col
+            return part.reshape(tiles, krows_pad // rows, rows // 8, 2, 4, 16, 8).permute(
+                0, 1, 2, 3, 5, 6, 4)
 
-    hi, lo = _tf32_split(tiled)
-    laid = image(hi) if passes == 1 else torch.stack([image(hi), image(lo)], dim=2)
-    return laid.reshape(tiles, krows_pad // rows, -1).contiguous(), packed
+        hi, lo = _tf32_split(tiled)
+        laid = image(hi) if passes == 1 else torch.stack([image(hi), image(lo)], dim=2)
+        return laid.reshape(tiles, krows_pad // rows, -1).contiguous(), packed
 
 
 def fir_framed_dft_power_tc_cuda(x, weights, *, stride: int, pad_left: int,

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from nx_signal_tpu_torch.spectral.framing import _frame_block_widths
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights",
            "good_matmul_fft_length", "blocked_frame_matmul", "toeplitz_band",
@@ -699,18 +700,22 @@ def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
     z = as_signal(z)
     if not z.is_complex():
         z = z.to(torch.complex64)
-    window = _host_f64(window)
-    frame_length = window.shape[-1]
+    # the window's copy to the host, the numpy weights and their copy back
+    # in one span, before the product's, so that a trace splits the two
+    with span("nx.weights.idft"):
+        window = _host_f64(window)
+        frame_length = window.shape[-1]
+        weights = torch.as_tensor(
+            _idft_weights(window, frame_length, n_fft, onesided, np.float32), device=z.device)
     # mirror (i)fft length semantics: pad/truncate the bin axis
     bins = n_fft // 2 + 1 if onesided else n_fft
-    re, im = z.real.to(DEFAULT_FLOAT), z.imag.to(DEFAULT_FLOAT)
-    if z.shape[-1] != bins:
-        re = F.pad(re, (0, bins - z.shape[-1]))
-        im = F.pad(im, (0, bins - z.shape[-1]))
-    weights = torch.as_tensor(
-        _idft_weights(window, frame_length, n_fft, onesided, np.float32), device=z.device)
-    with _exact_f32():
-        out = torch.matmul(torch.cat([re, im], dim=-1), weights)
+    with span("nx.idft.product"):
+        re, im = z.real.to(DEFAULT_FLOAT), z.imag.to(DEFAULT_FLOAT)
+        if z.shape[-1] != bins:
+            re = F.pad(re, (0, bins - z.shape[-1]))
+            im = F.pad(im, (0, bins - z.shape[-1]))
+        with _exact_f32():
+            out = torch.matmul(torch.cat([re, im], dim=-1), weights)
     if onesided:
         return out
     return torch.complex(out[..., :frame_length], out[..., frame_length:])

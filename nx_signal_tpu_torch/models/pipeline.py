@@ -51,6 +51,7 @@ from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
 from nx_signal_tpu_torch.spectral.stft import stft
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
            "LogMelFrontend", "WidebandReceiver", "channelize_power_stream"]
@@ -190,36 +191,38 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
     >>> y.shape, p.shape
     (torch.Size([2, 4096]), torch.Size([2, 61, 129]))
     """
-    x = as_signal(x)
-    taps = torch.as_tensor(taps, device=x.device)
-    window = torch.as_tensor(window, device=x.device)
-    n_fft = fft_length
-    frame_length = window.shape[-1]
-    stride = frame_length - overlap_length
-    fused_ok = (not x.is_complex() and good_matmul_fft_length(n_fft)
-                and n_fft >= frame_length)
-    if not return_filtered and fused_ok:
-        return fir_framed_dft(x, taps.reshape(-1), window, stride=stride, n_fft=n_fft,
-                              onesided=onesided, precision=precision, output="power",
-                              frame_chunks=frame_chunks)
+    with span("nx.stft_fir_chain"):
+        x = as_signal(x)
+        taps = torch.as_tensor(taps, device=x.device)
+        window = torch.as_tensor(window, device=x.device)
+        n_fft = fft_length
+        frame_length = window.shape[-1]
+        stride = frame_length - overlap_length
+        fused_ok = (not x.is_complex() and good_matmul_fft_length(n_fft)
+                    and n_fft >= frame_length)
+        if not return_filtered and fused_ok:
+            return fir_framed_dft(x, taps.reshape(-1), window, stride=stride, n_fft=n_fft,
+                                  onesided=onesided, precision=precision, output="power",
+                                  frame_chunks=frame_chunks)
 
-    taps_b = taps.reshape((1,) * (x.ndim - 1) + (-1,)) if x.ndim > 1 else taps
-    if fir_method == "oa":
-        y = oaconvolve(x, taps_b, mode="same")
-    else:
-        y = convolve(x, taps_b, mode="same", method=fir_method)
-    if not y.is_complex() and n_fft >= frame_length and _auto_takes_kernel(y, n_fft):
-        # power straight from the framed DFT ('valid' framing, the stft
-        # default)
-        power = framed_dft(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
-                           precision=precision, output="power")
-    else:
-        z = stft(y, window, sampling_rate=sampling_rate, fft_length=fft_length,
-                 overlap_length=overlap_length, onesided=onesided, precision=precision).z
-        power = z.abs() ** 2
-    if not return_filtered:
-        return power
-    return y, power
+        with span("nx.fir"):
+            taps_b = taps.reshape((1,) * (x.ndim - 1) + (-1,)) if x.ndim > 1 else taps
+            if fir_method == "oa":
+                y = oaconvolve(x, taps_b, mode="same")
+            else:
+                y = convolve(x, taps_b, mode="same", method=fir_method)
+        if not y.is_complex() and n_fft >= frame_length and _auto_takes_kernel(y, n_fft):
+            # power straight from the framed DFT ('valid' framing, the stft
+            # default)
+            power = framed_dft(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                               precision=precision, output="power")
+        else:
+            z = stft(y, window, sampling_rate=sampling_rate, fft_length=fft_length,
+                     overlap_length=overlap_length, onesided=onesided, precision=precision).z
+            power = z.abs() ** 2
+        if not return_filtered:
+            return power
+        return y, power
 
 
 class StftFirChain(nn.Module):
@@ -278,16 +281,17 @@ class StftFirChain(nn.Module):
                    frame_length=window.shape[-1], n_fft=n_fft, precision=precision)
 
     def forward(self, x):
-        x = as_signal(x)
-        if x.is_complex():
-            raise ValueError("StftFirChain needs a real signal")
-        if x.shape[-1] < self.frame_length:
-            raise ValueError(f"window length {self.frame_length} exceeds signal "
-                             f"length {x.shape[-1]}")
-        num_frames = (x.shape[-1] - self.frame_length) // self.stride + 1
-        return fir_framed_dft_power_cuda(x, self.weights, stride=self.stride,
-                                         pad_left=self.pad_left, num_frames=num_frames,
-                                         bins=self.bins, precision=self.precision)
+        with span("nx.chain"):
+            x = as_signal(x)
+            if x.is_complex():
+                raise ValueError("StftFirChain needs a real signal")
+            if x.shape[-1] < self.frame_length:
+                raise ValueError(f"window length {self.frame_length} exceeds signal "
+                                 f"length {x.shape[-1]}")
+            num_frames = (x.shape[-1] - self.frame_length) // self.stride + 1
+            return fir_framed_dft_power_cuda(x, self.weights, stride=self.stride,
+                                             pad_left=self.pad_left, num_frames=num_frames,
+                                             bins=self.bins, precision=self.precision)
 
 
 @dataclass(frozen=True)

@@ -70,6 +70,7 @@ from nx_signal_tpu_torch.spectral.stft import (
     fft_frequencies,
 )
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["sharded_convolve_same", "sharded_fir_framed_dft_power", "sharded_oaconvolve_same",
            "sharded_stft", "sharded_istft", "sharded_pfb_analyze", "sharded_sosfilt",
@@ -619,7 +620,8 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int, n_fft: i
             f"chain halo (left {pad_left}, right {halo_right}) exceeds the "
             f"per-device block ({block_len}); use fewer blocks, a shorter "
             "filter, or a larger hop")
-    weights = fir_dft_fold_weights(taps, window, n_fft, onesided, device=device)
+    with span("nx.weights.fold"):
+        weights = fir_dft_fold_weights(taps, window, n_fft, onesided, device=device)
     x_blk = _local_shard(x, mesh, block_len, -1, device).to(DEFAULT_FLOAT)
     ext = halo_extend_cuda(x_blk, pad_left, halo_right, mesh=mesh)
     out = fir_framed_dft_power_cuda(ext, weights, stride=stride, pad_left=0,

@@ -24,6 +24,7 @@ from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for_windowing
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 from nx_signal_tpu_torch.utils.shapes import next_power_of_two
 
 __all__ = ["stft", "istft", "fft_frequencies", "STFTResult", "check_cola", "check_nola",
@@ -122,62 +123,63 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     >>> z.shape, float(freqs[16]), int(z[0].abs().argmax())
     (torch.Size([11, 64]), 100.0, 16)
     """
-    data = as_signal(data)
-    window = torch.as_tensor(window, device=data.device)
-    (frame_length,) = window.shape
-    if overlap_length is None:
-        overlap_length = frame_length // 2
-    if sampling_rate is None:
-        raise ValueError("missing sampling_rate option")
-    n_fft = _resolve_fft_length(frame_length, fft_length)
-    if not 0 <= overlap_length < frame_length:
-        raise ValueError(
-            "overlap_length must satisfy 0 <= overlap_length < frame_length "
-            f"(got overlap {overlap_length} for frame {frame_length})"
-        )
-    stride = frame_length - overlap_length
-
-    if method not in ("auto", "fft", "matmul"):
-        raise ValueError(
-            f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
-        )
-    real_input = not data.is_complex()
-    use_matmul = method == "matmul" or (
-        method == "auto" and real_input and _auto_takes_kernel(data, n_fft)
-        and n_fft >= frame_length  # the contraction zero-pads; it cannot truncate
-    )
-    if use_matmul and not real_input:
-        raise ValueError("method='matmul' requires real input")
-    if use_matmul and n_fft < frame_length:
-        raise ValueError(
-            "method='matmul' requires fft_length >= frame_length "
-            f"(got {n_fft} < {frame_length}); use method='fft'"
-        )
-
-    if use_matmul:
-        padded = pad_for_windowing(data, frame_length, window_padding)
-        if padded.shape[-1] < frame_length:
+    with span("nx.stft"):
+        data = as_signal(data)
+        window = torch.as_tensor(window, device=data.device)
+        (frame_length,) = window.shape
+        if overlap_length is None:
+            overlap_length = frame_length // 2
+        if sampling_rate is None:
+            raise ValueError("missing sampling_rate option")
+        n_fft = _resolve_fft_length(frame_length, fft_length)
+        if not 0 <= overlap_length < frame_length:
             raise ValueError(
-                f"window length {frame_length} exceeds padded signal length "
-                f"{padded.shape[-1]}"
+                "overlap_length must satisfy 0 <= overlap_length < frame_length "
+                f"(got overlap {overlap_length} for frame {frame_length})"
             )
-        spectrum = framed_dft(padded, window, stride=stride, n_fft=n_fft,
-                              onesided=onesided, precision=precision)
-    else:
-        frames = as_windowed(data, window_length=frame_length, stride=stride,
-                             padding=window_padding)
-        fft = torch.fft.rfft if onesided else torch.fft.fft
-        spectrum = fft(frames * window, n=n_fft, dim=-1)
-    num_frames = spectrum.shape[-2]
+        stride = frame_length - overlap_length
 
-    frequencies = fft_frequencies(sampling_rate, fft_length=n_fft, device=data.device)
-    if onesided:
-        frequencies = frequencies[: n_fft // 2 + 1]
-    time_step = frame_length / (2.0 * sampling_rate)
-    times = torch.linspace(time_step, time_step * num_frames, num_frames,
-                           dtype=DEFAULT_FLOAT, device=data.device)
-    spectrum = _apply_scaling(spectrum, window, scaling, sampling_rate, inverse=False)
-    return STFTResult(spectrum, times, frequencies)
+        if method not in ("auto", "fft", "matmul"):
+            raise ValueError(
+                f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
+            )
+        real_input = not data.is_complex()
+        use_matmul = method == "matmul" or (
+            method == "auto" and real_input and _auto_takes_kernel(data, n_fft)
+            and n_fft >= frame_length  # the contraction zero-pads; it cannot truncate
+        )
+        if use_matmul and not real_input:
+            raise ValueError("method='matmul' requires real input")
+        if use_matmul and n_fft < frame_length:
+            raise ValueError(
+                "method='matmul' requires fft_length >= frame_length "
+                f"(got {n_fft} < {frame_length}); use method='fft'"
+            )
+
+        if use_matmul:
+            padded = pad_for_windowing(data, frame_length, window_padding)
+            if padded.shape[-1] < frame_length:
+                raise ValueError(
+                    f"window length {frame_length} exceeds padded signal length "
+                    f"{padded.shape[-1]}"
+                )
+            spectrum = framed_dft(padded, window, stride=stride, n_fft=n_fft,
+                                  onesided=onesided, precision=precision)
+        else:
+            frames = as_windowed(data, window_length=frame_length, stride=stride,
+                                 padding=window_padding)
+            fft = torch.fft.rfft if onesided else torch.fft.fft
+            spectrum = fft(frames * window, n=n_fft, dim=-1)
+        num_frames = spectrum.shape[-2]
+
+        frequencies = fft_frequencies(sampling_rate, fft_length=n_fft, device=data.device)
+        if onesided:
+            frequencies = frequencies[: n_fft // 2 + 1]
+        time_step = frame_length / (2.0 * sampling_rate)
+        times = torch.linspace(time_step, time_step * num_frames, num_frames,
+                               dtype=DEFAULT_FLOAT, device=data.device)
+        spectrum = _apply_scaling(spectrum, window, scaling, sampling_rate, inverse=False)
+        return STFTResult(spectrum, times, frequencies)
 
 
 def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
@@ -202,47 +204,48 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     >>> bool((y.real[16:-16] - x[16:y.shape[-1] - 16]).abs().max() < 1e-6)
     True
     """
-    z = as_signal(z)
-    window = torch.as_tensor(window, device=z.device)
-    if onesided and fft_length is None:
-        n_fft = 2 * (z.shape[-1] - 1)
-    else:
-        n_fft = _resolve_fft_length(z.shape[-1], fft_length)
-    if overlap_length is None:
-        overlap_length = window.shape[-1] // 2
-    if method not in ("auto", "fft", "matmul"):
-        raise ValueError(
-            f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
+    with span("nx.istft"):
+        z = as_signal(z)
+        window = torch.as_tensor(window, device=z.device)
+        if onesided and fft_length is None:
+            n_fft = 2 * (z.shape[-1] - 1)
+        else:
+            n_fft = _resolve_fft_length(z.shape[-1], fft_length)
+        if overlap_length is None:
+            overlap_length = window.shape[-1] // 2
+        if method not in ("auto", "fft", "matmul"):
+            raise ValueError(
+                f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
+            )
+        use_matmul = method == "matmul" or (
+            method == "auto" and good_matmul_fft_length(n_fft)
+            and window.shape[-1] == n_fft  # the fft path broadcasts the window
         )
-    use_matmul = method == "matmul" or (
-        method == "auto" and good_matmul_fft_length(n_fft)
-        and window.shape[-1] == n_fft  # the fft path broadcasts the window
-    )
 
-    if use_matmul:
-        # scaling is a scalar multiply and commutes with the linear transform
-        windowed = framed_idft(z, window, n_fft=n_fft, onesided=onesided,
-                               precision=precision)
-        windowed = _apply_scaling(windowed, window, scaling, sampling_rate, inverse=True)
-    else:
-        ifft = torch.fft.irfft if onesided else torch.fft.ifft
-        frames = ifft(z, n=n_fft, dim=-1)
-        frames = _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
-        windowed = frames * window
-    num_frames, frame_length = windowed.shape[-2], windowed.shape[-1]
-    if overlap_length >= frame_length:
-        raise ValueError(
-            f"overlap_length must be a number less than the window size {frame_length}, "
-            f"got: {overlap_length}"
-        )
-    stride = frame_length - overlap_length
-    out_length = num_frames * stride + overlap_length
+        if use_matmul:
+            # scaling is a scalar multiply and commutes with the linear transform
+            windowed = framed_idft(z, window, n_fft=n_fft, onesided=onesided,
+                                   precision=precision)
+            windowed = _apply_scaling(windowed, window, scaling, sampling_rate, inverse=True)
+        else:
+            ifft = torch.fft.irfft if onesided else torch.fft.ifft
+            frames = ifft(z, n=n_fft, dim=-1)
+            frames = _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
+            windowed = frames * window
+        num_frames, frame_length = windowed.shape[-2], windowed.shape[-1]
+        if overlap_length >= frame_length:
+            raise ValueError(
+                f"overlap_length must be a number less than the window size {frame_length}, "
+                f"got: {overlap_length}"
+            )
+        stride = frame_length - overlap_length
+        out_length = num_frames * stride + overlap_length
 
-    result = _ola_fold(windowed, stride, out_length)
-    envelope = (window.abs().to(DEFAULT_FLOAT) ** 2).expand(num_frames, frame_length)
-    norm = _ola_fold(envelope, stride, out_length)
-    norm = torch.where(norm > 1e-10, norm, torch.ones((), dtype=norm.dtype, device=norm.device))
-    return result / norm
+        result = _ola_fold(windowed, stride, out_length)
+        envelope = (window.abs().to(DEFAULT_FLOAT) ** 2).expand(num_frames, frame_length)
+        norm = _ola_fold(envelope, stride, out_length)
+        norm = torch.where(norm > 1e-10, norm, torch.ones((), dtype=norm.dtype, device=norm.device))
+        return result / norm
 
 
 def _check_window_arg(window, nperseg: int):

@@ -1,7 +1,8 @@
 """Performance measurement and roofline accounting (counterpart of
 nx_signal_tpu/utils/profiling.py) on PyTorch: CUDA events and
 torch.cuda.synchronize on a card, the host clock on the CPU, and
-torch.profiler traces.
+torch.profiler traces, in which the port's own spans (`span`) name its
+parts.
 
 The JAX package's scalar-fetch barrier (a workaround for a remote-attached
 TPU backend) and its TPU bandwidth table have no counterpart here: a
@@ -235,3 +236,31 @@ def trace(path: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(path, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the port's own (`nx.chain`, `nx.weights.a_tc`, ...)
+    for the profiler's trace: while torch.profiler records, a
+    `torch.profiler.record_function(name)`, which the Chrome trace shows as
+    a `user_annotation` event on the same clock as the card's kernels; with
+    no profiler, one shared null context, so a span costs about a
+    microsecond and makes no RecordFunction.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.utils.profiling import span
+    >>> span("nx.example") is span("nx.other")   # no profiler: the shared null context
+    True
+    >>> with torch.profiler.profile() as prof:
+    ...     with span("nx.example"):
+    ...         _ = torch.ones(4) * 2.0
+    >>> any(e.name == "nx.example" for e in prof.events())
+    True
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
