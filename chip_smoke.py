@@ -45,8 +45,9 @@ Phases (any failure raises, and the exit code is not 0):
      zero-padded and at a hann frame of n_fft against the f64 torch.fft of
      the same frames; the dense B at 4 (64 channels, B-fft's range starts
      at 8) and, called directly, at 16400 (8 channels, hop 4100, where it
-     streams x); C
-     (overlap-add) on the
+     streams x); B-ifft (framed_idft on the card) on the (64, 3747, 257)
+     spectrum against its plain version (the dense weights product) at
+     1e-5 of the max; C (overlap-add) on the
      (64, 3747, 512) frames of framed_idft, bitwise, and on complex64
      frames with a complex seed through spectral.framing._ola_fold (C once
      per part: two launches), bitwise the plain per-part fold; B-fft, complex and
@@ -78,7 +79,7 @@ Phases (any failure raises, and the exit code is not 0):
      StftFirChain, exact f32 (kernel A), each held on two channels against
      the f64 numpy reference, per bin.
   4. stft -> istft (onesided, hann 512, overlap 384) on 64 x 480000 through
-     the public functions (B-fft, C); interior reconstruction error <= 1e-5
+     the public functions (B-fft, B-ifft, C); interior reconstruction error <= 1e-5
      x max|x|; then istft(onesided=False) of the two-sided spectrum (C
      exactly three times: the real and imaginary parts of the complex64
      frames and the envelope), the same gate, and its fold bitwise the plain
@@ -186,7 +187,7 @@ Phases (any failure raises, and the exit code is not 0):
      precision, the kernel and E launched once per rank, and at hann 1024,
      hop 4096 (no right halo; kernel A streams x) bitwise equal to the
      single-device fir_framed_dft; sharded_stft ->
-     sharded_istft at 64 x 480000 on (1, 4), B-fft, C and E launched, the
+     sharded_istft at 64 x 480000 on (1, 4), B-fft, B-ifft, C and E launched, the
      interior within 1e-5 x
      max|x|, and the seeded sharded overlap-add bitwise equal to the
      single-device fold; sharded_welch at 64 x 480000 on (1, 4) (hann 512,
@@ -706,8 +707,9 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
 
     A, A_tc = cuda_dft.fir_framed_dft_power_cuda, cuda_dft.fir_framed_dft_power_tc_cuda
     B_fft, B = cuda_dft.framed_fft_cuda, cuda_dft.framed_dft_cuda
+    B_ifft = cuda_dft.framed_ifft_cuda
     C, E = cuda_dft.overlap_add_cuda, cuda_halo.halo_extend_cuda
-    kernels = (A, A_tc, B_fft, B, C, E)
+    kernels = (A, A_tc, B_fft, B_ifft, B, C, E)
     report = {"rank": rank, "launches": {k.__name__: 0 for k in kernels},
               "block": mesh_coordinate(mesh14)[1],
               "block_range": multihost.process_block_range(sizes["length"], mesh14)}
@@ -819,8 +821,8 @@ def _phase8_rank(rank, world, tmp, device_type, sizes, address):
         out["z"] = gather_blocks(z, mesh=mesh14, length=num_frames, axis=-2)
         out["y"] = sharded_istft(out["z"], win_t, mesh=mesh14, **kw)
 
-    run_path(f"sharded_stft -> sharded_istft (1, 4) {small}x{length}", {B_fft: 1, C: 4, E: 1},
-             round_trip)
+    run_path(f"sharded_stft -> sharded_istft (1, 4) {small}x{length}",
+             {B_fft: 1, B_ifft: 1, C: 4, E: 1}, round_trip)
     z, y = out.pop("z"), out.pop("y")
     overlap = frame - hop
     own = -(-num_frames // world) * hop
@@ -2479,7 +2481,8 @@ def main() -> int:
     from nx_signal_tpu_torch.kernels._build import library_path, load_library, ptxas_log_path
     from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
     from nx_signal_tpu_torch.kernels.dft import (
-        _dft_weights, _framed_matmul_tf32_torch, _framed_matmul_torch, _same_pad_left,
+        _dft_weights, _framed_idft_torch, _framed_matmul_tf32_torch, _framed_matmul_torch,
+        _same_pad_left,
         _shared_power_torch, fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared,
         framed_dft, framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
     from nx_signal_tpu_torch.models.pipeline import (
@@ -2494,10 +2497,11 @@ def main() -> int:
     A = cuda_dft.fir_framed_dft_power_cuda
     A_tc = cuda_dft.fir_framed_dft_power_tc_cuda
     B_fft = cuda_dft.framed_fft_cuda
+    B_ifft = cuda_dft.framed_ifft_cuda
     B = cuda_dft.framed_dft_cuda
     C = cuda_dft.overlap_add_cuda
     D = cuda_dft.fir_framed_dft_power_shared_cuda
-    kernels = (A, A_tc, B_fft, B, C, D)
+    kernels = (A, A_tc, B_fft, B_ifft, B, C, D)
 
     # ---------------------------------------------------------------- 1
     t_build = time.perf_counter()
@@ -2736,7 +2740,17 @@ def main() -> int:
                                            output="power"), want_p)
         del want_z, want_p
 
+    # framed_idft on the card: kernel B-ifft, against its plain version (the
+    # dense weights product) at 1e-5 of the frames' max
     frames = framed_idft(z_plain, window, n_fft=n_fft, onesided=True)
+    want_frames = _framed_idft_torch(z_plain, window, n_fft=n_fft, onesided=True)
+    err_ifft = _max_err(frames, want_frames)
+    top = float(want_frames.abs().max())
+    print(f"  B-ifft {tuple(frames.shape)}: max|d| = {err_ifft:.6g} (gate 1e-5 x {top:.6g})",
+          flush=True)
+    if not err_ifft <= 1e-5 * top:
+        raise AssertionError(f"B-ifft error {err_ifft} > 1e-5 x {top}")
+    del want_frames
     out_length = num_frames * hop + (frame - hop)
     err_c = _check_bitwise(f"C {tuple(frames.shape)}",
                            C(frames, stride=hop, out_length=out_length),
@@ -2919,7 +2933,7 @@ def main() -> int:
                          onesided=True, sampling_rate=rate)
         torch.cuda.synchronize()
 
-    counts = _run_path("the round trip", kernels, (B_fft, C), round_trip)
+    counts = _run_path("the round trip", kernels, (B_fft, B_ifft, C), round_trip)
     launches = {name: launches[name] + counts[name] for name in launches}
     y = out.pop("y")
     if tuple(y.shape) != (64, out_length) or not bool(torch.isfinite(y).all()):

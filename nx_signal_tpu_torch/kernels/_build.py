@@ -38,6 +38,9 @@ _SIGNATURES = {
     # length, 0 for a power of two), power, stream (all on the current
     # device)
     "nx_framed_fft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # z, win, tw, out, frames, zbins, frame_length, n_fft, stream (kernel
+    # B-ifft, all on the current device)
+    "nx_framed_ifft_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # stride, krows_pad, address of the int64 frames-per-CTA it sets
     "nx_framed_dft_tc_frames": (_I, _I, _P),
     # x, laid-out split weights, out, channels, length, stride, krows_pad,

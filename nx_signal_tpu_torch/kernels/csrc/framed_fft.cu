@@ -1,6 +1,7 @@
 // Hopper kernel B-fft: the windowed framed DFT as one FFT per frame in
 // shared memory (of one CTA, or of a thread-block cluster of 2 to 16 CTAs),
-// for every n_fft from 8 to 65536 and any frame length.
+// for every n_fft from 8 to 65536 and any frame length; and its inverse for
+// a power-of-two n_fft to 1024, kernel B-ifft (described below).
 //
 // Replaces (TPU kernel of the JAX package):
 //   nx_signal_tpu/kernels/pallas_dft.py:framed_dft_pallas
@@ -110,6 +111,27 @@
 //     cluster's.
 //   * The output is written straight into the complex64 tensor, consecutive
 //     threads on consecutive bins (no stacked [Re | Im] and no copy).
+//
+// Kernel B-ifft (framed_ifft_kernel), the inverse of framed_fft_kernel's
+// path: the windowed frames of a one-sided spectrum, irfft(z[f], n_fft)[t]
+// * win[t] for t < frame_length <= n_fft, n_fft a power of two from 8 to
+// 1024, which the caller (spectral/stft.py:istft) overlap-adds with kernel
+// C. It replaces no TPU kernel: the JAX package's
+// nx_signal_tpu/kernels/dft.py:framed_idft is one XLA product against dense
+// inverse-DFT weights, as the port's route off this kernel still is
+// (kernels/dft.py:_framed_idft_torch: weights built in numpy each call, an
+// exact-f32 GEMM of 0.70 TFLOP where this FFT needs about 17 GFLOP at 64 x
+// 2 646 000, hop 128). Per frame it reads z's
+// interleaved complex64 bins once (no split, no concatenation), forms the
+// half-length spectrum with the mirror of the split post-pass,
+//   Z[k] = (X[k] + conj X[h-k]) + i W^-k (X[k] - conj X[h-k]),  h = n_fft/2,
+// runs one h-point inverse FFT as conj, the forward radix-8 passes, conj
+// (the same passes, padded buffer and twiddle table), scales by 1/n_fft,
+// and writes samples 2j and 2j + 1 from the real and imaginary parts of
+// point j, times the window. Bounded by bytes like B-fft: 8 B a bin in and
+// 4 B a sample out. Each frame's arithmetic depends on its own bins alone,
+// in one fixed order, so the output does not depend on the tiling, the
+// batch or the row count.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -362,12 +384,18 @@ __device__ __forceinline__ void frame_sync() {
   }
 }
 
+// Where a pass of framed_fft_kernel or framed_ifft_kernel takes its points:
+// B-fft's first pass from the windowed frame in the staged x, B-ifft's first
+// pass from the buffer as its pre-pass filled it (Ns = 1, no twiddles), and
+// every later pass from the buffer times the pass's twiddles.
+enum PassSource { kFromFrame, kFromBuffer, kFromPass };
+
 // One Stockham pass of radix R over this frame's h-point buffer, after Ns
 // points have been combined: thread j0 takes butterflies j = j0 + it*G.
-// The first pass (Ns = 1, no twiddles) loads the windowed frame from the
-// staged x; the others take their twiddles from the pass's table `twp`
-// (entry r*Ns + j mod Ns), read the buffer, wait for every read, then write.
-template <int R, int ITERS, bool FIRST, bool WARP_SYNC>
+// A first pass (Ns = 1) takes no twiddles; a later one takes them from the
+// pass's table `twp` (entry r*Ns + j mod Ns). A pass that reads the buffer
+// reads it, waits for every read, then writes.
+template <int R, int ITERS, int SRC, bool WARP_SYNC>
 __device__ __forceinline__ void fft_pass(float2* fbuf, const float2* twp, const float* xf,
                                          const float* wins, int frame_length, int h, int Ns,
                                          int G, int j0) {
@@ -379,7 +407,7 @@ __device__ __forceinline__ void fft_pass(float2* fbuf, const float2* twp, const 
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int n = j + r * span;
-      if constexpr (FIRST) {
+      if constexpr (SRC == kFromFrame) {
         // (x, window) pairs as 8-byte loads where the frame starts 8-byte
         // aligned in the staged window (the window itself is); a frame
         // longer than n_fft = 2h folded modulo n_fft
@@ -403,14 +431,14 @@ __device__ __forceinline__ void fft_pass(float2* fbuf, const float2* twp, const 
         v[it][r] = fbuf[pad_index(n)];
       }
     }
-    if constexpr (!FIRST) {
+    if constexpr (SRC == kFromPass) {
       const int jm = j & (Ns - 1);
 #pragma unroll
       for (int r = 1; r < R; ++r) v[it][r] = cmul(v[it][r], twp[r * Ns + jm]);
     }
     dft<R>(v[it]);
   }
-  if constexpr (!FIRST) frame_sync<WARP_SYNC>();  // every read of this pass is done
+  if constexpr (SRC != kFromFrame) frame_sync<WARP_SYNC>();  // every read of this pass is done
 #pragma unroll
   for (int it = 0; it < ITERS; ++it) {
     const int j = j0 + it * G;
@@ -421,21 +449,61 @@ __device__ __forceinline__ void fft_pass(float2* fbuf, const float2* twp, const 
   }
 }
 
-template <bool FIRST, bool WARP_SYNC>
+template <int SRC, bool WARP_SYNC>
 __device__ __forceinline__ void run_pass(int R, float2* fbuf, const float2* twp, const float* xf,
                                          const float* wins, int frame_length, int h, int Ns,
                                          int G, int j0) {
   if (R == 8) {
-    fft_pass<8, 1, FIRST, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
+    fft_pass<8, 1, SRC, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
   } else if (R == 4) {
     if (h >= 8) {
-      fft_pass<4, 2, FIRST, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
+      fft_pass<4, 2, SRC, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
     } else {
-      fft_pass<4, 1, FIRST, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
+      fft_pass<4, 1, SRC, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
     }
   } else {
-    fft_pass<2, 4, FIRST, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
+    fft_pass<2, 4, SRC, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, Ns, G, j0);
   }
+}
+
+// Copies a CTA's twiddles from the (n_fft) float2 table exp(-2 pi i t /
+// n_fft): the post-pass's W^k, k = 0..n_fft/4, into tws, and for each pass
+// after the first its entries exp(-2 pi i jm r / (Ns R)) at r*Ns + jm, one
+// pass's table after another, into twp.
+__device__ __forceinline__ void stage_tables(float2* tws, float2* twp, const float2* tw,
+                                             int n_fft, int tid, int nthr) {
+  const int h = n_fft >> 1;
+  for (int i = tid; i <= n_fft / 4; i += nthr) tws[i] = tw[i];
+  for (int Ns = h < 8 ? h : 8, off = 0; Ns < h;) {
+    const int R = h / Ns < 8 ? h / Ns : 8;
+    for (int i = tid; i < Ns * R; i += nthr) {
+      const int r = i / Ns, jm = i - r * Ns;
+      twp[off + i] = tw[2 * jm * r * (h / (Ns * R))];
+    }
+    off += Ns * R;
+    Ns *= R;
+  }
+}
+
+// One frame's FFT of h points in its padded buffer: radix-8 passes (a last
+// 4 or 2), the first taking its points from SRC (kFromFrame: the windowed
+// frame xf; kFromBuffer: the buffer as filled), the later ones the tables
+// of stage_tables; the last pass's writes are visible to the frame's
+// threads on return.
+template <int SRC, bool WARP_SYNC>
+__device__ __forceinline__ void small_fft(float2* fbuf, const float2* twp, const float* xf,
+                                          const float* wins, int frame_length, int h, int G,
+                                          int j0) {
+  const int r1 = h < 8 ? h : 8;
+  run_pass<SRC, WARP_SYNC>(r1, fbuf, nullptr, xf, wins, frame_length, h, 1, G, j0);
+  for (int Ns = r1, off = 0; Ns < h;) {
+    frame_sync<WARP_SYNC>();  // the previous pass's writes are visible
+    const int R = h / Ns < 8 ? h / Ns : 8;
+    run_pass<kFromPass, WARP_SYNC>(R, fbuf, twp + off, nullptr, wins, frame_length, h, Ns, G, j0);
+    off += Ns * R;
+    Ns *= R;
+  }
+  frame_sync<WARP_SYNC>();
 }
 
 template <bool POWER, bool WARP_SYNC>
@@ -463,17 +531,7 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   // the tile's window of x: samples [m0*stride, (m_end-1)*stride + frame)
   const int mis = stage_window(xs, x + ch * length, length, (int64_t)m0 * stride,
                                (int64_t)(m_end - 1) * stride + frame_length, tid, nthr);
-  for (int i = tid; i <= n_fft / 4; i += nthr) tws[i] = tw[i];
-  const int r1 = h < 8 ? h : 8;
-  for (int Ns = r1, off = 0; Ns < h;) {
-    const int R = h / Ns < 8 ? h / Ns : 8;  // exp(-2 pi i jm r / (Ns R))
-    for (int i = tid; i < Ns * R; i += nthr) {
-      const int r = i / Ns, jm = i - r * Ns;
-      twp[off + i] = tw[2 * jm * r * (h / (Ns * R))];
-    }
-    off += Ns * R;
-    Ns *= R;
-  }
+  stage_tables(tws, twp, tw, n_fft, tid, nthr);
   for (int i = tid; i < frame_length; i += nthr) wins[i] = win[i];
   asm volatile("cp.async.wait_group 0;\n" ::);
 
@@ -487,15 +545,7 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
   for (int mg = m0; mg < m_end; mg += group) {
     const int m = mg + slot;
     const float* xf = m < m_end ? xs + mis + (m - m0) * stride : nullptr;
-    run_pass<true, WARP_SYNC>(r1, fbuf, nullptr, xf, wins, frame_length, h, 1, G, j0);
-    for (int Ns = r1, off = 0; Ns < h;) {
-      frame_sync<WARP_SYNC>();  // the previous pass's writes are visible
-      const int R = h / Ns < 8 ? h / Ns : 8;
-      run_pass<false, WARP_SYNC>(R, fbuf, twp + off, nullptr, wins, frame_length, h, Ns, G, j0);
-      off += Ns * R;
-      Ns *= R;
-    }
-    frame_sync<WARP_SYNC>();
+    small_fft<kFromFrame, WARP_SYNC>(fbuf, twp, xf, wins, frame_length, h, G, j0);
 
     // the split post-pass, X[k] and X[h-k] from the same Z[k], Z[h-k] and
     // W^k (W^(h-k) = -conj W^k), k = 0..h/2; the full spectrum adds
@@ -514,6 +564,108 @@ framed_fft_kernel(const float* __restrict__ x, const float* __restrict__ win,
         if (h - k != k) {
           put_bin<POWER>(out, row, h - k, 0.5f * (sr - pi), -0.5f * (si + pr), full && k >= 1,
                          n_fft);
+        }
+      }
+    }
+    frame_sync<WARP_SYNC>();  // the buffer is read before the next frame fills it
+  }
+}
+
+// ---- kernel B-ifft: the inverse of framed_fft_kernel, one frame of a
+// one-sided spectrum per FFT (see the top of the file)
+
+// Frames of a CTA: `group` at once (kThreads / threads_per_frame), this many
+// rounds of them, so that a CTA's twiddle tables serve many frames
+constexpr int kIfftRounds = 8;
+
+// Shared memory of a framed_ifft_kernel CTA: the post-pass twiddles, the
+// passes' tables, the buffers of `group` frames and the window.
+inline size_t ifft_smem_bytes(int n_fft, int frame_length, int group) {
+  const int64_t bufs = ((int64_t)group * padded_len(n_fft / 2) + 1) / 2 * 2;
+  return (size_t)(8 * ((int64_t)post_len(n_fft) + n_fft) + 8 * bufs + 4 * round4(frame_length));
+}
+
+// Frame f of z (frames, zbins) complex64, with X[k] = z[f, k] for k <
+// zbins and 0 past it, to out[f, t] = irfft(X, n_fft)[t] * win[t], t <
+// frame_length <= n_fft, the imaginary parts of X[0] and X[h] ignored
+// (h = n_fft / 2); scale is 1 / n_fft (a power of two: exact), given by
+// the host, whose division keeps the kernel free of the device's division
+// routine and its stack frame. Frames slot, slot + group, ... of the CTA's
+// tile; each frame's G threads run its FFT on their own, as in
+// framed_fft_kernel.
+template <bool WARP_SYNC>
+__global__ void __launch_bounds__(kThreads)
+framed_ifft_kernel(const float2* __restrict__ z, const float* __restrict__ win,
+                   const float2* __restrict__ tw, float* __restrict__ out, int64_t frames,
+                   float scale, int zbins, int frame_length, int n_fft, int tile,
+                   int group) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = n_fft >> 1;
+  const int G = threads_per_frame(h);
+  const int hp = padded_len(h);
+  float2* tws = reinterpret_cast<float2*>(smem);
+  float2* twp = tws + post_len(n_fft);
+  float2* bufs = twp + n_fft;
+  float* wins = reinterpret_cast<float*>(bufs + ((int64_t)group * hp + 1) / 2 * 2);
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int64_t f0 = (int64_t)blockIdx.x * tile;
+  const int64_t f_end = frames < f0 + tile ? frames : f0 + tile;
+  stage_tables(tws, twp, tw, n_fft, tid, nthr);
+  for (int i = tid; i < frame_length; i += nthr) wins[i] = win[i];
+  __syncthreads();  // the tables and the window staged
+
+  const int slot = tid / G;
+  const int j0 = tid - slot * G;
+  float2* fbuf = bufs + slot * hp;
+  const int nz = zbins < h + 1 ? zbins : h + 1;  // bins read; those past them are zeros
+  const float2 zero = make_float2(0.0f, 0.0f);
+  for (int64_t fg = f0; fg < f_end; fg += group) {
+    const int64_t f = fg + slot;
+    const bool live = f < f_end;
+    // the pre-pass, the mirror of framed_fft_kernel's split post-pass: from
+    // a = X[k] and b = X[h-k] (X[h] at k = 0), s = a + conj b, d = a - conj
+    // b and p = W^-k d (W^-k = conj of the table's W^k), the half-length
+    // spectrum Z[k] = s + i p and Z[h-k] = conj(s - i p), stored conjugated
+    // (the inverse runs as conj, forward passes, conj). Consecutive threads
+    // read consecutive bins from both ends.
+    if (live) {
+      const float2* zf = z + f * zbins;
+      for (int k = j0; k <= (h >> 1); k += G) {
+        float2 a = k < nz ? zf[k] : zero;
+        float2 b = h - k < nz ? zf[h - k] : zero;
+        if (k == 0) a.y = b.y = 0.0f;                 // DC and Nyquist
+        const float sr = a.x + b.x, si = a.y - b.y;   // s
+        const float dr = a.x - b.x, di = a.y + b.y;   // d
+        const float2 w = tws[k];
+        const float pr = w.x * dr + w.y * di, pi = w.x * di - w.y * dr;  // p
+        fbuf[pad_index(k)] = make_float2(sr - pi, -(si + pr));            // conj Z[k]
+        if (k != 0 && h - k != k) fbuf[pad_index(h - k)] = make_float2(sr + pi, si - pr);
+      }
+    }
+    frame_sync<WARP_SYNC>();  // the pre-pass's writes are visible
+    small_fft<kFromBuffer, WARP_SYNC>(fbuf, twp, nullptr, wins, frame_length, h, G, j0);
+
+    // the output: point j of the FFT, conjugated and scaled, is samples 2j
+    // (real part) and 2j + 1 (imaginary part), each times the window;
+    // consecutive threads write consecutive pairs
+    if (live) {
+      float* of = out + f * frame_length;
+      const bool paired = (frame_length & 1) == 0;  // every row starts 8-byte aligned
+      for (int j = j0; 2 * j < frame_length; j += G) {
+        const float2 v = fbuf[pad_index(j)];
+        const float y0 = v.x * scale * wins[2 * j];
+        if (2 * j + 1 == frame_length) {
+          of[2 * j] = y0;
+        } else {
+          const float y1 = -v.y * scale * wins[2 * j + 1];
+          if (paired) {
+            *reinterpret_cast<float2*>(of + 2 * j) = make_float2(y0, y1);
+          } else {
+            of[2 * j] = y0;
+            of[2 * j + 1] = y1;
+          }
         }
       }
     }
@@ -1395,4 +1547,39 @@ extern "C" int nx_framed_fft_f32(const void* x, const void* win, const void* tw,
                : (odd ? NX_MIXED(false, true, false) : NX_MIXED(false, false, false));
 #undef NX_MIXED
 #undef NX_MIXED_AT
+}
+
+// Kernel B-ifft. z (frames, zbins) complex64 (as float2), win
+// (frame_length) f32, tw the (n_fft) float2 table exp(-2 pi i t / n_fft) of
+// framed_fft_kernel, out (frames, frame_length) f32; all contiguous on the
+// current device; n_fft a power of two from 8 to 1024, 1 <= frame_length <=
+// n_fft, any zbins >= 0 (bins past n_fft/2 are not read, bins past zbins
+// are zeros). Launches on `stream` without synchronising; returns the
+// launch's cudaError_t.
+extern "C" int nx_framed_ifft_f32(const void* z, const void* win, const void* tw, void* out,
+                                  int64_t frames, int64_t zbins, int64_t frame_length,
+                                  int64_t n_fft, void* stream) {
+  if (frames < 1 || zbins < 0 || zbins > 0x7fffffff || n_fft < kMinFft ||
+      n_fft > kMaxSmallFft || (n_fft & (n_fft - 1)) != 0 || frame_length < 1 ||
+      frame_length > n_fft) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int fft = (int)n_fft;
+  const int per_fft = threads_per_frame(fft / 2);
+  const int group = kThreads / per_fft;
+  const int tile = group * kIfftRounds;
+  const size_t smem = ifft_smem_bytes(fft, (int)frame_length, group);
+  const int64_t blocks = (frames + tile - 1) / tile;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel) -> int {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned)blocks, group * per_fft, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(z), static_cast<const float*>(win),
+        static_cast<const float2*>(tw), static_cast<float*>(out), frames, 1.0f / (float)fft,
+        (int)zbins, (int)frame_length, fft, tile, group);
+    return (int)cudaGetLastError();
+  };
+  return per_fft <= 32 ? launch(framed_ifft_kernel<true>) : launch(framed_ifft_kernel<false>);
 }

@@ -1,20 +1,23 @@
 """Hand-written CUDA kernels for Hopper and their wrappers (counterpart of
 nx_signal_tpu/kernels/pallas_dft.py).
 
-===== ================================ ==========================================
-      wrapper                          kernel (kernels/csrc/)
-===== ================================ ==========================================
-A     fir_framed_dft_power_cuda        framed_dft.cu, POWER, FIR fold (exact f32)
-A-tc  fir_framed_dft_power_tc_cuda     framed_dft_tc.cu (wgmma, 3xTF32 or one TF32 pass)
-B-fft framed_fft_cuda                  framed_fft.cu (a real FFT per frame)
-B     framed_dft_cuda                  framed_dft.cu, no fold (exact f32)
-C     overlap_add_cuda                 overlap_add.cu
-D     fir_framed_dft_power_shared_cuda shared_dft.cu
-===== ================================ ==========================================
+====== ================================ ==========================================
+       wrapper                          kernel (kernels/csrc/)
+====== ================================ ==========================================
+A      fir_framed_dft_power_cuda        framed_dft.cu, POWER, FIR fold (exact f32)
+A-tc   fir_framed_dft_power_tc_cuda     framed_dft_tc.cu (wgmma, 3xTF32 or one TF32 pass)
+B-fft  framed_fft_cuda                  framed_fft.cu (a real FFT per frame)
+B-ifft framed_ifft_cuda                 framed_fft.cu (an inverse real FFT per frame)
+B      framed_dft_cuda                  framed_dft.cu, no fold (exact f32)
+C      overlap_add_cuda                 overlap_add.cu
+D      fir_framed_dft_power_shared_cuda shared_dft.cu
+====== ================================ ==========================================
 
 They replace the TPU kernels of nx_signal_tpu/kernels/pallas_dft.py: A and
 A-tc fir_framed_dft_power_pallas, B-fft and B framed_dft_pallas, C
-overlap_add_pallas, D fir_framed_dft_power_shared_pallas.
+overlap_add_pallas, D fir_framed_dft_power_shared_pallas. B-ifft replaces
+no TPU kernel: it runs the one-sided `kernels.dft.framed_idft`, an XLA
+product in the JAX package, as an inverse FFT per frame.
 
 Each wrapper takes the tensor's device as its dispatch rule: on a CPU
 tensor it returns its plain PyTorch version (`_framed_matmul_torch`,
@@ -34,29 +37,30 @@ and any frame length, the dense B for an n_fft below 8 or above 65536
 (`fft_kernel_takes`). Kernels A and B take any hop: where the staged window
 of x does not fit in shared memory, the contraction streams x through its
 weight ring, in the same order of sums.
-Kernels B, B-fft and D run f32 whatever the caller's precision; C is
-bitwise equal to the plain fold.
+Kernels B, B-fft, B-ifft and D run f32 whatever the caller's precision; C
+is bitwise equal to the plain fold.
 """
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import (
-    _bluestein_plan, _dft_weights, _fft_plan, _fft_twiddles, _framed_matmul_tf32_torch,
-    _framed_matmul_torch, _host_f64, _radices, _shared_power_torch, _tf32_passes, _tf32_split,
-    good_matmul_fft_length)
+    _bluestein_plan, _dft_weights, _fft_plan, _fft_twiddles, _framed_idft_torch,
+    _framed_matmul_tf32_torch, _framed_matmul_torch, _host_f64, _radices, _shared_power_torch,
+    _tf32_passes, _tf32_split, good_matmul_fft_length)
 from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_fft_cuda",
-           "framed_dft_cuda", "overlap_add_cuda", "fir_framed_dft_power_shared_cuda",
-           "fft_kernel_takes"]
+           "framed_ifft_cuda", "framed_dft_cuda", "overlap_add_cuda",
+           "fir_framed_dft_power_shared_cuda", "fft_kernel_takes", "ifft_kernel_takes"]
 
 # Kernel D's limits: window coefficients (so at most 7 neighbour bins each
 # side of a 96-column tile) and hop blocks per frame (a CTA holds 64 blocks);
@@ -533,6 +537,87 @@ def framed_fft_cuda(x, window, *, stride: int, n_fft: int, onesided: bool = Fals
 
 
 framed_fft_cuda.launches = 0
+
+
+def ifft_kernel_takes(n_fft: int, frame_length: int, onesided: bool) -> bool:
+    """Whether kernel B-ifft serves this framed inverse DFT: a one-sided
+    spectrum, n_fft a power of two from 8 to 1024 (the sizes of B-fft's
+    first radix-8 kernel, where `istft`'s method='auto' takes
+    `kernels.dft.framed_idft`), and a window of 1 to n_fft samples.
+
+    Examples:
+
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import ifft_kernel_takes
+    >>> [ifft_kernel_takes(n, 256, True) for n in (4, 256, 512, 600, 1024, 2048)]
+    [False, True, True, False, True, False]
+    >>> ifft_kernel_takes(512, 400, True), ifft_kernel_takes(512, 600, True)
+    (True, False)
+    >>> ifft_kernel_takes(512, 512, False)   # two-sided: the dense product
+    False
+    """
+    return (onesided and _FFT_MIN <= n_fft <= _SMALL_FFT_MAX and n_fft & (n_fft - 1) == 0
+            and 1 <= frame_length <= n_fft)
+
+
+def framed_ifft_cuda(z, window, *, n_fft: int, onesided: bool = True):
+    """Kernel B-ifft: the windowed frames of a one-sided spectrum,
+    irfft(z, n_fft)[..., :frame_length] * window, as an inverse real FFT
+    per frame (framed_fft.cu): (..., M, bins) complex64 -> (..., M,
+    frame_length) float32, bins zero-padded or cut to n_fft//2 + 1, the
+    imaginary parts of the DC and Nyquist bins ignored. `window` is a host
+    array or tensor of frame_length samples (one already on z's device is
+    used with no copy from the host). On a CUDA tensor the kernel takes
+    what `ifft_kernel_takes` admits (n_fft a power of two from 8 to 1024,
+    the window no longer than n_fft, onesided) and complex64, and raises
+    on anything else; it reads z where it lies, builds nothing on the host
+    (the twiddles are B-fft's, cached per n_fft and device) and does not
+    sync. f32 FFT arithmetic; each frame's output depends on its own bins
+    alone. On a CPU tensor it returns the plain version, the dense weights
+    product of `kernels.dft._framed_idft_torch`.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.kernels.cuda_dft import framed_ifft_cuda
+    >>> x = torch.randn(2, 5, 64, dtype=torch.float64)
+    >>> z = torch.fft.rfft(x).to(torch.complex64)
+    >>> f = framed_ifft_cuda(z, torch.hann_window(64), n_fft=64)
+    >>> f.shape, f.dtype
+    (torch.Size([2, 5, 64]), torch.float32)
+    >>> bool((f - (x * torch.hann_window(64, dtype=torch.float64))).abs().max() < 1e-5)
+    True
+    >>> framed_ifft_cuda(z, torch.ones(40), n_fft=64).shape   # a shorter window
+    torch.Size([2, 5, 40])
+    """
+    z = as_signal(z)
+    if not _on_card(z):
+        return _framed_idft_torch(z, window, n_fft=n_fft, onesided=onesided)
+    window = (window if isinstance(window, torch.Tensor) else _host_f64(window)).reshape(-1)
+    frame_length = window.shape[0]
+    if not ifft_kernel_takes(n_fft, frame_length, onesided):
+        raise ValueError(f"kernel B-ifft takes a one-sided spectrum, a power-of-two n_fft from "
+                         f"{_FFT_MIN} to {_SMALL_FFT_MAX} and a window of 1 to n_fft samples, "
+                         f"got n_fft {n_fft}, window {frame_length}, onesided={onesided}")
+    if z.dtype != torch.complex64:
+        raise ValueError(f"kernel B-ifft takes a complex64 spectrum, got {z.dtype}")
+    batch, zbins = z.shape[:-1], z.shape[-1]
+    zf = torch.resolve_conj(z).reshape(math.prod(batch), zbins).contiguous()
+    out = torch.empty((zf.shape[0], frame_length), dtype=DEFAULT_FLOAT, device=z.device)
+    if zf.shape[0] == 0:
+        return out.reshape(*batch, frame_length)
+    win = torch.as_tensor(window, device=z.device).to(DEFAULT_FLOAT).contiguous()
+    tw, _, _ = _device_fft_plan(n_fft, z.device)
+    lib = load_library()
+    with torch.cuda.device(z.device):
+        err = lib.nx_framed_ifft_f32(
+            zf.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(), zf.shape[0], zbins,
+            frame_length, n_fft, torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, f"framed_ifft kernel (n_fft {n_fft}, frame {frame_length})")
+    framed_ifft_cuda.launches += 1
+    return out.reshape(*batch, frame_length)
+
+
+framed_ifft_cuda.launches = 0
 
 
 def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,

@@ -16,7 +16,9 @@ The contraction runs as
 * the hand-written CUDA kernels of `kernels/cuda_dft.py` on a CUDA tensor
   inside their contract (real input; the fused chain additionally needs
   output='power', onesided=True); the framed DFT runs there as a real FFT
-  per frame (kernel B-fft) for every n_fft from 8 to 65536;
+  per frame (kernel B-fft) for every n_fft from 8 to 65536, and the
+  one-sided framed inverse DFT as an inverse real FFT per frame (kernel
+  B-ifft) for a power-of-two n_fft from 8 to 1024;
 * otherwise `blocked_frame_matmul`, whose 'conv' strategy is one
   `torch.nn.functional.conv1d` over the non-overlapping (blocks, stride)
   view of the signal, in exact f32 (TF32 off on CUDA).
@@ -678,28 +680,11 @@ def _idft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):
     return np.concatenate([top, bot], axis=0).astype(dtype)
 
 
-def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
-                precision="highest"):
-    """Inverse of `framed_dft` fused with the synthesis-window multiply:
-    (..., M, bins) spectrum -> windowed time frames, as one exact-f32
-    matmul. Full-spectrum input returns complex frames (= ifft(z) * window);
-    onesided input returns real frames (irfft). The caller overlap-adds.
-
-    Examples:
-
-    >>> import torch
-    >>> from nx_signal_tpu_torch.ops.windows import hann
-    >>> from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft
-    >>> x = torch.sin(0.1 * torch.arange(1024.0))
-    >>> z = framed_dft(x, hann(256, device="cpu"), stride=64, n_fft=256, onesided=True)
-    >>> f = framed_idft(z, hann(256, device="cpu"), n_fft=256, onesided=True)
-    >>> f.shape, f.dtype
-    (torch.Size([13, 256]), torch.float32)
-    """
-    _check_precision(precision)
-    z = as_signal(z)
-    if not z.is_complex():
-        z = z.to(torch.complex64)
+def _framed_idft_torch(z, window, *, n_fft: int, onesided: bool):
+    """`framed_idft` as one exact-f32 product of [Re z | Im z] with the
+    dense weights of `_idft_weights`, built in numpy f64 on every call: its
+    route on the CPU and, on the card, wherever kernel B-ifft does not take
+    the call (`kernels.cuda_dft.ifft_kernel_takes`)."""
     # the window's copy to the host, the numpy weights and their copy back
     # in one span, before the product's, so that a trace splits the two
     with span("nx.weights.idft"):
@@ -719,6 +704,49 @@ def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
     if onesided:
         return out
     return torch.complex(out[..., :frame_length], out[..., frame_length:])
+
+
+def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
+                precision="highest"):
+    """Inverse of `framed_dft` fused with the synthesis-window multiply:
+    (..., M, bins) spectrum -> windowed time frames (..., M, frame_length).
+    Full-spectrum input returns complex frames (= ifft(z) * window);
+    onesided input returns real frames (irfft). The bin axis is zero-padded
+    or cut to n_fft//2 + 1 (onesided) or n_fft, as (i)fft's `n` does. The
+    caller overlap-adds.
+
+    On a CUDA complex64 spectrum that kernel B-ifft takes
+    (`kernels.cuda_dft.ifft_kernel_takes`: onesided, n_fft a power of two
+    from 8 to 1024, the window no longer than n_fft) it runs the kernel (an
+    inverse real FFT a frame, `kernels.cuda_dft.framed_ifft_cuda`), with no
+    host work and no sync; every other call, and every CPU one, is one
+    exact-f32 product against dense weights built in numpy
+    (`_framed_idft_torch`). Both run f32 at every `precision`.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.ops.windows import hann
+    >>> from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft
+    >>> x = torch.sin(0.1 * torch.arange(1024.0))
+    >>> z = framed_dft(x, hann(256, device="cpu"), stride=64, n_fft=256, onesided=True)
+    >>> f = framed_idft(z, hann(256, device="cpu"), n_fft=256, onesided=True)
+    >>> f.shape, f.dtype
+    (torch.Size([13, 256]), torch.float32)
+    """
+    from nx_signal_tpu_torch.kernels.cuda_dft import framed_ifft_cuda, ifft_kernel_takes
+
+    _check_precision(precision)
+    z = as_signal(z)
+    if not z.is_complex():
+        z = z.to(torch.complex64)
+    shape = np.shape(window)
+    if (z.device.type == "cuda" and z.dtype == torch.complex64 and len(shape) == 1
+            and ifft_kernel_takes(n_fft, shape[0], onesided)):
+        # the launch where the product was, so that a trace reads it alike
+        with span("nx.idft.product"):
+            return framed_ifft_cuda(z, window, n_fft=n_fft)
+    return _framed_idft_torch(z, window, n_fft=n_fft, onesided=onesided)
 
 
 def fir_dft_fold_weights(taps, window, n_fft: int, onesided: bool, *, device=None):

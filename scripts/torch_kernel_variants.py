@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Design probe of four hand-written kernels of the PyTorch/CUDA port on one
+"""Design probe of five hand-written kernels of the PyTorch/CUDA port on one
 NVIDIA GPU: the choices that `kernels/csrc/framed_dft.cu` (kernel A),
 `kernels/csrc/framed_dft_tc.cu` (A-tc), `kernels/csrc/shared_dft.cu` (D)
-and `kernels/csrc/framed_fft.cu` (B-fft) fix, timed against the
+and `kernels/csrc/framed_fft.cu` (B-fft, B-ifft) fix, timed against the
 alternatives in one run, on one card.
 
     python3 scripts/torch_kernel_variants.py     # from the repository root
@@ -61,7 +61,17 @@ alternatives in one run, on one card.
    against S (the mixed-radix kernel), in turns, their outputs compared;
    `kernels/dft.py:_bluestein_points`'s ratio follows these times.
 
-    python3 scripts/torch_kernel_variants.py 5   # section 5 alone (or 2)
+7. Kernel B-ifft alone at the round trip's shape (64 x 2 646 000, hann
+   512, hop 128, n_fft 512: a (64, 20 669, 257) complex64 spectrum from
+   B-fft), against what it replaced on istft's route (the concatenation of
+   [Re z | Im z] and the exact-f32 product with the dense weights, the
+   weights built ahead; and the whole old route with its numpy weights,
+   `kernels/dft.py:_framed_idft_torch`) and against torch.fft.irfft times
+   the window, the library yardstick, in turns, medians of 7 CUDA-event
+   timings; the outputs compared, and the bound (bytes of z read and frames
+   written at 3.35 TB/s).
+
+    python3 scripts/torch_kernel_variants.py 5   # section 5 alone (or 2, or 7)
     python3 scripts/torch_kernel_variants.py 6 --parent DIR   # section 6
 
 Prints the card's name and power limit first. Imports nothing of JAX.
@@ -481,9 +491,48 @@ def _fft_table_in_l2(dev, gen, tmp):
             raise AssertionError(f"n_fft {n_fft}: where the table lives changed the result")
 
 
+def _ifft_alone(dev, gen):
+    """Section 7: kernel B-ifft at the round trip's shape against the old
+    product, the old route and torch.fft.irfft x window, in turns."""
+    from nx_signal_tpu_torch.kernels.dft import _exact_f32, _framed_idft_torch, _idft_weights
+
+    rows, length, n_fft, hop = 64, 2646000, 512, 128
+    frames, bins = (length - n_fft) // hop + 1, n_fft // 2 + 1
+    window = hann(n_fft, device=dev)
+    x = torch.randn(rows, length, generator=gen, device=dev)
+    z = cuda_dft.framed_fft_cuda(x, window, stride=hop, n_fft=n_fft, onesided=True)
+    del x
+    weights = torch.as_tensor(_idft_weights(window.double().cpu().numpy(), n_fft, n_fft, True,
+                                            np.float32), device=dev)
+
+    def product():
+        with _exact_f32():
+            return torch.matmul(torch.cat([z.real, z.imag], dim=-1), weights)
+
+    runs = {
+        "B-ifft": lambda: cuda_dft.framed_ifft_cuda(z, window, n_fft=n_fft),
+        "concatenation + exact-f32 product (weights ahead)": product,
+        "the old route (numpy weights each call)":
+            lambda: _framed_idft_torch(z, window, n_fft=n_fft, onesided=True),
+        "torch.fft.irfft x window": lambda: torch.fft.irfft(z, n=n_fft) * window,
+    }
+    got, want = runs["B-ifft"](), product()
+    lib = runs["torch.fft.irfft x window"]()
+    top = float(want.abs().max())
+    print(f"section 7: B-ifft at {rows} x {length}, n_fft {n_fft}, hop {hop} ({frames} frames a "
+          f"row): max|d| / max against the product {float((got - want).abs().max()) / top:.3g}, "
+          f"against irfft x window {float((got - lib).abs().max()) / top:.3g}", flush=True)
+    del got, want, lib
+    t = _timed_in_turns(runs)
+    bound = rows * frames * (8.0 * bins + 4.0 * n_fft) / 3.35e12 * 1e3
+    for name, (a, b) in t.items():
+        print(f"  {name}: {a:.3f} / {b:.3f} ms", flush=True)
+    print(f"  bound (bytes: z read, frames written, at 3.35 TB/s): {bound:.3f} ms", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Design probe of the port's kernels.")
-    parser.add_argument("section", nargs="?", choices=("2", "5", "6"),
+    parser.add_argument("section", nargs="?", choices=("2", "5", "6", "7"),
                         help="run this section alone")
     parser.add_argument("--parent", help="section 6: a checkout whose framed_fft.cu to time "
                                          "beside this one")
@@ -504,12 +553,16 @@ def main() -> int:
         if args.section == "2":
             _fft_kernels(dev, gen)
             return 0
+        if args.section == "7":
+            _ifft_alone(dev, gen)
+            return 0
         _ring(dev, gen, tmp)
         _tc_groups(dev, gen, tmp)
         _shared_tiles(dev, gen, tmp)
         _fft_table_in_l2(dev, gen, tmp)
         _against_parent(dev, gen, tmp, args.parent)
     _fft_kernels(dev, gen)
+    _ifft_alone(dev, gen)
     return 0
 
 

@@ -638,6 +638,114 @@ def test_short_time_fft_runs_kernels_b_fft_and_c_on_cuda(fft_mode, mfft, rng):
     assert_close_to_max(y.real.cpu(), x)
 
 
+# kernel B-ifft's cases: n_fft, window length, z's shape (..., bins); the
+# tile of a CTA is 64 frames at n_fft <= 512 and 32 at 1024
+IFFT_CASES = [
+    (8, 8, (2, 70, 5)),
+    (16, 16, (3, 1031, 9)),
+    (64, 64, (3, 33, 33)),
+    (64, 63, (2, 37, 33)),           # an odd window: the last sample alone
+    (512, 512, (2, 2, 45, 257)),     # batched
+    (512, 400, (129, 257)),          # a window shorter than n_fft
+    (512, 512, (257,)),              # 1-D: one frame
+    (512, 512, (2, 50, 250)),        # fewer bins than n_fft/2 + 1 (zeros past them)
+    (512, 512, (2, 50, 300)),        # more (cut)
+    (1024, 1024, (2, 1000, 513)),    # 2000 frames: not a multiple of the tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,frame,shape", IFFT_CASES)
+def test_framed_ifft_kernel_matches_plain_on_cuda(n_fft, frame, shape, rng):
+    """Kernel B-ifft against its plain version (the dense weights product)
+    at 1e-5 of the frames' max, DC and Nyquist imaginary parts included in
+    z (both ignore them); and each frame's bits do not depend on the batch:
+    the frames of a slice of z are bitwise the slice of the frames."""
+    need_cuda()
+    z = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+    window = hann_np(frame).astype(np.float32)
+    zt, wt = torch.from_numpy(z), torch.from_numpy(window)
+    before = cuda_dft.framed_ifft_cuda.launches
+    got = cuda_dft.framed_ifft_cuda(zt.cuda(), wt.cuda(), n_fft=n_fft)
+    torch.cuda.synchronize()
+    assert cuda_dft.framed_ifft_cuda.launches == before + 1
+    assert got.shape == (*shape[:-1], frame) and got.dtype == torch.float32
+    want = td._framed_idft_torch(zt, window, n_fft=n_fft, onesided=True)
+    assert_close_to_max(got.cpu(), want, rel=1e-5)
+    if len(shape) > 1:
+        part = cuda_dft.framed_ifft_cuda(zt[..., 1:, :].cuda(), wt.cuda(), n_fft=n_fft)
+        assert torch.equal(part, got[..., 1:, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaling", [None, "spectrum", "psd"])
+def test_istft_runs_kernel_b_ifft_on_cuda(scaling, rng):
+    """istft of a one-sided spectrum on the card (hann 512, hop 128)
+    launches B-ifft once and kernel C twice (the frames and the envelope)
+    and agrees with its CPU run (the dense product) at 1e-5 x max, with
+    each scaling, past the first and last n_fft samples (there the division
+    by the small window envelope magnifies any rounding of the frames)."""
+    need_cuda()
+    from nx_signal_tpu_torch.spectral.stft import istft, stft
+
+    x = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32))
+    window = tw.hann(512, device="cpu")
+    kw = dict(fft_length=512, overlap_length=384, onesided=True, scaling=scaling,
+              sampling_rate=48000.0)
+    z = stft(x, window, **kw).z
+    got, counts = _launches_of(lambda: istft(z.cuda(), window.cuda(), **kw),
+                               cuda_dft.framed_ifft_cuda, cuda_dft.overlap_add_cuda)
+    assert counts == [1, 2]
+    want = istft(z, window, **kw)
+    assert got.shape == want.shape
+    assert_close_to_max(got.cpu()[..., 512:-512], want[..., 512:-512], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_card_istft_builds_no_weights_and_copies_nothing_to_or_from_the_host(rng):
+    """Each istft call on the card at n_fft 512: one B-ifft launch inside
+    the `nx.idft.product` span, no `nx.weights.idft` span (no dense
+    weights), and no copy between host and card."""
+    need_cuda()
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nx_signal_tpu_torch.spectral.stft import istft, stft
+
+    window = tw.hann(512, device="cuda")
+    x = torch.from_numpy(rng.normal(size=(4, 30000)).astype(np.float32)).cuda()
+    kw = dict(fft_length=512, overlap_length=384, onesided=True)
+    z = stft(x, window, **kw).z
+    istft(z, window, **kw)
+    torch.cuda.synchronize()
+    before = cuda_dft.framed_ifft_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            istft(z, window, **kw)
+        torch.cuda.synchronize()
+    assert cuda_dft.framed_ifft_cuda.launches == before + 2
+    names = Counter(e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU)
+    assert names["nx.istft"] == 2 and names["nx.idft.product"] == 2
+    assert names["nx.weights.idft"] == 0
+    device = Counter(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert sum(n for name, n in device.items() if "framed_ifft_kernel" in name) == 2
+    assert not [name for name in device if "HtoD" in name or "DtoH" in name]
+
+
+@pytest.mark.cuda
+def test_sharded_istft_runs_kernel_b_ifft_bitwise_on_cuda(tmp_path):
+    """Two ranks sharing cuda:0: sharded_istft of a one-sided spectrum
+    launches B-ifft once on each rank, and each rank's shard is bitwise the
+    whole-signal istft's samples on the same card."""
+    need_cuda()
+    from tests import torch_sharded_ranks as ranks
+
+    assert ranks.spawn(ranks.cuda_istft_case, 2, tmp_path) == [True, True]
+
+
 @pytest.mark.cuda
 def test_sharded_welch_runs_kernels_b_fft_and_e_on_cuda(tmp_path):
     """Two ranks sharing cuda:0: sharded_welch launches B-fft once and

@@ -132,6 +132,7 @@ ENTRY_POINTS = {
     "fir_framed_dft_power_tc_cuda": (lambda s: cuda_dft.fir_framed_dft_power_tc_cuda(
         s, FOLD, stride=128, pad_left=1, num_frames=13, bins=129, precision="high"), SIG),
     "framed_fft_cuda": (lambda s: cuda_dft.framed_fft_cuda(s, WIN, stride=128, n_fft=256), SIG),
+    "framed_ifft_cuda": (lambda s: cuda_dft.framed_ifft_cuda(s, WIN, n_fft=256), SPEC),
     "framed_dft_cuda": (lambda s: cuda_dft.framed_dft_cuda(
         s, DFT_W, stride=128, num_frames=15, bins=129), SIG),
     "overlap_add_cuda": (lambda s: cuda_dft.overlap_add_cuda(
@@ -491,6 +492,7 @@ EXEMPT = {
     "choose_conv_method": "returns a method name",
     "good_matmul_fft_length": "returns a flag",
     "fft_kernel_takes": "returns a flag",
+    "ifft_kernel_takes": "returns a flag",
     "recognize_cosine_window": "returns a window's coefficients as a Python tuple",
     "pfb_footprint_bytes": "returns a byte count",
     "halo_plan": "kernel E's ordering plan, host Python",

@@ -657,6 +657,108 @@ def test_framed_idft(onesided, bins_delta, rng):
     assert_close_to_max(got, np.asarray(want).astype(got.numpy().dtype))
 
 
+def replay_ifft(n_fft, spectra):
+    """Kernel B-ifft's algebra (framed_fft.cu: framed_ifft_kernel) in numpy
+    f64, in the kernel's order: the imaginary parts of the DC and Nyquist
+    bins dropped; the pre-pass on the pairs (k, h - k), k = 0..h/2, with
+    the forward table's W^k conjugated, storing conj Z; the forward radix-8
+    passes of B-fft over h = n_fft/2 points (the plan's radices and
+    twiddles); conj and 1/n_fft; point j as samples 2j and 2j + 1."""
+    plan = td._fft_plan(n_fft)
+    h = plan.length
+    table = plan.table[:, 0] + 1j * plan.table[:, 1]
+    x = spectra.astype(np.complex128)
+    x[..., 0], x[..., h] = x[..., 0].real, x[..., h].real
+    k = np.arange(h // 2 + 1)
+    a, b = x[..., k], x[..., h - k]
+    s, d = a + np.conj(b), a - np.conj(b)
+    p = np.conj(table[k]) * d
+    conj_z = np.empty(x.shape[:-1] + (h,), np.complex128)
+    conj_z[..., (h - k) % h] = s - 1j * p      # conj Z[h-k]; k = 0 is overwritten next
+    conj_z[..., k] = np.conj(s + 1j * p)       # conj Z[k]
+    v, end = replay_passes(plan, lambda t: conj_z[..., t], table, h // 2 + 1)
+    assert end == table.shape[0]
+    out = np.empty(x.shape[:-1] + (n_fft,))
+    out[..., 0::2], out[..., 1::2] = v.real / n_fft, -v.imag / n_fft
+    return out
+
+
+@pytest.mark.parametrize("n_fft", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_ifft_prepass_and_half_length_inverse_replay_irfft(n_fft, rng):
+    """Kernel B-ifft's pre-pass and half-length inverse, replayed in f64 as
+    the kernel orders them (`replay_ifft`), give np.fft.irfft at 1e-12 of
+    the max, the DC and Nyquist imaginary parts ignored as irfft ignores
+    them, for every power of two B-ifft takes."""
+    bins = n_fft // 2 + 1
+    spectra = rng.normal(size=(5, bins)) + 1j * rng.normal(size=(5, bins))
+    got, want = replay_ifft(n_fft, spectra), np.fft.irfft(spectra, n_fft)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def _frames_events(fn):
+    """fn's result and the names of the profiler's CPU events during it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, {e.name for e in prof.events()}
+
+
+@pytest.mark.parametrize("n_fft,frame,onesided", [
+    (256, 256, True), (256, 200, True), (256, 256, False), (600, 600, True), (128, 300, True)])
+def test_framed_idft_cpu_route_is_the_dense_product_bitwise(n_fft, frame, onesided, rng):
+    """On a CPU tensor framed_idft keeps the dense route, whatever B-ifft
+    takes on the card: it enters `nx.weights.idft` and `nx.idft.product`,
+    launches nothing, and returns bitwise the exact-f32 product of [Re z |
+    Im z] with `_idft_weights`."""
+    bins = n_fft // 2 + 1 if onesided else n_fft
+    z = torch.from_numpy((rng.normal(size=(2, 9, bins))
+                          + 1j * rng.normal(size=(2, 9, bins))).astype(np.complex64))
+    window = hann_np(frame)
+    before = cuda_dft.framed_ifft_cuda.launches
+    got, names = _frames_events(
+        lambda: td.framed_idft(z, window, n_fft=n_fft, onesided=onesided))
+    assert {"nx.weights.idft", "nx.idft.product"} <= names
+    assert cuda_dft.framed_ifft_cuda.launches == before
+    weights = torch.from_numpy(td._idft_weights(window, frame, n_fft, onesided, np.float32))
+    want = torch.matmul(torch.cat([z.real, z.imag], dim=-1), weights)
+    if not onesided:
+        want = torch.complex(want[..., :frame], want[..., frame:])
+    assert_bitwise(got.numpy(), want.numpy())
+
+
+def test_istft_cpu_route_builds_the_dense_weights():
+    """istft on CPU tensors at a power-of-two n_fft that B-ifft takes on the
+    card still builds the dense weights (`nx.weights.idft`) and launches no
+    kernel."""
+    from nx_signal_tpu_torch.spectral.stft import istft
+
+    z = torch.randn(2, 30, 257, dtype=torch.complex64)
+    window = torch.hann_window(512)
+    before = cuda_dft.framed_ifft_cuda.launches
+    y, names = _frames_events(lambda: istft(z, window, fft_length=512, overlap_length=384,
+                                            onesided=True))
+    assert {"nx.istft", "nx.weights.idft", "nx.idft.product"} <= names
+    assert cuda_dft.framed_ifft_cuda.launches == before and y.shape == (2, 30 * 128 + 384)
+
+
+@pytest.mark.parametrize("bins_delta", [0, -40, 7])
+def test_framed_ifft_cuda_plain_version_on_cpu(bins_delta, rng):
+    """On a CPU tensor kernel B-ifft's wrapper returns its plain version,
+    framed_idft's dense product, bitwise, and irfft(z, n_fft) x window at
+    1e-5 of the max (bins padded or cut as irfft's n does)."""
+    n_fft, frame = 128, 100
+    bins = n_fft // 2 + 1 + bins_delta
+    z = (rng.normal(size=(3, 11, bins)) + 1j * rng.normal(size=(3, 11, bins))).astype(
+        np.complex64)
+    window = hann_np(frame)
+    got = cuda_dft.framed_ifft_cuda(torch.from_numpy(z), window, n_fft=n_fft)
+    assert_bitwise(got.numpy(), td.framed_idft(torch.from_numpy(z), window, n_fft=n_fft,
+                                               onesided=True).numpy())
+    want = np.fft.irfft(z.astype(np.complex128), n_fft)[..., :frame] * window
+    assert_close_to_max(got.numpy(), want, rel=1e-5)
+
+
 FIR_GEOMETRIES = [  # channels, length, taps, frame, hop, n_fft
     (2, 5000, 255, 512, 128, 512),   # the bench chain's shape family
     (1, 3000, 100, 400, 150, 512),   # even taps, hop does not divide the frame

@@ -442,6 +442,42 @@ def cuda_welch_case(rank, store_path, out_path):
     dist.destroy_process_group()
 
 
+def cuda_istft_case(rank, store_path, out_path):
+    """Two ranks on cuda:0: sharded_istft of a one-sided spectrum (hann 512,
+    hop 128, an odd frame count, so the last block is padded) launches
+    kernel B-ifft once on each rank, and each rank's shard is bitwise the
+    single-device istft's samples; rank 0 pickles the verdicts."""
+    from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh, mesh_coordinate
+    from nx_signal_tpu_torch.parallel.sharded import sharded_istft
+    from nx_signal_tpu_torch.spectral.stft import istft, stft
+
+    _init(rank, 2, store_path)
+    mesh = make_dsp_mesh(1, 2)
+    x = torch.from_numpy(signal(17, (4, 30000))).to("cuda:0")
+    window = hann(512, device="cuda:0")
+    kw = dict(fft_length=512, overlap_length=384, onesided=True)
+    z = stft(x, window, **kw).z
+    before = cuda_dft.framed_ifft_cuda.launches
+    shard = sharded_istft(z, window, mesh=mesh, **kw)
+    count = cuda_dft.framed_ifft_cuda.launches - before
+    single = istft(z, window, **kw)
+    _, b = mesh_coordinate(mesh)
+    own = -(-z.shape[-2] // 2) * 128
+    ref = single[..., b * own:b * own + shard.shape[-1]]
+    verdict = (count == 1 and z.shape[-2] % 2 == 1 and ref.shape[-1] > 0
+               and torch.equal(shard[..., :ref.shape[-1]], ref))
+    cuda_halo.close_halo_buffers()
+    every = [None] * 2
+    dist.all_gather_object(every, verdict)
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(every, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def cuda_long_hop_chain_case(rank, store_path, out_path):
     """Two ranks on cuda:0: sharded_fir_framed_dft_power at hop 4096 past
     the frame (hann 1024, 255 taps: kernel A streams x) launches A and E
