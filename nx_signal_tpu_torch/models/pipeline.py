@@ -18,6 +18,9 @@ and spectral layers.
 * `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
 * `SpectrogramPipeline`, `LogMelFrontend`: stft (kernel B-fft), then dBFS or
   Whisper's log-mel normalization.
+* `WhisperLogMel`: Whisper's own log-mel front end at its widths (n_fft 400,
+  hop 160, 80 or 128 Slaney mels to 8 kHz), a batch of independent clips
+  with a floor per clip, in the (..., mels, frames) layout an encoder takes.
 * `WidebandReceiver`: the polyphase channelizer (`ops.resample.pfb_analyze`)
   then a Hann STFT of each complex sub-band stream (torch.fft: the framed
   DFT kernels take real input only) and |z|^2.
@@ -47,14 +50,14 @@ from nx_signal_tpu_torch.ops.convolution import convolve, oaconvolve
 from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.resample import pfb_analyze
 from nx_signal_tpu_torch.ops.windows import hann
-from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
+from nx_signal_tpu_torch.spectral.mel import _log_mel, _slaney_max_mel, mel_filters
 from nx_signal_tpu_torch.spectral.stft import stft
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["StftFirChain", "stft_fir_chain", "FIRFilterChain", "SpectrogramPipeline",
-           "LogMelFrontend", "WidebandReceiver", "channelize_power_stream"]
+           "LogMelFrontend", "WhisperLogMel", "WidebandReceiver", "channelize_power_stream"]
 
 
 @dataclass(frozen=True)
@@ -115,6 +118,68 @@ class LogMelFrontend:
         filters = mel_filters(self.fft_length, self.mel_bins, self.sampling_rate,
                               device=x.device)
         return _log_mel(z.abs().to(DEFAULT_FLOAT) ** 2, filters, self.fft_length // 2)
+
+
+class WhisperLogMel(nn.Module):
+    """Whisper's log-mel front end (openai/whisper `audio.py:
+    log_mel_spectrogram`) as a module, for a batch of independent clips.
+    Whisper's constants are its class attributes: 16 kHz, n_fft 400, hop
+    160. Its buffers, built once on `device` (None: the card; `.to(device)`
+    moves them): the periodic Hann window of 400 and the Slaney filterbank
+    of `n_mels` (80, or 128 from large-v3 on) x 201 bins from 0 to 8 kHz,
+    built in f64 (librosa's `filters.mel` with its defaults, the top edge at
+    exactly half the rate) and kept in f32.
+
+    `forward(x)` maps the real (..., L) 16 kHz signal, one clip a row, to
+    its (..., n_mels, L // 160) log-mel spectrogram, contiguous: the
+    centred STFT with reflect padding (`stft`, kernel B-fft on a CUDA
+    tensor), |z|^2 with the last frame dropped, the exact-f32 mel product,
+    log10 with a 1e-10 clip, the floor max - 8 taken over each clip's mels
+    and frames, then (x + 4)/4. A 1-D signal is one clip. Whisper pads or
+    cuts each clip to 30 s (480 000 samples at 16 kHz) before it.
+
+    `LogMelFrontend` keeps the JAX package's form instead: NxSignal's mel
+    top edge (3016.0), one floor for the whole batch, every frame, and the
+    (..., frames, mels) layout.
+
+    Examples:
+
+    >>> import torch
+    >>> from nx_signal_tpu_torch.models.pipeline import WhisperLogMel
+    >>> frontend = WhisperLogMel(n_mels=80, device="cpu")
+    >>> x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(0))
+    >>> m = frontend(x)
+    >>> m.shape, m.is_contiguous()
+    (torch.Size([2, 80, 100]), True)
+    >>> bool((frontend(x[1]) - m[1]).abs().max() < 1e-5)   # a clip's floor is its own
+    True
+    """
+
+    sampling_rate = 16000.0
+    n_fft = 400
+    hop_length = 160
+
+    def __init__(self, n_mels: int = 128, *, device=None):
+        super().__init__()
+        device = target_device(device)
+        with span("nx.weights.mel"):
+            filters = mel_filters(self.n_fft, n_mels, self.sampling_rate,
+                                  max_mel=_slaney_max_mel(self.sampling_rate / 2.0),
+                                  dtype=torch.float64, device=device)
+            filters = filters[:, :self.n_fft // 2 + 1].to(DEFAULT_FLOAT).contiguous()
+        self.register_buffer("window", hann(self.n_fft, device=device))
+        self.register_buffer("filters", filters)
+
+    def forward(self, x):
+        with span("nx.logmel"):
+            x = as_signal(x)
+            if x.is_complex():
+                raise ValueError("WhisperLogMel needs a real signal")
+            z = stft(x, self.window, sampling_rate=self.sampling_rate, fft_length=self.n_fft,
+                     overlap_length=self.n_fft - self.hop_length, onesided=True,
+                     window_padding="reflect").z
+            power = z[..., :-1, :].abs() ** 2
+            return _log_mel(power, self.filters, self.filters.shape[-1], clips=True)
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,7 @@ from nx_signal_tpu_torch.kernels.dft import _exact_f32
 from nx_signal_tpu_torch.spectral.stft import _linspace, fft_frequencies
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
+from nx_signal_tpu_torch.utils.profiling import span
 
 __all__ = ["mel_filters", "stft_to_mel"]
 
@@ -55,14 +56,41 @@ def mel_filters(fft_length: int, mel_bins: int, sampling_rate, *, max_mel: float
     return (weights * enorm[:, None]).to(dtype)
 
 
-def _log_mel(power, filters, freq_size: int):
+def _slaney_max_mel(hz: float) -> float:
+    """The `max_mel` of `mel_filters` (at its default spacing, 200/3) whose
+    top edge is `hz`: the Slaney mel of `hz` (librosa's hz_to_mel, htk=False)
+    times the spacing. At 8 kHz it is 3016.376..., where the default 3016.0
+    puts the edge at 7996.9 Hz."""
+    min_log_hz = 1000.0
+    if hz < min_log_hz:
+        return hz
+    return min_log_hz + 200.0 / 3.0 * math.log(hz / min_log_hz) / (math.log(6.4) / 27.0)
+
+
+def _log_mel(power, filters, freq_size: int, *, clips: bool = False):
     """Mel projection of the first `freq_size` bins, log10 with a 1e-10
-    clip, the dynamic-range floor max(log, max(log) - 8), then (x + 4)/4."""
-    with _exact_f32():
-        mel_spec = torch.matmul(power[..., :freq_size], filters[:, :freq_size].T)
-    log_spec = torch.log10(torch.clamp(mel_spec, min=1e-10))
-    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
-    return (log_spec + 4.0) / 4.0
+    clip, the dynamic-range floor max(log, max(log) - 8), then (x + 4)/4.
+
+    The (..., frames, bins) power gives (..., frames, mels), floored at the
+    max of the whole batch. With `clips` it is a batch of independent clips,
+    as Whisper's encoder takes them: it gives (..., mels, frames),
+    contiguous (the product taken as filters @ power^T, so that no
+    transpose is copied), each clip floored at the max of its own mels and
+    frames; a (frames, bins) power is one clip."""
+    with span("nx.mel"):
+        with _exact_f32():
+            if clips:
+                frames, bins = power.shape[-2:]
+                flat = power.reshape(-1, frames, bins)[..., :freq_size].transpose(-1, -2)
+                weights = filters[:, :freq_size].expand(flat.shape[0], -1, -1)
+                mel_spec = torch.bmm(weights, flat).reshape(
+                    *power.shape[:-2], filters.shape[0], frames)
+            else:
+                mel_spec = torch.matmul(power[..., :freq_size], filters[:, :freq_size].T)
+        log_spec = torch.log10(torch.clamp(mel_spec, min=1e-10))
+        top = log_spec.amax(dim=(-2, -1), keepdim=True) if clips else log_spec.max()
+        log_spec = torch.maximum(log_spec, top - 8.0)
+        return (log_spec + 4.0) / 4.0
 
 
 def stft_to_mel(z, sampling_rate, *, fft_length: int, mel_bins: int = 128,

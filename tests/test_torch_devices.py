@@ -27,8 +27,10 @@ import torch
 from nx_signal_tpu_torch import registry
 from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
 from nx_signal_tpu_torch.kernels import dft as td
-from nx_signal_tpu_torch.models.pipeline import (FIRFilterChain, StftFirChain, WidebandReceiver,
-                                                 channelize_power_stream)
+from nx_signal_tpu_torch.models.pipeline import (FIRFilterChain, LogMelFrontend,
+                                                 SpectrogramPipeline, StftFirChain,
+                                                 WhisperLogMel, WidebandReceiver,
+                                                 channelize_power_stream, stft_fir_chain)
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import czt as tczt
 from nx_signal_tpu_torch.ops import filters as tfilt
@@ -144,6 +146,12 @@ ENTRY_POINTS = {
     "halo_extend_cuda": (lambda s: cuda_halo.halo_extend_cuda(s, 0, 0, mesh=None), SIG),
     "StftFirChain": (lambda s: StftFirChain.from_numpy(TAPS, WIN, stride=128, n_fft=256,
                                                        device="cpu")(s), SIG),
+    "stft_fir_chain": (lambda s: stft_fir_chain(s, TAPS, WIN, fft_length=256,
+                                                overlap_length=128)[1], SIG),
+    "SpectrogramPipeline": (lambda s: SpectrogramPipeline(frame_length=256,
+                                                          fft_length=256)(s)[0], SIG),
+    "LogMelFrontend": (lambda s: LogMelFrontend()(s), SIG),
+    "WhisperLogMel": (lambda s: WhisperLogMel(80, device="cpu")(s), SIG),
     "median": (lambda s: tfilt.median(s, kernel_shape=(2, 4)), IMG),
     "wiener": (lambda s: tfilt.wiener(s, kernel_size=3), IMG),
     "order_filter": (lambda s: tfilt.order_filter(s, np.ones((3, 3)), 2), IMG),
@@ -364,6 +372,7 @@ NO_TENSOR = {
     "shared_fold_weights": lambda **kw: td.shared_fold_weights(TAPS, 128, 256, **kw),
     "shared_twiddles": lambda **kw: td.shared_twiddles(128, 256, **kw),
     "FIRFilterChain.design": lambda **kw: FIRFilterChain(num_taps=31).design(**kw),
+    "WhisperLogMel.buffers": lambda **kw: tuple(WhisperLogMel(80, **kw).buffers()),
 }
 
 
@@ -512,6 +521,8 @@ EXEMPT = {
         "test_torch_multihost.py)"),
     "heartbeat": "probes every card, or the CPU with device='cpu' (test_torch_failure.py)",
     "run_with_recovery": "a driver loop around the caller's steps",
+    "channelize_power_stream": "a stream of blocks and `device=`: "
+                               "test_channelize_power_stream_puts_its_chunks_on_the_card",
     **dict.fromkeys(["Metrics", "ThroughputMeter", "log_event"], "host counters and logs"),
     **dict.fromkeys(["BenchResult", "benchmark", "hard_sync", "slope_rate", "timed_median",
                      "trace"], "times the caller's function where it runs"),

@@ -102,7 +102,8 @@ def test_the_pipeline_slice_names():
     from nx_signal_tpu.models import pipeline as jax_pipeline
     from nx_signal_tpu_torch.models import pipeline as port_pipeline
 
-    assert set(port_pipeline.__all__) == set(jax_pipeline.__all__) | {"StftFirChain"}
+    assert set(port_pipeline.__all__) == set(jax_pipeline.__all__) | {"StftFirChain",
+                                                                       "WhisperLogMel"}
     for name in ("WidebandReceiver", "channelize_power_stream"):
         assert DEFINED[name] is getattr(port_pipeline, name)
 

@@ -89,18 +89,21 @@ def test_every_jax_entry_has_its_counterpart(module):
 def test_the_port_adds_only_its_kernels_and_its_own_names():
     """The port's entries are the JAX registry's (mapped) plus the public
     names its modules add: 281, 283 once A and B-fft/B split their Pallas
-    kernels, and 8 more (B-ifft's wrapper and route among them, a kernel
-    with no Pallas counterpart)."""
+    kernels, 8 more (B-ifft's wrapper and route among them, a kernel with
+    no Pallas counterpart), and the 8 pipelines of `models.pipeline`, which
+    the JAX registry leaves out (WhisperLogMel among them, the port's own)."""
     jax_entries = {(m, n) for m, fns in jax_registry.FUNCTION_TYPES.items() for n in fns}
     mapped = set()
     for entry in jax_entries:
         mapped.update(KERNEL_MAP.get(entry, [entry]))
     extra = set(ENTRIES) - mapped
-    assert len(jax_entries) == 281 and len(mapped) == 283 and len(ENTRIES) == 291
-    assert extra == {("kernels.dft", "shared_fold_weights"), ("kernels.dft", "shared_twiddles"),
-                     ("kernels.cuda_dft", "framed_ifft_cuda"),
-                     ("kernels.cuda_dft", "ifft_kernel_takes"),
-                     ("kernels.cuda_halo", "close_halo_buffers"),
-                     ("kernels.cuda_halo", "halo_plan"), ("parallel.mesh", "mesh_device"),
-                     ("parallel.sharded", "gather_blocks")}
+    assert len(jax_entries) == 281 and len(mapped) == 283 and len(ENTRIES) == 299
+    pipelines = {("models.pipeline", name) for name in (
+        "stft_fir_chain", "StftFirChain", "FIRFilterChain", "SpectrogramPipeline",
+        "LogMelFrontend", "WhisperLogMel", "WidebandReceiver", "channelize_power_stream")}
+    assert extra == pipelines | {
+        ("kernels.dft", "shared_fold_weights"), ("kernels.dft", "shared_twiddles"),
+        ("kernels.cuda_dft", "framed_ifft_cuda"), ("kernels.cuda_dft", "ifft_kernel_takes"),
+        ("kernels.cuda_halo", "close_halo_buffers"), ("kernels.cuda_halo", "halo_plan"),
+        ("parallel.mesh", "mesh_device"), ("parallel.sharded", "gather_blocks")}
     assert not {m for m, _ in ENTRIES} & {"kernels.pallas_dft", "kernels.pallas_halo"}
