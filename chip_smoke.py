@@ -100,7 +100,11 @@ Phases (any failure raises, and the exit code is not 0):
      hop_length=160, fft_length=400) on the same 64 x 480000 (30 s at 16
      kHz; B-fft, not B), held on two channels against an f64 numpy log-mel
      (reflect padding, rfft, |.|^2, the mel filters, log10, floor) within
-     1e-5 of its max.
+     1e-5 of its max; then WhisperLogMel(128) on 512 x 480000 (30 s clips at
+     16 kHz, gains -40..0 dB, the benchmark's logmel16k.whisper call: B-fft,
+     then kernel M exactly once, not the dense B), held against its plain
+     version (the power and spectral.mel._log_mel(clips=True) on the card)
+     on the same spectrum within 2e-6.
   5. the shared path: fir_framed_dft(kernel='cuda_shared') and
      fir_framed_dft_shared(output='power', onesided=True) on 768 x 480000,
      each held on two channels against the f64 numpy reference with the
@@ -358,7 +362,7 @@ Phases (any failure raises, and the exit code is not 0):
 Last of all, a process this script started that is still running is
 killed and fails the run.
 The line before the last is one JSON object describing the kernels A,
-A-tc, B-fft, B, C, D and E (the launch counts add up every path's, phase
+A-tc, B-fft, B, C, D, E and M (the launch counts add up every path's, phase
 8's over all ranks, and phases 9's and 12's; phases 13 and 14 launch
 none; A's at the bench chain, with the same keys and `_hop_4096` at hann
 4096, hop 4096 beside; A-tc's `ms`, `plain_ms` and `max_abs_err` are at
@@ -374,7 +378,10 @@ shared path's set-up, `fold_ms` and `layout_ms`; E's `ms`,
 `ms_back_to_back`, `host_ms`, `plain_ms` and `library_ms` are host-clock
 times of all ranks at once, `device_ms` its kernels alone, and its bound
 counts the bytes
-of all the ranks sharing the card); the last is the device line {"ok":
+of all the ranks sharing the card; M's at WhisperLogMel's call, 512 clips
+of 3001 x 201 bins and 128 mels, beside the plain version and
+openai/whisper's own torch lines, its bound one read of the frames of z it
+needs and one write of the log-mel); the last is the device line {"ok":
 true, "device": {...}}.
 """
 
@@ -2480,18 +2487,19 @@ def main() -> int:
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.kernels._build import library_path, load_library, ptxas_log_path
     from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
+    from nx_signal_tpu_torch.kernels.cuda_mel import log_mel_clips_cuda
     from nx_signal_tpu_torch.kernels.dft import (
         _dft_weights, _framed_idft_torch, _framed_matmul_tf32_torch, _framed_matmul_torch,
         _same_pad_left,
         _shared_power_torch, fir_dft_fold_weights, fir_framed_dft, fir_framed_dft_shared,
         framed_dft, framed_idft, recognize_cosine_window, shared_fold_weights, shared_twiddles)
     from nx_signal_tpu_torch.models.pipeline import (
-        FIRFilterChain, LogMelFrontend, StftFirChain, stft_fir_chain)
+        FIRFilterChain, LogMelFrontend, StftFirChain, WhisperLogMel, stft_fir_chain)
     from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
     from nx_signal_tpu_torch.spectral.framing import _ola_fold, _ola_fold_torch
-    from nx_signal_tpu_torch.spectral.mel import mel_filters
+    from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
     from nx_signal_tpu_torch.spectral.stft import istft, stft
 
     A = cuda_dft.fir_framed_dft_power_cuda
@@ -2501,7 +2509,8 @@ def main() -> int:
     B = cuda_dft.framed_dft_cuda
     C = cuda_dft.overlap_add_cuda
     D = cuda_dft.fir_framed_dft_power_shared_cuda
-    kernels = (A, A_tc, B_fft, B_ifft, B, C, D)
+    M = log_mel_clips_cuda
+    kernels = (A, A_tc, B_fft, B_ifft, B, C, D, M)
 
     # ---------------------------------------------------------------- 1
     t_build = time.perf_counter()
@@ -3139,6 +3148,48 @@ def main() -> int:
                  rel=1e-5)
     del mel, frm, mel_power
 
+    # Whisper large-v3's front end at the benchmark's call (logmel16k.whisper):
+    # WhisperLogMel(128) on 512 clips of 30 s at 16 kHz, gains -40..0 dB;
+    # kernel B-fft, then kernel M once, not the dense B. Held against the
+    # plain version (the CPU route's power and _log_mel, run on the card) on
+    # the same spectrum within 2e-6 of the normalised values (the tests'
+    # CARD_TOL: the power's fmaf, the band sum's order, log10's ulps)
+    whisper, clips_w = WhisperLogMel(128, device=dev), 512
+    x_w = torch.randn((clips_w, length), generator=gen, device=dev)
+    x_w *= torch.pow(10.0, -2.0 * torch.rand((clips_w, 1), generator=gen, device=dev))
+
+    def whisper_path():
+        out["whisper"] = whisper(x_w)
+        torch.cuda.synchronize()
+
+    counts = _run_path(f"WhisperLogMel(128) {clips_w}x{length}", kernels, (B_fft, M),
+                       whisper_path, avoid=(B,))
+    if counts[M.__name__] != 1:
+        raise AssertionError(f"kernel M launched {counts[M.__name__]} times on WhisperLogMel, "
+                             "not once")
+    launches = {name: launches[name] + counts[name] for name in launches}
+    got = out.pop("whisper")
+    z_w = stft(x_w, whisper.window, sampling_rate=whisper.sampling_rate,
+               fft_length=whisper.n_fft, overlap_length=whisper.n_fft - whisper.hop_length,
+               onesided=True, window_padding="reflect").z
+    del x_w
+
+    def plain_m(z):
+        return _log_mel(z[..., :-1, :].abs() ** 2, whisper.filters, whisper.filters.shape[-1],
+                        clips=True)
+
+    want = plain_m(z_w)
+    frames_w = z_w.shape[-2] - 1
+    if tuple(got.shape) != (clips_w, 128, frames_w) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"WhisperLogMel output {tuple(got.shape)} not finite or wrong shape")
+    err_m = _max_err(got, want)
+    print(f"  WhisperLogMel(128) {clips_w}x{length} vs the plain version on the same spectrum: "
+          f"max|d| = {err_m:.6g} (gate 2e-06); M on that spectrum bitwise the module's = "
+          f"{torch.equal(M(z_w, whisper.bands, whisper.band_weights), got)}", flush=True)
+    if not err_m <= 2e-6:
+        raise AssertionError(f"WhisperLogMel: max|d| {err_m} > 2e-6 against the plain version")
+    del got, want
+
     # ---------------------------------------------------------------- 5
     _header("phase 5: the shared path, fir_framed_dft(kernel='cuda_shared') and "
             "fir_framed_dft_shared")
@@ -3243,6 +3294,14 @@ def main() -> int:
                 torch.backends.cudnn.allow_tf32 = saved
 
         return conv, (blk, cw)
+
+    def whisper_torch():
+        """openai/whisper's own torch lines (audio.py:log_mel_spectrogram),
+        the floor per clip, on the card's spectrum z_w."""
+        magnitudes = z_w[..., :-1, :].abs() ** 2
+        log_spec = torch.clamp(whisper.filters @ magnitudes.transpose(-1, -2), min=1e-10).log10()
+        log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+        return (log_spec + 4.0) / 4.0
 
     rows_a = w_fold.shape[0]
     conv1d_folded, conv_in = folded_conv(x, w_fold, hop, num_frames)
@@ -3356,6 +3415,18 @@ def main() -> int:
             ("kernel", lambda: D(x, w_shared, tw_shared, coeffs, **args_d)),
             ("plain", lambda: _shared_power_torch(x, w_shared, tw_shared, coeffs, **args_d)),
             ("library", conv1d_folded)]),
+        # M at the Whisper call: its bound reads the frames of z it needs and
+        # writes the log-mel once each (its floor's second pass over the
+        # log-mel is its design's, not the function's); operations: the
+        # power (3 a bin), the band sums (2 a nonzero), log10, the floor and
+        # the scaling (4 a value)
+        ("M", clips_w * length,
+         _bound(clips_w * frames_w * (3.0 * z_w.shape[-1] + 2.0 * whisper.band_weights.numel()
+                                      + 4.0 * 128),
+                8.0 * clips_w * frames_w * z_w.shape[-1] + 4.0 * clips_w * 128 * frames_w), [
+            ("kernel", lambda: M(z_w, whisper.bands, whisper.band_weights)),
+            ("plain", lambda: plain_m(z_w)),
+            ("library", whisper_torch)]),
     ]
     timings = {}
     for tag, samples, bound, fns in cases:
@@ -3567,7 +3638,7 @@ def main() -> int:
     del z_seg, coefs
 
     # ---------------------------------------------------------------- 8
-    del x, x64, x8, xs, frames, w_fold, w_fold64, w_fold_l, w_shared, w_dense, w_mixed
+    del x, x64, x8, xs, frames, w_fold, w_fold64, w_fold_l, w_shared, w_dense, w_mixed, z_w
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     _header(f"phase 8: the sharded layer on {_PHASE8_RANKS} ranks sharing the card (gloo, "
@@ -3643,6 +3714,7 @@ def main() -> int:
         (C, "overlap_add.cu", "nx_signal_tpu/kernels/pallas_dft.py:924", err_c, "C"),
         (D, "shared_dft.cu", "nx_signal_tpu/kernels/pallas_dft.py:687", err_d, "D"),
         (halo_extend_cuda, "halo.cu", "nx_signal_tpu/kernels/pallas_halo.py:89", err_e, "E"),
+        (M, "log_mel.cu", None, err_m, "M"),   # replaces no TPU kernel
     ]
     entries = [
         {"name": k.__name__, "route": "cuda",
@@ -3694,8 +3766,10 @@ def main() -> int:
     entries[3].update(n_fft=n_dense, channels=ch_dense, hop=hop_dense)
     # D: the shared path's set-up per call
     entries[5].update(fold_ms=setup_ms["fold"], layout_ms=setup_ms["layout"])
-    entries[-1].update(ms_back_to_back=e["back_to_back"], host_ms=e["host"],
-                       device_ms=e_device_ms)
+    entries[6].update(ms_back_to_back=e["back_to_back"], host_ms=e["host"],
+                      device_ms=e_device_ms)
+    # M: at the Whisper call, 512 clips of 3001 x 201 bins, 128 mels
+    entries[7].update(clips=clips_w, frames=frames_w, mels=128)
 
     # every process this run started has ended: stop any that has not, and fail
     left = _live_children()

@@ -21,7 +21,7 @@ from pathlib import Path
 _CSRC = Path(__file__).with_name("csrc")
 _BUILD_DIR = Path(__file__).with_name("_build")
 _SOURCES = ("framed_dft.cu", "framed_fft.cu", "framed_dft_tc.cu", "overlap_add.cu",
-            "shared_dft.cu", "halo.cu")
+            "shared_dft.cu", "halo.cu", "log_mel.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +56,9 @@ _SIGNATURES = {
     "nx_shared_dft_power_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # stride, krows_pad, j_taps, address of the int64 CTAs per SM it sets
     "nx_shared_dft_ctas_per_sm": (_I, _I, _I, _P),
+    # z, band table, packed weights, out, 2 x clips scratch, clips, mels,
+    # frames, zframes, bins, stream (kernel M, all on the current device)
+    "nx_log_mel_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # halo.cu (kernel E, its peer buffers and its signals), on the current
     # device: address of the int64 flush flag it sets
     "nx_stream_ops_init": (_P,),

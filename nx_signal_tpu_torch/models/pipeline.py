@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
+from nx_signal_tpu_torch.kernels.cuda_mel import log_mel_clips_cuda, mel_bands
 from nx_signal_tpu_torch.kernels.dft import (
     _check_precision,
     _same_pad_left,
@@ -136,7 +137,13 @@ class WhisperLogMel(nn.Module):
     tensor), |z|^2 with the last frame dropped, the exact-f32 mel product,
     log10 with a 1e-10 clip, the floor max - 8 taken over each clip's mels
     and frames, then (x + 4)/4. A 1-D signal is one clip. Whisper pads or
-    cuts each clip to 30 s (480 000 samples at 16 kHz) before it.
+    cuts each clip to 30 s (480 000 samples at 16 kHz) before it. On a
+    CUDA tensor everything after the STFT is kernel M
+    (`kernels.cuda_mel.log_mel_clips_cuda`, over the band table of the
+    filterbank's nonzeros, the buffers `bands` and `band_weights`); on a
+    CPU tensor the power and `spectral.mel._log_mel` compute it. `filters`
+    is the one source of both: the band table is derived from it, kept out
+    of the state dict and rebuilt from the filters `load_state_dict` loads.
 
     `LogMelFrontend` keeps the JAX package's form instead: NxSignal's mel
     top edge (3016.0), one floor for the whole batch, every frame, and the
@@ -167,8 +174,17 @@ class WhisperLogMel(nn.Module):
                                   max_mel=_slaney_max_mel(self.sampling_rate / 2.0),
                                   dtype=torch.float64, device=device)
             filters = filters[:, :self.n_fft // 2 + 1].to(DEFAULT_FLOAT).contiguous()
+            bands, band_weights = mel_bands(filters)
         self.register_buffer("window", hann(self.n_fft, device=device))
         self.register_buffer("filters", filters)
+        self.register_buffer("bands", bands, persistent=False)
+        self.register_buffer("band_weights", band_weights, persistent=False)
+        self.register_load_state_dict_post_hook(WhisperLogMel._rebuild_bands)
+
+    def _rebuild_bands(self, incompatible_keys):
+        """The band table of the filters a state dict has just loaded."""
+        with span("nx.weights.mel"):
+            self.bands, self.band_weights = mel_bands(self.filters)
 
     def forward(self, x):
         with span("nx.logmel"):
@@ -178,6 +194,9 @@ class WhisperLogMel(nn.Module):
             z = stft(x, self.window, sampling_rate=self.sampling_rate, fft_length=self.n_fft,
                      overlap_length=self.n_fft - self.hop_length, onesided=True,
                      window_padding="reflect").z
+            if z.is_cuda:
+                with span("nx.mel"):
+                    return log_mel_clips_cuda(z, self.bands, self.band_weights)
             power = z[..., :-1, :].abs() ** 2
             return _log_mel(power, self.filters, self.filters.shape[-1], clips=True)
 

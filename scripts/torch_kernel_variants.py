@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Design probe of five hand-written kernels of the PyTorch/CUDA port on one
+"""Design probe of six hand-written kernels of the PyTorch/CUDA port on one
 NVIDIA GPU: the choices that `kernels/csrc/framed_dft.cu` (kernel A),
-`kernels/csrc/framed_dft_tc.cu` (A-tc), `kernels/csrc/shared_dft.cu` (D)
-and `kernels/csrc/framed_fft.cu` (B-fft, B-ifft) fix, timed against the
-alternatives in one run, on one card.
+`kernels/csrc/framed_dft_tc.cu` (A-tc), `kernels/csrc/shared_dft.cu` (D),
+`kernels/csrc/framed_fft.cu` (B-fft, B-ifft) and `kernels/csrc/log_mel.cu`
+(M) fix, timed against the alternatives in one run, on one card.
 
     python3 scripts/torch_kernel_variants.py     # from the repository root
 
@@ -71,7 +71,18 @@ alternatives in one run, on one card.
    timings; the outputs compared, and the bound (bytes of z read and frames
    written at 3.35 TB/s).
 
-    python3 scripts/torch_kernel_variants.py 5   # section 5 alone (or 2, or 7)
+8. Kernel M (`kernels/csrc/log_mel.cu`) alone at the Whisper cell's shape
+   (512 clips of 30 s at 16 kHz: a (512, 3001, 201) complex64 spectrum
+   from B-fft, 128 mels), against the plain version on the card, the torch
+   operations it replaced on WhisperLogMel's route (|z|^2 through torch's
+   complex abs, the exact-f32 product with the dense filterbank, clamp,
+   log10, each clip's max, the floor and the scaling), in turns, medians of
+   7 CUDA-event timings; the outputs compared; M's device time split by
+   the profiler (the fill, the kernel); and its bounds (bytes at 3.35 TB/s:
+   z read and the log-mel written once, and with the floor's read and
+   write of the log-mel).
+
+    python3 scripts/torch_kernel_variants.py 5   # section 5 alone (or 2, 7 or 8)
     python3 scripts/torch_kernel_variants.py 6 --parent DIR   # section 6
 
 Prints the card's name and power limit first. Imports nothing of JAX.
@@ -530,9 +541,55 @@ def _ifft_alone(dev, gen):
     print(f"  bound (bytes: z read, frames written, at 3.35 TB/s): {bound:.3f} ms", flush=True)
 
 
+def _log_mel_alone(dev, gen):
+    """Section 8: kernel M at the Whisper cell's shape against the torch
+    operations it replaced, in turns, and its launches by the profiler."""
+    from nx_signal_tpu_torch.kernels.cuda_mel import log_mel_clips_cuda
+    from nx_signal_tpu_torch.models.pipeline import WhisperLogMel
+    from nx_signal_tpu_torch.spectral.mel import _log_mel
+    from nx_signal_tpu_torch.spectral.stft import stft
+
+    clips, length, mels = 512, 480000, 128
+    frontend = WhisperLogMel(mels, device=dev)
+    x = torch.randn(clips, length, generator=gen, device=dev)
+    x *= torch.pow(10.0, -2.0 * torch.rand(clips, 1, generator=gen, device=dev))
+    z = stft(x, frontend.window, sampling_rate=frontend.sampling_rate,
+             fft_length=frontend.n_fft, overlap_length=frontend.n_fft - frontend.hop_length,
+             onesided=True, window_padding="reflect").z
+    del x
+    bins = frontend.filters.shape[-1]
+    runs = {
+        "M": lambda: log_mel_clips_cuda(z, frontend.bands, frontend.band_weights),
+        "torch: |z|^2, exact-f32 product, tail": lambda: _log_mel(
+            z[..., :-1, :].abs() ** 2, frontend.filters, bins, clips=True),
+    }
+    got, want = (run() for run in runs.values())
+    print(f"section 8: M at {tuple(z.shape)} complex64, {mels} mels: max|d| against the torch "
+          f"operations {float((got - want).abs().max()):.3g}, bitwise equal on a second run "
+          f"{bool(torch.equal(got, runs['M']()))}", flush=True)
+    del got, want
+    t = _timed_in_turns(runs)
+    for name, (a, b) in t.items():
+        print(f"  {name}: {a:.3f} / {b:.3f} ms", flush=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            runs["M"]()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            print(f"  M's {e.key}: {e.device_time_total / e.count * 1e-3:.3f} ms a call",
+                  flush=True)
+    frames = z.shape[-2] - 1
+    once = clips * frames * (8.0 * bins + 4.0 * mels)
+    floored = once + 8.0 * clips * frames * mels
+    print(f"  bound (bytes at 3.35 TB/s): z read and the log-mel written once "
+          f"{once / 1e9:.3f} GB, {once / 3.35e12 * 1e3:.3f} ms; with the floor's read and "
+          f"write {floored / 1e9:.3f} GB, {floored / 3.35e12 * 1e3:.3f} ms", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Design probe of the port's kernels.")
-    parser.add_argument("section", nargs="?", choices=("2", "5", "6", "7"),
+    parser.add_argument("section", nargs="?", choices=("2", "5", "6", "7", "8"),
                         help="run this section alone")
     parser.add_argument("--parent", help="section 6: a checkout whose framed_fft.cu to time "
                                          "beside this one")
@@ -556,6 +613,9 @@ def main() -> int:
         if args.section == "7":
             _ifft_alone(dev, gen)
             return 0
+        if args.section == "8":
+            _log_mel_alone(dev, gen)
+            return 0
         _ring(dev, gen, tmp)
         _tc_groups(dev, gen, tmp)
         _shared_tiles(dev, gen, tmp)
@@ -563,6 +623,7 @@ def main() -> int:
         _against_parent(dev, gen, tmp, args.parent)
     _fft_kernels(dev, gen)
     _ifft_alone(dev, gen)
+    _log_mel_alone(dev, gen)
     return 0
 
 

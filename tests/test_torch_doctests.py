@@ -13,6 +13,7 @@ MODULES = [
     "nx_signal_tpu_torch.io.wav",
     "nx_signal_tpu_torch.kernels.cuda_dft",
     "nx_signal_tpu_torch.kernels.cuda_halo",
+    "nx_signal_tpu_torch.kernels.cuda_mel",
     "nx_signal_tpu_torch.kernels.dft",
     "nx_signal_tpu_torch.models.pipeline",
     "nx_signal_tpu_torch.ops.convolution",
