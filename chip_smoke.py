@@ -1034,8 +1034,8 @@ def _phase9(kernels, launches, dev, channels, length, rate):
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.ops.convolution import convolve
     from nx_signal_tpu_torch.ops.windows import hann
+    from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch
     from nx_signal_tpu_torch.spectral.estimation import coherence, csd, welch
-    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
     from nx_signal_tpu_torch.spectral.short_time_fft import ShortTimeFFT
     from nx_signal_tpu_torch.spectral.spectrogram import spectrogram
 
@@ -2486,6 +2486,7 @@ def main() -> int:
 
     from nx_signal_tpu_torch.kernels import cuda_dft
     from nx_signal_tpu_torch.kernels._build import library_path, load_library, ptxas_log_path
+    from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch
     from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
     from nx_signal_tpu_torch.kernels.cuda_mel import log_mel_clips_cuda
     from nx_signal_tpu_torch.kernels.dft import (
@@ -2498,7 +2499,7 @@ def main() -> int:
     from nx_signal_tpu_torch.ops import windows
     from nx_signal_tpu_torch.ops.filters import firwin
     from nx_signal_tpu_torch.ops.windows import hann
-    from nx_signal_tpu_torch.spectral.framing import _ola_fold, _ola_fold_torch
+    from nx_signal_tpu_torch.spectral.framing import _ola_fold
     from nx_signal_tpu_torch.spectral.mel import _log_mel, mel_filters
     from nx_signal_tpu_torch.spectral.stft import istft, stft
 

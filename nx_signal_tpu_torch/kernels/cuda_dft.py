@@ -22,7 +22,7 @@ product in the JAX package, as an inverse FFT per frame.
 Each wrapper takes the tensor's device as its dispatch rule: on a CPU
 tensor it returns its plain PyTorch version (`_framed_matmul_torch`,
 `_framed_matmul_tf32_torch` and `_shared_power_torch` in kernels/dft.py,
-`_ola_fold_torch` in spectral/framing.py); on a CUDA tensor it launches its
+`_ola_fold_torch` here); on a CUDA tensor it launches its
 kernel, built at first use (kernels/_build.py), or raises. Nothing falls
 back. Each wrapper counts its launches in its `launches` attribute, a plain
 integer that callers may reset.
@@ -47,16 +47,17 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nx_signal_tpu_torch.kernels._build import load_library
 from nx_signal_tpu_torch.kernels.dft import (
     _bluestein_plan, _dft_weights, _fft_plan, _fft_twiddles, _framed_idft_torch,
     _framed_matmul_tf32_torch, _framed_matmul_torch, _host_f64, _radices, _shared_power_torch,
     _tf32_passes, _tf32_split, good_matmul_fft_length)
-from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch, _ola_seed
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
+from nx_signal_tpu_torch.utils.shapes import _frame_block_widths
 
 __all__ = ["fir_framed_dft_power_cuda", "fir_framed_dft_power_tc_cuda", "framed_fft_cuda",
            "framed_ifft_cuda", "framed_dft_cuda", "overlap_add_cuda",
@@ -447,9 +448,8 @@ def _auto_takes_kernel(x, n_fft: int) -> bool:
     """Whether method='auto' runs the framed DFT of the real signal x as
     `kernels.dft.framed_dft` rather than torch.fft: on a CUDA float32 tensor
     by the card's measured cuts (`_card_takes_kernel`), on any other where
-    the JAX package puts it (`kernels.dft.good_matmul_fft_length`). `stft`,
-    `StreamingSTFT`, `sharded_stft`, `ShortTimeFFT` and the filtered
-    `stft_fir_chain` ask it.
+    the JAX package puts it (`kernels.dft.good_matmul_fft_length`). Its one
+    caller is the route of the framed DFT, `spectral.stft._framed_spectrum`.
 
     Examples:
 
@@ -659,6 +659,63 @@ def framed_dft_cuda(x, weights, *, stride: int, num_frames: int, bins: int,
 
 
 framed_dft_cuda.launches = 0
+
+
+def _ola_seed(init, batch, length: int, dtype):
+    """The (*batch, length) seed of a fold: `init` cut to `length` samples
+    and zero-padded to it, in `dtype`."""
+    init = torch.as_tensor(init)
+    if tuple(init.shape[:-1]) != tuple(batch):
+        raise ValueError(f"init must have the frames' batch shape {tuple(batch)}, "
+                         f"got {tuple(init.shape[:-1])}")
+    init = init[..., :length].to(dtype)
+    return F.pad(init, (0, length - init.shape[-1]))
+
+
+def _part_seeds(init):
+    """The (real part, imaginary part) seeds of a complex fold: a complex
+    seed's parts, a real seed for the real part only, or none."""
+    if init is None:
+        return None, None
+    init = torch.as_tensor(init)
+    return (init.real, init.imag) if init.is_complex() else (init, None)
+
+
+def _ola_fold_torch(frames, stride: int, out_length: int, init=None):
+    """Plain deterministic overlap-add: a left fold of the C shifted blocks,
+    j descending, so sample p = q*stride + s receives frames[q - j,
+    s + j*stride] in increasing frame order.
+
+    The (rows, stride) accumulator grid starts at `init` (cut to
+    rows*stride samples, zero-padded), or at +0.0 without one, and every
+    block is added to the whole grid, zeros outside its row range, as the
+    JAX fold does: a seed of -0.0 then meets the same +0.0 terms.
+
+    Complex frames fold their real and imaginary parts apart: torch's
+    complex add computes a + 1*b, and the complex product 1*b turns a real
+    part of -0.0 into +0.0 where the imaginary part is negative."""
+    if frames.is_complex():
+        seeds = _part_seeds(init)
+        re = _ola_fold_torch(frames.real, stride, out_length, init=seeds[0])
+        im = _ola_fold_torch(frames.imag, stride, out_length, init=seeds[1])
+        return torch.complex(re, im)
+    *batch, num_frames, window_length = frames.shape
+    widths = _frame_block_widths(window_length, stride)
+    num_rows = -(-out_length // stride)
+    grid = (*batch, num_rows, stride)
+    if init is None:
+        acc = torch.zeros(grid, dtype=frames.dtype, device=frames.device)
+    else:
+        acc = _ola_seed(init, batch, num_rows * stride, frames.dtype).reshape(grid)
+        acc = acc.to(frames.device, copy=True)
+    block = torch.empty_like(acc)
+    for j in range(len(widths) - 1, -1, -1):
+        rows = max(min(num_frames, num_rows - j), 0)
+        w = widths[j]
+        block.zero_()
+        block[..., j:j + rows, :w] = frames[..., :rows, j * stride:j * stride + w]
+        acc += block
+    return acc.reshape(*batch, num_rows * stride)[..., :out_length]
 
 
 def overlap_add_cuda(frames, *, stride: int, out_length: int, init=None):

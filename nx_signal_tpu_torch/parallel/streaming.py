@@ -15,9 +15,9 @@ Routes, on a CUDA tensor:
   one exact-f32 conv1d against the taps' Toeplitz band.
 * `StreamingIIR`: `ops.iir._lfilter_last_axis` per second-order section
   (the chunked order-2 form).
-* `StreamingSTFT`: `kernels.dft.framed_dft` (kernel B-fft, one launch per
-  chunk) for real input with frame_length <= fft_length <= 1024, as
-  `spectral.stft.stft` routes; torch.fft otherwise.
+* `StreamingSTFT`: `spectral.stft._framed_spectrum`, the route of
+  `spectral.stft.stft` (kernel B-fft, one launch per chunk, where it takes
+  a real chunk and window; torch.fft otherwise).
 * `StreamingISTFT`: torch.fft.ifft, the scaling and window, then the
   seeded overlap-add `spectral.framing._ola_fold` (kernel C, once per part
   of the complex frames: two launches per chunk).
@@ -41,8 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
-from nx_signal_tpu_torch.kernels.dft import _check_precision, framed_dft
+from nx_signal_tpu_torch.kernels.dft import _check_precision
 from nx_signal_tpu_torch.ops.convolution import _float_cast, fir_convolve_1d
 from nx_signal_tpu_torch.ops.filters import firwin
 from nx_signal_tpu_torch.ops.iir import _lfilter_last_axis, _sos_host, _work_dtype
@@ -56,8 +55,8 @@ from nx_signal_tpu_torch.ops.resample import (
     _resample_poly_design,
     _upfirdn_dtype,
 )
-from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
-from nx_signal_tpu_torch.spectral.stft import _apply_scaling
+from nx_signal_tpu_torch.spectral.framing import _ola_fold
+from nx_signal_tpu_torch.spectral.stft import _apply_scaling, _framed_spectrum
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_COMPLEX, DEFAULT_FLOAT
 
@@ -163,10 +162,7 @@ class StreamingSTFT:
     onesided: bool = False
 
     def __post_init__(self):
-        window = _host(self.window)
-        object.__setattr__(self, "_window", window)
-        object.__setattr__(self, "_window_f64", None if window.is_complex()
-                           else window.numpy().astype(np.float64))
+        object.__setattr__(self, "_window", _host(self.window))
 
     @property
     def frame_length(self):
@@ -185,17 +181,11 @@ class StreamingSTFT:
             )
         state = _state_on(state, chunk.device)
         ext = torch.cat([state.to(chunk.dtype), chunk], dim=-1)
-        n_fft = self.fft_length or frame_length
-        dev = ext.device
-        if (not ext.is_complex() and self._window_f64 is not None
-                and _auto_takes_kernel(ext, n_fft) and n_fft >= frame_length):
-            window = _kept(self, ("f64", dev), lambda: torch.from_numpy(self._window_f64).to(dev))
-            z = framed_dft(ext, window, stride=self.hop, n_fft=n_fft, onesided=self.onesided)
-        else:
-            frames = as_windowed(ext, window_length=frame_length, stride=self.hop)
-            fft = torch.fft.rfft if self.onesided else torch.fft.fft
-            window = _kept(self, dev, lambda: self._window.to(dev))
-            z = fft(frames * window, n=n_fft, dim=-1)
+        window = _kept(self, ext.device, lambda: self._window.to(ext.device))
+        z = _framed_spectrum(ext, window, stride=self.hop, n_fft=self.fft_length or frame_length,
+                             onesided=self.onesided,
+                             method="fft" if window.is_complex() else "auto",
+                             precision="highest")
         consumed = z.shape[-2] * self.hop
         return ext[..., consumed:], z
 

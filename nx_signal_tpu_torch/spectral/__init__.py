@@ -2,10 +2,6 @@
 the names the JAX subpackage re-exports, each from its port module. As
 there, the functions `stft` and `spectrogram` shadow the submodules of the
 same name on the package; reach a submodule with importlib.import_module.
-
-Its submodules import kernels.dft, which imports spectral.framing: the
-package is initialised before kernels.dft (the top level imports it
-first), so that import finds the package and loads framing alone.
 """
 
 from nx_signal_tpu_torch.spectral.estimation import coherence, csd, periodogram, welch

@@ -25,12 +25,12 @@ import numpy as np
 import torch
 
 from nx_signal_tpu_torch.kernels.dft import _exact_f32, blocked_frame_matmul
-from nx_signal_tpu_torch.ops.filters import _median_last
 from nx_signal_tpu_torch.ops.windows import get_window
 from nx_signal_tpu_torch.spectral.framing import as_windowed
 from nx_signal_tpu_torch.spectral.stft import stft
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT, default_complex
+from nx_signal_tpu_torch.utils.reductions import _median_last
 
 __all__ = ["periodogram", "welch", "csd", "coherence", "lombscargle", "vectorstrength"]
 

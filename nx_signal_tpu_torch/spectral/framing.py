@@ -13,16 +13,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch, _part_seeds, overlap_add_cuda
 from nx_signal_tpu_torch.utils.devices import as_signal
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 
 __all__ = ["as_windowed", "overlap_and_add", "pad_for_windowing"]
-
-
-def _frame_block_widths(window_length: int, stride: int):
-    """Column widths of the C slice/reshape blocks."""
-    num_blocks = -(-window_length // stride)  # ceil
-    return [min(stride, window_length - r * stride) for r in range(num_blocks)]
 
 
 def _padding_config(window_length: int, padding):
@@ -100,63 +95,6 @@ def as_windowed(x, *, window_length: int, stride: int = 1, padding="valid"):
     return x.unfold(-1, window_length, stride)
 
 
-def _ola_seed(init, batch, length: int, dtype):
-    """The (*batch, length) seed of a fold: `init` cut to `length` samples
-    and zero-padded to it, in `dtype`."""
-    init = torch.as_tensor(init)
-    if tuple(init.shape[:-1]) != tuple(batch):
-        raise ValueError(f"init must have the frames' batch shape {tuple(batch)}, "
-                         f"got {tuple(init.shape[:-1])}")
-    init = init[..., :length].to(dtype)
-    return F.pad(init, (0, length - init.shape[-1]))
-
-
-def _part_seeds(init):
-    """The (real part, imaginary part) seeds of a complex fold: a complex
-    seed's parts, a real seed for the real part only, or none."""
-    if init is None:
-        return None, None
-    init = torch.as_tensor(init)
-    return (init.real, init.imag) if init.is_complex() else (init, None)
-
-
-def _ola_fold_torch(frames, stride: int, out_length: int, init=None):
-    """Plain deterministic overlap-add: a left fold of the C shifted blocks,
-    j descending, so sample p = q*stride + s receives frames[q - j,
-    s + j*stride] in increasing frame order.
-
-    The (rows, stride) accumulator grid starts at `init` (cut to
-    rows*stride samples, zero-padded), or at +0.0 without one, and every
-    block is added to the whole grid, zeros outside its row range, as the
-    JAX fold does: a seed of -0.0 then meets the same +0.0 terms.
-
-    Complex frames fold their real and imaginary parts apart: torch's
-    complex add computes a + 1*b, and the complex product 1*b turns a real
-    part of -0.0 into +0.0 where the imaginary part is negative."""
-    if frames.is_complex():
-        seeds = _part_seeds(init)
-        re = _ola_fold_torch(frames.real, stride, out_length, init=seeds[0])
-        im = _ola_fold_torch(frames.imag, stride, out_length, init=seeds[1])
-        return torch.complex(re, im)
-    *batch, num_frames, window_length = frames.shape
-    widths = _frame_block_widths(window_length, stride)
-    num_rows = -(-out_length // stride)
-    grid = (*batch, num_rows, stride)
-    if init is None:
-        acc = torch.zeros(grid, dtype=frames.dtype, device=frames.device)
-    else:
-        acc = _ola_seed(init, batch, num_rows * stride, frames.dtype).reshape(grid)
-        acc = acc.to(frames.device, copy=True)
-    block = torch.empty_like(acc)
-    for j in range(len(widths) - 1, -1, -1):
-        rows = max(min(num_frames, num_rows - j), 0)
-        w = widths[j]
-        block.zero_()
-        block[..., j:j + rows, :w] = frames[..., :rows, j * stride:j * stride + w]
-        acc += block
-    return acc.reshape(*batch, num_rows * stride)[..., :out_length]
-
-
 def _ola_fold(frames, stride: int, out_length: int, init=None):
     """Deterministic overlap-add of (..., M, N) frames into (..., out_length).
     `init` (..., any length), if given, seeds the accumulator: a sample
@@ -169,14 +107,11 @@ def _ola_fold(frames, stride: int, out_length: int, init=None):
     and complex64 frames through it once per part, seeded by the seed's
     parts (a real seed seeds the real part only), as `_ola_fold_torch`
     folds them; other dtypes take the plain fold."""
-    if frames.dtype in (DEFAULT_FLOAT, torch.complex64):
-        from nx_signal_tpu_torch.kernels import cuda_dft
-
-        if frames.dtype == DEFAULT_FLOAT:
-            return cuda_dft.overlap_add_cuda(frames, stride=stride, out_length=out_length,
-                                             init=init)
-        re, im = (cuda_dft.overlap_add_cuda(part.contiguous(), stride=stride,
-                                            out_length=out_length, init=seed)
+    if frames.dtype == DEFAULT_FLOAT:
+        return overlap_add_cuda(frames, stride=stride, out_length=out_length, init=init)
+    if frames.dtype == torch.complex64:
+        re, im = (overlap_add_cuda(part.contiguous(), stride=stride, out_length=out_length,
+                                   init=seed)
                   for part, seed in zip((frames.real, frames.imag), _part_seeds(init)))
         return torch.complex(re, im)
     return _ola_fold_torch(frames, stride, out_length, init=init)

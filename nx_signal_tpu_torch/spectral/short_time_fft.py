@@ -11,10 +11,13 @@ in the JAX package.
 * The forward transform frames the padded signal once; scipy's per-slice
   roll by the phase shift is a per-bin phase factor (fft(roll(v, -s))[k] =
   fft(v)[k] exp(2j pi k s / mfft)). On a CUDA float32 signal with a real
-  window, no detrend, a one-sided fft_mode and 8 <= mfft <= 1024 it is
+  window, no detrend, a one-sided fft_mode and an mfft within the card's
+  cut (`kernels.cuda_dft._card_takes_kernel`) it is
   `kernels.dft.framed_dft` (kernel B-fft: no frame matrix is built);
   otherwise torch.fft of the windowed frames (`fft_method` 'matmul' or
-  'fft' forces one route).
+  'fft' forces one route). This rule is its own, not `stft`'s
+  (`spectral.stft._framed_spectrum`): off the card 'auto' keeps torch.fft
+  at every mfft, as the JAX class keeps its matmul DFT off the CPU.
 * `istft` is an inverse FFT per slice times the dual window, then the
   deterministic left fold `spectral.framing._ola_fold` (kernel C on a CUDA
   float32 tensor; complex frames fold their real and imaginary parts
@@ -26,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel, fft_kernel_takes
+from nx_signal_tpu_torch.kernels.cuda_dft import _card_takes_kernel, fft_kernel_takes
 from nx_signal_tpu_torch.kernels.dft import framed_dft
 from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed
 from nx_signal_tpu_torch.utils.devices import as_signal
@@ -130,8 +133,8 @@ class ShortTimeFFT:
 
     `fft_method` ('auto', 'fft' or 'matmul') picks the forward transform of
     the one-sided modes: 'auto' runs kernel B-fft through `framed_dft` on a
-    CUDA float32 signal (real window, no detrend, mfft 8..1024) and
-    torch.fft otherwise; 'matmul' takes `framed_dft` on any device (its
+    CUDA float32 signal (real window, no detrend, mfft within the card's
+    cut) and torch.fft otherwise; 'matmul' takes `framed_dft` on any device (its
     plain conv1d on the CPU) wherever its contract holds.
 
     Examples:
@@ -510,7 +513,7 @@ class ShortTimeFFT:
         if method == "matmul":
             return takes
         return (method == "auto" and takes and x.is_cuda and x.dtype == torch.float32
-                and _auto_takes_kernel(x, self.mfft))
+                and _card_takes_kernel(self.mfft))
 
     def stft_detrend(self, x, detr, p0=None, p1=None, *, k_offset: int = 0,
                      padding: str = "zeros", axis: int = -1):

@@ -1,17 +1,16 @@
 """Short-Time Fourier Transform: stft / istft / fft_frequencies
 (counterpart of nx_signal_tpu/spectral/stft.py).
 
-The forward transform runs the fused framing + window + DFT
-(kernels/dft.py:framed_dft: on a CUDA tensor the CUDA kernel B-fft, an FFT
-per frame, at every fft_length from 8 to 1024, and the dense kernel B for a
-shorter one) for real input with fft_length <= 1024, and torch.fft on
-explicit frames otherwise.
-The inverse runs the fused inverse-DFT + synthesis-window matmul
-(kernels/dft.py:framed_idft) and the deterministic overlap-add
-(spectral/framing.py:_ola_fold, the CUDA kernel C on a CUDA tensor).
-torch.stft / torch.istft are not used: their centering, padding and layout
-differ from this package's. Leading batch axes (channels) are supported
-everywhere.
+The port decides the route of the framed DFT here and nowhere else:
+`_framed_spectrum` (forward: `kernels.dft.framed_dft` where
+`kernels.cuda_dft._auto_takes_kernel` sends a real signal, torch.fft
+otherwise) and `_windowed_frames` (inverse: `kernels.dft.framed_idft` or
+torch.fft). `stft`, `istft`, the sharded and streaming STFTs and the
+filtered `stft_fir_chain` share them; `ShortTimeFFT` keeps its own rule.
+The overlap-add is `spectral.framing._ola_fold` (kernel C on a CUDA
+tensor). torch.stft / torch.istft are not used: their centering, padding
+and layout differ from this package's. Leading batch axes (channels) are
+supported everywhere.
 """
 
 from typing import NamedTuple
@@ -21,7 +20,7 @@ import torch
 
 from nx_signal_tpu_torch.kernels.cuda_dft import _auto_takes_kernel
 from nx_signal_tpu_torch.kernels.dft import framed_dft, framed_idft, good_matmul_fft_length
-from nx_signal_tpu_torch.spectral.framing import _ola_fold, as_windowed, pad_for_windowing
+from nx_signal_tpu_torch.spectral.framing import _ola_fold, pad_for_windowing
 from nx_signal_tpu_torch.utils.devices import as_signal, target_device
 from nx_signal_tpu_torch.utils.dtypes import DEFAULT_FLOAT
 from nx_signal_tpu_torch.utils.profiling import span
@@ -108,10 +107,12 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     'valid' ('same', 'reflect' or (lo, hi) also work), scaling None,
     'spectrum' or 'psd'.
 
-    `method`: 'auto' uses the framed-DFT contraction for real input with
-    frame_length <= fft_length <= 1024 and torch.fft otherwise; 'fft' and
-    'matmul' force a path. `precision` is accepted for the JAX package's
-    signature; the framed DFT runs f32 at every setting.
+    `method`: 'auto' takes the route of `_framed_spectrum` (the framed-DFT
+    kernels for real input with frame_length <= fft_length within the
+    device's cut, `kernels.cuda_dft._auto_takes_kernel`; torch.fft
+    otherwise); 'fft' and 'matmul' force a path. `precision` is accepted
+    for the JAX package's signature; the framed DFT runs f32 at every
+    setting.
 
     Examples:
 
@@ -143,43 +144,65 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
             raise ValueError(
                 f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
             )
-        real_input = not data.is_complex()
-        use_matmul = method == "matmul" or (
-            method == "auto" and real_input and _auto_takes_kernel(data, n_fft)
-            and n_fft >= frame_length  # the contraction zero-pads; it cannot truncate
+        padded = pad_for_windowing(data, frame_length, window_padding)
+        spectrum = _framed_spectrum(padded, window, stride=stride, n_fft=n_fft,
+                                    onesided=onesided, method=method, precision=precision)
+        return _stft_result(spectrum, window, n_fft=n_fft, onesided=onesided, scaling=scaling,
+                            sampling_rate=sampling_rate, num_frames=spectrum.shape[-2])
+
+
+def _framed_spectrum(x, window, *, stride: int, n_fft: int, onesided: bool, method,
+                     precision, output: str = "complex"):
+    """The framed DFT of the (..., L) signal, already padded or
+    halo-extended: frame m is x[m*stride : m*stride + frame_length] times
+    `window`, transformed at n_fft (zero-padded, or cut as torch.fft's `n`
+    cuts), (..., frames, bins) complex, or its |z|^2 with
+    `output='power'`.
+
+    The port's one route rule for it: method='matmul', and method='auto' on
+    a real signal with n_fft >= frame_length where
+    `kernels.cuda_dft._auto_takes_kernel` sends it, run
+    `kernels.dft.framed_dft`; anything else runs torch.fft on the frames.
+    `method` is not validated here (`stft` checks it)."""
+    frame_length = window.shape[-1]
+    real_input = not x.is_complex()
+    use_matmul = method == "matmul" or (
+        method == "auto" and real_input and _auto_takes_kernel(x, n_fft)
+        and n_fft >= frame_length  # the contraction zero-pads; it cannot truncate
+    )
+    if use_matmul and not real_input:
+        raise ValueError("method='matmul' requires real input")
+    if use_matmul and n_fft < frame_length:
+        raise ValueError(
+            "method='matmul' requires fft_length >= frame_length "
+            f"(got {n_fft} < {frame_length}); use method='fft'"
         )
-        if use_matmul and not real_input:
-            raise ValueError("method='matmul' requires real input")
-        if use_matmul and n_fft < frame_length:
-            raise ValueError(
-                "method='matmul' requires fft_length >= frame_length "
-                f"(got {n_fft} < {frame_length}); use method='fft'"
-            )
+    if stride < 1:
+        raise ValueError(f"expected an integer >= 1 for stride, got: {stride}")
+    if x.shape[-1] < frame_length:
+        raise ValueError(
+            f"window length {frame_length} exceeds padded signal length {x.shape[-1]}"
+        )
+    if use_matmul:
+        return framed_dft(x, window, stride=stride, n_fft=n_fft, onesided=onesided,
+                          precision=precision, output=output)
+    fft = torch.fft.rfft if onesided else torch.fft.fft
+    z = fft(x.unfold(-1, frame_length, stride) * window, n=n_fft, dim=-1)
+    return z.abs() ** 2 if output == "power" else z
 
-        if use_matmul:
-            padded = pad_for_windowing(data, frame_length, window_padding)
-            if padded.shape[-1] < frame_length:
-                raise ValueError(
-                    f"window length {frame_length} exceeds padded signal length "
-                    f"{padded.shape[-1]}"
-                )
-            spectrum = framed_dft(padded, window, stride=stride, n_fft=n_fft,
-                                  onesided=onesided, precision=precision)
-        else:
-            frames = as_windowed(data, window_length=frame_length, stride=stride,
-                                 padding=window_padding)
-            fft = torch.fft.rfft if onesided else torch.fft.fft
-            spectrum = fft(frames * window, n=n_fft, dim=-1)
-        num_frames = spectrum.shape[-2]
 
-        frequencies = fft_frequencies(sampling_rate, fft_length=n_fft, device=data.device)
-        if onesided:
-            frequencies = frequencies[: n_fft // 2 + 1]
-        time_step = frame_length / (2.0 * sampling_rate)
-        times = torch.linspace(time_step, time_step * num_frames, num_frames,
-                               dtype=DEFAULT_FLOAT, device=data.device)
-        spectrum = _apply_scaling(spectrum, window, scaling, sampling_rate, inverse=False)
-        return STFTResult(spectrum, times, frequencies)
+def _stft_result(z, window, *, n_fft: int, onesided: bool, scaling, sampling_rate,
+                 num_frames: int):
+    """The STFTResult of the spectrum z: z scaled, `num_frames` frame
+    times (window midpoints) and the bins' frequencies, on z's device."""
+    frequencies = fft_frequencies(sampling_rate, fft_length=n_fft, device=z.device)
+    if onesided:
+        frequencies = frequencies[: n_fft // 2 + 1]
+    time_step = window.shape[-1] / (2.0 * sampling_rate)
+    times = torch.linspace(time_step, time_step * num_frames, num_frames,
+                           dtype=DEFAULT_FLOAT, device=z.device)
+    z = _apply_scaling(z, window, scaling, sampling_rate, inverse=False)
+    return STFTResult(z, times, frequencies)
 
 
 def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
@@ -189,9 +212,10 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     normalization with a 1e-10 guard. Returns the complex reconstruction,
     or a real one for a onesided spectrum (`onesided=True`).
 
-    `method`: 'auto' uses the fused inverse-DFT + window matmul for
-    fft_length <= 1024 when the window spans fft_length, torch.fft
-    otherwise.
+    `method`: 'auto' takes the route of `_windowed_frames`
+    (`kernels.dft.framed_idft`, the inverse DFT with the window fused in,
+    for fft_length <= 1024 when the window spans fft_length; torch.fft
+    otherwise); 'fft' and 'matmul' force a path.
 
     Examples:
 
@@ -217,21 +241,9 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
             raise ValueError(
                 f"invalid method, expected one of 'auto', 'fft', 'matmul', got: {method}"
             )
-        use_matmul = method == "matmul" or (
-            method == "auto" and good_matmul_fft_length(n_fft)
-            and window.shape[-1] == n_fft  # the fft path broadcasts the window
-        )
-
-        if use_matmul:
-            # scaling is a scalar multiply and commutes with the linear transform
-            windowed = framed_idft(z, window, n_fft=n_fft, onesided=onesided,
-                                   precision=precision)
-            windowed = _apply_scaling(windowed, window, scaling, sampling_rate, inverse=True)
-        else:
-            ifft = torch.fft.irfft if onesided else torch.fft.ifft
-            frames = ifft(z, n=n_fft, dim=-1)
-            frames = _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
-            windowed = frames * window
+        windowed = _windowed_frames(z, window, n_fft=n_fft, onesided=onesided, method=method,
+                                    scaling=scaling, sampling_rate=sampling_rate,
+                                    precision=precision)
         num_frames, frame_length = windowed.shape[-2], windowed.shape[-1]
         if overlap_length >= frame_length:
             raise ValueError(
@@ -246,6 +258,28 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
         norm = _ola_fold(envelope, stride, out_length)
         norm = torch.where(norm > 1e-10, norm, torch.ones((), dtype=norm.dtype, device=norm.device))
         return result / norm
+
+
+def _windowed_frames(z, window, *, n_fft: int, onesided: bool, method, scaling,
+                     sampling_rate, precision):
+    """The (..., M, bins) spectrum z as synthesis-windowed time frames:
+    each frame's inverse DFT at n_fft, the inverse scaling, times `window`.
+    The port's one route rule for it: method='matmul', and method='auto'
+    where the JAX package puts it (`kernels.dft.good_matmul_fft_length`)
+    with a window of n_fft samples, run `kernels.dft.framed_idft` (the
+    window fused in); anything else runs torch.fft, whose frames the window
+    broadcasts over."""
+    if method == "matmul" or (
+        method == "auto" and good_matmul_fft_length(n_fft)
+        and window.shape[-1] == n_fft  # the fft path broadcasts the window
+    ):
+        # scaling is a scalar multiply and commutes with the linear transform
+        frames = framed_idft(z, window, n_fft=n_fft, onesided=onesided, precision=precision)
+        return _apply_scaling(frames, window, scaling, sampling_rate, inverse=True)
+    ifft = torch.fft.irfft if onesided else torch.fft.ifft
+    frames = _apply_scaling(ifft(z, n=n_fft, dim=-1), window, scaling, sampling_rate,
+                            inverse=True)
+    return frames * window
 
 
 def _check_window_arg(window, nperseg: int):

@@ -70,3 +70,10 @@ def conv_output_length(n: int, k: int, mode: str) -> int:
     if mode == "valid":
         return n - k + 1
     raise ValueError(f"expected mode to be one of ['full', 'same', 'valid'], got: {mode}")
+
+
+def _frame_block_widths(window_length: int, stride: int):
+    """Column widths of the C = ceil(window_length / stride) hop blocks a
+    frame splits into: `stride` each, the last one the remainder."""
+    num_blocks = -(-window_length // stride)  # ceil
+    return [min(stride, window_length - r * stride) for r in range(num_blocks)]

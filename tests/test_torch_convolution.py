@@ -17,9 +17,9 @@ import torch
 from nx_signal_tpu.ops import convolution as jc
 from nx_signal_tpu.utils import dtypes as jdt
 from nx_signal_tpu.utils import shapes as jsh
+from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch
 from nx_signal_tpu_torch.ops import convolution as tc
 from nx_signal_tpu_torch.ops import transforms as ttr
-from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
 from nx_signal_tpu_torch.utils import dtypes as tdt
 from nx_signal_tpu_torch.utils import shapes as tsh
 

@@ -21,11 +21,11 @@ import pytest
 import torch
 
 from nx_signal_tpu_torch.kernels import cuda_dft
+from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch
 from nx_signal_tpu_torch.kernels import dft as td
 from nx_signal_tpu_torch.models.pipeline import FIRFilterChain, stft_fir_chain
 from nx_signal_tpu_torch.ops import filters as tfilt
 from nx_signal_tpu_torch.ops import windows as tw
-from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
 
 
 @pytest.fixture

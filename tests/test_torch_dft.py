@@ -470,9 +470,12 @@ def _route_call(route, x, n_fft):
         ShortTimeFFT(window.numpy(), hop, 1.0, mfft=n_fft).stft(x)
 
 
+# where each route calls framed_dft: `stft`, `StreamingSTFT` and the
+# filtered `stft_fir_chain` through `spectral.stft._framed_spectrum`,
+# `ShortTimeFFT` on its own rule
 ROUTE_MODULES = {"stft": "nx_signal_tpu_torch.spectral.stft",
-                 "streaming": "nx_signal_tpu_torch.parallel.streaming",
-                 "filtered_chain": "nx_signal_tpu_torch.models.pipeline",
+                 "streaming": "nx_signal_tpu_torch.spectral.stft",
+                 "filtered_chain": "nx_signal_tpu_torch.spectral.stft",
                  "short_time_fft": "nx_signal_tpu_torch.spectral.short_time_fft"}
 
 
@@ -482,7 +485,8 @@ def test_cpu_routes_keep_the_jax_cut(route, n_fft, monkeypatch, rng):
     """On a CPU tensor method='auto' sends the framed DFT where the JAX
     package sends it: `stft`, `StreamingSTFT` and the filtered
     `stft_fir_chain` to framed_dft up to 1024 and to torch.fft past it
-    (`stft` at 2048 runs torch.fft), `ShortTimeFFT` to its FFT at any
+    (`stft` at 2048 runs torch.fft), all three through the one route of
+    `spectral.stft._framed_spectrum`, `ShortTimeFFT` to its FFT at any
     mfft (the JAX package keeps its matmul DFT off the CPU); the card's own
     cut (`_auto_takes_kernel`) applies to CUDA float32 tensors only, and
     `good_matmul_fft_length` is the JAX function."""

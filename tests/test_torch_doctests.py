@@ -51,6 +51,7 @@ MODULES = [
     "nx_signal_tpu_torch.utils.dtypes",
     "nx_signal_tpu_torch.utils.metrics",
     "nx_signal_tpu_torch.utils.profiling",
+    "nx_signal_tpu_torch.utils.reductions",
     "nx_signal_tpu_torch.utils.shapes",
 ]
 

@@ -4,6 +4,7 @@ submodules) imports from `nx_signal_tpu_torch`, as it does from
 `nx_signal_tpu`. The seed of a registry meta-test for the port's exports.
 """
 
+import ast
 import importlib
 import inspect
 import os
@@ -168,14 +169,39 @@ assert callable(welch) and callable(next_fast_len)
 def test_the_whole_port_imports_whatever_module_comes_first():
     """A fresh interpreter imports the package, every module of the port,
     then the subpackages' names. Whatever module a program imports first,
-    the package's `__init__` runs before it, and that `__init__` enters
-    `spectral` before `kernels.dft` (whose import of spectral.framing
-    would otherwise re-enter a half-built kernels.dft through
-    spectral/__init__): so this one start covers every start."""
+    the package's `__init__` runs before it, its imports in the linter's
+    order and with no order of its own: no subpackage reaches back into one
+    that is still being built (the kernels import nothing above `utils`,
+    test_kernels_import_nothing_from_the_layers_above_them), so this one
+    start covers every start."""
     env = {**os.environ, "PYTHONPATH": str(_ROOT.parent)}
     out = subprocess.run([sys.executable, "-c", _WHOLE_PORT], cwd=_ROOT.parent, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+
+
+def _imported_modules(path):
+    """Every module the file imports, at the top or inside a function."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
+
+
+def test_kernels_import_nothing_from_the_layers_above_them():
+    """No module of `kernels/` imports `spectral` or `models`, at the top
+    or inside a function: the kernels and their plain versions sit below
+    the entry points that route to them."""
+    root = pathlib.Path(nx_signal_tpu_torch.__file__).parent / "kernels"
+    files = sorted(root.glob("*.py"))
+    assert len(files) >= 5
+    for path in files:
+        for name in _imported_modules(path):
+            parts = name.split(".")
+            assert not (parts[0] == "nx_signal_tpu_torch" and len(parts) > 1
+                        and parts[1] in ("spectral", "models")), (path.name, name)
 
 
 def test_port_sources_import_no_jax_scipy_or_the_jax_package():

@@ -15,6 +15,7 @@ from nx_signal_tpu.kernels.pallas_dft import overlap_add_pallas
 from nx_signal_tpu.spectral import framing as jf
 from nx_signal_tpu_torch.kernels import cuda_dft
 from nx_signal_tpu_torch.spectral import framing as tf
+from nx_signal_tpu_torch.utils import shapes as tsh
 
 
 def assert_bitwise(got, want):
@@ -26,7 +27,7 @@ def assert_bitwise(got, want):
 
 @pytest.mark.parametrize("window,stride", [(512, 128), (400, 150), (7, 3), (5, 5), (3, 8)])
 def test_frame_block_widths(window, stride):
-    assert tf._frame_block_widths(window, stride) == jf._frame_block_widths(window, stride)
+    assert tsh._frame_block_widths(window, stride) == jf._frame_block_widths(window, stride)
 
 
 PADDINGS = ["valid", "same", "reflect", (3, 5), [(2, 0)]]
@@ -97,7 +98,7 @@ def test_ola_fold_bitwise(m, n, stride, extra, batch, rng):
     frames = rng.normal(size=(*batch, m, n)).astype(np.float32)
     out_length = m * stride + max(n - stride, 0) + extra
     want = jf._ola_fold(jnp.asarray(frames), stride, out_length)
-    assert_bitwise(tf._ola_fold_torch(torch.from_numpy(frames), stride, out_length), want)
+    assert_bitwise(cuda_dft._ola_fold_torch(torch.from_numpy(frames), stride, out_length), want)
     # the kernel wrapper on a CPU tensor is the plain fold, and launches nothing
     before = cuda_dft.overlap_add_cuda.launches
     got = cuda_dft.overlap_add_cuda(torch.from_numpy(frames), stride=stride,
@@ -153,7 +154,7 @@ def test_ola_fold_complex64_goes_through_kernel_c_per_part(seed, m, n, stride, e
         calls.append((frames.dtype, kw["init"] is not None))
         return wrapper(frames, **kw)
 
-    monkeypatch.setattr(cuda_dft, "overlap_add_cuda", counting)
+    monkeypatch.setattr(tf, "overlap_add_cuda", counting)   # the name _ola_fold calls
     frames = (rng.normal(size=(2, m, n)) + 1j * rng.normal(size=(2, m, n))).astype(np.complex64)
     frames.real[:, :, :4] = -0.0
     frames.imag[:, :, :4] = -1.5
@@ -168,7 +169,7 @@ def test_ola_fold_complex64_goes_through_kernel_c_per_part(seed, m, n, stride, e
     got = tf._ola_fold(torch.from_numpy(frames), stride, out_length, init=t_init)
     assert calls == [(torch.float32, seed != "none"),
                      (torch.float32, seed == "complex")]
-    want = tf._ola_fold_torch(torch.from_numpy(frames), stride, out_length, init=t_init)
+    want = cuda_dft._ola_fold_torch(torch.from_numpy(frames), stride, out_length, init=t_init)
     assert_bitwise(got, want)
     j_init = None if init is None else jnp.asarray(init)
     assert_bitwise(got, jf._ola_fold(jnp.asarray(frames), stride, out_length, init=j_init))

@@ -257,6 +257,31 @@ def test_stft_fir_chain_stft_branch_matches_jax(case, return_filtered, rng):
     assert_close_to_max(got, np.asarray(want).astype(np.float32))
 
 
+@pytest.mark.parametrize("case", ["complex_input", "long_fft"])
+def test_filtered_power_is_the_stft_power_bit_for_bit_on_the_fft_route(case, rng):
+    """On the torch.fft route (complex input, or an n_fft of 2048 on the
+    CPU) the filtered chain's power is |stft(y).z|^2 of its own filtered
+    signal bit for bit: the chain and stft share one route,
+    `spectral.stft._framed_spectrum`."""
+    import importlib
+
+    stft = importlib.import_module("nx_signal_tpu_torch.spectral.stft").stft
+    if case == "complex_input":
+        x = (rng.normal(size=(2, 6000)) + 1j * rng.normal(size=(2, 6000))).astype(np.complex64)
+        frame, overlap, n_fft = 256, 128, 256
+    else:
+        x = rng.normal(size=(2, 12000)).astype(np.float32)
+        frame, overlap, n_fft = 2048, 1024, 2048
+    taps = tfilt.firwin(63, [3000.0], sampling_rate=48000.0, device="cpu")
+    window = tw.hann(frame, device="cpu")
+    kw = dict(fft_length=n_fft, overlap_length=overlap, sampling_rate=48000.0,
+              onesided=case != "complex_input")
+    y, power = stft_fir_chain(torch.from_numpy(x), taps, window, **kw)
+    want = stft(y, window, **kw).z.abs() ** 2
+    assert power.dtype == want.dtype and power.shape == want.shape
+    assert torch.equal(power, want)
+
+
 @pytest.mark.parametrize("params", [dict(), dict(num_taps=65, cutoff=(1000.0, 4000.0),
                                                  sampling_rate=16000.0, window="hamming")])
 @pytest.mark.parametrize("shape", [(3000,), (2, 4000)])

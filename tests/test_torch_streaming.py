@@ -16,6 +16,8 @@ them (the absolute tolerance given, and 1e-4 relative):
 * Resume from a checkpoint: bitwise against the uninterrupted run.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,6 +123,26 @@ class TestStreamingSTFT:
             overlap_length=256 - hop, sampling_rate=100, onesided=onesided)
         z = np.concatenate(got, axis=0)
         _close(z, np.asarray(expected)[:z.shape[0]], 1e-4)
+
+    def test_complex_window_takes_torch_fft(self, monkeypatch, rng):
+        """A complex window keeps the stream on torch.fft (the framed-DFT
+        kernels take a real window only), and the per-chunk spectra are the
+        batch stft's torch.fft route on the zero-prefixed stream."""
+        stft_module = importlib.import_module("nx_signal_tpu_torch.spectral.stft")
+        calls, real = [], stft_module.framed_dft
+        monkeypatch.setattr(stft_module, "framed_dft",
+                            lambda *a, **k: calls.append(k["n_fft"]) or real(*a, **k))
+        x = rng.normal(size=(2, 2048)).astype(np.float32)
+        w, hop = (np.hanning(256) * np.exp(0.3j * np.arange(256))).astype(np.complex64), 128
+        proc = ts.StreamingSTFT(T(w), hop=hop)
+        _, got = _run_port(proc, proc.init_state((2,), device="cpu"), _split(x, 512))
+        assert calls == []
+        stream = np.concatenate([np.zeros((2, 256 - hop), np.float32), x], axis=-1)
+        want = stft_module.stft(T(stream), T(w), fft_length=256, overlap_length=256 - hop,
+                                method="fft").z.numpy()
+        z = np.concatenate(got, axis=-2)
+        assert z.dtype == np.complex64
+        _close(z, want[..., :z.shape[-2], :], 1e-5)
 
     def test_chunk_not_multiple_of_hop(self):
         proc = ts.StreamingSTFT(hann(64, device="cpu"), hop=32)

@@ -377,9 +377,9 @@ def cuda_halo_case(rank, store_path, out_path):
     kernel C with a seed against the plain fold, bitwise; rank 0 pickles
     the verdicts."""
     from nx_signal_tpu_torch.kernels import cuda_dft, cuda_halo
+    from nx_signal_tpu_torch.kernels.cuda_dft import _ola_fold_torch
     from nx_signal_tpu_torch.parallel.halo import _halo_extend_torch
     from nx_signal_tpu_torch.parallel.mesh import make_dsp_mesh
-    from nx_signal_tpu_torch.spectral.framing import _ola_fold_torch
 
     _init(rank, 2, store_path)
     mesh = make_dsp_mesh(1, 2)
